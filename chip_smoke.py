@@ -1,0 +1,492 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero without the final line:
+  1. the card: name and power limit (nvidia-smi), torch/CUDA versions, the
+     TF32 flags (then both set to False);
+  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
+     sm_90a) and print the build seconds and ptxas resource lines;
+  3. hold each wrapper the main path calls (``ops.kernel_matrix``,
+     ``ops.assign_fused``, ``ops.gram_matvec``) against its plain PyTorch
+     version on the card, at the main path's shapes (paper Tab.1 MNIST
+     setting: 15,000-row batches of 784 features, C = 10, rbf) with the
+     path's gamma and with a gamma that spreads the rbf values over (0, 1),
+     and at a small shape for every epilogue kind, at f32 and bf16; time
+     kernel, plain version, a composite of PyTorch calls (``library_ms``,
+     never called by the port) and the bound;
+  4. drive the exact mini-batch fit through ``fit_dataset``: run A (B=4,
+     s=1, fused, f32), run B (B=4, s=0.2, fused and materialize, f32) and
+     run C (as B fused, bf16), with the launch counters zeroed before each
+     run and read after it; then a small fit on the card against the same
+     fit on the CPU;
+  5. print the per-kernel JSON line and, last, the ok line.
+
+Tolerances (normwise: max |kernel - plain| <= tol * max(1, max |plain|)):
+kernel_matrix 1e-5, assign_fused f and mind 1e-4, at f32 and bf16 alike.
+Labels must be equal except where the plain version's top-2 gap is below
+1e-4 * max(1, |min|) (a near-tie; counted and printed).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}   # H100 SXM, dense
+PEAK_BYTES = 3.35e12
+# the same limits at f32 and bf16: kernel and plain version get the same
+# rounded operands and both sum in f32, so only the order of the sums differs
+TOL = {"kernel_matrix": 1e-5, "assign_fused": 1e-4}
+NEAR_TIE = 1e-4
+KINDS = ("rbf", "linear", "polynomial", "cosine")
+N_TRAIN, N_TEST = 60000, 10000   # paper Tab.1 (benchmarks/tab1_mnist.py)
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(flops: float, nbytes: float, prec: str):
+    t_ops, t_bytes = flops / PEAK_FLOPS[prec], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def normwise(torch, got, want) -> tuple[float, float]:
+    """(max abs err, max abs err / max(1, max |want|))."""
+    err = float(torch.max(torch.abs(got.float() - want.float())))
+    return err, err / max(1.0, float(torch.max(torch.abs(want.float()))))
+
+
+def label_mismatches(torch, got, want, dist_plain) -> tuple[int, int]:
+    """(mismatches outside near-ties, near-ties among all rows)."""
+    top2 = torch.topk(dist_plain, 2, dim=1, largest=False).values
+    gap = top2[:, 1] - top2[:, 0]
+    near = gap <= NEAR_TIE * torch.clamp(torch.abs(top2[:, 0]), min=1.0)
+    bad = (got.long() != want.long()) & ~near
+    return int(bad.sum()), int(near.sum())
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernel checks
+# ---------------------------------------------------------------------------
+
+
+def spread_gamma(torch, x, y) -> float:
+    """1 / median squared distance: rbf values spread over (0, 1), so a
+    wrong Gram moves them by far more than the tolerance."""
+    return 1.0 / float(torch.median(torch.cdist(x[:1000].float(),
+                                                y[:1000].float()).square()))
+
+
+def check_kernel_matrix(torch, mods, x, y, kind, gamma, prec, *, timed):
+    """ops.kernel_matrix (the wrapper the main path calls) against
+    ref.kernel_matrix_ref on the same operands, already in the tile dtype
+    as the main path hands them over."""
+    ops, ref = mods["ops"], mods["ref"]
+    p = mods["precision"].resolve_precision(prec)
+    x, y = p.cast_tiles(x).contiguous(), p.cast_tiles(y).contiguous()
+    m, d = x.shape
+    n = y.shape[0]
+
+    def kernel():
+        return ops.kernel_matrix(x, y, kind=kind, gamma=gamma, precision=prec)
+
+    def plain():
+        return ref.kernel_matrix_ref(x, y, kind=kind, gamma=gamma,
+                                     precision=prec)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err, rel = normwise(torch, got, want)
+    tol = TOL["kernel_matrix"]
+    rec = {"kernel": "kernel_matrix", "shape": [m, n, d], "kind": kind,
+           "gamma": gamma, "prec": prec, "max_abs_err": err, "rel_err": rel,
+           "tol": tol}
+    if kind == "rbf" and m == n:
+        rec["diag_err"] = float(torch.max(torch.abs(torch.diagonal(got) - 1)))
+    if timed:
+        xf, yf = x.float(), y.float()
+        rec["ms"] = time_ms(torch, kernel, 10)
+        rec["plain_ms"] = time_ms(torch, plain, 10)
+        rec["library_ms"] = time_ms(
+            torch, lambda: torch.exp(torch.cdist(xf, yf).square_()
+                                     .mul_(-gamma)), 10)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            2.0 * m * n * d,
+            (m + n) * d * p.tile_itemsize + (m + n) * 4 + m * n * 4, prec)
+    print("check", json.dumps(rec))
+    check(rel <= tol, f"kernel_matrix {kind} {prec} {[m, n, d]}: "
+                      f"rel err {rel:.3g} > {tol}")
+    return rec
+
+
+def check_assign(torch, mods, x, lm, labels_l, g, n_clusters, kind, gamma,
+                 prec, *, timed):
+    """ops.assign_fused against ref.assign_fused_ref, both fed the cluster
+    operands of ops.assign_panels."""
+    ops, ref = mods["ops"], mods["ref"]
+    p = mods["precision"].resolve_precision(prec)
+    x, lm = p.cast_tiles(x).contiguous(), p.cast_tiles(lm).contiguous()
+    counts = torch.bincount(labels_l.long(), minlength=n_clusters).float()
+    h, gm = ops.assign_panels(labels_l, counts, g, n_clusters)
+    m, d = x.shape
+    nl = lm.shape[0]
+
+    def kernel():
+        return ops.assign_fused(x, lm, labels_l, counts, g,
+                                n_clusters=n_clusters, kind=kind, gamma=gamma,
+                                precision=prec)
+
+    def plain():
+        return ref.assign_fused_ref(x, lm, h, gm, kind=kind, gamma=gamma,
+                                    precision=prec)
+
+    (lab, mind, f), (lab_p, mind_p, f_p) = kernel(), plain()
+    torch.cuda.synchronize()
+    err_f, rel_f = normwise(torch, f, f_p)
+    err_m, rel_m = normwise(torch, mind, mind_p)
+    bad, near = label_mismatches(torch, lab, lab_p, gm[None, :] - 2.0 * f_p)
+    tol = TOL["assign_fused"]
+    rec = {"kernel": "assign_fused", "shape": [m, nl, d], "C": n_clusters,
+           "kind": kind, "gamma": gamma, "prec": prec,
+           "max_abs_err": max(err_f, err_m), "rel_err_f": rel_f,
+           "rel_err_mind": rel_m, "tol": tol, "label_mismatch": bad,
+           "near_ties": near}
+    if timed:
+        xf, lf = x.float(), lm.float()
+
+        def library():
+            k = torch.exp(torch.cdist(xf, lf).square_().mul_(-gamma))
+            dist = gm[None, :] - 2.0 * (k @ h)
+            return torch.argmin(dist, dim=1), torch.amin(dist, dim=1)
+
+        rec["ms"] = time_ms(torch, kernel, 5)
+        rec["plain_ms"] = time_ms(torch, plain, 5)
+        rec["library_ms"] = time_ms(torch, library, 5)
+        c = n_clusters
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            2.0 * m * nl * d + 2.0 * m * nl * c,
+            (m + nl) * d * p.tile_itemsize + (m + nl) * 4 + nl * c * 4
+            + c * 4 + m * (8 + 4 * c), prec)
+    print("check", json.dumps(rec))
+    check(rel_f <= tol and rel_m <= tol,
+          f"assign_fused {kind} {prec} {[m, nl, d]} C={n_clusters}: rel err "
+          f"f {rel_f:.3g} mind {rel_m:.3g} > {tol}")
+    check(bad == 0, f"assign_fused {kind} {prec} {[m, nl, d]}: {bad} labels "
+                    f"differ outside near-ties")
+    return rec
+
+
+def check_gram_matvec(torch, mods, lm, labels_l, n_clusters, gamma, prec):
+    """ops.gram_matvec (the g stats: K(L, L) @ H) against the plain block
+    product, at the main path's landmark panel."""
+    ops, ref = mods["ops"], mods["ref"]
+    p = mods["precision"].resolve_precision(prec)
+    lm = p.cast_tiles(lm).contiguous()
+    h = torch.nn.functional.one_hot(labels_l.long(), n_clusters).float()
+    got = ops.gram_matvec(lm, lm, h, kind="rbf", gamma=gamma, precision=prec)
+    want = ref.kernel_matrix_ref(lm, lm, kind="rbf", gamma=gamma,
+                                 precision=prec) @ h
+    torch.cuda.synchronize()
+    # h is a plain one-hot here (sums of up to |L| values): normwise
+    err, rel = normwise(torch, got, want)
+    tol = TOL["assign_fused"]
+    rec = {"kernel": "assign_fused", "wrapper": "gram_matvec",
+           "shape": [lm.shape[0], lm.shape[0], lm.shape[1]], "C": n_clusters,
+           "kind": "rbf", "gamma": gamma, "prec": prec, "max_abs_err": err,
+           "rel_err": rel, "tol": tol}
+    print("check", json.dumps(rec))
+    check(rel <= tol, f"gram_matvec {prec} {rec['shape']}: rel err "
+                      f"{rel:.3g} > {tol}")
+    return rec
+
+
+def kernel_checks(torch, mods, x_b, y_b, gamma):
+    """At the main path's shapes, its gamma and a gamma that spreads K, at
+    f32 and bf16; then every epilogue kind at a small shape."""
+    dev = x_b.device
+    gen = torch.Generator().manual_seed(0)
+    n = x_b.shape[0]
+    l3 = torch.sort(torch.randperm(n, generator=gen)[:3000]).values.to(dev)
+    wide = spread_gamma(torch, x_b, x_b[l3])
+    recs = []
+    for prec in ("f32", "bf16"):
+        # materialize Gram build [15000 x 3000] and Eq.8 K~ [15000 x 10]
+        recs.append(check_kernel_matrix(torch, mods, x_b, x_b[l3], "rbf",
+                                        gamma, prec, timed=True))
+        recs.append(check_kernel_matrix(torch, mods, x_b, x_b[:10], "rbf",
+                                        gamma, prec, timed=False))
+        for kind, gam in (("rbf", wide), ("linear", 1.0)):
+            recs.append(check_kernel_matrix(torch, mods, x_b, x_b[l3], kind,
+                                            gam, prec, timed=False))
+        # fused assignment at |L| = 15000 (run A) and 3000 (runs B, C); the
+        # landmark labels are the data's classes, g their true compactness
+        for l_idx in (torch.arange(n, device=dev), l3):
+            lm, labels_l = x_b[l_idx], y_b[l_idx]
+            for gam, timed in ((gamma, True), (wide, False)):
+                onehot = torch.nn.functional.one_hot(labels_l.long(),
+                                                     10).float()
+                counts = onehot.sum(dim=0)
+                t = mods["ops"].gram_matvec(lm, lm, onehot, kind="rbf",
+                                            gamma=gam, precision=prec)
+                g = torch.sum(onehot * t, dim=0) / counts ** 2
+                recs.append(check_assign(torch, mods, x_b, lm, labels_l, g,
+                                         10, "rbf", gam, prec, timed=timed))
+            recs.append(check_gram_matvec(torch, mods, lm, labels_l, 10, wide,
+                                          prec))
+    rng = torch.Generator().manual_seed(1)
+    xs = torch.randn(300, 129, generator=rng).to(dev)
+    ys = torch.randn(520, 129, generator=rng).to(dev)
+    la = torch.randn(130, 40, generator=rng).to(dev)
+    xa = torch.randn(300, 40, generator=rng).to(dev)
+    for prec in ("f32", "bf16"):
+        for kind in KINDS:
+            gam = spread_gamma(torch, xs, ys) if kind == "rbf" else 0.05
+            recs.append(check_kernel_matrix(torch, mods, xs, ys, kind, gam,
+                                            prec, timed=False))
+            gam = spread_gamma(torch, xa, la) if kind == "rbf" else 0.05
+            # 300 clusters take two launches, merged by lowest index
+            for c in (3, 7, 130, 300):
+                lab = torch.randint(0, c, (130,), generator=rng).to(dev)
+                g = torch.rand(c, generator=rng).to(dev)
+                recs.append(check_assign(torch, mods, xa, la, lab, g, c, kind,
+                                         gam, prec, timed=False))
+        xd = torch.randn(40, 6, generator=rng).to(dev)
+        rbf_diag = check_kernel_matrix(torch, mods, xd, xd, "rbf", 0.7, prec,
+                                       timed=False)
+        check(rbf_diag["diag_err"] <= TOL["kernel_matrix"],
+              f"rbf diagonal is not 1 at {prec}: {rbf_diag['diag_err']}")
+    tie_and_empty_fixtures(torch, mods, dev)
+    return recs
+
+
+def tie_and_empty_fixtures(torch, mods, dev):
+    ops = mods["ops"]
+    rng = torch.Generator().manual_seed(2)
+    x = torch.randn(300, 40, generator=rng).to(dev)
+    a = torch.randn(128, 40, generator=rng).to(dev)
+    for prec in ("f32", "bf16"):
+        # two clusters over identical landmark tiles: f ties bitwise, and
+        # the lowest index must win everywhere
+        labels_l = torch.cat([torch.zeros(128), torch.ones(128)]).int().to(dev)
+        counts = torch.tensor([128.0, 128.0], device=dev)
+        g = torch.tensor([0.3, 0.3], device=dev)
+        lab, _, f = ops.assign_fused(x, torch.cat([a, a]), labels_l, counts,
+                                     g, n_clusters=2, gamma=0.05,
+                                     precision=prec)
+        check(bool(torch.equal(f[:, 0], f[:, 1])),
+              f"tie fixture {prec}: f columns differ")
+        check(int(lab.max()) == 0, f"tie fixture {prec}: a tie chose index 1")
+        # clusters 3 and 4 hold no landmark: they must never be chosen
+        labels_l = (torch.arange(20, device=dev) % 3).int()
+        counts = torch.bincount(labels_l.long(), minlength=5).float()
+        lab, _, _ = ops.assign_fused(x, x[:20], labels_l, counts,
+                                     torch.zeros(5, device=dev), n_clusters=5,
+                                     precision=prec)
+        check(int(lab.max()) <= 2, f"empty-cluster fixture {prec}: chose "
+                                   f"{int(lab.max())}")
+    print("fixtures: bitwise tie -> lowest index, empty clusters unjoinable: ok")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path
+# ---------------------------------------------------------------------------
+
+
+def run_fit(torch, mods, name, cfg, x_tr, x_te, y_te):
+    ops, ref, core = mods["ops"], mods["ref"], mods["core"]
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    for k in ref.CALLS:
+        ref.CALLS[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = core.fit_dataset(x_tr, cfg)
+    labels = res.predict(x_te).cpu().numpy()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, calls = dict(ops.LAUNCHES), dict(ref.CALLS)
+    medoids = res.state.medoids
+    check(tuple(medoids.shape) == (cfg.n_clusters, x_tr.shape[1])
+          and bool(torch.isfinite(medoids).all()),
+          f"run {name}: medoids not finite or of the wrong shape")
+    check(len(labels) == len(y_te) and labels.min() >= 0
+          and labels.max() < cfg.n_clusters, f"run {name}: bad test labels")
+    iters = [h.inner_iters for h in res.history]
+    rec = {"run": name, "engine": cfg.engine, "precision": cfg.precision,
+           "B": cfg.n_batches, "s": cfg.s, "wall_s": wall,
+           "inner_iters": iters, "max_inner_iters": cfg.max_inner_iters,
+           "acc": core.clustering_accuracy(y_te, labels),
+           "nmi": core.nmi(y_te, labels), "launches": launches,
+           "plain_calls": calls}
+    print("run", json.dumps(rec))
+    check(all(v == 0 for v in calls.values()),
+          f"run {name}: a plain version ran on the card: {calls}")
+    return rec, labels
+
+
+def small_reference_fit(torch, mods):
+    """toy2d on the card vs the same fit on the CPU (the plain path)."""
+    core, synth = mods["core"], mods["synthetic"]
+    x, y = synth.toy2d(500)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg = core.MiniBatchConfig(n_clusters=4, n_batches=3, s=1.0,
+                                   kernel=core.KernelSpec("rbf", gamma=4.0),
+                                   engine="fused")
+        lab = core.fit_dataset(x, cfg, device=dev).predict(x).cpu().numpy()
+        out[dev] = (core.clustering_accuracy(y, lab), core.nmi(y, lab))
+    print("small reference fit (toy2d, B=3, fused):", json.dumps(out))
+    check(abs(out["cuda"][0] - out["cpu"][0]) <= 0.02
+          and abs(out["cuda"][1] - out["cpu"][1]) <= 0.02,
+          "toy2d fit on the card strays from the CPU fit")
+
+
+def main(argv=None) -> int:
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
+        argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: {SRC / 'repro_torch'} is missing: run from a "
+              f"checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import importlib
+    mods = {name: importlib.import_module(f"repro_torch.{path}") for name, path
+            in [("ops", "kernels.ops"), ("ref", "kernels.ref"),
+                ("build", "kernels.build"), ("precision", "kernels.precision"),
+                ("core", "core"), ("synthetic", "data.synthetic")]}
+    core = mods["core"]
+
+    # -- phase 1: the card --------------------------------------------------
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    print(f"tf32 flags: matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32} -> both False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- phase 2: build -----------------------------------------------------
+    t0 = time.perf_counter()
+    mods["build"].load()
+    print(f"build: {time.perf_counter() - t0:.1f} s "
+          f"({mods['build'].LAST_BUILD['path']})")
+    for line in mods["build"].LAST_BUILD["log"].splitlines():
+        if "Used" in line or "spill" in line or "Compiling entry" in line:
+            print("  ptxas", line.strip())
+
+    # -- phase 3: kernel checks ---------------------------------------------
+    t0 = time.perf_counter()
+    x, y = mods["synthetic"].make_mnist_like(N_TRAIN + N_TEST, seed=0)
+    x_tr, y_tr = x[:N_TRAIN], y[:N_TRAIN]
+    x_te, y_te = x[N_TRAIN:], y[N_TRAIN:]
+    gamma = core.gamma_from_dmax(torch.as_tensor(x_tr[:4096], device="cuda"))
+    print(f"data: {x_tr.shape} train, {x_te.shape} test, gamma {gamma!r} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    x_b = torch.as_tensor(x_tr[0::4], device="cuda")   # batch 0 under B=4
+    y_b = torch.as_tensor(y_tr[0::4], device="cuda")
+    t0 = time.perf_counter()
+    recs = kernel_checks(torch, mods, x_b, y_b, gamma)
+    print(f"kernel checks: {len(recs)} passed ({time.perf_counter() - t0:.1f} s)")
+    del x_b, y_b
+
+    # -- phase 4: the main path ---------------------------------------------
+    spec = core.KernelSpec("rbf", gamma=gamma)
+    base = dict(n_clusters=10, n_batches=4, kernel=spec, seed=0)
+    totals = {"kernel_matrix": 0, "assign_fused": 0}
+    iters = 0
+    runs = {}
+    for name, kw in [("A", dict(s=1.0, engine="fused")),
+                     ("B-fused", dict(s=0.2, engine="fused")),
+                     ("B-materialize", dict(s=0.2, engine="materialize")),
+                     ("C", dict(s=0.2, engine="fused", precision="bf16"))]:
+        rec, labels = run_fit(torch, mods, name,
+                              core.MiniBatchConfig(**base, **kw),
+                              x_tr, x_te, y_te)
+        runs[name] = (rec, labels)
+        for k in totals:
+            totals[k] += rec["launches"][k]
+        iters += sum(rec["inner_iters"])
+    check(all(v > 0 for v in totals.values()),
+          f"a kernel never launched on the main path: {totals}")
+    agree = float((runs["B-fused"][1] == runs["B-materialize"][1]).mean())
+    nmi_cb = core.nmi(runs["B-fused"][1], runs["C"][1])
+    print(f"B fused vs materialize test-label agreement {agree!r}; "
+          f"NMI(C, B fused) {nmi_cb!r}")
+    check(agree >= 0.995, f"fused and materialize disagree: {agree}")
+    check(nmi_cb >= 0.95, f"bf16 run strays from f32: NMI {nmi_cb}")
+    small_reference_fit(torch, mods)
+
+    # -- phase 5: result lines ----------------------------------------------
+    first = {}
+    for r in recs:
+        if "ms" in r and r["kernel"] not in first:
+            first[r["kernel"]] = r
+    errs = {k: max(r["max_abs_err"] for r in recs if r["kernel"] == k)
+            for k in first}
+    src = {"kernel_matrix": ("src/repro_torch/kernels/csrc/kernel_matrix.cu",
+                             "src/repro/kernels/kernel_matrix.py:78"),
+           "assign_fused": ("src/repro_torch/kernels/csrc/assign.cu",
+                            "src/repro/kernels/assign.py:146")}
+    kernels = [{"name": k, "route": "cuda", "source": src[k][0],
+                "replaces": src[k][1], "launches": totals[k],
+                "max_abs_err": errs[k], "ms": first[k]["ms"],
+                "plain_ms": first[k]["plain_ms"],
+                "bound_ms": first[k]["bound_ms"],
+                "bound_by": first[k]["bound_by"],
+                "library_ms": first[k]["library_ms"]}
+               for k in ("assign_fused", "kernel_matrix")]
+    print(f"total inner iterations {iters}; card: {card_line()}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,233 @@
+"""Mini-batch kernel k-means outer loop (paper §3.1, Alg.1), the port of
+``repro/core/minibatch.py`` for ``method="exact"``.
+
+Per mini-batch i:
+  1. fetch X^i (stride or block sampling — ``data/sampling.py``);
+  2. draw the landmarks (and, for i = 0, the k-means++ seeds);
+  3. initialize labels: k-means++ seeds (i = 0) or the nearest global medoid
+     through the auxiliary matrix K~^i (Eq.8);
+  4. run the inner loop to its label fixpoint over the GramEngine;
+  5. take the batch medoids (Eq.7/10);
+  6. merge them into the global medoids by the convex combination
+     w_j <- (1-a) phi(m_j) + a phi(m_j^i), a = |w_j^i| / (|w_j^i| + |w_j|),
+     re-approximated on the batch (Eq.12); an empty batch cluster (a = 0)
+     leaves its global medoid untouched.
+
+Randomness: batch i draws from a CPU ``torch.Generator`` seeded from
+(seed, i) alone, and its indices then move to the device. A resumed fit
+draws the same landmarks as an uninterrupted one, and CPU and GPU runs draw
+the same ones. Each batch step is split into the draw (``draw_first``,
+``draw_next``) and a deterministic function of the batch, the draws and the
+previous state (``_first_batch_step``, ``_next_batch_step``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.data.sampling import split_batches
+from repro_torch.device import resolve_device
+
+from .engine import resolve_engine
+from .init import assign_to_medoids, kmeans_pp_indices
+from .kernels import KernelSpec
+from .kkmeans import InnerResult, kkmeans_fit, medoid_indices
+from .landmarks import check_selector, num_landmarks, select_landmark_indices
+
+
+@dataclasses.dataclass(frozen=True)
+class MiniBatchConfig:
+    n_clusters: int
+    n_batches: int = 1                   # B
+    s: float = 1.0                       # landmark fraction (Eq.18)
+    kernel: KernelSpec = KernelSpec("rbf", gamma=1.0)
+    max_inner_iters: int = 100
+    sampling: str = "stride"             # "stride" | "block"
+    seed: int = 0
+    restrict_medoids_to_members: bool = False  # Eq.7 is unrestricted
+    method: str = "exact"                # only "exact" is ported so far
+    selector: str = "uniform"            # only "uniform" is ported so far
+    # Gram residency of the inner loop: "materialize" | "fused" | "tiled"
+    # or a GramEngine (core/engine.py)
+    engine: object = "materialize"
+    precision: str = "f32"               # tile dtype: "f32" | "bf16"
+
+    _METHODS = ("exact", "rff", "nystrom", "sketch", "tensorsketch")
+
+    def __post_init__(self):
+        if self.method not in self._METHODS:
+            raise ValueError(
+                f"method must be one of {self._METHODS}, got {self.method!r}")
+        if self.method != "exact":
+            raise NotImplementedError(
+                f"method={self.method!r} is not ported yet: the explicit "
+                f"feature-map methods arrive with the feature-map slice "
+                f"(ROADMAP Queue 1 item 5); use method='exact'")
+        check_selector(self.selector)
+        resolve_engine(self.engine, self.precision)
+
+
+class GlobalState(NamedTuple):
+    """O(C·d) cross-batch state — the only thing that survives a batch."""
+    medoids: torch.Tensor        # [C, d] medoid coordinates
+    medoid_diag: torch.Tensor    # [C] K(m_j, m_j)
+    cardinalities: torch.Tensor  # [C] accumulated |w_j| (f32)
+    batches_done: int
+
+
+class BatchStats(NamedTuple):
+    inner_iters: int
+    cost: float                  # Omega(W^i) at the inner fixpoint (Eq.9)
+    displacement: np.ndarray     # [C] feature-space medoid displacement^2
+    counts: np.ndarray           # [C] batch cluster cardinalities
+
+
+class FitResult(NamedTuple):
+    state: GlobalState
+    history: list
+    spec: KernelSpec
+
+    def predict(self, x) -> torch.Tensor:
+        """Label new rows by nearest global medoid, on the device the fit
+        ran on."""
+        return predict(x, self.state.medoids, self.state.medoid_diag,
+                       spec=self.spec, device=self.state.medoids.device)
+
+
+def batch_generator(seed: int, i: int) -> torch.Generator:
+    """The CPU generator of batch i: a function of (seed, i) alone."""
+    hi, lo = np.random.SeedSequence([seed, i]).generate_state(2)
+    return torch.Generator().manual_seed(int(hi) << 32 | int(lo))
+
+
+def draw_first(x: torch.Tensor, gen: torch.Generator, *,
+               cfg: MiniBatchConfig, n_landmarks: int):
+    """Batch 0's draws: (landmark indices, k-means++ seed indices)."""
+    l_idx = select_landmark_indices(gen, x.shape[0], n_landmarks,
+                                    cfg.selector).to(x.device)
+    seeds = kmeans_pp_indices(x, cfg.kernel.diag(x), gen,
+                              n_clusters=cfg.n_clusters, spec=cfg.kernel)
+    return l_idx, seeds
+
+
+def draw_next(x: torch.Tensor, gen: torch.Generator, *,
+              cfg: MiniBatchConfig, n_landmarks: int) -> torch.Tensor:
+    """Batch i > 0's draw: landmark indices."""
+    return select_landmark_indices(gen, x.shape[0], n_landmarks,
+                                   cfg.selector).to(x.device)
+
+
+def _inner(x, l_idx, diag_k, labels0, cfg: MiniBatchConfig) -> InnerResult:
+    return kkmeans_fit(x, l_idx, diag_k, labels0, spec=cfg.kernel,
+                       n_clusters=cfg.n_clusters,
+                       max_iters=cfg.max_inner_iters,
+                       engine=resolve_engine(cfg.engine, cfg.precision))
+
+
+def _first_batch_step(x: torch.Tensor, l_idx: torch.Tensor,
+                      seeds: torch.Tensor, *, cfg: MiniBatchConfig):
+    """Batch 0: init from the seeds, inner loop, medoid extraction."""
+    spec = cfg.kernel
+    diag_k = spec.diag(x)
+    seed_x = x[seeds]
+    labels0, _ = assign_to_medoids(x, diag_k, seed_x, spec.diag(seed_x),
+                                   spec=spec)
+    res = _inner(x, l_idx, diag_k, labels0, cfg)
+    m_idx = medoid_indices(diag_k, res.f, res.labels, res.counts,
+                           restrict_to_members=cfg.restrict_medoids_to_members)
+    medoids = x[m_idx]
+    state = GlobalState(medoids=medoids, medoid_diag=spec.diag(medoids),
+                        cardinalities=res.counts, batches_done=1)
+    return state, res
+
+
+def _next_batch_step(x: torch.Tensor, l_idx: torch.Tensor,
+                     state: GlobalState, *, cfg: MiniBatchConfig):
+    """Batch i > 0: Eq.8 init, inner loop, Eq.7 medoids, Eq.12 merge."""
+    spec = cfg.kernel
+    diag_k = spec.diag(x)
+    labels0, k_tilde = assign_to_medoids(x, diag_k, state.medoids,
+                                         state.medoid_diag, spec=spec)
+    res = _inner(x, l_idx, diag_k, labels0, cfg)
+
+    m_idx = medoid_indices(diag_k, res.f, res.labels, res.counts,
+                           restrict_to_members=cfg.restrict_medoids_to_members)
+    k_xm = spec(x, x[m_idx]).to(torch.float32)                     # [n, C]
+
+    # merge (Eq.11-13): minimize over the batch
+    #   K_ll - 2(1-a) K(x_l, m_j) - 2a K(x_l, m_j^i) + const(j)
+    alpha = res.counts / torch.clamp(res.counts + state.cardinalities, min=1.0)
+    score = (diag_k.to(torch.float32)[:, None]
+             - 2.0 * (1.0 - alpha)[None, :] * k_tilde
+             - 2.0 * alpha[None, :] * k_xm)
+    merged = x[torch.argmin(score, dim=0)]
+
+    # empty batch cluster -> alpha = 0 -> keep the old global medoid
+    keep = res.counts == 0
+    new_medoids = torch.where(keep[:, None], state.medoids, merged)
+    new_diag = torch.where(keep, state.medoid_diag, spec.diag(merged))
+
+    # displacement diagnostic (Fig.4b): ||phi(m_new) - phi(m_old)||^2
+    cross = spec.paired(new_medoids, state.medoids)
+    disp = torch.clamp(new_diag + state.medoid_diag - 2.0 * cross, min=0.0)
+
+    new_state = GlobalState(medoids=new_medoids, medoid_diag=new_diag,
+                            cardinalities=state.cardinalities + res.counts,
+                            batches_done=state.batches_done + 1)
+    return new_state, res, disp
+
+
+def predict(x, medoids: torch.Tensor, medoid_diag: torch.Tensor, *,
+            spec: KernelSpec, device=None) -> torch.Tensor:
+    """Label rows by nearest global medoid in feature space -> [n] int32."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(x, dtype=torch.float32).to(dev)
+    labels, _ = assign_to_medoids(x, spec.diag(x), medoids.to(dev),
+                                  medoid_diag.to(dev), spec=spec)
+    return labels
+
+
+def fit(batches: Iterable, cfg: MiniBatchConfig, *,
+        state: Optional[GlobalState] = None,
+        checkpoint_cb: Optional[Callable[[GlobalState, int], None]] = None,
+        device=None) -> FitResult:
+    """Run the outer loop over an iterable of mini-batches (numpy arrays or
+    tensors). Passing a previous ``state`` resumes after a restart: the
+    iterable then yields only the remaining batches. ``checkpoint_cb(state,
+    i)`` is called after every merged batch."""
+    dev = resolve_device(device)
+    if state is not None:
+        state = GlobalState(state.medoids.to(dev), state.medoid_diag.to(dev),
+                            state.cardinalities.to(dev), state.batches_done)
+    history: list[BatchStats] = []
+    start = state.batches_done if state is not None else 0
+    for i, xb in enumerate(batches, start=start):
+        xb = torch.as_tensor(xb, dtype=torch.float32).to(dev)
+        n_l = num_landmarks(xb.shape[0], cfg.s, n_clusters=cfg.n_clusters)
+        gen = batch_generator(cfg.seed, i)
+        if state is None:
+            l_idx, seeds = draw_first(xb, gen, cfg=cfg, n_landmarks=n_l)
+            state, res = _first_batch_step(xb, l_idx, seeds, cfg=cfg)
+            disp = torch.zeros(cfg.n_clusters)
+        else:
+            l_idx = draw_next(xb, gen, cfg=cfg, n_landmarks=n_l)
+            state, res, disp = _next_batch_step(xb, l_idx, state, cfg=cfg)
+        history.append(BatchStats(
+            inner_iters=res.n_iter, cost=float(res.cost),
+            displacement=disp.cpu().numpy(), counts=res.counts.cpu().numpy()))
+        if checkpoint_cb is not None:
+            checkpoint_cb(state, i)
+    if state is None:
+        raise ValueError("empty batch iterable")
+    return FitResult(state, history, cfg.kernel)
+
+
+def fit_dataset(x, cfg: MiniBatchConfig, *, device=None, **kw) -> FitResult:
+    """Stride/block-split a resident dataset [n, d] into B batches, then
+    ``fit``."""
+    return fit(split_batches(np.asarray(x, dtype=np.float32), cfg.n_batches,
+                             strategy=cfg.sampling),
+               cfg, device=device, **kw)

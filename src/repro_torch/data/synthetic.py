@@ -1,0 +1,46 @@
+"""Synthetic datasets matched to the paper's §4 data, numpy copies of
+``repro/data/synthetic.py`` (same seeds, same arrays). Every generator
+returns (X float32 [n, d], y int32 [n])."""
+from __future__ import annotations
+
+import numpy as np
+
+
+def toy2d(n_per_cluster: int = 10000, seed: int = 0):
+    """The paper's 2D toy: 4 isotropic gaussians, sigma=0.2, on a grid."""
+    rng = np.random.default_rng(seed)
+    centers = np.array([[0.25, 0.25], [0.25, 0.75], [0.75, 0.25], [0.75, 0.75]])
+    xs, ys = [], []
+    for j, c in enumerate(centers):
+        xs.append(rng.normal(c, 0.2, size=(n_per_cluster, 2)))
+        ys.append(np.full(n_per_cluster, j))
+    x = np.concatenate(xs).astype(np.float32)
+    y = np.concatenate(ys).astype(np.int32)
+    perm = rng.permutation(len(x))
+    return x[perm], y[perm]
+
+
+def make_blobs(n: int, d: int, n_classes: int, *, sep: float = 6.0,
+               sigma: float = 1.0, seed: int = 0):
+    """Gaussian mixture with controllable separation."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0.0, sep / np.sqrt(d), size=(n_classes, d))
+    y = rng.integers(0, n_classes, size=n).astype(np.int32)
+    x = centers[y] + rng.normal(0.0, sigma / np.sqrt(d), size=(n, d))
+    return x.astype(np.float32), y
+
+
+def make_mnist_like(n: int = 60000, seed: int = 0):
+    """MNIST envelope: 784-d, 10 classes; each class a rank-16 affine
+    manifold plus pixel noise, clipped to [0, 1]."""
+    d, n_classes, r = 784, 10, 16
+    rng = np.random.default_rng(seed)
+    x = np.empty((n, d), np.float32)
+    y = rng.integers(0, n_classes, size=n).astype(np.int32)
+    for j in range(n_classes):
+        idx = np.where(y == j)[0]
+        mean = rng.uniform(0.0, 0.6, size=d) * (rng.random(d) < 0.25)
+        basis = rng.normal(0.0, 1.0, size=(r, d)) / np.sqrt(d)
+        z = rng.normal(0.0, 1.0, size=(len(idx), r))
+        x[idx] = mean + z @ basis + rng.normal(0, 0.05, size=(len(idx), d))
+    return np.clip(x, 0.0, 1.0), y

@@ -1,0 +1,249 @@
+// Shared machinery of the port's two Gram kernels (kernel_matrix.cu,
+// assign.cu): one CTA of 256 threads computes a [128 x 128] tile of
+// X . Y^T, reducing over the feature dimension D in chunks staged through
+// shared memory, then applies the Mercer epilogue in registers.
+//
+// Two tile engines behind one interface:
+//   TileF32   f32 operands, f32 FMA on the CUDA cores (no TF32). Each
+//             thread owns an 8 x 8 block of the tile (rows ty*4+i and
+//             64+ty*4+i, cols tx*4+j and 64+tx*4+j), read from k-major
+//             shared tiles with float4 loads: 4 shared loads per 64 FMAs.
+//   TileBF16  bf16 operands, mma.sync.m16n8k16 bf16 -> f32 on the tensor
+//             cores. 8 warps as 2 (rows) x 4 (cols), each warp a 64 x 32
+//             sub-tile = 4 x 4 mma tiles; fragments are read from row-major
+//             shared tiles whose 80-byte row stride keeps the reads free of
+//             bank conflicts.
+// Both stage the next D-chunk from global memory into registers while the
+// current chunk is multiplied out of shared memory (one chunk in flight).
+// Rows past M, columns past N and features past D load as zeros, so the
+// callers need not pad anything but D to the 16-byte vector width.
+//
+// Accumulator element e of a thread lies at tile position coord(e); both
+// engines hold 64 elements per thread.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace rt {
+
+constexpr int BM = 128;        // tile rows (rows of X)
+constexpr int BN = 128;        // tile cols (rows of Y: landmarks)
+constexpr int NTHREADS = 256;
+constexpr int NACC = 64;       // accumulator elements per thread
+
+enum Kind { LINEAR = 0, POLYNOMIAL = 1, COSINE = 2, RBF = 3 };
+
+struct Epilogue {
+  int kind;
+  float gamma;
+  float coef0;
+  int degree;
+
+  // The reference's kernel_matrix._epilogue, term for term: rbf clamps the
+  // squared distance at 0, cosine clamps the norm product at 1e-12.
+  __device__ __forceinline__ float operator()(float acc, float xs,
+                                              float ys) const {
+    switch (kind) {
+      case POLYNOMIAL: {
+        float base = gamma * acc + coef0;
+        float r = 1.0f;
+        for (int i = 0; i < degree; ++i) r *= base;
+        return r;
+      }
+      case COSINE: {
+        float den = sqrtf(fmaxf(xs, 0.0f)) * sqrtf(fmaxf(ys, 0.0f));
+        return acc / fmaxf(den, 1e-12f);
+      }
+      case RBF: {
+        float d2 = fmaxf(xs + ys - 2.0f * acc, 0.0f);
+        return expf(-gamma * d2);
+      }
+      default:
+        return acc;
+    }
+  }
+};
+
+struct TileF32 {
+  using T = float;
+  static constexpr int BK = 16;   // features per staged chunk
+  static constexpr int VEC = 4;   // floats per 16-byte load
+  struct __align__(16) Smem {
+    float a[BK][BM + 4];          // k-major; +4 keeps rows 16-byte aligned
+    float b[BK][BN + 4];
+  };
+
+  float acc[NACC];
+
+  __device__ __forceinline__ static void coord(int e, int& r, int& c) {
+    const int i = e >> 3, j = e & 7;
+    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+    r = (i & 4) * 16 + ty * 4 + (i & 3);
+    c = (j & 4) * 16 + tx * 4 + (j & 3);
+  }
+
+  __device__ __forceinline__ void compute(const float* __restrict__ X,
+                                          const float* __restrict__ Y,
+                                          int M, int N, int D, int r0, int c0,
+                                          Smem& s) {
+    const int tid = threadIdx.x;
+    const int ty = tid >> 4, tx = tid & 15;
+    // staging: thread t moves row (t >> 2) + 64p, features (t & 3)*4 .. +3
+    const int lr = tid >> 2, lk = (tid & 3) * VEC;
+    float4 ra[2], rb[2];
+#pragma unroll
+    for (int e = 0; e < NACC; ++e) acc[e] = 0.0f;
+
+    auto load = [&](int k0) {
+      const int k = k0 + lk;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int r = lr + 64 * p;
+        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        ra[p] = (r0 + r < M && k < D)
+            ? __ldg(reinterpret_cast<const float4*>(X + (size_t)(r0 + r) * D + k))
+            : z;
+        rb[p] = (c0 + r < N && k < D)
+            ? __ldg(reinterpret_cast<const float4*>(Y + (size_t)(c0 + r) * D + k))
+            : z;
+      }
+    };
+    auto store = [&]() {
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int r = lr + 64 * p;
+        s.a[lk + 0][r] = ra[p].x; s.a[lk + 1][r] = ra[p].y;
+        s.a[lk + 2][r] = ra[p].z; s.a[lk + 3][r] = ra[p].w;
+        s.b[lk + 0][r] = rb[p].x; s.b[lk + 1][r] = rb[p].y;
+        s.b[lk + 2][r] = rb[p].z; s.b[lk + 3][r] = rb[p].w;
+      }
+    };
+
+    load(0);
+    for (int k0 = 0; k0 < D; k0 += BK) {
+      store();
+      __syncthreads();
+      if (k0 + BK < D) load(k0 + BK);   // next chunk in flight
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        const float4 a0 = *reinterpret_cast<const float4*>(&s.a[kk][ty * 4]);
+        const float4 a1 = *reinterpret_cast<const float4*>(&s.a[kk][64 + ty * 4]);
+        const float4 b0 = *reinterpret_cast<const float4*>(&s.b[kk][tx * 4]);
+        const float4 b1 = *reinterpret_cast<const float4*>(&s.b[kk][64 + tx * 4]);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i * 8 + j] = fmaf(av[i], bv[j], acc[i * 8 + j]);
+      }
+      __syncthreads();
+    }
+  }
+};
+
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+struct TileBF16 {
+  using T = __nv_bfloat16;
+  static constexpr int BK = 32;   // features per staged chunk (2 mma k-steps)
+  static constexpr int VEC = 8;   // bf16 per 16-byte load
+  static constexpr int LDS = BK + 8;
+  struct __align__(16) Smem {
+    __nv_bfloat16 a[BM][LDS];     // row-major, 80-byte rows
+    __nv_bfloat16 b[BN][LDS];
+  };
+
+  float acc[NACC];                // [mi 4][ni 4][q 4]
+
+  __device__ __forceinline__ static void coord(int e, int& r, int& c) {
+    const int mi = e >> 4, ni = (e >> 2) & 3, q = e & 3;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    r = (warp >> 2) * 64 + mi * 16 + (lane >> 2) + (q >> 1) * 8;
+    c = (warp & 3) * 32 + ni * 8 + (lane & 3) * 2 + (q & 1);
+  }
+
+  __device__ __forceinline__ void compute(const __nv_bfloat16* __restrict__ X,
+                                          const __nv_bfloat16* __restrict__ Y,
+                                          int M, int N, int D, int r0, int c0,
+                                          Smem& s) {
+    const int tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const int wr = (warp >> 2) * 64, wc = (warp & 3) * 32;
+    // staging: thread t moves row (t >> 2) + 64p, features (t & 3)*8 .. +7
+    const int lr = tid >> 2, lk = (tid & 3) * VEC;
+    uint4 ra[2], rb[2];
+#pragma unroll
+    for (int e = 0; e < NACC; ++e) acc[e] = 0.0f;
+
+    auto load = [&](int k0) {
+      const int k = k0 + lk;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int r = lr + 64 * p;
+        const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+        ra[p] = (r0 + r < M && k < D)
+            ? __ldg(reinterpret_cast<const uint4*>(X + (size_t)(r0 + r) * D + k))
+            : z;
+        rb[p] = (c0 + r < N && k < D)
+            ? __ldg(reinterpret_cast<const uint4*>(Y + (size_t)(c0 + r) * D + k))
+            : z;
+      }
+    };
+    auto store = [&]() {
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int r = lr + 64 * p;
+        *reinterpret_cast<uint4*>(&s.a[r][lk]) = ra[p];
+        *reinterpret_cast<uint4*>(&s.b[r][lk]) = rb[p];
+      }
+    };
+    auto word = [](const __nv_bfloat16* p) {
+      return *reinterpret_cast<const uint32_t*>(p);
+    };
+
+    load(0);
+    for (int k0 = 0; k0 < D; k0 += BK) {
+      store();
+      __syncthreads();
+      if (k0 + BK < D) load(k0 + BK);   // next chunk in flight
+#pragma unroll
+      for (int ks = 0; ks < BK; ks += 16) {
+        uint32_t af[4][4], bf[4][2];
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+          const int r = wr + mi * 16 + g;
+          af[mi][0] = word(&s.a[r][ks + 2 * t]);
+          af[mi][1] = word(&s.a[r + 8][ks + 2 * t]);
+          af[mi][2] = word(&s.a[r][ks + 2 * t + 8]);
+          af[mi][3] = word(&s.a[r + 8][ks + 2 * t + 8]);
+        }
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int c = wc + ni * 8 + g;
+          bf[ni][0] = word(&s.b[c][ks + 2 * t]);
+          bf[ni][1] = word(&s.b[c][ks + 2 * t + 8]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+            mma_bf16(&acc[(mi * 4 + ni) * 4], af[mi], bf[ni]);
+      }
+      __syncthreads();
+    }
+  }
+};
+
+}  // namespace rt

@@ -1,0 +1,445 @@
+"""Parity of the port's kernel layer (``repro_torch.kernels``) with the JAX
+package's, plus the port's hygiene.
+
+On the CPU the port's wrappers run their plain PyTorch versions; these are
+held against ``repro.kernels.ref`` over the sweep of
+tests/test_pallas_kernels.py and against the Pallas kernels themselves in
+interpret mode on two small shapes, with that file's tolerances: 1e-5 for
+f32 ``kernel_matrix``, 1e-4 for f and mind, 2e-2 at bf16. Inputs are made
+with numpy and handed to both packages.
+
+The CUDA kernels themselves are held against the plain versions on the card
+by tests/test_torch_cuda.py and ``chip_smoke.py``.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.precision import BF16, F32, Precision, resolve_precision
+
+ROOT = Path(__file__).resolve().parents[1]
+
+KINDS = ["rbf", "linear", "polynomial", "cosine"]
+SHAPES = [(8, 8, 4), (100, 77, 30), (256, 256, 128), (300, 520, 129)]
+SMALL = [(8, 8, 4), (100, 77, 30)]
+ASSIGN_SHAPES = [(64, 32, 16), (300, 130, 40)]
+PRECS = ["f32", "bf16"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine, some of them
+    simulating 8-device JAX meshes whose collectives time out when
+    starved: keep torch's CPU ops (small here) on one thread."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _tol(prec, f32_tol):
+    return dict(rtol=2e-2, atol=2e-2) if prec == "bf16" \
+        else dict(rtol=f32_tol, atol=f32_tol)
+
+
+def _data(m, n, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(m, d)).astype(np.float32),
+            rng.normal(size=(n, d)).astype(np.float32))
+
+
+def _assign_inputs(m, lm, d, c, seed=1):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, d)).astype(np.float32)
+    landmarks = rng.normal(size=(lm, d)).astype(np.float32)
+    labels_l = rng.integers(0, c, lm).astype(np.int32)
+    counts = np.bincount(labels_l, minlength=c).astype(np.float32)
+    g = rng.random(c).astype(np.float32)
+    return x, landmarks, labels_l, counts, g
+
+
+def _jax_h(labels_l, counts, g, c):
+    h = jax.nn.one_hot(jnp.asarray(labels_l), c) / jnp.maximum(
+        jnp.asarray(counts), 1.0)[None]
+    return h, jnp.where(jnp.asarray(counts) > 0, jnp.asarray(g), 1e30)
+
+
+def _port_assign(x, landmarks, labels_l, counts, g, c, kind, prec):
+    lab, mind, f = ops.assign_fused(
+        torch.from_numpy(x), torch.from_numpy(landmarks),
+        torch.from_numpy(labels_l), torch.from_numpy(counts),
+        torch.from_numpy(g), n_clusters=c, kind=kind, gamma=0.05,
+        precision=prec)
+    return lab.numpy(), mind.numpy(), f.numpy()
+
+
+# ---------------------------------------------------------------------------
+# kernel_matrix
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_matrix_matches_jax_ref(kind, shape, prec):
+    x, y = _data(*shape)
+    got = ops.kernel_matrix(torch.from_numpy(x), torch.from_numpy(y),
+                            kind=kind, gamma=0.05, precision=prec)
+    want = jref.kernel_matrix_ref(jnp.asarray(x), jnp.asarray(y), kind=kind,
+                                  gamma=0.05, precision=prec)
+    assert got.shape == shape[:2] and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **_tol(prec, 1e-5))
+
+
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("shape", SMALL, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_matrix_matches_jax_pallas_interpret(kind, shape, prec):
+    x, y = _data(*shape)
+    got = ops.kernel_matrix(torch.from_numpy(x), torch.from_numpy(y),
+                            kind=kind, gamma=0.05, precision=prec)
+    want = jops.kernel_matrix(jnp.asarray(x), jnp.asarray(y), kind=kind,
+                              gamma=0.05, interpret=True, precision=prec)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **_tol(prec, 1e-5))
+
+
+def test_kernel_matrix_rbf_diag_is_one():
+    x = np.random.default_rng(3).normal(size=(40, 6)).astype(np.float32)
+    k = ops.kernel_matrix(torch.from_numpy(x), torch.from_numpy(x),
+                          kind="rbf", gamma=0.7).numpy()
+    np.testing.assert_allclose(np.diagonal(k), 1.0, atol=1e-5)
+    np.testing.assert_allclose(k, k.T, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# assign_fused / gram_matvec
+# ---------------------------------------------------------------------------
+
+
+# rbf and linear over the whole C sweep (as tests/test_pallas_kernels.py);
+# the other two epilogues at C = 7
+ASSIGN_CASES = [(k, c) for k in ("rbf", "linear") for c in (3, 7, 130)] + [
+    ("polynomial", 7), ("cosine", 7)]
+
+
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("shape", ASSIGN_SHAPES, ids=["small", "ragged"])
+@pytest.mark.parametrize("kind,n_clusters", ASSIGN_CASES,
+                         ids=[f"{k}-C{c}" for k, c in ASSIGN_CASES])
+def test_assign_fused_matches_jax_ref(kind, n_clusters, shape, prec):
+    x, lm, labels_l, counts, g = _assign_inputs(*shape, n_clusters)
+    got_lab, got_min, got_f = _port_assign(x, lm, labels_l, counts, g,
+                                           n_clusters, kind, prec)
+    h, g_masked = _jax_h(labels_l, counts, g, n_clusters)
+    want_lab, want_min, want_f = jref.assign_fused_ref(
+        jnp.asarray(x), jnp.asarray(lm), h, g_masked, kind=kind, gamma=0.05,
+        precision=prec)
+    assert got_lab.dtype == np.int32 and got_f.shape == (shape[0], n_clusters)
+    np.testing.assert_array_equal(got_lab, np.asarray(want_lab))
+    np.testing.assert_allclose(got_min, np.asarray(want_min),
+                               **_tol(prec, 1e-4))
+    np.testing.assert_allclose(got_f, np.asarray(want_f), **_tol(prec, 1e-4))
+
+
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("shape", ASSIGN_SHAPES, ids=["small", "ragged"])
+@pytest.mark.parametrize("kind", ["rbf", "linear"])
+def test_assign_fused_matches_jax_pallas_interpret(kind, shape, prec):
+    x, lm, labels_l, counts, g = _assign_inputs(*shape, 7)
+    got_lab, got_min, got_f = _port_assign(x, lm, labels_l, counts, g, 7,
+                                           kind, prec)
+    want_lab, want_min, want_f = jops.assign_fused(
+        jnp.asarray(x), jnp.asarray(lm), jnp.asarray(labels_l),
+        jnp.asarray(counts), jnp.asarray(g), n_clusters=7, kind=kind,
+        gamma=0.05, interpret=True, precision=prec)
+    np.testing.assert_array_equal(got_lab, np.asarray(want_lab))
+    np.testing.assert_allclose(got_min, np.asarray(want_min),
+                               **_tol(prec, 1e-4))
+    np.testing.assert_allclose(got_f, np.asarray(want_f), **_tol(prec, 1e-4))
+
+
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("shape", ASSIGN_SHAPES, ids=["small", "ragged"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_gram_matvec_matches_jax(kind, shape, prec):
+    m, lm, d = shape
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(m, d)).astype(np.float32)
+    landmarks = rng.normal(size=(lm, d)).astype(np.float32)
+    h = rng.random((lm, 5)).astype(np.float32)
+    got = ops.gram_matvec(torch.from_numpy(x), torch.from_numpy(landmarks),
+                          torch.from_numpy(h), kind=kind, gamma=0.05,
+                          precision=prec)
+    want = jref.kernel_matrix_ref(jnp.asarray(x), jnp.asarray(landmarks),
+                                  kind=kind, gamma=0.05,
+                                  precision=prec) @ jnp.asarray(h)
+    assert got.shape == (m, 5) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **_tol(prec, 1e-4))
+    if shape in SMALL or kind not in ("rbf", "linear"):
+        return
+    pallas = jops.gram_matvec(jnp.asarray(x), jnp.asarray(landmarks),
+                              jnp.asarray(h), kind=kind, gamma=0.05,
+                              interpret=True, precision=prec)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas),
+                               **_tol(prec, 1e-4))
+
+
+@pytest.mark.parametrize("prec", PRECS)
+def test_assign_fused_empty_cluster_never_selected(prec):
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(50, 8)).astype(np.float32)
+    labels_l = (np.arange(20) % 3).astype(np.int32)       # clusters 3, 4 empty
+    counts = np.bincount(labels_l, minlength=5).astype(np.float32)
+    lab, mind, _ = _port_assign(x, x[:20], labels_l, counts,
+                                np.zeros(5, np.float32), 5, "rbf", prec)
+    assert lab.max() <= 2 and np.all(mind < 1e29)
+
+
+@pytest.mark.parametrize("prec", PRECS)
+def test_assign_fused_bitwise_tie_takes_lowest_index(prec):
+    """Two clusters over one duplicated landmark with equal g tie exactly
+    for every row: both packages must answer cluster 0."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(40, 6)).astype(np.float32)
+    a = rng.normal(size=(1, 6)).astype(np.float32)
+    lm = np.concatenate([a, a, rng.normal(size=(1, 6)).astype(np.float32)])
+    labels_l = np.array([0, 1, 2], np.int32)
+    counts = np.ones(3, np.float32)
+    g = np.array([0.5, 0.5, 5.0], np.float32)
+    lab, _, f = _port_assign(x, lm, labels_l, counts, g, 3, "rbf", prec)
+    np.testing.assert_array_equal(f[:, 0], f[:, 1])
+    assert np.all(lab == 0)
+    h, gm = _jax_h(labels_l, counts, g, 3)
+    want, _, _ = jref.assign_fused_ref(jnp.asarray(x), jnp.asarray(lm), h, gm,
+                                       kind="rbf", gamma=0.05, precision=prec)
+    np.testing.assert_array_equal(lab, np.asarray(want))
+
+
+def test_plain_versions_count_their_calls():
+    before, launches = dict(ref.CALLS), dict(ops.LAUNCHES)
+    x = torch.randn(5, 3)
+    ops.kernel_matrix(x, x)
+    ops.assign_fused(x, x, torch.zeros(5, dtype=torch.int32),
+                     torch.tensor([5.0, 0.0]), torch.zeros(2), n_clusters=2)
+    assert ref.CALLS["kernel_matrix_ref"] == before["kernel_matrix_ref"] + 2
+    assert ref.CALLS["assign_fused_ref"] == before["assign_fused_ref"] + 1
+    assert ops.LAUNCHES == launches      # CPU tensors never launch a kernel
+
+
+# ---------------------------------------------------------------------------
+# precision policy
+# ---------------------------------------------------------------------------
+
+
+def test_precision_policy():
+    assert resolve_precision("bf16") is BF16 and resolve_precision(F32) is F32
+    assert BF16.tile_dtype == torch.bfloat16 and BF16.tile_itemsize == 2
+    with pytest.raises(ValueError, match="always f32"):
+        Precision(tile="bf16", accum="bf16")
+    with pytest.raises(ValueError):
+        resolve_precision("fp8")
+
+
+def test_bf16_rounding_matches_jax():
+    """cast_tiles rounds to nearest even, bit for bit like jnp, including
+    values halfway between two bf16 numbers."""
+    rng = np.random.default_rng(6)
+    v = rng.normal(size=4096).astype(np.float32)
+    halfway = (np.arange(1, 257, dtype=np.uint32) << 16 | 0x8000).view(
+        np.float32)
+    v = np.concatenate([v, halfway, -halfway])
+    got = BF16.cast_tiles(torch.from_numpy(v)).float().numpy()
+    want = np.asarray(jnp.asarray(v).astype(jnp.bfloat16).astype(jnp.float32))
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+# ---------------------------------------------------------------------------
+# the build seam and operand checks (no nvcc, no card needed)
+# ---------------------------------------------------------------------------
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(build.os.path, "exists", lambda _: False)
+    monkeypatch.setattr(build, "BUILD_ROOT", ROOT / "build" / "absent")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build()
+
+
+def test_build_flags_target_hopper():
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert {"assign.cu", "kernel_matrix.cu"} <= {
+        p.name for p in build.SRC_DIR.glob("*.cu")}
+    assert len(build._digest()) == 16
+
+
+@pytest.mark.parametrize("bad", ["device", "dtype", "shape", "contiguity",
+                                 "alignment"])
+def test_check_operand_rejects(bad):
+    t = torch.zeros(8, 8)
+    kw = dict(dtype=torch.float32, shape=(8, 8), device=torch.device("cpu"))
+    if bad == "device":
+        kw["device"] = torch.device("meta")
+    elif bad == "dtype":
+        t = t.to(torch.bfloat16)
+    elif bad == "shape":
+        kw["shape"] = (8, 4)
+    elif bad == "contiguity":
+        t = torch.zeros(8, 16)[:, ::2]
+    else:
+        t = torch.zeros(65)[1:].view(8, 8)
+    with pytest.raises((ValueError, TypeError)):
+        build.check_operand(t, "t", **kw)
+    build.check_operand(torch.zeros(8, 8), "t", dtype=torch.float32,
+                        shape=(8, 8), device=torch.device("cpu"))
+
+
+def test_too_many_clusters_for_the_kernel_raise():
+    """One launch takes at most 256 clusters (the wrapper chunks more);
+    the launcher refuses a wider H before it builds or launches anything."""
+    from repro_torch.kernels.assign import assign_fused_cuda
+    x = torch.zeros(16, 8)
+    for cp in (272, 8):
+        with pytest.raises(ValueError, match="256 clusters"):
+            assign_fused_cuda(x, x, torch.zeros(16), torch.zeros(16),
+                              torch.zeros(16, cp), torch.zeros(cp),
+                              kind="rbf", gamma=1.0, coef0=1.0, degree=3)
+
+
+def _kernel_stand_in(calls):
+    """The launcher's contract on CPU tensors: check the chunk it is given,
+    then answer with the plain version (what the kernel computes)."""
+    from repro_torch.kernels.assign import CP_MULTIPLE, MAX_CP
+
+    def launch(x, landmarks, xsq, lsq, h, g, *, kind, gamma, coef0, degree):
+        cp = h.shape[1]
+        assert cp % CP_MULTIPLE == 0 and 0 < cp <= MAX_CP
+        assert g.shape == (cp,) and h.is_contiguous() and g.is_contiguous()
+        calls.append(cp)
+        prec = "bf16" if x.dtype == torch.bfloat16 else "f32"
+        return ref.assign_fused_ref(x, landmarks, h, g, kind=kind,
+                                    gamma=gamma, coef0=coef0, degree=degree,
+                                    precision=prec)
+    return launch
+
+
+@pytest.mark.parametrize("n_clusters,chunks", [(10, [16]), (256, [256]),
+                                               (600, [256, 256, 96])])
+def test_cluster_chunks_merge_to_the_unchunked_result(monkeypatch, n_clusters,
+                                                      chunks):
+    """Past 256 clusters the wrapper launches once per chunk; labels, mind
+    and f equal the one-pass plain version's."""
+    calls = []
+    monkeypatch.setattr(ops, "assign_fused_cuda", _kernel_stand_in(calls))
+    x, landmarks, labels_l, counts, g = map(
+        torch.from_numpy, _assign_inputs(200, 700, 12, n_clusters, seed=9))
+    h, gm = ops.assign_panels(labels_l, counts, g, n_clusters)
+    before = ops.LAUNCHES["assign_fused"]
+    lab, mind, f = ops._launch_assign(x, landmarks, h, gm, kind="rbf",
+                                      gamma=0.1, coef0=1.0, degree=3)
+    assert calls == chunks
+    assert ops.LAUNCHES["assign_fused"] == before + len(chunks)
+    want_lab, want_min, want_f = ref.assign_fused_ref(x, landmarks, h, gm,
+                                                      gamma=0.1)
+    assert f.shape == (200, n_clusters)
+    assert torch.equal(lab, want_lab)
+    torch.testing.assert_close(mind, want_min, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(f, want_f, rtol=1e-6, atol=1e-6)
+
+
+def test_cluster_chunk_ties_keep_the_lowest_index(monkeypatch):
+    """Every chunk reaches the same minimum: the first chunk's label
+    stands; a strictly smaller minimum in a later chunk takes over, with
+    the chunk's offset added."""
+    n, c = 6, 520
+    answers = iter([
+        (torch.full((n,), 3, dtype=torch.int32), torch.ones(n)),
+        (torch.zeros(n, dtype=torch.int32), torch.ones(n)),
+        (torch.full((n,), 1, dtype=torch.int32),
+         torch.tensor([1.0, 0.5, 1.0, 0.5, 1.0, 1.0])),
+    ])
+
+    def launch(x, landmarks, xsq, lsq, h, g, **_):
+        lab, mind = next(answers)
+        return lab, mind, torch.zeros(n, h.shape[1])
+
+    monkeypatch.setattr(ops, "assign_fused_cuda", launch)
+    lab, mind, f = ops._launch_assign(
+        torch.zeros(n, 4), torch.zeros(3, 4), torch.zeros(3, c),
+        torch.zeros(c), kind="rbf", gamma=1.0, coef0=1.0, degree=3)
+    assert lab.tolist() == [3, 513, 3, 513, 3, 3]
+    assert mind.tolist() == [1.0, 0.5, 1.0, 0.5, 1.0, 1.0]
+    assert f.shape == (n, c)
+
+
+# ---------------------------------------------------------------------------
+# hygiene: the port stands alone and never falls back to the CPU quietly
+# ---------------------------------------------------------------------------
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    for path in files:
+        for name in _imports(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_import_leaves_jax_and_triton_out(tmp_path):
+    """A fresh interpreter imports every module of the port with no nvcc on
+    PATH and triton blocked, and jax never enters sys.modules."""
+    mods = sorted(
+        "repro_torch." + ".".join(p.relative_to(ROOT / "src" / "repro_torch")
+                                  .with_suffix("").parts)
+        for p in (ROOT / "src" / "repro_torch").rglob("*.py")
+        if p.name != "__init__.py")
+    code = ("import sys, importlib\n"
+            "sys.modules['triton'] = None\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "import repro_torch\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "assert not any(m == 'repro' or m.startswith('repro.') "
+            "for m in sys.modules), 'repro imported'\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), PATH=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_entry_point_without_device_raises_here():
+    from repro_torch.core import KernelSpec, MiniBatchConfig, fit_dataset
+    from repro_torch.core.minibatch import predict
+    from repro_torch.device import resolve_device
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs there")
+    x = np.zeros((20, 2), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fit_dataset(x, MiniBatchConfig(n_clusters=2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        predict(x, torch.zeros(2, 2), torch.ones(2), spec=KernelSpec())
+    assert resolve_device("cpu") == torch.device("cpu")
