@@ -9,24 +9,33 @@ Phases, in order; any failure exits non-zero without the final line:
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
      sm_90a) and print the build seconds and ptxas resource lines;
   3. hold each wrapper the main path calls (``ops.kernel_matrix``,
-     ``ops.assign_fused``, ``ops.gram_matvec``) against its plain PyTorch
-     version on the card, at the main path's shapes (paper Tab.1 MNIST
-     setting: 15,000-row batches of 784 features, C = 10, rbf) with the
-     path's gamma and with a gamma that spreads the rbf values over (0, 1),
-     and at a small shape for every epilogue kind, at f32 and bf16; time
-     kernel, plain version, a composite of PyTorch calls (``library_ms``,
-     never called by the port) and the bound;
+     ``ops.assign_fused``, ``ops.gram_matvec``, ``ops.embed_assign`` for
+     RFF / Nystrom and for the count sketch) against its plain PyTorch
+     version on the card, at the main path's shapes with the path's gamma
+     and a gamma that spreads the rbf values over (0, 1), and at small
+     shapes for every epilogue kind, at f32 and bf16; time kernel, plain
+     version, a composite of PyTorch calls (``library_ms``, never called by
+     the port) and the bound. The main shapes: the paper's Tab.1 MNIST
+     setting (15,000-row batches of 784 features, C = 10, rbf), the Fig.5
+     embedded sweep at its largest m (60,000 x 784 -> 320, C = 10) and the
+     Tab.2 RCV1 sketch (188,000 x 256 -> 128, C = 50);
   4. drive the exact mini-batch fit through ``fit_dataset``: run A (B=4,
      s=1, fused, f32), run B (B=4, s=0.2, fused and materialize, f32) and
-     run C (as B fused, bf16), with the launch counters zeroed before each
-     run and read after it; then a small fit on the card against the same
-     fit on the CPU;
+     run C (as B fused, bf16); the embedded fits D-rff, D-nystrom (Fig.5,
+     B=1, m=320, f32) and D-rff-bf16, each labelling the test rows with
+     ``FitResult.predict`` and the 60,000 training rows with
+     ``predict_embedded``; E-sketch, its repeat (which must match it
+     bitwise) and E-sketch-bf16 (Tab.2's count sketch on the dense 256-d
+     RCV1 view, B=4, m=128, C=50, linear); the launch counters are zeroed
+     before each run and read after it; then small fits on the card against
+     the same fits on the CPU;
   5. print the per-kernel JSON line and, last, the ok line.
 
 Tolerances (normwise: max |kernel - plain| <= tol * max(1, max |plain|)):
-kernel_matrix 1e-5, assign_fused f and mind 1e-4, at f32 and bf16 alike.
-Labels must be equal except where the plain version's top-2 gap is below
-1e-4 * max(1, |min|) (a near-tie; counted and printed).
+kernel_matrix 1e-5, assign_fused f and mind 1e-4, embed_assign and
+sketch_assign scores 1e-4, at f32 and bf16 alike. Labels must be equal
+except where the plain version's top-2 gap is below 1e-4 * max(1, |min|) (a
+near-tie; counted and printed).
 """
 from __future__ import annotations
 
@@ -44,10 +53,15 @@ PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 # the same limits at f32 and bf16: kernel and plain version get the same
 # rounded operands and both sum in f32, so only the order of the sums differs
-TOL = {"kernel_matrix": 1e-5, "assign_fused": 1e-4}
+TOL = {"kernel_matrix": 1e-5, "assign_fused": 1e-4, "embed_assign": 1e-4,
+       "sketch_assign": 1e-4}
 NEAR_TIE = 1e-4
 KINDS = ("rbf", "linear", "polynomial", "cosine")
 N_TRAIN, N_TEST = 60000, 10000   # paper Tab.1 (benchmarks/tab1_mnist.py)
+EMBED_DIM = 320                  # Fig.5's largest m (fig5_approx_sweep.py)
+# Tab.2 (benchmarks/tab2_rcv1.py:58-70, 176-186): RCV1, 50 classes, the
+# selector column's count sketch at m = 128, B = 4
+RCV1_TRAIN, RCV1_TEST, RCV1_C, SKETCH_DIM = 188000, 5844, 50, 128
 
 
 class SmokeFailure(RuntimeError):
@@ -79,8 +93,16 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: float, nbytes: float, prec: str):
-    t_ops, t_bytes = flops / PEAK_FLOPS[prec], nbytes / PEAK_BYTES
+def bound_ms(flops: list, nbytes: float):
+    """The least time for the work: the larger of the bytes and the
+    operations. The (type, count) pairs of one type add up on its pipe;
+    the tensor-core and the f32 pipes run side by side, so the operations
+    take the longest of the per-type times over their peaks."""
+    per_type: dict = {}
+    for prec, f in flops:
+        per_type[prec] = per_type.get(prec, 0.0) + f
+    t_ops = max(f / PEAK_FLOPS[prec] for prec, f in per_type.items())
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -146,8 +168,8 @@ def check_kernel_matrix(torch, mods, x, y, kind, gamma, prec, *, timed):
             torch, lambda: torch.exp(torch.cdist(xf, yf).square_()
                                      .mul_(-gamma)), 10)
         rec["bound_ms"], rec["bound_by"] = bound_ms(
-            2.0 * m * n * d,
-            (m + n) * d * p.tile_itemsize + (m + n) * 4 + m * n * 4, prec)
+            [(prec, 2.0 * m * n * d)],
+            (m + n) * d * p.tile_itemsize + (m + n) * 4 + m * n * 4)
     print("check", json.dumps(rec))
     check(rel <= tol, f"kernel_matrix {kind} {prec} {[m, n, d]}: "
                       f"rel err {rel:.3g} > {tol}")
@@ -198,10 +220,11 @@ def check_assign(torch, mods, x, lm, labels_l, g, n_clusters, kind, gamma,
         rec["plain_ms"] = time_ms(torch, plain, 5)
         rec["library_ms"] = time_ms(torch, library, 5)
         c = n_clusters
+        # the Gram tiles in the tile dtype, the contraction with H in f32
         rec["bound_ms"], rec["bound_by"] = bound_ms(
-            2.0 * m * nl * d + 2.0 * m * nl * c,
+            [(prec, 2.0 * m * nl * d), ("f32", 2.0 * m * nl * c)],
             (m + nl) * d * p.tile_itemsize + (m + nl) * 4 + nl * c * 4
-            + c * 4 + m * (8 + 4 * c), prec)
+            + c * 4 + m * (8 + 4 * c))
     print("check", json.dumps(rec))
     check(rel_f <= tol and rel_m <= tol,
           f"assign_fused {kind} {prec} {[m, nl, d]} C={n_clusters}: rel err "
@@ -322,6 +345,185 @@ def tie_and_empty_fixtures(torch, mods, dev):
     print("fixtures: bitwise tie -> lowest index, empty clusters unjoinable: ok")
 
 
+def check_embedded(torch, mods, x, fmap, centroids, counts, prec, *, timed,
+                   tag=""):
+    """ops.embed_assign (the wrapper predict_embedded calls) against the
+    plain version on the same operands: ref.embed_assign_ref on the panels
+    of ops.embed_panels, or ref.sketch_assign_ref for the count sketch.
+    The sketch is also launched twice and compared bitwise."""
+    ops, ref = mods["ops"], mods["ref"]
+    p = mods["precision"].resolve_precision(prec)
+    sketch = fmap.kind == "sketch"
+    name = "sketch_assign" if sketch else "embed_assign"
+    c32, csq = ops._masked_csq(centroids, counts)
+    n, d = x.shape
+    m, c = fmap.dim, centroids.shape[0]
+    xc = p.cast_tiles(x)
+
+    def kernel():
+        return ops.embed_assign(x, fmap, centroids, counts, precision=prec)
+
+    if sketch:
+        args = (xc, fmap.h, fmap.sign.to(p.sign_dtype), c32.T, csq)
+        kw = dict(precision=prec)
+        plain_assign, plain_score = ref.sketch_assign_ref, ref.sketch_score_ref
+    else:
+        w, aux, v, _, st = ops.embed_panels(fmap, centroids, counts)
+        args = (xc, p.cast_tiles(w), v, csq)
+        kw = dict(b=aux, precision=prec, **st)
+        plain_assign, plain_score = ref.embed_assign_ref, ref.embed_score_ref
+
+    def plain():
+        return plain_assign(*args, **kw)
+
+    (lab, score), (lab_p, score_p) = kernel(), plain()
+    torch.cuda.synchronize()
+    err, rel = normwise(torch, score, score_p)
+    bad, near = label_mismatches(torch, lab, lab_p, plain_score(*args, **kw))
+    tol = TOL[name]
+    rec = {"kernel": name, "map": fmap.kind if sketch or st["map_kind"] ==
+           "rff" else f"nystrom-{st['map_kind']}", "shape": [n, d, m],
+           "C": c, "prec": prec, "max_abs_err": err, "rel_err": rel,
+           "tol": tol, "label_mismatch": bad, "near_ties": near, "tag": tag}
+    if sketch:
+        lab2, score2 = kernel()
+        rec["bitwise_repeat"] = bool(torch.equal(lab, lab2)
+                                     and torch.equal(score, score2))
+    if timed:
+        xf = x.float()
+        if sketch:
+            h, sgn = fmap.h.long(), fmap.sign
+
+            def library():
+                z = torch.zeros(n, m, device=x.device).index_add_(
+                    1, h, xf * sgn[None])
+                sc = csq[None] - 2.0 * (z @ c32.T)
+                return torch.argmin(sc, dim=1), torch.amin(sc, dim=1)
+            flops = [("f32", 2.0 * n * m * c + n * d)]
+            nbytes = (n * d * p.tile_itemsize + d * (4 + p.sign_dtype.itemsize)
+                      + (m + 1) * 4 + (m + 1) * c * 4 + n * 8)
+        else:
+            wf = w.float()
+            wsq = torch.sum(wf * wf, dim=1)
+
+            def library():
+                a = xf @ wf.T
+                if st["map_kind"] == "rff":
+                    e = st["scale"] * torch.cos(a + aux)
+                else:      # nystrom rbf
+                    d2 = (torch.sum(xf * xf, 1)[:, None] + wsq[None]
+                          - 2.0 * a)
+                    e = torch.exp(-st["gamma"] * d2.clamp_(min=0.0))
+                sc = csq[None] - 2.0 * (e @ v)
+                return torch.argmin(sc, dim=1), torch.amin(sc, dim=1)
+            flops = [(prec, 2.0 * n * m * d), ("f32", 2.0 * n * m * c)]
+            nbytes = ((n + m) * d * p.tile_itemsize + (n + m) * 4
+                      + (m + 1) * c * 4 + n * 8)
+        rec["ms"] = time_ms(torch, kernel, 10)
+        rec["plain_ms"] = time_ms(torch, plain, 10)
+        rec["library_ms"] = time_ms(torch, library, 10)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes)
+    print("check", json.dumps(rec))
+    check(rel <= tol, f"{name} {rec['map']} {prec} {[n, d, m]} C={c}: rel "
+                      f"err {rel:.3g} > {tol}")
+    check(bad == 0, f"{name} {rec['map']} {prec} {[n, d, m]}: {bad} labels "
+                    f"differ outside near-ties")
+    check(rec.get("bitwise_repeat", True),
+          f"{name} {prec} {[n, d, m]}: two launches differ")
+    return rec
+
+
+def class_means(torch, z, y, n_classes):
+    """Centroids a fit would reach: the class means of the embedded rows."""
+    h = torch.nn.functional.one_hot(y.long(), n_classes).float()
+    return (h.T @ z) / h.sum(dim=0).clamp(min=1.0)[:, None], h.sum(dim=0)
+
+
+def embedded_checks(torch, mods, x_tr, y_tr, gamma, x_rcv, y_rcv):
+    """embed_assign at the Fig.5 main shape (60,000 x 784 -> 320, C = 10,
+    rff and Nystrom rbf) and sketch_assign at the Tab.2 one (188,000 x 256
+    -> 128, C = 50), timed, at f32 and bf16; then the reference's test
+    shapes, every Mercer kind, C = 300 (two launches) and the tie and
+    empty-cluster fixtures."""
+    approx, core = mods["approx"], mods["core"]
+    dev = x_tr.device
+    recs = []
+    spec = core.KernelSpec("rbf", gamma=gamma)
+    main_maps = [
+        approx.make_rff(torch.Generator().manual_seed(3), x_tr.shape[1],
+                        EMBED_DIM, spec, device=dev),
+        approx.make_nystrom(torch.Generator().manual_seed(4), x_tr,
+                            EMBED_DIM, spec),
+        approx.make_count_sketch(torch.Generator().manual_seed(5),
+                                 x_rcv.shape[1], SKETCH_DIM,
+                                 core.KernelSpec("linear"), device=dev)]
+    for fmap in main_maps:
+        x, y, c = ((x_rcv, y_rcv, RCV1_C) if fmap.kind == "sketch"
+                   else (x_tr, y_tr, 10))
+        cents, counts = class_means(torch, fmap(x), y, c)
+        for prec in ("f32", "bf16"):
+            recs.append(check_embedded(torch, mods, x, fmap, cents, counts,
+                                       prec, timed=True, tag="main"))
+    rng = torch.Generator().manual_seed(6)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=rng).to(dev)
+
+    shapes = {"embed": [(64, 16, 32, 5), (100, 30, 77, 13),
+                        (300, 40, 260, 130), (300, 40, 77, 300)],
+              "sketch": [(64, 16, 32, 5), (100, 30, 77, 13),
+                         (300, 520, 260, 130), (300, 520, 77, 300)]}
+    kinds = {"rbf": dict(gamma=0.5), "linear": {},
+             "polynomial": dict(gamma=0.05, coef0=1.0, degree=3),
+             "cosine": {}}
+    for prec in ("f32", "bf16"):
+        for n, d, m, c in shapes["embed"]:
+            x = rand(n, d)
+            for fmap in (approx.make_rff(rng, d, m, core.KernelSpec(
+                             "rbf", gamma=0.5), device=dev),
+                         approx.make_nystrom(rng, x, m, core.KernelSpec(
+                             "rbf", gamma=0.5))):
+                recs.append(check_embedded(torch, mods, x, fmap, rand(c, m),
+                                           torch.ones(c, device=dev), prec,
+                                           timed=False))
+        x = rand(300, 40)
+        for kind, kw in kinds.items():
+            fmap = approx.make_nystrom(rng, x, 77, core.KernelSpec(kind, **kw))
+            recs.append(check_embedded(torch, mods, x, fmap, rand(13, 77),
+                                       torch.ones(13, device=dev), prec,
+                                       timed=False))
+        for n, d, m, c in shapes["sketch"]:
+            fmap = approx.make_count_sketch(rng, d, m,
+                                            core.KernelSpec("linear"),
+                                            device=dev)
+            recs.append(check_embedded(torch, mods, rand(n, d), fmap,
+                                       rand(c, m), torch.ones(c, device=dev),
+                                       prec, timed=False))
+        # two identical centroids tie bitwise: the lower index wins; an
+        # empty cluster with a zero centroid is never chosen
+        x = rand(300, 24)
+        a, b = rand(40), rand(40)
+        for fmap in (approx.make_rff(rng, 24, 40, core.KernelSpec("rbf"),
+                                     device=dev),
+                     approx.make_nystrom(rng, x, 40, core.KernelSpec("rbf")),
+                     approx.make_count_sketch(rng, 24, 40,
+                                              core.KernelSpec("linear"),
+                                              device=dev)):
+            lab, _ = mods["ops"].embed_assign(
+                x, fmap, torch.stack([a, b, a]), torch.ones(3, device=dev),
+                precision=prec)
+            check(int(lab.max()) <= 1, f"{fmap.kind} tie fixture {prec}: a "
+                                       f"tie chose the higher index")
+            lab, _ = mods["ops"].embed_assign(
+                x, fmap, torch.stack([a, torch.zeros_like(a), b]),
+                torch.tensor([5.0, 0.0, 3.0], device=dev), precision=prec)
+            check(not bool((lab == 1).any()),
+                  f"{fmap.kind} empty-cluster fixture {prec}: chose it")
+    print("embedded fixtures: bitwise tie -> lowest index, empty clusters "
+          "unjoinable: ok")
+    return recs
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -359,21 +561,68 @@ def run_fit(torch, mods, name, cfg, x_tr, x_te, y_te):
     return rec, labels
 
 
+def run_embedded(torch, mods, name, cfg, x_tr, y_tr, x_te, y_te):
+    """An embedded fit as a user runs it: fit_dataset, label the test rows
+    with FitResult.predict and the training rows with predict_embedded."""
+    ops, ref, core = mods["ops"], mods["ref"], mods["core"]
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    for k in ref.CALLS:
+        ref.CALLS[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = core.fit_dataset(x_tr, cfg)
+    labels = res.predict(x_te).cpu().numpy()
+    labels_tr = mods["approx"].predict_embedded(
+        x_tr, res.state, res.fmap, precision=cfg.precision).cpu().numpy()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, calls = dict(ops.LAUNCHES), dict(ref.CALLS)
+    cents = res.state.centroids
+    m = res.fmap.dim
+    check(tuple(cents.shape) == (cfg.n_clusters, m)
+          and bool(torch.isfinite(cents).all()),
+          f"run {name}: centroids not finite or of the wrong shape")
+    check(int(res.state.cardinalities.sum()) == len(x_tr),
+          f"run {name}: the merge did not count every row once")
+    for lab, ys in ((labels, y_te), (labels_tr, y_tr)):
+        check(len(lab) == len(ys) and lab.min() >= 0
+              and lab.max() < cfg.n_clusters, f"run {name}: bad labels")
+    rec = {"run": name, "method": cfg.method, "m": m,
+           "precision": cfg.precision, "B": cfg.n_batches, "wall_s": wall,
+           "inner_iters": [h.inner_iters for h in res.history],
+           "max_inner_iters": cfg.max_inner_iters,
+           "acc": core.clustering_accuracy(y_te, labels),
+           "nmi": core.nmi(y_te, labels),
+           "train_acc": core.clustering_accuracy(y_tr, labels_tr),
+           "train_nmi": core.nmi(y_tr, labels_tr), "launches": launches,
+           "plain_calls": calls}
+    print("run", json.dumps(rec))
+    check(all(v == 0 for v in calls.values()),
+          f"run {name}: a plain version ran on the card: {calls}")
+    return rec, labels, res
+
+
 def small_reference_fit(torch, mods):
-    """toy2d on the card vs the same fit on the CPU (the plain path)."""
+    """toy2d on the card vs the same fits on the CPU (the plain path): the
+    exact fused fit and two embedded ones."""
     core, synth = mods["core"], mods["synthetic"]
     x, y = synth.toy2d(500)
-    out = {}
-    for dev in ("cuda", "cpu"):
-        cfg = core.MiniBatchConfig(n_clusters=4, n_batches=3, s=1.0,
-                                   kernel=core.KernelSpec("rbf", gamma=4.0),
-                                   engine="fused")
-        lab = core.fit_dataset(x, cfg, device=dev).predict(x).cpu().numpy()
-        out[dev] = (core.clustering_accuracy(y, lab), core.nmi(y, lab))
-    print("small reference fit (toy2d, B=3, fused):", json.dumps(out))
-    check(abs(out["cuda"][0] - out["cpu"][0]) <= 0.02
-          and abs(out["cuda"][1] - out["cpu"][1]) <= 0.02,
-          "toy2d fit on the card strays from the CPU fit")
+    for kw in (dict(s=1.0, engine="fused"),
+               dict(method="rff", embed_dim=32),
+               dict(method="sketch", kernel=core.KernelSpec("linear"))):
+        kw = {"kernel": core.KernelSpec("rbf", gamma=4.0), **kw}
+        out = {}
+        for dev in ("cuda", "cpu"):
+            cfg = core.MiniBatchConfig(n_clusters=4, n_batches=3, **kw)
+            lab = core.fit_dataset(x, cfg, device=dev).predict(x)
+            lab = lab.cpu().numpy()
+            out[dev] = (core.clustering_accuracy(y, lab), core.nmi(y, lab))
+        what = kw.get("method", "exact fused")
+        print(f"small reference fit (toy2d, B=3, {what}):", json.dumps(out))
+        check(abs(out["cuda"][0] - out["cpu"][0]) <= 0.02
+              and abs(out["cuda"][1] - out["cpu"][1]) <= 0.02,
+              f"toy2d {what} fit on the card strays from the CPU fit")
 
 
 def main(argv=None) -> int:
@@ -393,7 +642,8 @@ def main(argv=None) -> int:
     mods = {name: importlib.import_module(f"repro_torch.{path}") for name, path
             in [("ops", "kernels.ops"), ("ref", "kernels.ref"),
                 ("build", "kernels.build"), ("precision", "kernels.precision"),
-                ("core", "core"), ("synthetic", "data.synthetic")]}
+                ("core", "core"), ("synthetic", "data.synthetic"),
+                ("approx", "approx")]}
     core = mods["core"]
 
     # -- phase 1: the card --------------------------------------------------
@@ -423,12 +673,24 @@ def main(argv=None) -> int:
     gamma = core.gamma_from_dmax(torch.as_tensor(x_tr[:4096], device="cuda"))
     print(f"data: {x_tr.shape} train, {x_te.shape} test, gamma {gamma!r} "
           f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    xr, yr = mods["synthetic"].make_rcv1_like(RCV1_TRAIN + RCV1_TEST,
+                                              n_classes=RCV1_C, seed=0)
+    xr_tr, yr_tr = xr[:RCV1_TRAIN], yr[:RCV1_TRAIN]
+    xr_te, yr_te = xr[RCV1_TRAIN:], yr[RCV1_TRAIN:]
+    print(f"data: rcv1-like {xr_tr.shape} train, {xr_te.shape} test "
+          f"(generator {time.perf_counter() - t0:.1f} s)")
     x_b = torch.as_tensor(x_tr[0::4], device="cuda")   # batch 0 under B=4
     y_b = torch.as_tensor(y_tr[0::4], device="cuda")
     t0 = time.perf_counter()
     recs = kernel_checks(torch, mods, x_b, y_b, gamma)
-    print(f"kernel checks: {len(recs)} passed ({time.perf_counter() - t0:.1f} s)")
     del x_b, y_b
+    recs += embedded_checks(
+        torch, mods, torch.as_tensor(x_tr, device="cuda"),
+        torch.as_tensor(y_tr, device="cuda"), gamma,
+        torch.as_tensor(xr_tr, device="cuda"),
+        torch.as_tensor(yr_tr, device="cuda"))
+    print(f"kernel checks: {len(recs)} passed ({time.perf_counter() - t0:.1f} s)")
 
     # -- phase 4: the main path ---------------------------------------------
     spec = core.KernelSpec("rbf", gamma=gamma)
@@ -455,6 +717,58 @@ def main(argv=None) -> int:
           f"NMI(C, B fused) {nmi_cb!r}")
     check(agree >= 0.995, f"fused and materialize disagree: {agree}")
     check(nmi_cb >= 0.95, f"bf16 run strays from f32: NMI {nmi_cb}")
+
+    # the embedded methods: Fig.5 (MNIST, rbf) and Tab.2 (RCV1 dense view)
+    totals.update(embed_assign=0, sketch_assign=0)
+    fits = {}
+    fig5 = dict(n_clusters=10, n_batches=1, kernel=spec, seed=0,
+                embed_dim=EMBED_DIM)
+    tab2 = dict(n_clusters=RCV1_C, n_batches=4, seed=0, method="sketch",
+                kernel=core.KernelSpec("linear"), embed_dim=SKETCH_DIM)
+    for name, kw, data in [
+            ("D-rff", dict(fig5, method="rff"), (x_tr, y_tr, x_te, y_te)),
+            ("D-nystrom", dict(fig5, method="nystrom"),
+             (x_tr, y_tr, x_te, y_te)),
+            ("D-rff-bf16", dict(fig5, method="rff", precision="bf16"),
+             (x_tr, y_tr, x_te, y_te)),
+            ("E-sketch", tab2, (xr_tr, yr_tr, xr_te, yr_te)),
+            ("E-sketch-repeat", tab2, (xr_tr, yr_tr, xr_te, yr_te)),
+            ("E-sketch-bf16", dict(tab2, precision="bf16"),
+             (xr_tr, yr_tr, xr_te, yr_te))]:
+        rec, labels, res = run_embedded(torch, mods, name,
+                                        core.MiniBatchConfig(**kw), *data)
+        runs[name] = (rec, labels)
+        fits[name] = res
+        for k in totals:
+            totals[k] += rec["launches"][k]
+        iters += sum(rec["inner_iters"])
+        kernel = "sketch_assign" if kw["method"] == "sketch" else \
+            "embed_assign"
+        check(rec["launches"][kernel] > 0,
+              f"run {name}: {kernel} never launched")
+    nmi_d = core.nmi(runs["D-rff"][1], runs["D-rff-bf16"][1])
+    nmi_e = core.nmi(runs["E-sketch"][1], runs["E-sketch-bf16"][1])
+    print(f"NMI(D-rff-bf16, D-rff) {nmi_d!r}; NMI(E-sketch-bf16, E-sketch) "
+          f"{nmi_e!r}")
+    check(nmi_d >= 0.95, f"bf16 D-rff strays from f32: NMI {nmi_d}")
+    # one seed, one fit: the sketch sums in a fixed order on the card
+    e1, e2 = runs["E-sketch"], runs["E-sketch-repeat"]
+    check(e1[0]["inner_iters"] == e2[0]["inner_iters"]
+          and bool((e1[1] == e2[1]).all()),
+          "E-sketch is not repeatable: two runs of one seed differ")
+    # the two E fits part at their seeding; bf16 tiles on one fitted state
+    # move only near-tied rows
+    fit_e = fits["E-sketch"]
+    lab32, lab16 = (mods["approx"].predict_embedded(
+        xr_tr, fit_e.state, fit_e.fmap, precision=prec)
+        for prec in ("f32", "bf16"))
+    agree_e = float((lab32 == lab16).float().mean())
+    print(f"E-sketch repeat: equal iterations and labels; its training "
+          f"labels at bf16 vs f32 tiles agree on {agree_e!r}")
+    check(agree_e >= 0.99, f"bf16 sketch_assign strays from f32 on one "
+                           f"fitted state: agreement {agree_e}")
+    check(all(v > 0 for v in totals.values()),
+          f"a kernel never launched on the main path: {totals}")
     small_reference_fit(torch, mods)
 
     # -- phase 5: result lines ----------------------------------------------
@@ -467,7 +781,11 @@ def main(argv=None) -> int:
     src = {"kernel_matrix": ("src/repro_torch/kernels/csrc/kernel_matrix.cu",
                              "src/repro/kernels/kernel_matrix.py:78"),
            "assign_fused": ("src/repro_torch/kernels/csrc/assign.cu",
-                            "src/repro/kernels/assign.py:146")}
+                            "src/repro/kernels/assign.py:146"),
+           "embed_assign": ("src/repro_torch/kernels/csrc/embed_assign.cu",
+                            "src/repro/kernels/embed_assign.py:111"),
+           "sketch_assign": ("src/repro_torch/kernels/csrc/sketch_assign.cu",
+                             "src/repro/kernels/sketch_assign.py:111")}
     kernels = [{"name": k, "route": "cuda", "source": src[k][0],
                 "replaces": src[k][1], "launches": totals[k],
                 "max_abs_err": errs[k], "ms": first[k]["ms"],
@@ -475,7 +793,8 @@ def main(argv=None) -> int:
                 "bound_ms": first[k]["bound_ms"],
                 "bound_by": first[k]["bound_by"],
                 "library_ms": first[k]["library_ms"]}
-               for k in ("assign_fused", "kernel_matrix")]
+               for k in ("assign_fused", "kernel_matrix", "embed_assign",
+                         "sketch_assign")]
     print(f"total inner iterations {iters}; card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

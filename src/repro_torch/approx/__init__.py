@@ -1,0 +1,66 @@
+"""Explicit feature maps that turn kernel k-means into linear k-means, the
+port of ``repro/approx`` for dense rows.
+
+Every map has ``dim`` (embedding width m), ``in_dim`` (d), ``kind`` and
+``__call__`` (rows -> [n, m] f32), so the embedded outer loop,
+``FitResult.predict`` and the fused kernels (``kernels/ops.embed_assign``)
+do not care which map they hold; ``core.minibatch`` dispatches on
+``MiniBatchConfig.method``:
+
+* ``rff`` (+ ``rff_orthogonal``): random Fourier features, rbf only;
+* ``nystrom``: landmark embedding, any Mercer kernel (uniform landmarks in
+  this slice);
+* ``sketch``: count-sketch, linear kernel;
+* ``tensorsketch``: FFT composition of count-sketches, polynomial kernel.
+
+Maps are drawn from a CPU ``torch.Generator`` and their tables moved to the
+sample's device, so CPU and GPU fits of one seed draw the same map.
+"""
+from __future__ import annotations
+
+import torch
+
+from .embed_kmeans import (EmbedInnerResult, EmbedState, assign_embedded,
+                           fit_embedded, lloyd_fit, predict_embedded)
+from .nystrom import (NystromMap, make_nystrom, nystrom_features,
+                      nystrom_from_landmarks, whiten_gram)
+from .rff import RFFMap, make_rff, rff_features
+from .sketch import (CountSketchMap, TensorSketchMap, count_sketch_features,
+                     make_count_sketch, make_tensor_sketch,
+                     tensor_sketch_features)
+
+METHODS = ("rff", "nystrom", "sketch", "tensorsketch")
+
+
+def default_embed_dim(n_clusters: int) -> int:
+    """m = 4*C, the reference's default."""
+    return 4 * n_clusters
+
+
+def make_feature_map(method: str, gen: torch.Generator, x_sample, m: int,
+                     spec, *, orthogonal: bool = False):
+    """Build a feature map from a dense sample (the first mini-batch) with
+    the CPU generator ``gen``; the map's tables live on the sample's device.
+    The sketch maps read only the sample's column count."""
+    d, dev = x_sample.shape[1], x_sample.device
+    if method == "sketch":
+        return make_count_sketch(gen, d, m, spec, device=dev)
+    if method == "tensorsketch":
+        return make_tensor_sketch(gen, d, m, spec, device=dev)
+    if method == "rff":
+        return make_rff(gen, d, m, spec, orthogonal=orthogonal, device=dev)
+    if method == "nystrom":
+        return make_nystrom(gen, x_sample, m, spec)
+    raise ValueError(f"unknown feature-map method {method!r}; have {METHODS}")
+
+
+__all__ = [
+    "METHODS", "default_embed_dim", "make_feature_map",
+    "RFFMap", "make_rff", "rff_features",
+    "NystromMap", "make_nystrom", "nystrom_features",
+    "nystrom_from_landmarks", "whiten_gram",
+    "CountSketchMap", "make_count_sketch", "count_sketch_features",
+    "TensorSketchMap", "make_tensor_sketch", "tensor_sketch_features",
+    "EmbedState", "EmbedInnerResult", "assign_embedded", "fit_embedded",
+    "lloyd_fit", "predict_embedded",
+]

@@ -1,25 +1,31 @@
-"""Carry the outer loop's state across packages as numpy arrays.
+"""Carry the outer loop's state and feature maps across packages as numpy
+arrays.
 
 ``global_state_from_numpy`` builds the port's ``GlobalState`` from the
 fields of a ``GlobalState`` of the JAX package (converted to numpy by the
 caller), so a fit begun there can resume here; ``state_to_numpy`` goes the
-other way.
+other way. ``embed_state_from_numpy`` / ``embed_state_to_numpy`` do the same
+for the embedded methods' ``EmbedState``, and ``feature_map_from_numpy``
+rebuilds a sampled feature map from its tables, so a map drawn by the JAX
+package can be used here: randomness does not cross the port.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.approx import (CountSketchMap, EmbedState, NystromMap,
+                                RFFMap, TensorSketchMap)
+from repro_torch.core.kernels import KernelSpec
 from repro_torch.core.minibatch import GlobalState
 
 
 def global_state_from_numpy(medoids, medoid_diag, cardinalities,
                             batches_done, device) -> GlobalState:
     """numpy fields -> a ``GlobalState`` on ``device`` (f32 tensors)."""
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)
-    return GlobalState(medoids=f32(medoids), medoid_diag=f32(medoid_diag),
-                       cardinalities=f32(cardinalities),
+    return GlobalState(medoids=_f32(medoids, device),
+                       medoid_diag=_f32(medoid_diag, device),
+                       cardinalities=_f32(cardinalities, device),
                        batches_done=int(batches_done))
 
 
@@ -28,5 +34,57 @@ def state_to_numpy(state: GlobalState) -> dict:
     batches_done} as numpy arrays."""
     return {"medoids": state.medoids.cpu().numpy(),
             "medoid_diag": state.medoid_diag.cpu().numpy(),
+            "cardinalities": state.cardinalities.cpu().numpy(),
+            "batches_done": np.int32(state.batches_done)}
+
+
+def _f32(a, device):
+    return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+
+
+def _i32(a, device):
+    return torch.tensor(np.asarray(a, dtype=np.int32), device=device)
+
+
+def feature_map_from_numpy(kind: str, arrays: dict, statics: dict, device):
+    """A feature map from its numpy tables and static fields, on ``device``:
+      rff:          arrays w [m, d], b [m];          statics scale
+      nystrom:      arrays landmarks [m, d], proj [m, m];
+                    statics the KernelSpec fields (name, gamma, coef0, degree)
+      sketch:       arrays h [d], sign [d];          statics m
+      tensorsketch: arrays hs [p, d+1], signs [p, d+1];
+                    statics m, degree, gamma, coef0"""
+    if kind == "rff":
+        return RFFMap(w=_f32(arrays["w"], device), b=_f32(arrays["b"], device),
+                      scale=float(statics["scale"]))
+    if kind == "nystrom":
+        return NystromMap(landmarks=_f32(arrays["landmarks"], device),
+                          proj=_f32(arrays["proj"], device),
+                          spec=KernelSpec(**statics))
+    if kind == "sketch":
+        return CountSketchMap(h=_i32(arrays["h"], device),
+                              sign=_f32(arrays["sign"], device),
+                              m=int(statics["m"]))
+    if kind == "tensorsketch":
+        return TensorSketchMap(hs=_i32(arrays["hs"], device),
+                               signs=_f32(arrays["signs"], device),
+                               m=int(statics["m"]),
+                               degree=int(statics["degree"]),
+                               gamma=float(statics["gamma"]),
+                               coef0=float(statics["coef0"]))
+    raise ValueError(f"unknown feature-map kind {kind!r}")
+
+
+def embed_state_from_numpy(centroids, cardinalities, batches_done,
+                           device) -> EmbedState:
+    """numpy fields -> an ``EmbedState`` on ``device`` (f32 tensors)."""
+    return EmbedState(centroids=_f32(centroids, device),
+                      cardinalities=_f32(cardinalities, device),
+                      batches_done=int(batches_done))
+
+
+def embed_state_to_numpy(state: EmbedState) -> dict:
+    """An ``EmbedState`` -> {centroids, cardinalities, batches_done}."""
+    return {"centroids": state.centroids.cpu().numpy(),
             "cardinalities": state.cardinalities.cpu().numpy(),
             "batches_done": np.int32(state.batches_done)}

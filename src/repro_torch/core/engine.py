@@ -76,19 +76,18 @@ class ReducePlan:
 class GramEngine:
     """Strategy handle for the exact inner loop.
 
-    mode:          Gram residency — "materialize" | "fused" | "tiled".
-    tile_rows:     row-panel height of the tiled mode.
-    double_buffer: kept for parity with the reference's configs. It changes
-                   nothing here: eager PyTorch issues the tiled panels in
-                   order on one stream, and the fused kernel always stages
-                   its next feature chunk while multiplying the current one.
-    precision:     tile dtype — "f32" | "bf16". ``prepare`` rounds the
-                   feature panels once, so every mode contracts the same
-                   rounded values; materialize also stores its block in it.
+    mode:      Gram residency — "materialize" | "fused" | "tiled".
+    tile_rows: row-panel height of the tiled mode.
+    precision: tile dtype — "f32" | "bf16". ``prepare`` rounds the feature
+               panels once, so every mode contracts the same rounded
+               values; materialize also stores its block in it.
+
+    The reference's ``double_buffer`` has no counterpart: eager PyTorch
+    runs the tiled panels in order on one stream, and the fused kernel
+    always stages its next feature chunk while multiplying the current one.
     """
     mode: str = "materialize"
     tile_rows: int = 256
-    double_buffer: bool = True
     precision: str = "f32"
 
     def __post_init__(self):

@@ -2,8 +2,8 @@
 
 The centroid expansion (Eq.14) is restricted to |L| landmarks per
 mini-batch, ``s = (|L| / N) * B`` (Eq.18), so ``s = 1`` is the exact
-mini-batch algorithm. This slice ports the paper's uniform selector; the
-leverage-aware ones (``rls``, ``kpp``) arrive with the feature-map slice.
+mini-batch algorithm. The port has the paper's uniform selector so far;
+the leverage-aware ones (``rls``, ``kpp``) arrive with a later slice.
 Draws come from a CPU ``torch.Generator``, so CPU and GPU runs of the same
 seed pick the same landmarks.
 """
@@ -46,9 +46,9 @@ def check_selector(selector) -> str:
             f"unknown landmark selector {selector!r}; have {SELECTORS}")
     if selector != "uniform":
         raise NotImplementedError(
-            f"landmark selector {selector!r} is not ported yet: it arrives "
-            f"with the feature-map and selector slice (ROADMAP Queue 1 "
-            f"item 5); use selector='uniform'")
+            f"landmark selector {selector!r} is not ported yet: the "
+            f"leverage-aware selectors arrive with a later slice (ROADMAP "
+            f"Queue 1 item 5); use selector='uniform'")
     return selector
 
 

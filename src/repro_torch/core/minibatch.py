@@ -1,5 +1,5 @@
 """Mini-batch kernel k-means outer loop (paper §3.1, Alg.1), the port of
-``repro/core/minibatch.py`` for ``method="exact"``.
+``repro/core/minibatch.py``.
 
 Per mini-batch i:
   1. fetch X^i (stride or block sampling — ``data/sampling.py``);
@@ -19,10 +19,18 @@ draws the same landmarks as an uninterrupted one, and CPU and GPU runs draw
 the same ones. Each batch step is split into the draw (``draw_first``,
 ``draw_next``) and a deterministic function of the batch, the draws and the
 previous state (``_first_batch_step``, ``_next_batch_step``).
+
+``method="rff"|"nystrom"|"sketch"|"tensorsketch"`` runs the loop in an
+explicit m-dimensional feature space instead (``repro_torch.approx``): the
+map is drawn from the first batch with a CPU generator of ``seed`` alone
+(``map_generator``), every batch is embedded once, the inner loop is plain
+Lloyd, and ``FitResult.predict`` labels through the fused ``embed_assign`` /
+``sketch_assign`` kernels.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Callable, Iterable, NamedTuple, Optional
 
 import numpy as np
@@ -31,7 +39,7 @@ import torch
 from repro_torch.data.sampling import split_batches
 from repro_torch.device import resolve_device
 
-from .engine import resolve_engine
+from .engine import GramEngine, resolve_engine
 from .init import assign_to_medoids, kmeans_pp_indices
 from .kernels import KernelSpec
 from .kkmeans import InnerResult, kkmeans_fit, medoid_indices
@@ -48,7 +56,10 @@ class MiniBatchConfig:
     sampling: str = "stride"             # "stride" | "block"
     seed: int = 0
     restrict_medoids_to_members: bool = False  # Eq.7 is unrestricted
-    method: str = "exact"                # only "exact" is ported so far
+    # "exact" | "rff" | "nystrom" | "sketch" | "tensorsketch"
+    method: str = "exact"
+    embed_dim: int = 0                   # m; 0 -> approx.default_embed_dim(C)
+    rff_orthogonal: bool = False         # ORF variant (lower variance)
     selector: str = "uniform"            # only "uniform" is ported so far
     # Gram residency of the inner loop: "materialize" | "fused" | "tiled"
     # or a GramEngine (core/engine.py)
@@ -61,13 +72,20 @@ class MiniBatchConfig:
         if self.method not in self._METHODS:
             raise ValueError(
                 f"method must be one of {self._METHODS}, got {self.method!r}")
-        if self.method != "exact":
-            raise NotImplementedError(
-                f"method={self.method!r} is not ported yet: the explicit "
-                f"feature-map methods arrive with the feature-map slice "
-                f"(ROADMAP Queue 1 item 5); use method='exact'")
+        if self.selector != "uniform" and self.method not in ("exact",
+                                                               "nystrom"):
+            raise ValueError(
+                f"selector {self.selector!r} only applies to landmark-based "
+                f"methods ('exact', 'nystrom'); method {self.method!r} has "
+                f"no landmarks")
         check_selector(self.selector)
-        resolve_engine(self.engine, self.precision)
+        eng = dataclasses.replace(resolve_engine(self.engine, self.precision),
+                                  precision="f32")
+        if eng != GramEngine() and self.method != "exact":
+            raise ValueError(
+                f"engine {eng.mode!r} only applies to method='exact' (the "
+                f"embedded method {self.method!r} never evaluates Gram "
+                f"blocks; its kernel is kernels/csrc/embed_assign.cu)")
 
 
 class GlobalState(NamedTuple):
@@ -86,21 +104,43 @@ class BatchStats(NamedTuple):
 
 
 class FitResult(NamedTuple):
-    state: GlobalState
+    state: object                # GlobalState; EmbedState for the maps
     history: list
-    spec: KernelSpec
+    fmap: object = None          # the feature map when method != "exact"
+    spec: Optional[KernelSpec] = None
 
     def predict(self, x) -> torch.Tensor:
-        """Label new rows by nearest global medoid, on the device the fit
-        ran on."""
+        """Label new rows on the device the fit ran on: by nearest global
+        medoid, or for an embedded fit by nearest centroid through the fused
+        kernel at f32 tiles (the reference's predict freezes its artifact at
+        f32 whatever the fit's precision)."""
+        if self.fmap is not None:
+            from repro_torch.approx import predict_embedded
+            return predict_embedded(x, self.state, self.fmap,
+                                    precision="f32",
+                                    device=self.state.centroids.device)
+        if self.spec is None:
+            raise ValueError(
+                "FitResult.spec is not set: exact-path prediction needs the "
+                "KernelSpec the model was fit with")
         return predict(x, self.state.medoids, self.state.medoid_diag,
                        spec=self.spec, device=self.state.medoids.device)
 
 
+def _generator(seq: np.random.SeedSequence) -> torch.Generator:
+    hi, lo = seq.generate_state(2)
+    return torch.Generator().manual_seed(int(hi) << 32 | int(lo))
+
+
 def batch_generator(seed: int, i: int) -> torch.Generator:
     """The CPU generator of batch i: a function of (seed, i) alone."""
-    hi, lo = np.random.SeedSequence([seed, i]).generate_state(2)
-    return torch.Generator().manual_seed(int(hi) << 32 | int(lo))
+    return _generator(np.random.SeedSequence([seed, i]))
+
+
+def map_generator(seed: int) -> torch.Generator:
+    """The CPU generator of the feature map: a function of ``seed`` alone,
+    distinct from every batch's (its spawn key sets it apart)."""
+    return _generator(np.random.SeedSequence([seed], spawn_key=(1,)))
 
 
 def draw_first(x: torch.Tensor, gen: torch.Generator, *,
@@ -193,11 +233,16 @@ def predict(x, medoids: torch.Tensor, medoid_diag: torch.Tensor, *,
 def fit(batches: Iterable, cfg: MiniBatchConfig, *,
         state: Optional[GlobalState] = None,
         checkpoint_cb: Optional[Callable[[GlobalState, int], None]] = None,
-        device=None) -> FitResult:
+        fmap=None, device=None) -> FitResult:
     """Run the outer loop over an iterable of mini-batches (numpy arrays or
     tensors). Passing a previous ``state`` resumes after a restart: the
     iterable then yields only the remaining batches. ``checkpoint_cb(state,
-    i)`` is called after every merged batch."""
+    i)`` is called after every merged batch. An embedded fit
+    (``cfg.method != "exact"``) resumes only with its original ``fmap``."""
+    if cfg.method != "exact":
+        return _fit_embedded(batches, cfg, state=state,
+                             checkpoint_cb=checkpoint_cb, fmap=fmap,
+                             device=device)
     dev = resolve_device(device)
     if state is not None:
         state = GlobalState(state.medoids.to(dev), state.medoid_diag.to(dev),
@@ -222,12 +267,46 @@ def fit(batches: Iterable, cfg: MiniBatchConfig, *,
             checkpoint_cb(state, i)
     if state is None:
         raise ValueError("empty batch iterable")
-    return FitResult(state, history, cfg.kernel)
+    return FitResult(state, history, spec=cfg.kernel)
+
+
+def _fit_embedded(batches, cfg: MiniBatchConfig, *, state, checkpoint_cb,
+                  fmap, device) -> FitResult:
+    """The embedded-space target of ``fit``: draw the map from the first
+    batch (unless one is given), then the embedded outer loop."""
+    from repro_torch import approx
+    from repro_torch.approx.sketch import check_dense
+
+    it = iter(batches)
+    if fmap is None:
+        if state is not None:
+            raise ValueError(
+                "resuming an embedded fit requires the original fmap "
+                "(the sampled feature map is part of the model)")
+        try:
+            first = next(it)
+        except StopIteration:
+            raise ValueError("empty batch iterable") from None
+        check_dense(first)
+        first = torch.as_tensor(first, dtype=torch.float32).to(
+            resolve_device(device))
+        m = cfg.embed_dim or approx.default_embed_dim(cfg.n_clusters)
+        fmap = approx.make_feature_map(cfg.method, map_generator(cfg.seed),
+                                       first, m, cfg.kernel,
+                                       orthogonal=cfg.rff_orthogonal)
+        it = itertools.chain([first], it)
+    est, history = approx.fit_embedded(
+        it, fmap, n_clusters=cfg.n_clusters, max_iters=cfg.max_inner_iters,
+        seed=cfg.seed, state=state, checkpoint_cb=checkpoint_cb,
+        precision=cfg.precision, device=device)
+    return FitResult(est, history, fmap=fmap, spec=cfg.kernel)
 
 
 def fit_dataset(x, cfg: MiniBatchConfig, *, device=None, **kw) -> FitResult:
     """Stride/block-split a resident dataset [n, d] into B batches, then
-    ``fit``."""
+    ``fit``. Sparse (CSR) datasets arrive with the ingestion slice."""
+    from repro_torch.approx.sketch import check_dense
+    check_dense(x)
     return fit(split_batches(np.asarray(x, dtype=np.float32), cfg.n_batches,
                              strategy=cfg.sampling),
                cfg, device=device, **kw)

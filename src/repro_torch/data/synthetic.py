@@ -44,3 +44,30 @@ def make_mnist_like(n: int = 60000, seed: int = 0):
         z = rng.normal(0.0, 1.0, size=(len(idx), r))
         x[idx] = mean + z @ basis + rng.normal(0, 0.05, size=(len(idx), d))
     return np.clip(x, 0.0, 1.0), y
+
+
+def make_rcv1_like(n: int = 188000, d: int = 256, n_classes: int = 50,
+                   seed: int = 0):
+    """RCV1 envelope after the paper's preprocessing: log TF-IDF vectors
+    random-projected to a dense 256-d space; ~50 categories with a power-law
+    class-size distribution."""
+    rng = np.random.default_rng(seed)
+    sizes = (1.0 / np.arange(1, n_classes + 1)) ** 1.1
+    sizes = np.maximum((sizes / sizes.sum() * n).astype(np.int64), 1)
+    sizes[0] += n - sizes.sum()
+    y = np.repeat(np.arange(n_classes), sizes).astype(np.int32)
+    # sparse topic vectors in a 2048-d "vocab", projected to d dense dims
+    vocab = 2048
+    proj = rng.normal(0.0, 1.0 / np.sqrt(d), size=(vocab, d)).astype(np.float32)
+    x = np.empty((n, d), np.float32)
+    for j in range(n_classes):
+        idx = np.where(y == j)[0]
+        topic = rng.random(vocab) < (32.0 / vocab)
+        base = rng.exponential(1.0, size=vocab) * topic
+        docs = rng.poisson(lam=base, size=(len(idx), vocab)).astype(np.float32)
+        docs *= rng.random((len(idx), vocab)) < 0.3       # per-doc word dropout
+        docs = np.log1p(docs)
+        norms = np.linalg.norm(docs, axis=1, keepdims=True)
+        x[idx] = (docs / np.maximum(norms, 1e-9)) @ proj
+    perm = rng.permutation(n)
+    return x[perm], y[perm]

@@ -37,6 +37,10 @@ SIGNATURES = {
     "rt_kernel_matrix_bf16": [_P] * 5 + [_I] * 4 + [_F, _F, _I, _P],
     "rt_assign_fused_f32": [_P] * 9 + [_I] * 5 + [_F, _F, _I, _P],
     "rt_assign_fused_bf16": [_P] * 9 + [_I] * 5 + [_F, _F, _I, _P],
+    "rt_embed_assign_f32": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _F, _P],
+    "rt_embed_assign_bf16": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _F, _P],
+    "rt_sketch_assign_f32": [_P] * 8 + [_I] * 4 + [_P],
+    "rt_sketch_assign_bf16": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -20,33 +20,20 @@
 // sequential grid dimension with the f accumulator in VMEM scratch; Hopper
 // runs blocks in no order, so one CTA owns a block of BM = 128 rows and
 // loops over all landmark tiles itself:
-//   1. build the [128 x 128] Gram tile from D-chunks staged through shared
-//      memory (gram_tile.cuh: f32 FMA or bf16 mma.sync), apply the epilogue
-//      in registers, zero the columns past L;
-//   2. park the tile in shared memory (aliasing the staging buffers, which
-//      are idle by then) and contract it at once against H, 16 cluster
-//      columns at a time, into the f accumulator [128 x Cp] that stays in
-//      shared memory across the whole landmark loop;
+//   1. build each [128 x 128] Gram tile on chip, apply the epilogue in
+//      registers and zero the columns past L;
+//   2. contract it at once against H into the f accumulator [128 x Cp] that
+//      stays in shared memory across the whole landmark loop
+//      (row_block.cuh, shared with embed_assign.cu);
 //   3. after the last tile write f, then mind and the label of every row.
 // Shared memory: 66,048 B (tile) + 8,192 B (H chunk) + 512*Cp B (f), so
 // Cp <= 256 fits the 227 KB a block may use; the wrapper (ops.py) launches
 // once per 256 clusters beyond that. The TPU GPU body held the
 // whole landmark panel in one program; at L = 15000, D = 784 that cannot
 // fit, which is why the landmark loop streams tiles instead.
-#include "gram_tile.cuh"
+#include "row_block.cuh"
 
 namespace rt {
-
-constexpr int HCH = 16;        // cluster columns of H per contraction chunk
-constexpr int MAX_CP = 256;
-constexpr int KS_LD = BN + 1;  // row stride of the parked Gram tile
-
-// parked Gram tile; the staging buffers of either engine alias its start
-constexpr size_t TILE_BYTES = sizeof(float) * BM * KS_LD;
-
-static size_t assign_smem_bytes(int cp) {
-  return TILE_BYTES + sizeof(float) * BN * HCH + sizeof(float) * BM * cp;
-}
 
 template <class Tile>
 __global__ void __launch_bounds__(NTHREADS)
@@ -59,73 +46,15 @@ assign_fused_kernel(const typename Tile::T* __restrict__ X,
                     int* __restrict__ labels, float* __restrict__ mind,
                     float* __restrict__ F, int M, int L, int D, int Cp,
                     Epilogue epi) {
-  static_assert(sizeof(typename Tile::Smem) <= TILE_BYTES,
-                "staging buffers must fit in the parked-tile region");
   extern __shared__ __align__(16) unsigned char smem[];
-  auto& stage = *reinterpret_cast<typename Tile::Smem*>(smem);
-  float(*ks)[KS_LD] = reinterpret_cast<float(*)[KS_LD]>(smem);
-  float* hs = reinterpret_cast<float*>(smem + TILE_BYTES);     // [BN][HCH]
-  float* fs = hs + BN * HCH;                                    // [BM][Cp]
-
-  const int tid = threadIdx.x;
   const int r0 = blockIdx.x * BM;
-  for (int i = tid; i < BM * Cp; i += NTHREADS) fs[i] = 0.0f;
-
-  // contraction mapping: thread owns cluster column hc of the chunk and
-  // rows hr + 16j — always the same f elements, so no two threads race.
-  const int hc = tid & (HCH - 1), hr = tid >> 4;
-
-  for (int l0 = 0; l0 < L; l0 += BN) {
-    Tile tile;
-    tile.compute(X, Lm, M, L, D, r0, l0, stage);   // ends on a barrier
-#pragma unroll
-    for (int e = 0; e < NACC; ++e) {
-      int r, c;
-      Tile::coord(e, r, c);
-      const int gr = r0 + r, gl = l0 + c;
-      float v = 0.0f;   // landmarks past L contribute nothing
-      if (gr < M && gl < L) v = epi(tile.acc[e], __ldg(xsq + gr), __ldg(lsq + gl));
-      ks[r][c] = v;
-    }
-    __syncthreads();
-
-    for (int c0 = 0; c0 < Cp; c0 += HCH) {
-      for (int i = tid; i < BN * HCH; i += NTHREADS) {
-        const int l = i / HCH, j = i % HCH;
-        hs[i] = (l0 + l < L) ? __ldg(H + (size_t)(l0 + l) * Cp + c0 + j) : 0.0f;
-      }
-      __syncthreads();
-      float a[BM / 16];
-#pragma unroll
-      for (int j = 0; j < BM / 16; ++j) a[j] = 0.0f;
-#pragma unroll 8
-      for (int l = 0; l < BN; ++l) {
-        const float hv = hs[l * HCH + hc];
-#pragma unroll
-        for (int j = 0; j < BM / 16; ++j) a[j] = fmaf(ks[hr + 16 * j][l], hv, a[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < BM / 16; ++j) fs[(hr + 16 * j) * Cp + c0 + hc] += a[j];
-      __syncthreads();
-    }
-  }
-
-  for (int i = tid; i < BM * Cp; i += NTHREADS) {
+  const float* fs = row_block_contract<Tile>(X, Lm, xsq, lsq, H, M, L, D, Cp,
+                                             epi, r0, smem);
+  for (int i = threadIdx.x; i < BM * Cp; i += NTHREADS) {
     const int r = i / Cp;
     if (r0 + r < M) F[(size_t)r0 * Cp + i] = fs[i];
   }
-  if (tid < BM && r0 + tid < M) {
-    // first strict minimum wins: the lowest cluster index on ties
-    const float* fr = fs + tid * Cp;
-    float best = __ldg(g) - 2.0f * fr[0];
-    int arg = 0;
-    for (int c = 1; c < Cp; ++c) {
-      const float d = __ldg(g + c) - 2.0f * fr[c];
-      if (d < best) { best = d; arg = c; }
-    }
-    labels[r0 + tid] = arg;
-    mind[r0 + tid] = best;
-  }
+  row_block_argmin<BM>(fs, g, Cp, r0, M, labels, mind);
 }
 
 template <class Tile>
@@ -135,7 +64,7 @@ static int launch_assign(const void* x, const void* l, const void* xsq,
                          int D, int Cp, int kind, float gamma, float coef0,
                          int degree, void* stream) {
   if (Cp <= 0 || Cp > MAX_CP || Cp % HCH != 0) return (int)cudaErrorInvalidValue;
-  const size_t bytes = assign_smem_bytes(Cp);
+  const size_t bytes = row_block_smem_bytes(Cp);
   cudaError_t err = cudaFuncSetAttribute(
       assign_fused_kernel<Tile>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);

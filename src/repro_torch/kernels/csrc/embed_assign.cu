@@ -1,0 +1,114 @@
+// embed_assign: explicit feature map + contraction with the centroids +
+// argmin, with the embedded rows never in device memory.
+//
+// Replaces the TPU kernel embed_assign_pallas
+// (src/repro/kernels/embed_assign.py:111, bodies _kernel :48 and
+// _kernel_gpu :88). For rows x [n, D] and a map panel w [M, D] it computes
+//   E     = scale cos(x . w^T + b)        random Fourier features, or
+//         = epilogue(x . w^T, |x|^2, |w|^2)  Nystrom (w = landmarks; the
+//           whitening projection is folded into V by the wrapper)
+//   F     = E . V                         [n, Cp]  V = centroids^T or
+//                                                  proj . centroids^T
+//   score = min_j (csq_j - 2 F_ij)         [n]     = |z - c_j|^2 - |z|^2
+//   label = argmin_j (csq_j - 2 F_ij)      [n]     lowest index on ties
+// csq carries +1e30 on empty and padded clusters. aux [M] is the phase b
+// for RFF and the landmark squared norms for Nystrom; V's rows past M are
+// never read and E's columns past M are zeroed, since an RFF column of a
+// padded dimension would be scale cos(0) = scale, not 0.
+//
+// What bounds it on an H100: operations. At the Fig.5 setting (n = 60,000,
+// D = 784, M = 320, C = 10) it does 2*n*M*(D + C) = 30.5 GFLOP against
+// 188 MB of f32 rows: ~160 flops per byte, far above the f32 ridge of 20.
+//
+// What the design does about it: it is assign_fused with another epilogue
+// (RffEpilogue for RFF, a type of its own, or the Mercer Epilogue), V in
+// place of H and no F output. One CTA owns 128 rows and loops over the
+// embed tiles of w (row_block.cuh): each [128 x 128] tile of x . w^T comes
+// from gram_tile.cuh (f32 FMA or bf16 mma.sync), the RFF or Mercer
+// epilogue runs in registers, and the tile is contracted at once against
+// V into the on-chip F [128 x Cp]; the argmin runs after the last tile.
+#include "row_block.cuh"
+
+namespace rt {
+
+template <class Tile, class Epi>
+__global__ void __launch_bounds__(NTHREADS)
+embed_assign_kernel(const typename Tile::T* __restrict__ X,
+                    const typename Tile::T* __restrict__ W,
+                    const float* __restrict__ xsq,
+                    const float* __restrict__ aux,
+                    const float* __restrict__ V,
+                    const float* __restrict__ csq,
+                    int* __restrict__ labels, float* __restrict__ score,
+                    int n, int M, int D, int Cp, Epi epi) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int r0 = blockIdx.x * BM;
+  const float* fs = row_block_contract<Tile>(X, W, xsq, aux, V, n, M, D, Cp,
+                                             epi, r0, smem);
+  row_block_argmin<BM>(fs, csq, Cp, r0, n, labels, score);
+}
+
+template <class Tile, class Epi>
+static int launch_embed_assign(const void* x, const void* w, const void* xsq,
+                               const void* aux, const void* v,
+                               const void* csq, void* labels, void* score,
+                               int n, int M, int D, int Cp, Epi epi,
+                               void* stream) {
+  const size_t bytes = row_block_smem_bytes(Cp);
+  cudaError_t err = cudaFuncSetAttribute(
+      embed_assign_kernel<Tile, Epi>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  embed_assign_kernel<Tile, Epi><<<(n + BM - 1) / BM, NTHREADS, bytes,
+                                   (cudaStream_t)stream>>>(
+      static_cast<const typename Tile::T*>(x),
+      static_cast<const typename Tile::T*>(w),
+      static_cast<const float*>(xsq), static_cast<const float*>(aux),
+      static_cast<const float*>(v), static_cast<const float*>(csq),
+      static_cast<int*>(labels), static_cast<float*>(score), n, M, D, Cp,
+      epi);
+  return (int)cudaGetLastError();
+}
+
+// kind RFF takes the RffEpilogue, every other kind the Mercer Epilogue
+template <class Tile>
+static int embed_assign(const void* x, const void* w, const void* xsq,
+                        const void* aux, const void* v, const void* csq,
+                        void* labels, void* score, int n, int M, int D,
+                        int Cp, int kind, float gamma, float coef0,
+                        int degree, float scale, void* stream) {
+  if (Cp <= 0 || Cp > MAX_CP || Cp % HCH != 0) return (int)cudaErrorInvalidValue;
+  if (kind == RFF)
+    return launch_embed_assign<Tile>(x, w, xsq, aux, v, csq, labels, score,
+                                     n, M, D, Cp, RffEpilogue{scale}, stream);
+  return launch_embed_assign<Tile>(x, w, xsq, aux, v, csq, labels, score, n,
+                                   M, D, Cp,
+                                   Epilogue{kind, gamma, coef0, degree},
+                                   stream);
+}
+
+}  // namespace rt
+
+extern "C" int rt_embed_assign_f32(const void* x, const void* w,
+                                   const void* xsq, const void* aux,
+                                   const void* v, const void* csq,
+                                   void* labels, void* score, int n, int M,
+                                   int D, int Cp, int kind, float gamma,
+                                   float coef0, int degree, float scale,
+                                   void* stream) {
+  return rt::embed_assign<rt::TileF32>(x, w, xsq, aux, v, csq, labels, score,
+                                       n, M, D, Cp, kind, gamma, coef0,
+                                       degree, scale, stream);
+}
+
+extern "C" int rt_embed_assign_bf16(const void* x, const void* w,
+                                    const void* xsq, const void* aux,
+                                    const void* v, const void* csq,
+                                    void* labels, void* score, int n, int M,
+                                    int D, int Cp, int kind, float gamma,
+                                    float coef0, int degree, float scale,
+                                    void* stream) {
+  return rt::embed_assign<rt::TileBF16>(x, w, xsq, aux, v, csq, labels, score,
+                                        n, M, D, Cp, kind, gamma, coef0,
+                                        degree, scale, stream);
+}

@@ -1,7 +1,8 @@
-// Shared machinery of the port's two Gram kernels (kernel_matrix.cu,
-// assign.cu): one CTA of 256 threads computes a [128 x 128] tile of
+// Shared machinery of the port's Gram kernels (kernel_matrix.cu, assign.cu,
+// embed_assign.cu): one CTA of 256 threads computes a [128 x 128] tile of
 // X . Y^T, reducing over the feature dimension D in chunks staged through
-// shared memory, then applies the Mercer epilogue in registers.
+// shared memory, then applies the Mercer (or random Fourier) epilogue in
+// registers.
 //
 // Two tile engines behind one interface:
 //   TileF32   f32 operands, f32 FMA on the CUDA cores (no TF32). Each
@@ -33,7 +34,8 @@ constexpr int BN = 128;        // tile cols (rows of Y: landmarks)
 constexpr int NTHREADS = 256;
 constexpr int NACC = 64;       // accumulator elements per thread
 
-enum Kind { LINEAR = 0, POLYNOMIAL = 1, COSINE = 2, RBF = 3 };
+// RFF is no Mercer kind: it selects RffEpilogue (embed_assign.cu only)
+enum Kind { LINEAR = 0, POLYNOMIAL = 1, COSINE = 2, RBF = 3, RFF = 4 };
 
 struct Epilogue {
   int kind;
@@ -63,6 +65,20 @@ struct Epilogue {
       default:
         return acc;
     }
+  }
+};
+
+// The random Fourier feature map, scale * cos(x.w + b): ys carries the
+// column's phase b (the slot of |y|^2 for the Mercer kinds), xs is unused.
+// A type of its own, so the Mercer kernels compile no cosine. Full-range
+// cosf, never __cosf: |x.w + b| grows with gamma and |x|, and __cosf loses
+// its accuracy past a few multiples of pi.
+struct RffEpilogue {
+  float scale;   // sqrt(2/m)
+
+  __device__ __forceinline__ float operator()(float acc, float,
+                                              float ys) const {
+    return scale * cosf(acc + ys);
   }
 };
 

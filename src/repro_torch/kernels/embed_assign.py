@@ -1,0 +1,61 @@
+"""Launcher of the CUDA kernel ``embed_assign`` (``csrc/embed_assign.cu``).
+
+The port of ``embed_assign_pallas`` (``repro/kernels/embed_assign.py:111``):
+for each block of 128 rows, one CTA loops over the embed tiles of the map
+panel w, applies the random Fourier (``scale cos(x.w + b)``) or Mercer
+(Nystrom) epilogue on chip, contracts the tile at once against the value
+panel V into an on-chip F, and takes min_j (csq_j - 2 F_ij) and its argmin
+(lowest index on ties). The embedded rows never reach device memory.
+``ops.embed_assign`` is the wrapper callers use; this module only checks
+operands and launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+from .assign import CP_MULTIPLE, MAX_CP
+from .kernel_matrix import KINDS, VEC
+
+#: epilogue codes: the Mercer kinds of ``kernel_matrix`` plus ``rff``
+MAP_KINDS = {**KINDS, "rff": 4}
+_ENTRY = {torch.float32: "rt_embed_assign_f32",
+          torch.bfloat16: "rt_embed_assign_bf16"}
+
+
+def embed_assign_cuda(x: torch.Tensor, w: torch.Tensor, xsq: torch.Tensor,
+                      aux: torch.Tensor, v: torch.Tensor, csq: torch.Tensor, *,
+                      map_kind: str, gamma: float, coef0: float, degree: int,
+                      scale: float):
+    """x [n, D], w [M, D] in f32 or bf16 (D a multiple of ``VEC``); xsq [n],
+    aux [M] (phases for rff, landmark squared norms otherwise), v [M, Cp],
+    csq [Cp] f32, Cp a multiple of ``CP_MULTIPLE`` and at most ``MAX_CP``.
+    Returns (labels [n] int32, score [n] f32)."""
+    if map_kind not in MAP_KINDS:
+        raise ValueError(f"embed_assign has no epilogue for {map_kind!r}")
+    if x.dtype not in _ENTRY:
+        raise TypeError(f"embed_assign takes f32 or bf16 tiles, got {x.dtype}")
+    n, d = x.shape
+    m, cp = v.shape
+    if d % VEC[x.dtype]:
+        raise ValueError(f"D={d} must be a multiple of {VEC[x.dtype]}")
+    if cp % CP_MULTIPLE or not 0 < cp <= MAX_CP:
+        raise ValueError(
+            f"Cp={cp} must be a positive multiple of {CP_MULTIPLE} and at "
+            f"most {MAX_CP} (the on-chip F accumulator holds {MAX_CP} "
+            f"clusters; ops.embed_assign launches once per {MAX_CP})")
+    dev = x.device
+    build.check_operand(x, "x", dtype=x.dtype, shape=(n, d), device=dev)
+    build.check_operand(w, "w", dtype=x.dtype, shape=(m, d), device=dev)
+    build.check_operand(xsq, "xsq", dtype=torch.float32, shape=(n,), device=dev)
+    build.check_operand(aux, "aux", dtype=torch.float32, shape=(m,), device=dev)
+    build.check_operand(v, "v", dtype=torch.float32, shape=(m, cp), device=dev)
+    build.check_operand(csq, "csq", dtype=torch.float32, shape=(cp,), device=dev)
+    labels = torch.empty((n,), dtype=torch.int32, device=dev)
+    score = torch.empty((n,), dtype=torch.float32, device=dev)
+    build.launch(_ENTRY[x.dtype], x.data_ptr(), w.data_ptr(), xsq.data_ptr(),
+                 aux.data_ptr(), v.data_ptr(), csq.data_ptr(),
+                 labels.data_ptr(), score.data_ptr(), n, m, d, cp,
+                 MAP_KINDS[map_kind], float(gamma), float(coef0), int(degree),
+                 float(scale))
+    return labels, score

@@ -1,10 +1,13 @@
-"""Public wrappers of the two kernels: ``kernel_matrix``, ``assign_fused``
-and ``gram_matvec`` (the port of ``repro/kernels/ops.py:98-192``).
+"""Public wrappers of the kernels: ``kernel_matrix``, ``assign_fused`` and
+``gram_matvec`` (the port of ``repro/kernels/ops.py:98-192``), and
+``embed_assign`` / ``sketch_assign`` for the explicit feature maps (the port
+of ``repro/kernels/ops.py:195-333``).
 
 Each wrapper casts the tile operands to the policy's tile dtype ONCE at
 entry and computes the squared norms FROM the cast values, so kernel and
 plain version see identical inputs. ``assign_fused`` builds H as
-one-hot(labels)/counts and puts +1e30 on empty clusters.
+one-hot(labels)/counts and puts +1e30 on empty clusters; ``embed_assign``
+and ``sketch_assign`` put +1e30 on the centroid norms of empty clusters.
 
 Dispatch is by device, and only by device: a CPU tensor runs the plain
 PyTorch version (``kernels/ref.py``); a CUDA tensor launches the hand-written
@@ -14,9 +17,10 @@ index), pad each to the kernel's multiple of 16 (zero columns of H, +1e30
 in g; padded clusters can never be chosen), pad D with zero features up to the
 16-byte vector width when needed, and slice the results back. The kernels
 mask ragged rows and landmarks themselves, and zero the Gram columns of
-landmarks past L, so landmark padding never reaches f. Block shapes are the
-kernels' own (``csrc/gram_tile.cuh``), chosen for Hopper's shared memory and
-registers — nothing here is a TPU tiling.
+landmarks past L (and the embedding columns past M), so padding never
+reaches f. Block shapes are the kernels' own (``csrc/gram_tile.cuh``),
+chosen for Hopper's shared memory and registers — nothing here is a TPU
+tiling.
 
 ``LAUNCHES`` counts kernel launches per kernel (plain integers, reset by the
 caller), so a run on the card can show that its main path went through the
@@ -29,13 +33,16 @@ import torch.nn.functional as F
 
 from . import ref
 from .assign import CP_MULTIPLE, MAX_CP, assign_fused_cuda
+from .embed_assign import embed_assign_cuda
 from .kernel_matrix import VEC, kernel_matrix_cuda
 from .precision import resolve_precision
+from .sketch_assign import sketch_assign_cuda
 
 BIG = 1e30   # "+inf" of empty and padded clusters that survives min/argmin
 
 #: launches of each CUDA kernel
-LAUNCHES = {"kernel_matrix": 0, "assign_fused": 0}
+LAUNCHES = {"kernel_matrix": 0, "assign_fused": 0, "embed_assign": 0,
+            "sketch_assign": 0}
 
 
 def _round_up(v: int, m: int) -> int:
@@ -73,36 +80,46 @@ def kernel_matrix(x: torch.Tensor, y: torch.Tensor, *, kind: str = "rbf",
     return out
 
 
-def _launch_assign(x, landmarks, h, g, *, kind, gamma, coef0, degree):
-    """Launch once per chunk of at most ``MAX_CP`` clusters (the kernel's
-    on-chip f accumulator), each padded to the kernel's multiple (zero H
-    columns, +1e30 in g), and return (labels, mind, f [n, C]).
+def _over_cluster_chunks(panel: torch.Tensor, g: torch.Tensor, name: str,
+                         launch):
+    """Launch once per chunk of at most ``MAX_CP`` clusters (a kernel's
+    on-chip accumulator), each padded to the kernel's multiple (zero panel
+    columns, +1e30 in g), and return (labels, best, *outputs [n, C]).
 
-    Each f column, and so each g_j - 2 f_ij, comes out the same whatever
-    the chunking. The merge takes a later chunk only where it is strictly
-    smaller, so the lowest cluster index still wins ties. Past 256 clusters
-    every chunk rebuilds the Gram tiles."""
+    ``launch(panel_chunk, g_chunk)`` returns (labels, best, *outputs [n,
+    Cp]). Each column comes out the same whatever the chunking. The merge
+    takes a later chunk only where it is strictly smaller, so the lowest
+    cluster index still wins ties. Past 256 clusters every chunk redoes the
+    chunk-independent work (the Gram tiles, the embedding)."""
+    labels = best = None
+    outs = []
+    for c0 in range(0, panel.shape[1], MAX_CP):
+        pc, gc = panel[:, c0:c0 + MAX_CP], g[c0:c0 + MAX_CP]
+        c = pc.shape[1]
+        cp = _round_up(c, CP_MULTIPLE)
+        lab, mn, *rest = launch(F.pad(pc, (0, cp - c)).contiguous(),
+                                F.pad(gc, (0, cp - c), value=BIG).contiguous())
+        LAUNCHES[name] += 1
+        outs.append([r[:, :c] for r in rest])
+        if labels is None:
+            labels, best = lab, mn
+        else:
+            better = mn < best
+            labels = torch.where(better, lab + c0, labels)
+            best = torch.where(better, mn, best)
+    return (labels, best, *(o[0] if len(o) == 1 else torch.cat(o, dim=1)
+                            for o in zip(*outs)))
+
+
+def _launch_assign(x, landmarks, h, g, *, kind, gamma, coef0, degree):
+    """assign_fused on the card -> (labels, mind, f [n, C])."""
     xo, lo = _operand(x), _operand(landmarks)
     xsq, lsq = _sqnorms(x), _sqnorms(landmarks)
-    labels = mind = None
-    fs = []
-    for c0 in range(0, h.shape[1], MAX_CP):
-        hc, gc = h[:, c0:c0 + MAX_CP], g[c0:c0 + MAX_CP]
-        c = hc.shape[1]
-        cp = _round_up(c, CP_MULTIPLE)
-        lab, mn, f = assign_fused_cuda(
-            xo, lo, xsq, lsq, F.pad(hc, (0, cp - c)).contiguous(),
-            F.pad(gc, (0, cp - c), value=BIG).contiguous(), kind=kind,
-            gamma=gamma, coef0=coef0, degree=degree)
-        LAUNCHES["assign_fused"] += 1
-        fs.append(f[:, :c])
-        if labels is None:
-            labels, mind = lab, mn
-        else:
-            better = mn < mind
-            labels = torch.where(better, lab + c0, labels)
-            mind = torch.where(better, mn, mind)
-    return labels, mind, fs[0] if len(fs) == 1 else torch.cat(fs, dim=1)
+    return _over_cluster_chunks(
+        h, g, "assign_fused",
+        lambda hc, gc: assign_fused_cuda(xo, lo, xsq, lsq, hc, gc, kind=kind,
+                                         gamma=gamma, coef0=coef0,
+                                         degree=degree))
 
 
 def assign_panels(labels_l: torch.Tensor, counts: torch.Tensor,
@@ -153,3 +170,94 @@ def gram_matvec(x: torch.Tensor, landmarks: torch.Tensor, h: torch.Tensor, *,
     zeros = torch.zeros(h.shape[1], dtype=torch.float32, device=h.device)
     return _launch_assign(x, landmarks, h, zeros, kind=kind, gamma=gamma,
                           coef0=coef0, degree=degree)[2]
+
+
+# ---------------------------------------------------------------------------
+# explicit feature maps: fused embed + nearest-centroid assignment
+# ---------------------------------------------------------------------------
+
+
+def _masked_csq(centroids: torch.Tensor, counts: torch.Tensor | None):
+    """(centroids f32, |c_j|^2 with +1e30 where counts == 0)."""
+    c32 = centroids.to(torch.float32)
+    csq = torch.sum(c32 * c32, dim=1)
+    if counts is not None:
+        csq = torch.where(counts > 0, csq, torch.full_like(csq, BIG))
+    return c32, csq
+
+
+def embed_panels(fmap, centroids: torch.Tensor,
+                 counts: torch.Tensor | None = None):
+    """Lower an RFF or Nystrom map and its centroids to the kernel's panels:
+    (w [M, d], aux [M] or None, v [M, C] f32, csq [C] f32, statics). RFF
+    gives w = frequencies, aux = phases, v = centroids^T; Nystrom gives
+    w = landmarks, no aux (``embed_assign`` takes |w|^2 of the cast tiles)
+    and v = proj @ centroids^T, in f32."""
+    c32, csq = _masked_csq(centroids, counts)
+    if fmap.kind == "rff":
+        statics = dict(map_kind="rff", gamma=1.0, coef0=1.0, degree=1,
+                       scale=fmap.scale)
+        return fmap.w, fmap.b.to(torch.float32), c32.T, csq, statics
+    if fmap.kind == "nystrom":
+        spec = fmap.spec
+        statics = dict(map_kind=spec.name, gamma=spec.gamma, coef0=spec.coef0,
+                       degree=spec.degree, scale=1.0)
+        return (fmap.landmarks, None, fmap.proj.to(torch.float32) @ c32.T,
+                csq, statics)
+    raise TypeError(f"embed_panels takes an RFF or Nystrom map, got "
+                    f"{type(fmap).__name__}")
+
+
+def embed_assign(x: torch.Tensor, fmap, centroids: torch.Tensor,
+                 counts: torch.Tensor | None = None, *,
+                 precision: str = "f32"):
+    """Fused feature map + nearest-centroid assignment -> (labels [n] int32,
+    score [n] f32) with score = min_j |c_j|^2 - 2 phi(x_i).c_j and
+    labels its argmin; ``counts`` masks empty clusters (+1e30).
+
+    RFF and Nystrom maps go through the ``embed_assign`` kernel, the count
+    sketch through ``sketch_assign``. TensorSketch has no fused kernel (its
+    FFT convolution is no tile epilogue, in the reference either): it
+    materializes z = fmap(x) in f32 and assigns with plain PyTorch."""
+    if fmap.kind == "sketch":
+        return sketch_assign(x, fmap, centroids, counts, precision=precision)
+    if fmap.kind == "tensorsketch":
+        c32, csq = _masked_csq(centroids, counts)
+        score = csq[None, :] - 2.0 * (fmap(x) @ c32.T)
+        return (torch.argmin(score, dim=1).to(torch.int32),
+                torch.amin(score, dim=1))
+    w, aux, v, csq, statics = embed_panels(fmap, centroids, counts)
+    p = resolve_precision(precision)
+    x, w = p.cast_tiles(x), p.cast_tiles(w)
+    rff = statics["map_kind"] == "rff"
+    if not rff:
+        aux = _sqnorms(w)         # |w|^2 of the tile values, as the kernel's
+    if not x.is_cuda:
+        return ref.embed_assign_ref(x, w, v, csq, b=aux, precision=p.tile,
+                                    **statics)
+    xo, wo = _operand(x), _operand(w)
+    # the rff epilogue reads no row norms
+    xsq = torch.zeros(x.shape[0], device=x.device) if rff else _sqnorms(x)
+    return _over_cluster_chunks(
+        v, csq, "embed_assign",
+        lambda vc, cc: embed_assign_cuda(xo, wo, xsq, aux, vc, cc, **statics))
+
+
+def sketch_assign(x: torch.Tensor, fmap, centroids: torch.Tensor,
+                  counts: torch.Tensor | None = None, *,
+                  precision: str = "f32"):
+    """Fused count-sketch + nearest-centroid assignment (dense rows), the
+    contract of ``embed_assign``. The sign table is int8 under bf16."""
+    p = resolve_precision(precision)
+    c32, csq = _masked_csq(centroids, counts)
+    x = p.cast_tiles(x)
+    if not x.is_cuda:
+        return ref.sketch_assign_ref(x, fmap.h, fmap.sign.to(p.sign_dtype),
+                                     c32.T, csq, precision=p.tile)
+    order, offsets, sign = fmap.buckets        # sorted once per map
+    sign = sign.to(p.sign_dtype)
+    xo = x.contiguous()
+    xo = xo if xo.data_ptr() % 16 == 0 else xo.clone()
+    return _over_cluster_chunks(
+        c32.T, csq, "sketch_assign",
+        lambda vc, cc: sketch_assign_cuda(xo, order, offsets, sign, vc, cc))

@@ -8,7 +8,8 @@ low-precision accumulator cannot be configured.
 
 The plain versions (``kernels/ref.py``) round their operands to the tile
 dtype first and then run all math in f32 — the same contract as the kernels —
-so kernel-vs-plain comparisons stay tight at either precision.
+so kernel-vs-plain comparisons stay tight at either precision. The
+count-sketch sign table is stored as int8 under bf16 (``sign_dtype``).
 """
 from __future__ import annotations
 
@@ -44,6 +45,12 @@ class Precision:
     @property
     def tile_itemsize(self) -> int:
         return 4 if self.tile == "f32" else 2
+
+    @property
+    def sign_dtype(self) -> torch.dtype:
+        """Storage dtype of the count-sketch sign table: int8 under bf16
+        (±1 is exact in both), f32 at full precision."""
+        return torch.int8 if self.tile == "bf16" else torch.float32
 
     def cast_tiles(self, a: torch.Tensor) -> torch.Tensor:
         """Round a tile operand to the tile dtype, once (round to nearest

@@ -1,9 +1,13 @@
-"""Plain PyTorch versions of the two kernels (the correctness contract).
+"""Plain PyTorch versions of the kernels (the correctness contract).
 
-``kernel_matrix_ref`` and ``assign_fused_ref`` compute what the CUDA kernels
-compute, the straightforward way: round the tile operands to the tile dtype
-(bf16 round-to-nearest-even), lift them to f32, and do all math in f32,
-materializing the Gram block. The argmin takes the lowest index on ties.
+``kernel_matrix_ref``, ``assign_fused_ref``, ``embed_assign_ref`` and
+``sketch_assign_ref`` compute what the CUDA kernels compute, the
+straightforward way: round the tile operands to the tile dtype (bf16
+round-to-nearest-even), lift them to f32, and do all math in f32,
+materializing the Gram block or the embedding. The argmin takes the lowest
+index on ties. ``embed_score_ref`` and ``sketch_score_ref`` give the whole
+[n, C] score matrix that the two assignment versions reduce (for the
+near-tie checks); ``CALLS`` does not count them.
 
 The ``ops`` wrappers run these for tensors on the CPU. On the card they run
 only where ``chip_smoke.py`` holds a kernel against its plain version;
@@ -14,8 +18,11 @@ from __future__ import annotations
 
 import torch
 
+from .sketch_assign import sign_matrix
+
 #: calls of each plain version (plain integers; reset by the caller)
-CALLS = {"kernel_matrix_ref": 0, "assign_fused_ref": 0}
+CALLS = {"kernel_matrix_ref": 0, "assign_fused_ref": 0,
+         "embed_assign_ref": 0, "sketch_assign_ref": 0}
 
 
 def _tile(a: torch.Tensor, precision: str) -> torch.Tensor:
@@ -63,7 +70,57 @@ def assign_fused_ref(x: torch.Tensor, landmarks: torch.Tensor,
     k = kernel_matrix_ref(x, landmarks, kind=kind, gamma=gamma, coef0=coef0,
                           degree=degree, precision=precision)
     f = k @ h_norm.to(torch.float32)
-    dist = g[None, :].to(torch.float32) - 2.0 * f
+    return (*_reduce(g[None, :].to(torch.float32) - 2.0 * f), f)
+
+
+def _reduce(score: torch.Tensor):
     # torch.argmin returns the first (lowest) index among tied minima
-    return (torch.argmin(dist, dim=1).to(torch.int32),
-            torch.amin(dist, dim=1), f)
+    return torch.argmin(score, dim=1).to(torch.int32), torch.amin(score, dim=1)
+
+
+def embed_score_ref(x: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
+                    csq: torch.Tensor, *, map_kind: str = "rff",
+                    gamma: float = 1.0, coef0: float = 1.0, degree: int = 3,
+                    scale: float = 1.0, b: torch.Tensor | None = None,
+                    precision: str = "f32") -> torch.Tensor:
+    """The whole score matrix [n, C] that ``embed_assign_ref`` reduces:
+      e = scale cos(x w^T + b)  or  K(x, w)      the embedding phi_m(x)
+      score_ij = |c_j|^2 - 2 (e v)_ij."""
+    if map_kind == "rff":
+        a = _tile(x, precision) @ _tile(w, precision).T
+        e = scale * torch.cos(a + b.to(torch.float32)[None, :])
+    else:
+        e = kernel_matrix_ref(x, w, kind=map_kind, gamma=gamma, coef0=coef0,
+                              degree=degree, precision=precision)
+    return csq[None, :].to(torch.float32) - 2.0 * (e @ v.to(torch.float32))
+
+
+def embed_assign_ref(x: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
+                     csq: torch.Tensor, **kw):
+    """x: [n, d]; w: [M, d] RFF frequencies (map_kind "rff", phases ``b``
+    [M]) or Nystrom landmarks (map_kind a Mercer kind); v: [M, C] value
+    panel; csq: [C] centroid squared norms (+1e30 on masked clusters); the
+    keywords of ``embed_score_ref``. Returns (labels [n] int32, score [n]
+    f32): the min of ``embed_score_ref`` over j and its lowest argmin."""
+    CALLS["embed_assign_ref"] += 1
+    return _reduce(embed_score_ref(x, w, v, csq, **kw))
+
+
+def sketch_score_ref(x: torch.Tensor, h: torch.Tensor, sign: torch.Tensor,
+                     v: torch.Tensor, csq: torch.Tensor, *,
+                     precision: str = "f32") -> torch.Tensor:
+    """The whole score matrix [n, C] that ``sketch_assign_ref`` reduces:
+      z_j = sum_{i: h_i = j} sign_i x_i,  score = |c_j|^2 - 2 (z v)_ij."""
+    z = _tile(x, precision) @ sign_matrix(h, sign, v.shape[0])
+    return csq[None, :].to(torch.float32) - 2.0 * (z @ v.to(torch.float32))
+
+
+def sketch_assign_ref(x: torch.Tensor, h: torch.Tensor, sign: torch.Tensor,
+                      v: torch.Tensor, csq: torch.Tensor, *,
+                      precision: str = "f32"):
+    """x: [n, d]; h: [d] bucket ids (-1 lands nowhere); sign: [d] +-1 (f32,
+    or int8 under bf16); v: [m, C] value panel; csq: [C].
+    Returns (labels [n] int32, score [n] f32): the min of
+    ``sketch_score_ref`` over j and its lowest argmin."""
+    CALLS["sketch_assign_ref"] += 1
+    return _reduce(sketch_score_ref(x, h, sign, v, csq, precision=precision))

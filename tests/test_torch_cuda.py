@@ -6,18 +6,21 @@ there with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
-Tolerances: 1e-5 for ``kernel_matrix``, 1e-4 for f and mind, at f32 and
-bf16 alike: kernel and plain version get the same bf16-rounded operands and
-both sum in f32, so only the order of the sums differs. rbf runs at
-gamma = 1/D, where its values spread over (0, 1).
+Tolerances: 1e-5 for ``kernel_matrix``, 1e-4 for f, mind and the
+embedded scores, at f32 and bf16 alike: kernel and plain version get the
+same bf16-rounded operands and both sum in f32, so only the order of the
+sums differs. rbf runs at gamma = 1/D, where its values spread over (0, 1).
+Embedded labels must equal the plain version's outside its near-ties.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.approx import make_count_sketch, make_nystrom, make_rff
 from repro_torch.core import KernelSpec, MiniBatchConfig, fit_dataset
 from repro_torch.data.synthetic import toy2d
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.precision import resolve_precision
 
 pytestmark = pytest.mark.gpu
 
@@ -144,4 +147,155 @@ def test_small_fit_on_the_card_matches_the_cpu(cuda, engine):
     cpu = fit_dataset(x, cfg, device="cpu")
     assert gpu.state.medoids.is_cuda
     agree = (gpu.predict(x).cpu() == cpu.predict(x)).float().mean()
+    assert float(agree) >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# the explicit feature maps: embed_assign and sketch_assign
+# ---------------------------------------------------------------------------
+
+# (n, d, m, C): the reference's test shapes (tests/test_approx.py,
+# tests/test_sketch.py), m = 77 leaves a ragged embed tile, C = 300 takes
+# two launches
+EMBED_SHAPES = [(64, 16, 32, 5), (100, 30, 77, 13), (300, 40, 260, 130),
+                (300, 40, 77, 300)]
+SKETCH_SHAPES = [(64, 16, 32, 5), (100, 30, 77, 13), (300, 520, 260, 130),
+                 (300, 520, 77, 300)]
+NYSTROM_SPECS = {"rbf": dict(gamma=0.5), "linear": {},
+                 "polynomial": dict(gamma=0.05, coef0=1.0, degree=3),
+                 "cosine": {}}
+
+
+def _embed_map(kind, x, m, spec_kind="rbf"):
+    gen = torch.Generator().manual_seed(0)
+    if kind == "rff":
+        return make_rff(gen, x.shape[1], m, KernelSpec("rbf", gamma=0.5),
+                        device=x.device)
+    if kind == "sketch":
+        return make_count_sketch(gen, x.shape[1], m, KernelSpec("linear"),
+                                 device=x.device)
+    return make_nystrom(gen, x, m, KernelSpec(spec_kind,
+                                              **NYSTROM_SPECS[spec_kind]))
+
+
+def _plain_scores(x, fmap, centroids, counts, prec):
+    """The plain version's whole score matrix [n, C] (for near-ties) and its
+    (labels, score)."""
+    p = resolve_precision(prec)
+    xc = p.cast_tiles(x)
+    if fmap.kind == "sketch":
+        c32, csq = ops._masked_csq(centroids, counts)
+        args = (xc, fmap.h, fmap.sign.to(p.sign_dtype), c32.T, csq)
+        return (ref.sketch_score_ref(*args, precision=prec),
+                ref.sketch_assign_ref(*args, precision=prec))
+    w, aux, v, csq, statics = ops.embed_panels(fmap, centroids, counts)
+    args = (xc, p.cast_tiles(w), v, csq)
+    kw = dict(b=aux, precision=prec, **statics)
+    return ref.embed_score_ref(*args, **kw), ref.embed_assign_ref(*args, **kw)
+
+
+def _check_assignment(x, fmap, centroids, counts, prec, name):
+    before = ops.LAUNCHES[name]
+    lab, score = ops.embed_assign(x, fmap, centroids, counts, precision=prec)
+    assert ops.LAUNCHES[name] == before + -(-centroids.shape[0] // 256)
+    full, (want_lab, want_score) = _plain_scores(x, fmap, centroids, counts,
+                                                 prec)
+    torch.testing.assert_close(score, want_score, **_tol(1e-4))
+    # labels equal outside near-ties of the plain version
+    top2 = torch.topk(full, 2, dim=1, largest=False).values
+    near = top2[:, 1] - top2[:, 0] <= 1e-4 * torch.clamp(top2[:, 0].abs(),
+                                                         min=1.0)
+    assert not bool(((lab != want_lab) & ~near).any())
+    return lab, score
+
+
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("shape", EMBED_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kind", ["rff", "nystrom"])
+def test_embed_assign_matches_plain(cuda, kind, shape, prec):
+    n, d, m, c = shape
+    x, centroids = _rand((n, d), 11, cuda), _rand((c, m), 12, cuda)
+    counts = torch.ones(c, device=cuda)
+    _check_assignment(x, _embed_map(kind, x, m), centroids, counts, prec,
+                      "embed_assign")
+
+
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("spec_kind", list(NYSTROM_SPECS))
+def test_embed_assign_every_mercer_kind(cuda, spec_kind, prec):
+    x, centroids = _rand((300, 40), 13, cuda), _rand((13, 77), 14, cuda)
+    fmap = _embed_map("nystrom", x, 77, spec_kind)
+    _check_assignment(x, fmap, centroids, torch.ones(13, device=cuda), prec,
+                      "embed_assign")
+
+
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("shape", SKETCH_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_sketch_assign_matches_plain(cuda, shape, prec):
+    n, d, m, c = shape
+    x, centroids = _rand((n, d), 15, cuda), _rand((c, m), 16, cuda)
+    _check_assignment(x, _embed_map("sketch", x, m), centroids,
+                      torch.ones(c, device=cuda), prec, "sketch_assign")
+
+
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("kind", ["rff", "nystrom", "sketch"])
+def test_embedded_ties_and_empty_clusters(cuda, kind, prec):
+    """Two identical centroids tie bitwise (the lower index wins); an empty
+    cluster is never chosen, even with a zero centroid."""
+    x = _rand((300, 24), 17, cuda)
+    fmap = _embed_map(kind, x, 40)
+    a, b = _rand((2, 40), 18, cuda)
+    lab, _ = ops.embed_assign(x, fmap, torch.stack([a, b, a]),
+                              torch.ones(3, device=cuda), precision=prec)
+    assert int(lab.max()) <= 1
+    centroids = torch.stack([a, torch.zeros_like(a), b])
+    lab, _ = ops.embed_assign(x, fmap, centroids,
+                              torch.tensor([5.0, 0.0, 3.0], device=cuda),
+                              precision=prec)
+    assert not bool((lab == 1).any())
+
+
+@pytest.mark.parametrize("prec", PRECS)
+def test_sketch_assign_is_deterministic(cuda, prec):
+    x, centroids = _rand((3000, 256), 19, cuda), _rand((50, 128), 20, cuda)
+    fmap = _embed_map("sketch", x, 128)
+    one = ops.sketch_assign(x, fmap, centroids, precision=prec)
+    two = ops.sketch_assign(x, fmap, centroids, precision=prec)
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+
+
+def test_count_sketch_features_are_deterministic(cuda):
+    """The fit's dense sketch sums in a fixed order on the card too, and
+    matches the CPU's within rounding."""
+    x = _rand((3000, 256), 21, cuda)
+    fmap = _embed_map("sketch", x, 128)
+    z = fmap(x)
+    assert torch.equal(z, fmap(x))
+    torch.testing.assert_close(z.cpu(), x.cpu() @ fmap.matrix.cpu(),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("method", ["rff", "nystrom", "sketch",
+                                    "tensorsketch"])
+def test_small_embedded_fit_on_the_card_matches_the_cpu(cuda, method):
+    x, _ = toy2d(300)
+    spec = {"sketch": KernelSpec("linear"),
+            "tensorsketch": KernelSpec("polynomial", gamma=1.0, coef0=0.5,
+                                       degree=2)}.get(
+        method, KernelSpec("rbf", gamma=4.0))
+    cfg = MiniBatchConfig(n_clusters=4, n_batches=3, kernel=spec,
+                          method=method, embed_dim=32)
+    launches = dict(ops.LAUNCHES)
+    gpu = fit_dataset(x, cfg)
+    gpu_labels = gpu.predict(x)
+    cpu = fit_dataset(x, cfg, device="cpu")
+    assert gpu.state.centroids.is_cuda
+    kernel = {"sketch": "sketch_assign", "tensorsketch": None}.get(
+        method, "embed_assign")
+    if kernel is not None:
+        assert ops.LAUNCHES[kernel] > launches[kernel]
+    agree = (gpu_labels.cpu() == cpu.predict(x)).float().mean()
     assert float(agree) >= 0.99

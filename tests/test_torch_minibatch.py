@@ -325,8 +325,11 @@ def test_predict_labels_by_nearest_medoid():
 
 
 def test_config_rejects_what_this_slice_does_not_port():
-    with pytest.raises(NotImplementedError, match="feature-map"):
-        MiniBatchConfig(n_clusters=2, method="rff")
+    # the embedded methods are ported; CSR batches come with ingestion
+    cfg = MiniBatchConfig(n_clusters=2, method="sketch",
+                          kernel=KernelSpec("linear"))
+    with pytest.raises(NotImplementedError, match="ingestion"):
+        fit_dataset(torch.eye(4).to_sparse_csr(), cfg, device="cpu")
     with pytest.raises(ValueError):
         MiniBatchConfig(n_clusters=2, method="pca")
     with pytest.raises(NotImplementedError, match="later|feature-map"):
