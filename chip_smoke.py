@@ -18,7 +18,16 @@ Phases, in order; any failure exits non-zero without the final line:
      the port) and the bound. The main shapes: the paper's Tab.1 MNIST
      setting (15,000-row batches of 784 features, C = 10, rbf), the Fig.5
      embedded sweep at its largest m (60,000 x 784 -> 320, C = 10) and the
-     Tab.2 RCV1 sketch (188,000 x 256 -> 128, C = 50);
+     Tab.2 RCV1 sketch (188,000 x 256 -> 128, C = 50); then
+     ``ops.flash_attention`` against ``ref.flash_attention_ref`` at bf16 and
+     f32 at the attention shapes of OLMo-1B's prefill (B 1, H = KH = 16,
+     S 2048, dh 128, causal), gemma2-2b's global layers (H 8, KH 4, dh 256,
+     softcap 50) and qwen3-32b (H 64, KH 8, dh 128), timed, with
+     ``scaled_dot_product_attention`` as ``library_ms`` (a composite of
+     matmul, tanh, masked softmax and matmul for the softcap shape), and at
+     ragged and small shapes (S 1, 100, 1000; dh 16 and 64; non-causal
+     Sk 256); on the OLMo shape the plain output must differ from uniform
+     attention (the running mean of v) by more than 10x the bf16 limit;
   4. drive the exact mini-batch fit through ``fit_dataset``: run A (B=4,
      s=1, fused, f32), run B (B=4, s=0.2, fused and materialize, f32) and
      run C (as B fused, bf16); the embedded fits D-rff, D-nystrom (Fig.5,
@@ -28,18 +37,30 @@ Phases, in order; any failure exits non-zero without the final line:
      bitwise) and E-sketch-bf16 (Tab.2's count sketch on the dense 256-d
      RCV1 view, B=4, m=128, C=50, linear); the launch counters are zeroed
      before each run and read after it; then small fits on the card against
-     the same fits on the CPU;
+     the same fits on the CPU; then LM serving of OLMo-1B at full width
+     (16 layers, d_model 2048, vocab 50,304; bf16 weights from a
+     torch.Generator of seed 0) through ``get_model`` and ``ServingEngine``
+     (8 slots, max_len 4096, 32 greedy tokens, 16 requests of 256-2048
+     prompt tokens): run F with ``attn_impl="flash"`` (exactly 16 x 16 flash
+     launches, no plain attention and no ``scaled_dot_product_attention``
+     call), run F-chunked (the same weights and prompts in plain PyTorch;
+     first tokens must agree outside near-ties) and run F-f32 (one 2048-token
+     prompt, f32 weights and tiles, flash against chunked prefill logits);
   5. print the per-kernel JSON line and, last, the ok line.
 
 Tolerances (normwise: max |kernel - plain| <= tol * max(1, max |plain|)):
 kernel_matrix 1e-5, assign_fused f and mind 1e-4, embed_assign and
 sketch_assign scores 1e-4, at f32 and bf16 alike. Labels must be equal
 except where the plain version's top-2 gap is below 1e-4 * max(1, |min|) (a
-near-tie; counted and printed).
+near-tie; counted and printed). flash_attention: 2e-5 at f32 (the JAX
+test's limit) and 1e-2 at bf16, against the plain version on the same bf16
+inputs (the kernel rounds P to bf16 for P.V; both round the output to
+bf16).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -56,6 +77,26 @@ PEAK_BYTES = 3.35e12
 TOL = {"kernel_matrix": 1e-5, "assign_fused": 1e-4, "embed_assign": 1e-4,
        "sketch_assign": 1e-4}
 NEAR_TIE = 1e-4
+FLASH_TOL = {"f32": 2e-5, "bf16": 1e-2}
+# (config, B, H, KH, S, dh, softcap): the attention of three configs the
+# repo holds (src/repro/configs): OLMo-1B's prefill, gemma2-2b's global
+# layers, qwen3-32b; q is drawn with std 3 so the softmax is far from
+# uniform (scores of std 3)
+FLASH_MAIN = [("olmo-1b", 1, 16, 16, 2048, 128, None),
+              ("gemma2-2b", 1, 8, 4, 2048, 256, 50.0),
+              ("qwen3-32b", 1, 64, 8, 2048, 128, None)]
+# run F (OLMo-1B serving): ServeConfig and request stream
+SERVE = dict(max_batch=8, max_len=4096, eos_token=-1, max_new_tokens=32)
+N_REQUESTS, PROMPT_MIN, PROMPT_MAX = 16, 256, 2048
+# flash (bf16) against chunked (bf16) OLMo-1B. The two attention paths
+# round at other places (the kernel's bf16 P against an f32 softmax), and
+# sixteen bf16 layers carry the difference to the logits (std ~1 over
+# 50,304 tokens): the last-token prefill logits must agree within
+# SERVE_LOGIT_TOL normwise, and first tokens wherever run F's top-2 logit
+# gap is at least SERVE_NEAR_TIE (in logits). A wrong softmax or mask moves
+# the logits by O(1).
+SERVE_NEAR_TIE = 0.1
+SERVE_LOGIT_TOL = 0.05
 KINDS = ("rbf", "linear", "polynomial", "cosine")
 N_TRAIN, N_TEST = 60000, 10000   # paper Tab.1 (benchmarks/tab1_mnist.py)
 EMBED_DIM = 320                  # Fig.5's largest m (fig5_approx_sweep.py)
@@ -524,6 +565,112 @@ def embedded_checks(torch, mods, x_tr, y_tr, gamma, x_rcv, y_rcv):
     return recs
 
 
+def attention_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs the mask keeps (top-left causal)."""
+    if not causal:
+        return sq * sk
+    m = min(sq, sk)
+    return m * (m + 1) // 2 + (sq - m) * sk
+
+
+def check_flash(torch, mods, b, h, kh, sq, sk, dh, causal, cap, prec, *,
+                timed, tag="", q_std=1.0, seed=0):
+    """ops.flash_attention (the wrapper attention_block calls) against
+    ref.flash_attention_ref on the same tile-dtype inputs."""
+    ops, ref = mods["ops"], mods["ref"]
+    p = mods["precision"].resolve_precision(prec)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for shape in ((b, h, sq, dh), (b, kh, sk, dh), (b, kh, sk, dh)))
+    q, k, v = p.cast_tiles(q * q_std), p.cast_tiles(k), p.cast_tiles(v)
+
+    def kernel():
+        return ops.flash_attention(q, k, v, causal=causal, softcap=cap,
+                                   precision=prec)
+
+    def plain():
+        return ref.flash_attention_ref(q, k, v, causal=causal, softcap=cap)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err, rel = normwise(torch, got, want)
+    tol = FLASH_TOL[prec]
+    rec = {"kernel": "flash_attention", "shape": [b, h, kh, sq, sk, dh],
+           "causal": causal, "softcap": cap, "prec": prec, "tag": tag,
+           "max_abs_err": err, "rel_err": rel, "tol": tol}
+    check(got.dtype == p.tile_dtype and bool(torch.isfinite(got).all()),
+          f"flash_attention {tag} {prec}: wrong dtype or not finite")
+    if timed:
+        groups = h // kh
+        F = torch.nn.functional
+        if cap is None:
+            rec["library"] = "scaled_dot_product_attention"
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=groups > 1)
+        else:
+            # SDPA applies no softcap: matmul, tanh, masked softmax, matmul
+            rec["library"] = "matmul + tanh + masked softmax + matmul"
+            mask = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
+            if causal:
+                mask = torch.tril(mask)
+
+            def library():
+                kx = k.repeat_interleave(groups, dim=1)
+                vx = v.repeat_interleave(groups, dim=1)
+                s = (q @ kx.transpose(-1, -2)).float() * dh ** -0.5
+                s = (cap * torch.tanh(s / cap)).masked_fill(~mask, -1e30)
+                return torch.softmax(s, dim=-1).to(q.dtype) @ vx
+        rec["ms"] = time_ms(torch, kernel, 10)
+        rec["plain_ms"] = time_ms(torch, plain, 3)
+        rec["library_ms"] = time_ms(torch, library, 10)
+        pairs = attention_pairs(sq, sk, causal)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            [(prec, 4.0 * b * h * dh * pairs)],
+            (2 * b * h * sq * dh + 2 * b * kh * sk * dh) * p.tile_itemsize)
+    print("check", json.dumps(rec))
+    check(rel <= tol, f"flash_attention {tag} {prec} {rec['shape']}: rel err "
+                      f"{rel:.3g} > {tol}")
+    return rec, q, v, want
+
+
+def flash_checks(torch, mods):
+    """The three configs' attention shapes at bf16 and f32, timed, and the
+    uniform-attention guard on OLMo's; then ragged and small shapes."""
+    recs = []
+    for prec in ("bf16", "f32"):
+        for i, (name, b, h, kh, s, dh, cap) in enumerate(FLASH_MAIN):
+            rec, q, v, want = check_flash(torch, mods, b, h, kh, s, s, dh,
+                                          True, cap, prec, timed=True,
+                                          tag=name, q_std=3.0, seed=i)
+            recs.append(rec)
+            if name == "olmo-1b":
+                # uniform causal attention: row i is the mean of v[:i + 1]
+                n = torch.arange(1, s + 1, device="cuda", dtype=torch.float32)
+                uniform = torch.cumsum(v.float(), dim=2) / n[:, None]
+                _, gap = normwise(torch, uniform, want)
+                print(f"uniform-attention guard ({prec}): plain output vs "
+                      f"running mean of v, normwise {gap!r}")
+                check(gap > 10 * FLASH_TOL["bf16"],
+                      f"the OLMo inputs cannot catch a wrong softmax: "
+                      f"{gap} <= {10 * FLASH_TOL['bf16']}")
+            del q, v, want
+        # (B, H, KH, Sq, Sk, dh, causal, softcap)
+        for case in [(1, 16, 16, 1, 1, 128, True, None),
+                     (1, 16, 16, 100, 100, 128, True, None),
+                     (1, 16, 16, 1000, 1000, 128, True, None),
+                     (2, 4, 2, 100, 100, 16, True, None),
+                     (2, 4, 4, 1000, 1000, 16, True, None),
+                     (1, 8, 2, 1000, 1000, 64, True, 50.0),
+                     (1, 4, 4, 1, 1, 64, True, None),
+                     (1, 4, 2, 100, 256, 64, False, None),
+                     (1, 8, 8, 256, 256, 16, False, 30.0)]:
+            recs.append(check_flash(torch, mods, *case, prec, timed=False,
+                                    tag="small", seed=7)[0])
+    return recs
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -625,10 +772,175 @@ def small_reference_fit(torch, mods):
               f"toy2d {what} fit on the card strays from the CPU fit")
 
 
+def olmo_prompts(np, vocab: int, n: int, lo: int, hi: int, seed: int):
+    """n prompts of lengths uniform in [lo, hi], tokens uniform in
+    [1, vocab), from np.random.default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi + 1, size=n)
+    return [rng.integers(1, vocab, size=int(m)) for m in lens]
+
+
+def top2_gap(torch, logits):
+    top = torch.topk(logits, 2, dim=-1).values
+    return float(top[..., 0] - top[..., 1])
+
+
+def run_serving(torch, mods, name, api, params, prompts):
+    """Serve ``prompts`` through ServingEngine as a user would (SERVE
+    settings, greedy); prefill is timed on the host clock around each call,
+    ending in a synchronize. Counters are zeroed just before the run and
+    read just after; ``scaled_dot_product_attention`` is counted too.
+    Returns (record, {uid: tokens}, [first-token logits per request])."""
+    ops, ref, serving = mods["ops"], mods["ref"], mods["serving"]
+    F = torch.nn.functional
+    firsts, clock = [], {"prefill_s": 0.0, "prefill_tokens": 0}
+
+    def prefill(params, batch, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, logits = api.prefill(params, batch, **kw)
+        torch.cuda.synchronize()
+        clock["prefill_s"] += time.perf_counter() - t0
+        clock["prefill_tokens"] += batch["tokens"].shape[1]
+        firsts.append(logits[0].cpu())
+        return cache, logits
+
+    eng = serving.ServingEngine(dataclasses.replace(api, prefill=prefill),
+                                params, serving.ServeConfig(**SERVE))
+    for prompt in prompts:
+        eng.submit(prompt)
+    sdpa, sdpa_calls = F.scaled_dot_product_attention, [0]
+
+    def counted_sdpa(*a, **kw):
+        sdpa_calls[0] += 1
+        return sdpa(*a, **kw)
+
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    for k in ref.CALLS:
+        ref.CALLS[k] = 0
+    F.scaled_dot_product_attention = counted_sdpa
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        results = eng.run()
+        torch.cuda.synchronize()
+    finally:
+        F.scaled_dot_product_attention = sdpa
+    wall = time.perf_counter() - t0
+    launches, calls = dict(ops.LAUNCHES), dict(ref.CALLS)
+    generated = sum(len(v) for v in results.values())
+    decode_tokens = generated - len(prompts)      # first tokens: prefill
+    decode_s = wall - clock["prefill_s"]
+    rec = {"run": name, "attn_impl": api.cfg.attn_impl,
+           "dtype": str(params["embed"].dtype), "requests": len(prompts),
+           "wall_s": wall, "prefill_tokens": clock["prefill_tokens"],
+           "prefill_s": clock["prefill_s"],
+           "prefill_tok_per_s": clock["prefill_tokens"] / clock["prefill_s"],
+           "decode_ticks": eng.ticks, "decode_tokens": decode_tokens,
+           "decode_s": decode_s, "decode_tok_per_s": decode_tokens / decode_s,
+           "peak_alloc_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "plain_calls": calls,
+           "sdpa_calls": sdpa_calls[0]}
+    print("run", json.dumps(rec))
+    check(sorted(results) == list(range(1, len(prompts) + 1))
+          and all(len(v) == SERVE["max_new_tokens"] for v in results.values())
+          and all(0 <= t < api.cfg.vocab_size
+                  for v in results.values() for t in v),
+          f"run {name}: missing requests, short outputs or bad token ids")
+    check(all(bool(torch.isfinite(f).all()) for f in firsts),
+          f"run {name}: prefill logits not finite")
+    check(all(v == 0 for v in calls.values()),
+          f"run {name}: a plain kernel version ran on the card: {calls}")
+    check(sdpa_calls[0] == 0,
+          f"run {name}: scaled_dot_product_attention was called")
+    return rec, results, firsts
+
+
+def serving_runs(torch, np, mods):
+    """Runs F (bf16, flash), F-chunked and F-f32 on OLMo-1B at full width."""
+    configs, models = mods["configs"], mods["models"]
+    base = configs.get_arch("olmo-1b")
+    flash_cfg = dataclasses.replace(base, attn_impl="flash")
+    api_f = models.get_model(flash_cfg)
+    api_c = models.get_model(dataclasses.replace(base, attn_impl="chunked"))
+    t0 = time.perf_counter()
+    params = api_f.init(0, torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for n, t in params.items() if n != "layers") + \
+        sum(t.numel() for layer in params["layers"] for t in layer.values())
+    print(f"OLMo-1B: {n_params} parameters, bf16, drawn on the card from "
+          f"seed 0 in {time.perf_counter() - t0:.2f} s")
+    prompts = olmo_prompts(np, base.vocab_size, N_REQUESTS, PROMPT_MIN,
+                           PROMPT_MAX, seed=0)
+    rec_f, out_f, first_f = run_serving(torch, mods, "F", api_f, params,
+                                        prompts)
+    want = N_REQUESTS * base.n_layers
+    check(rec_f["launches"]["flash_attention"] == want,
+          f"run F: {rec_f['launches']['flash_attention']} flash launches, "
+          f"expected {want} (16 requests x 16 layers)")
+    rec_c, out_c, first_c = run_serving(torch, mods, "F-chunked", api_c,
+                                        params, prompts)
+    check(rec_c["launches"]["flash_attention"] == 0,
+          "run F-chunked launched the flash kernel")
+    del params
+
+    # first tokens: equal outside run F's near-ties
+    near, bad, diff, agree = 0, [], 0.0, []
+    for i, (lf, lc) in enumerate(zip(first_f, first_c)):
+        _, rel = normwise(torch, lf, lc)
+        diff = max(diff, rel)
+        tied = top2_gap(torch, lf) < SERVE_NEAR_TIE
+        near += tied
+        if out_f[i + 1][0] != out_c[i + 1][0] and not tied:
+            bad.append(i + 1)
+        a, b = out_f[i + 1], out_c[i + 1]
+        same = next((j for j in range(len(a)) if a[j] != b[j]), len(a))
+        agree.append(same / len(a))
+    firsts_equal = sum(out_f[u][0] == out_c[u][0] for u in out_f)
+    print(f"F vs F-chunked: first tokens equal {firsts_equal}/{N_REQUESTS} "
+          f"(near-ties, top-2 gap < {SERVE_NEAR_TIE}: {near}); last-token "
+          f"prefill logits normwise diff {diff!r} (limit {SERVE_LOGIT_TOL}); "
+          f"share of tokens equal up to the first divergence "
+          f"{float(np.mean(agree))!r}")
+    check(not bad, f"F vs F-chunked: first tokens differ outside near-ties "
+                   f"for requests {bad}")
+    check(diff <= SERVE_LOGIT_TOL, f"F vs F-chunked: prefill logits differ "
+                                   f"by {diff} > {SERVE_LOGIT_TOL}")
+
+    # F-f32: one 2048-token prompt, f32 weights and tiles
+    params = api_f.init(0, torch.float32)
+    prompt = olmo_prompts(np, base.vocab_size, 1, PROMPT_MAX, PROMPT_MAX,
+                          seed=1)[0]
+    tokens = torch.as_tensor(prompt[None], dtype=torch.long, device="cuda")
+    mods["ops"].LAUNCHES["flash_attention"] = 0
+    logits = {}
+    for api in (api_f, api_c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, logits[api.cfg.attn_impl] = api.prefill(
+            params, {"tokens": tokens}, max_len=PROMPT_MAX)
+        torch.cuda.synchronize()
+        print(f"F-f32 {api.cfg.attn_impl} prefill of {PROMPT_MAX} tokens: "
+              f"{time.perf_counter() - t0:.4f} s")
+    launches = mods["ops"].LAUNCHES["flash_attention"]
+    _, rel = normwise(torch, logits["flash"], logits["chunked"])
+    rec = {"run": "F-f32", "prompt": PROMPT_MAX, "flash_launches": launches,
+           "logits_rel_diff": rel, "tol": 1e-4,
+           "first_token": [int(torch.argmax(v)) for v in logits.values()]}
+    print("run", json.dumps(rec))
+    check(launches == base.n_layers, f"run F-f32: {launches} flash launches")
+    check(rel <= 1e-4, f"run F-f32: flash and chunked prefill logits differ "
+                       f"by {rel} > 1e-4")
+    return rec_f["launches"]["flash_attention"] + launches
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
 
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -643,7 +955,8 @@ def main(argv=None) -> int:
             in [("ops", "kernels.ops"), ("ref", "kernels.ref"),
                 ("build", "kernels.build"), ("precision", "kernels.precision"),
                 ("core", "core"), ("synthetic", "data.synthetic"),
-                ("approx", "approx")]}
+                ("approx", "approx"), ("configs", "configs"),
+                ("models", "models"), ("serving", "serving")]}
     core = mods["core"]
 
     # -- phase 1: the card --------------------------------------------------
@@ -690,6 +1003,8 @@ def main(argv=None) -> int:
         torch.as_tensor(y_tr, device="cuda"), gamma,
         torch.as_tensor(xr_tr, device="cuda"),
         torch.as_tensor(yr_tr, device="cuda"))
+    recs += flash_checks(torch, mods)
+    torch.cuda.empty_cache()
     print(f"kernel checks: {len(recs)} passed ({time.perf_counter() - t0:.1f} s)")
 
     # -- phase 4: the main path ---------------------------------------------
@@ -770,6 +1085,13 @@ def main(argv=None) -> int:
     check(all(v > 0 for v in totals.values()),
           f"a kernel never launched on the main path: {totals}")
     small_reference_fit(torch, mods)
+    del fits, runs
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    totals["flash_attention"] = serving_runs(torch, np, mods)
+    print(f"serving runs: {time.perf_counter() - t0:.1f} s")
+    check(all(v > 0 for v in totals.values()),
+          f"a kernel never launched on the main path: {totals}")
 
     # -- phase 5: result lines ----------------------------------------------
     first = {}
@@ -785,7 +1107,10 @@ def main(argv=None) -> int:
            "embed_assign": ("src/repro_torch/kernels/csrc/embed_assign.cu",
                             "src/repro/kernels/embed_assign.py:111"),
            "sketch_assign": ("src/repro_torch/kernels/csrc/sketch_assign.cu",
-                             "src/repro/kernels/sketch_assign.py:111")}
+                             "src/repro/kernels/sketch_assign.py:111"),
+           "flash_attention": (
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:85")}
     kernels = [{"name": k, "route": "cuda", "source": src[k][0],
                 "replaces": src[k][1], "launches": totals[k],
                 "max_abs_err": errs[k], "ms": first[k]["ms"],
@@ -794,7 +1119,7 @@ def main(argv=None) -> int:
                 "bound_by": first[k]["bound_by"],
                 "library_ms": first[k]["library_ms"]}
                for k in ("assign_fused", "kernel_matrix", "embed_assign",
-                         "sketch_assign")]
+                         "sketch_assign", "flash_attention")]
     print(f"total inner iterations {iters}; card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

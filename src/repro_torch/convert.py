@@ -8,6 +8,8 @@ other way. ``embed_state_from_numpy`` / ``embed_state_to_numpy`` do the same
 for the embedded methods' ``EmbedState``, and ``feature_map_from_numpy``
 rebuilds a sampled feature map from its tables, so a map drawn by the JAX
 package can be used here: randomness does not cross the port.
+``lm_params_from_numpy`` turns the LM zoo's ``init_lm`` tree into the
+port's parameters.
 """
 from __future__ import annotations
 
@@ -88,3 +90,31 @@ def embed_state_to_numpy(state: EmbedState) -> dict:
     return {"centroids": state.centroids.cpu().numpy(),
             "cardinalities": state.cardinalities.cpu().numpy(),
             "batches_done": np.int32(state.batches_done)}
+
+
+#: LM weights drawn in the model dtype; every other leaf (the norm weights)
+#: is f32 whatever the dtype, as in the reference's ``init_lm``
+_LM_DENSE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "embed",
+             "lm_head")
+
+
+def lm_params_from_numpy(params: dict, cfg, device,
+                         dtype: torch.dtype = torch.float32) -> dict:
+    """The JAX package's ``init_lm`` tree (leaves converted to numpy; the
+    layers stacked [n_groups, period, ...]) -> the port's parameters: the
+    same names in the same [in, out] orientation, ``layers`` unstacked to a
+    list in which layer i is slot i % period of group i // period. Dense
+    weights go to ``dtype``, norm weights stay f32."""
+    def leaf(name, a):
+        t = torch.as_tensor(np.array(a, np.float32), device=device)
+        return t.to(dtype) if name in _LM_DENSE else t
+
+    period = max(cfg.local_global_period, 1)
+    stacked = params["layers"]
+    layers = [{name: leaf(name, a[i // period, i % period])
+               for name, a in stacked.items()}
+              for i in range(cfg.n_layers)]
+    out = {name: leaf(name, a) for name, a in params.items()
+           if name != "layers"}
+    out["layers"] = layers
+    return out

@@ -41,6 +41,8 @@ SIGNATURES = {
     "rt_embed_assign_bf16": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _F, _P],
     "rt_sketch_assign_f32": [_P] * 8 + [_I] * 4 + [_P],
     "rt_sketch_assign_bf16": [_P] * 8 + [_I] * 4 + [_P],
+    "rt_flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _F, _P],
+    "rt_flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F, _F, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

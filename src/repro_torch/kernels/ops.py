@@ -1,7 +1,8 @@
 """Public wrappers of the kernels: ``kernel_matrix``, ``assign_fused`` and
 ``gram_matvec`` (the port of ``repro/kernels/ops.py:98-192``), and
 ``embed_assign`` / ``sketch_assign`` for the explicit feature maps (the port
-of ``repro/kernels/ops.py:195-333``).
+of ``repro/kernels/ops.py:195-333``), and ``flash_attention`` for the LM
+zoo's prefill (the port of ``repro/kernels/ops.py:390-417``).
 
 Each wrapper casts the tile operands to the policy's tile dtype ONCE at
 entry and computes the squared norms FROM the cast values, so kernel and
@@ -34,6 +35,7 @@ import torch.nn.functional as F
 from . import ref
 from .assign import CP_MULTIPLE, MAX_CP, assign_fused_cuda
 from .embed_assign import embed_assign_cuda
+from .flash_attention import flash_attention_cuda
 from .kernel_matrix import VEC, kernel_matrix_cuda
 from .precision import resolve_precision
 from .sketch_assign import sketch_assign_cuda
@@ -42,7 +44,7 @@ BIG = 1e30   # "+inf" of empty and padded clusters that survives min/argmin
 
 #: launches of each CUDA kernel
 LAUNCHES = {"kernel_matrix": 0, "assign_fused": 0, "embed_assign": 0,
-            "sketch_assign": 0}
+            "sketch_assign": 0, "flash_attention": 0}
 
 
 def _round_up(v: int, m: int) -> int:
@@ -53,14 +55,19 @@ def _sqnorms(a: torch.Tensor) -> torch.Tensor:
     return torch.sum(a.to(torch.float32) ** 2, dim=1)
 
 
+def _aligned(a: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned (a copy only where needed)."""
+    a = a.contiguous()
+    return a if a.data_ptr() % 16 == 0 else a.clone()
+
+
 def _operand(a: torch.Tensor) -> torch.Tensor:
     """Contiguous, 16-byte aligned, D zero-padded to the vector width."""
     d = a.shape[1]
     dp = _round_up(d, VEC[a.dtype])
     if dp != d:
         a = F.pad(a, (0, dp - d))
-    a = a.contiguous()
-    return a if a.data_ptr() % 16 == 0 else a.clone()
+    return _aligned(a)
 
 
 def kernel_matrix(x: torch.Tensor, y: torch.Tensor, *, kind: str = "rbf",
@@ -256,8 +263,37 @@ def sketch_assign(x: torch.Tensor, fmap, centroids: torch.Tensor,
                                      c32.T, csq, precision=p.tile)
     order, offsets, sign = fmap.buckets        # sorted once per map
     sign = sign.to(p.sign_dtype)
-    xo = x.contiguous()
-    xo = xo if xo.data_ptr() % 16 == 0 else xo.clone()
+    xo = _aligned(x)
     return _over_cluster_chunks(
         c32.T, csq, "sketch_assign",
         lambda vc, cc: sketch_assign_cuda(xo, order, offsets, sign, vc, cc))
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, softcap: float | None = None,
+                    precision: str = "f32") -> torch.Tensor:
+    """Flash attention. q: [B, H, Sq, dh]; k/v: [B, KH, Sk, dh] (GQA). The
+    softmax state and both accumulators are f32 whatever the tiles are;
+    bf16 ``precision`` rounds q, k and v to bf16 once, f32 keeps their dtype
+    (as the reference does). Output in the tile dtype (q's after the cast).
+
+    Non-causal attention needs Sk % 128 == 0, the reference's condition
+    (its kernel pads keys, and only the causal mask removes them). On the
+    card the kernel masks ragged Sq and Sk itself; it takes a head dim
+    that is a multiple of 16 up to 256 and raises on any other."""
+    p = resolve_precision(precision)
+    if p.tile == "bf16":
+        q, k, v = p.cast_tiles(q), p.cast_tiles(k), p.cast_tiles(v)
+    if not causal and k.shape[2] % 128:
+        raise ValueError("non-causal flash_attention requires Sk % 128 == 0")
+    if not q.is_cuda:
+        return ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap)
+    out = flash_attention_cuda(_aligned(q), _aligned(k), _aligned(v),
+                               causal=causal, softcap=softcap)
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,13 +1,15 @@
 """Plain PyTorch versions of the kernels (the correctness contract).
 
-``kernel_matrix_ref``, ``assign_fused_ref``, ``embed_assign_ref`` and
-``sketch_assign_ref`` compute what the CUDA kernels compute, the
-straightforward way: round the tile operands to the tile dtype (bf16
-round-to-nearest-even), lift them to f32, and do all math in f32,
-materializing the Gram block or the embedding. The argmin takes the lowest
-index on ties. ``embed_score_ref`` and ``sketch_score_ref`` give the whole
-[n, C] score matrix that the two assignment versions reduce (for the
-near-tie checks); ``CALLS`` does not count them.
+``kernel_matrix_ref``, ``assign_fused_ref``, ``embed_assign_ref``,
+``sketch_assign_ref`` and ``flash_attention_ref`` compute what the CUDA
+kernels compute, the straightforward way: round the tile operands to the
+tile dtype (bf16 round-to-nearest-even), lift them to f32, and do all math
+in f32, materializing the Gram block, the embedding or the score matrix
+(``flash_attention_ref`` takes operands already in the tile dtype, as the
+wrapper casts them). The argmin takes the lowest index on ties.
+``embed_score_ref`` and ``sketch_score_ref`` give the whole [n, C] score
+matrix that the two assignment versions reduce (for the near-tie checks);
+``CALLS`` does not count them.
 
 The ``ops`` wrappers run these for tensors on the CPU. On the card they run
 only where ``chip_smoke.py`` holds a kernel against its plain version;
@@ -22,7 +24,8 @@ from .sketch_assign import sign_matrix
 
 #: calls of each plain version (plain integers; reset by the caller)
 CALLS = {"kernel_matrix_ref": 0, "assign_fused_ref": 0,
-         "embed_assign_ref": 0, "sketch_assign_ref": 0}
+         "embed_assign_ref": 0, "sketch_assign_ref": 0,
+         "flash_attention_ref": 0}
 
 
 def _tile(a: torch.Tensor, precision: str) -> torch.Tensor:
@@ -124,3 +127,27 @@ def sketch_assign_ref(x: torch.Tensor, h: torch.Tensor, sign: torch.Tensor,
     ``sketch_score_ref`` over j and its lowest argmin."""
     CALLS["sketch_assign_ref"] += 1
     return _reduce(sketch_score_ref(x, h, sign, v, csq, precision=precision))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        softcap: float | None = None) -> torch.Tensor:
+    """Attention, the port of ``repro/kernels/ref.py:143``. q: [B, H, Sq,
+    dh]; k/v: [B, KH, Sk, dh] (GQA: head h reads kv head h // (H / KH)).
+    f32 math, softcap as cap tanh(s / cap), a top-left causal mask with
+    -1e30 on masked scores; returns q's dtype."""
+    CALLS["flash_attention_ref"] += 1
+    sq, dh = q.shape[2], q.shape[3]
+    sk = k.shape[2]
+    groups = q.shape[1] // k.shape[1]
+    kx = torch.repeat_interleave(k, groups, dim=1).to(torch.float32)
+    vx = torch.repeat_interleave(v, groups, dim=1).to(torch.float32)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kx) * dh ** -0.5
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    if causal:
+        mask = (torch.arange(sq, device=q.device)[:, None]
+                >= torch.arange(sk, device=q.device)[None, :])
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vx).to(q.dtype)

@@ -1,0 +1,199 @@
+"""Decoder-only LM, the dense family: qwen3 / internlm2 / gemma2 / olmo /
+chameleon (the port of ``repro/models/transformer.py``).
+
+The reference stacks layers [n_groups, period, ...] and scans over groups
+(period 2 for gemma2's local/global alternation, else 1). The port keeps
+``params["layers"]`` as a list of per-layer dicts, layer i being slot
+i % period of group i // period, and loops over it. The KV cache keeps the
+reference's layout: ``{"k{j}", "v{j}"}`` for each slot j of the period,
+each [n_groups, B, S, KH, dh]. ``lm_loss`` waits for the training slice.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from .attention import attention_block, decode_attention, init_attention
+from .common import ParamBuilder, rms_norm
+from .mlp import init_mlp, mlp_block
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
+    """Attention kind per slot within one pattern group."""
+    if cfg.local_global_period:
+        # gemma2: [local, global] alternating.
+        return tuple("local" if j % 2 == 0 else "global"
+                     for j in range(cfg.local_global_period))
+    return ("local" if cfg.window else "global",)
+
+
+def _init_block(generator, cfg: ModelConfig, dtype, device) -> dict:
+    b = ParamBuilder(generator, dtype, device)
+    init_attention(b, cfg)
+    init_mlp(b, cfg.d_model, cfg.d_ff)
+    if cfg.parametric_norm:
+        norm_init = b.zeros if cfg.gemma_plus_one else b.ones
+        names = ["ln1", "ln2"]
+        if cfg.sandwich_norm:
+            names += ["post_ln1", "post_ln2"]
+        for name in names:
+            norm_init(name, (cfg.d_model,))
+    return b.params
+
+
+def init_lm(cfg: ModelConfig, generator: torch.Generator,
+            dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+    """Parameters drawn from ``generator`` with the reference's scales
+    (``init_lm``): dense weights normal x fan_in^-1/2 in ``dtype``, the
+    embedding x d_model^-1/2, norm weights f32 (ones, or zeros for the
+    (1 + w) parameterization)."""
+    period = max(cfg.local_global_period, 1)
+    if cfg.n_layers % period:
+        raise ValueError(f"{cfg.n_layers} layers do not group by {period}")
+    layers = [_init_block(generator, cfg, dtype, device)
+              for _ in range(cfg.n_layers)]
+    b = ParamBuilder(generator, dtype, device)
+    b.dense("embed", (cfg.vocab_size, cfg.d_model), scale=cfg.d_model ** -0.5)
+    if not cfg.tie_embeddings:
+        b.dense("lm_head", (cfg.d_model, cfg.vocab_size))
+    if cfg.parametric_norm:
+        (b.zeros if cfg.gemma_plus_one else b.ones)("final_norm",
+                                                    (cfg.d_model,))
+    return {**b.params, "layers": layers}
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+
+def _maybe_norm(p, name: str, x, cfg: ModelConfig):
+    w = p.get(name) if cfg.parametric_norm else None
+    return rms_norm(x, w, plus_one=cfg.gemma_plus_one)
+
+
+def _block_fwd(pj, x, cfg: ModelConfig, kind: str, *, positions=None,
+               q_chunk=512):
+    window = cfg.window if kind == "local" else None
+    h = _maybe_norm(pj, "ln1", x, cfg)
+    a, kv = attention_block(pj, h, cfg, window=window, positions=positions,
+                            q_chunk=q_chunk)
+    if cfg.sandwich_norm:
+        a = _maybe_norm(pj, "post_ln1", a, cfg)
+    x = x + a
+    h = _maybe_norm(pj, "ln2", x, cfg)
+    m = mlp_block(pj, h)
+    if cfg.sandwich_norm:
+        m = _maybe_norm(pj, "post_ln2", m, cfg)
+    return x + m, kv
+
+
+def _block_decode(pj, x, cache_k, cache_v, pos, cfg: ModelConfig, kind: str):
+    window = cfg.window if kind == "local" else None
+    h = _maybe_norm(pj, "ln1", x, cfg)
+    a, _, _ = decode_attention(pj, h, cache_k, cache_v, pos, cfg,
+                               window=window)
+    if cfg.sandwich_norm:
+        a = _maybe_norm(pj, "post_ln1", a, cfg)
+    x = x + a
+    h = _maybe_norm(pj, "ln2", x, cfg)
+    m = mlp_block(pj, h)
+    if cfg.sandwich_norm:
+        m = _maybe_norm(pj, "post_ln2", m, cfg)
+    return x + m
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+
+def _embed(params, tokens, cfg: ModelConfig):
+    x = params["embed"][tokens]
+    if cfg.gemma_plus_one:                          # gemma scales embeddings
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def forward(params, tokens, cfg: ModelConfig, *, collect_cache: bool = False,
+            inputs_embeds=None, q_chunk: int | None = None):
+    """Full-sequence forward. Returns (hidden [B, S, D], per-layer (k, v)
+    list when ``collect_cache``, else None)."""
+    q_chunk = q_chunk or cfg.q_chunk
+    kinds = _layer_kinds(cfg)
+    x = inputs_embeds if inputs_embeds is not None \
+        else _embed(params, tokens, cfg)
+    caches = []
+    for i, pj in enumerate(params["layers"]):
+        x, kv = _block_fwd(pj, x, cfg, kinds[i % len(kinds)],
+                           q_chunk=q_chunk)
+        if collect_cache:
+            caches.append(kv)
+    x = _maybe_norm(params, "final_norm", x, cfg)
+    return x, (caches if collect_cache else None)
+
+
+def _logits_last(params, hidden_last, cfg: ModelConfig):
+    """hidden_last: [B, D] -> [B, V] f32."""
+    emb = params.get("lm_head")
+    w = params["embed"].T if emb is None else emb
+    logits = (hidden_last @ w.to(hidden_last.dtype)).to(torch.float32)
+    if cfg.final_softcap is not None:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
+
+
+def _cache_len(cfg: ModelConfig, kind: str, seq_len: int) -> int:
+    return min(cfg.window, seq_len) if (kind == "local" and cfg.window) \
+        else seq_len
+
+
+def prefill(params, tokens, cfg: ModelConfig, *, max_len: int | None = None):
+    """Run the prompt, return (cache, last-token logits [B, V] f32).
+
+    Local (windowed) layers keep a ring buffer of the last ``window``
+    positions, rolled so that position p sits in row p % window; the other
+    layers are zero-padded to ``max_len`` rows. The cache is in the
+    parameters' dtype (the serving engine rounds it to its cache dtype)."""
+    kinds = _layer_kinds(cfg)
+    period = len(kinds)
+    s = tokens.shape[1]
+    max_len = max_len or s
+    hidden, caches = forward(params, tokens, cfg, collect_cache=True)
+    cache = {}
+    for j, kind in enumerate(kinds):
+        clen = _cache_len(cfg, kind, max_len)
+        ks, vs = [], []
+        for k, v in caches[j::period]:               # [B, S, KH, dh]
+            if clen < s:
+                k = torch.roll(k[:, -clen:], s % clen, dims=1)
+                v = torch.roll(v[:, -clen:], s % clen, dims=1)
+            elif clen > s:
+                pad = (0, 0, 0, 0, 0, clen - s)
+                k, v = F.pad(k, pad), F.pad(v, pad)
+            ks.append(k)
+            vs.append(v)
+        cache[f"k{j}"], cache[f"v{j}"] = torch.stack(ks), torch.stack(vs)
+    return cache, _logits_last(params, hidden[:, -1], cfg)
+
+
+def decode_step(params, cache, token, pos, cfg: ModelConfig):
+    """One token for the whole stack. token: [B]; pos: a scalar or a
+    per-slot [B] vector. Writes the new K/V rows into ``cache`` in place.
+    Returns (logits [B, V] f32, cache)."""
+    kinds = _layer_kinds(cfg)
+    period = len(kinds)
+    x = _embed(params, token[:, None], cfg)         # [B, 1, D]
+    for i, pj in enumerate(params["layers"]):
+        g, j = divmod(i, period)
+        x = _block_decode(pj, x, cache[f"k{j}"][g], cache[f"v{j}"][g], pos,
+                          cfg, kinds[j])
+    x = _maybe_norm(params, "final_norm", x, cfg)
+    return _logits_last(params, x[:, 0], cfg), cache

@@ -11,16 +11,24 @@ embedded scores, at f32 and bf16 alike: kernel and plain version get the
 same bf16-rounded operands and both sum in f32, so only the order of the
 sums differs. rbf runs at gamma = 1/D, where its values spread over (0, 1).
 Embedded labels must equal the plain version's outside its near-ties.
+``flash_attention``: 2e-5 at f32 (the JAX test's own limit) and 1e-2 at
+bf16, where the kernel rounds P to bf16 for the P.V product and both
+versions round the output to bf16.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.approx import make_count_sketch, make_nystrom, make_rff
+from repro_torch.configs import get_arch
 from repro_torch.core import KernelSpec, MiniBatchConfig, fit_dataset
 from repro_torch.data.synthetic import toy2d
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.precision import resolve_precision
+from repro_torch.models import get_model
+from repro_torch.serving import ServeConfig, ServingEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -299,3 +307,93 @@ def test_small_embedded_fit_on_the_card_matches_the_cpu(cuda, method):
         assert ops.LAUNCHES[kernel] > launches[kernel]
     agree = (gpu_labels.cpu() == cpu.predict(x)).float().mean()
     assert float(agree) >= 0.99
+
+
+# (B, H, KH, Sq, Sk, dh, causal, softcap): the JAX kernel test's cases, then
+# dh 16 to 256 with ragged S from 1 to 2047, Sq > Sk, and non-causal
+FLASH_CASES = [
+    (2, 4, 4, 128, 128, 64, True, None),
+    (1, 8, 2, 100, 100, 64, True, None),
+    (2, 4, 2, 256, 256, 128, True, 50.0),
+    (1, 2, 2, 64, 256, 64, False, None),
+    (1, 4, 1, 200, 200, 64, True, None),
+    (1, 4, 2, 1, 1, 16, True, None),
+    (2, 4, 4, 100, 100, 16, True, None),
+    (1, 2, 1, 70, 70, 32, True, None),
+    (1, 2, 2, 130, 128, 48, True, None),
+    (1, 4, 2, 1000, 1000, 64, True, None),
+    (1, 2, 1, 1000, 1000, 256, True, 50.0),
+    (1, 2, 2, 2047, 2047, 128, True, None),
+    (1, 4, 2, 77, 384, 256, False, 30.0),
+]
+
+
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[f"B{c[0]}H{c[1]}KH{c[2]}S{c[3]}x{c[4]}d{c[5]}"
+                              for c in FLASH_CASES])
+def test_flash_attention_matches_plain(cuda, case, prec):
+    b, h, kh, sq, sk, dh, causal, cap = case
+    q, k, v = (_rand((b, n, s, dh), seed, cuda)
+               for n, s, seed in ((h, sq, 22), (kh, sk, 23), (kh, sk, 24)))
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, softcap=cap,
+                              precision=prec)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    p = resolve_precision(prec)
+    want = ref.flash_attention_ref(p.cast_tiles(q), p.cast_tiles(k),
+                                   p.cast_tiles(v), causal=causal,
+                                   softcap=cap)
+    assert got.shape == (b, h, sq, dh) and got.dtype == p.tile_dtype
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(1e-2 if prec == "bf16" else 2e-5))
+
+
+def test_flash_attention_wrapper_raises(cuda):
+    q = _rand((1, 2, 64, 24), 25, cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ops.flash_attention(q, q, q)
+    q = _rand((1, 2, 64, 272), 25, cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ops.flash_attention(q, q, q)
+    q, k = _rand((1, 2, 64, 64), 26, cuda), _rand((1, 2, 200, 64), 27, cuda)
+    with pytest.raises(ValueError, match="Sk % 128"):
+        ops.flash_attention(q, k, k, causal=False)
+    q, k = _rand((1, 3, 64, 64), 28, cuda), _rand((1, 2, 64, 64), 29, cuda)
+    with pytest.raises(ValueError, match="kv heads"):
+        ops.flash_attention(q, k, k)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        ops.flash_attention(q.half(), k.half(), k.half())
+
+
+def _params_to(params, dev):
+    return {n: ([{k: t.to(dev) for k, t in layer.items()} for layer in v]
+                if n == "layers" else v.to(dev)) for n, v in params.items()}
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "gemma2-2b"])
+def test_serving_engine_on_the_card_matches_the_cpu(cuda, arch):
+    """The smoke config with attn_impl="flash" at f32: every prefill layer
+    without a window launches the kernel, and the greedy outputs equal the
+    same engine's on the CPU."""
+    cfg = dataclasses.replace(get_arch(arch, smoke=True), attn_impl="flash")
+    cpu_api = get_model(cfg, device="cpu")
+    params = cpu_api.init(0, torch.float32)
+    gpu_api = get_model(cfg)
+    kw = dict(max_batch=4, max_len=64, max_new_tokens=8, eos_token=-1)
+    engines = [ServingEngine(cpu_api, params, ServeConfig(**kw),
+                             device="cpu"),
+               ServingEngine(gpu_api, _params_to(params, cuda),
+                             ServeConfig(**kw))]
+    rng = np.random.default_rng(0)
+    for n in (5, 9, 3, 7, 6, 4):
+        prompt = rng.integers(1, cfg.vocab_size, size=n)
+        for eng in engines:
+            eng.submit(prompt)
+    want = engines[0].run()
+    before = ops.LAUNCHES["flash_attention"]
+    got = engines[1].run()
+    flash_layers = cfg.n_layers // (2 if cfg.local_global_period else 1)
+    assert ops.LAUNCHES["flash_attention"] == before + 6 * flash_layers
+    assert got == want
