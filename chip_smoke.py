@@ -7,7 +7,11 @@ Phases, in order; any failure exits non-zero without the final line:
   1. the card: name and power limit (nvidia-smi), torch/CUDA versions, the
      TF32 flags (then both set to False);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-     sm_90a) and print the build seconds and ptxas resource lines;
+     sm_90a) and print the build seconds and ptxas resource lines; then
+     the ptxas lines of the two bodies redesigned for Hopper (the flash
+     bf16 body, which must issue wgmma: its HGMMA count in the library's
+     SASS is printed by cuobjdump; the embed_assign f32 body, which must fit
+     two CTAs per SM: <= 128 registers, no spills);
   3. hold each wrapper the main path calls (``ops.kernel_matrix``,
      ``ops.assign_fused``, ``ops.gram_matvec``, ``ops.embed_assign`` for
      RFF / Nystrom and for the count sketch) against its plain PyTorch
@@ -17,7 +21,8 @@ Phases, in order; any failure exits non-zero without the final line:
      version, a composite of PyTorch calls (``library_ms``, never called by
      the port) and the bound. The main shapes: the paper's Tab.1 MNIST
      setting (15,000-row batches of 784 features, C = 10, rbf), the Fig.5
-     embedded sweep at its largest m (60,000 x 784 -> 320, C = 10) and the
+     embedded sweep at its largest m (60,000 x 784 -> 320, C = 10; RFF at
+     f32 also at the sweep's m = 20, 80 and 160) and the
      Tab.2 RCV1 sketch (188,000 x 256 -> 128, C = 50); then
      ``ops.flash_attention`` against ``ref.flash_attention_ref`` at bf16 and
      f32 at the attention shapes of OLMo-1B's prefill (B 1, H = KH = 16,
@@ -62,6 +67,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -100,6 +107,7 @@ SERVE_LOGIT_TOL = 0.05
 KINDS = ("rbf", "linear", "polynomial", "cosine")
 N_TRAIN, N_TEST = 60000, 10000   # paper Tab.1 (benchmarks/tab1_mnist.py)
 EMBED_DIM = 320                  # Fig.5's largest m (fig5_approx_sweep.py)
+SWEEP_DIMS = (20, 80, 160)       # more of its m, timed at f32 (rff)
 # Tab.2 (benchmarks/tab2_rcv1.py:58-70, 176-186): RCV1, 50 classes, the
 # selector column's count sketch at m = 128, B = 4
 RCV1_TRAIN, RCV1_TEST, RCV1_C, SKETCH_DIM = 188000, 5844, 50, 128
@@ -161,6 +169,87 @@ def label_mismatches(torch, got, want, dist_plain) -> tuple[int, int]:
     near = gap <= NEAR_TIE * torch.clamp(torch.abs(top2[:, 0]), min=1.0)
     bad = (got.long() != want.long()) & ~near
     return int(bad.sum()), int(near.sum())
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the redesigned bodies as compiled
+# ---------------------------------------------------------------------------
+
+# the entry functions of the bodies redesigned for Hopper, by a part of
+# their mangled names
+FLASH_BF16_BODY = "flash_bf16_kernel"
+EMBED_F32_BODY = "embed_assign_f32_kernel"
+REGS_PER_THREAD_2_CTAS = 128     # 65,536 registers / (2 x 256 threads)
+
+
+def ptxas_resources(log: str) -> dict:
+    """{mangled entry: {"lines": [...], "registers": int, "spill_bytes":
+    int}} from the -Xptxas -v lines of a build log."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {"lines": [], "registers": None,
+                                              "spill_bytes": 0})
+        if cur is None:
+            continue
+        cur["lines"].append(line.strip())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        for m in re.finditer(r"(\d+) bytes spill (?:stores|loads)", line):
+            cur["spill_bytes"] += int(m.group(1))
+    return out
+
+
+def sass_opcode_counts(lib: str, opcode: str) -> dict | None:
+    """{mangled function: number of SASS instructions of ``opcode``} in the
+    built library, by cuobjdump; None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        return None
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur is not None and re.search(rf"\b{opcode}\b", line):
+            counts[cur] += 1
+    return counts
+
+
+def redesigned_bodies(build) -> None:
+    """Print the ptxas lines of the two redesigned bodies and the wgmma
+    (HGMMA) count of the flash bf16 kernel's SASS; fail if the embed f32
+    body needs more registers than two CTAs per SM leave it, or spills, or
+    if the flash bf16 body issues no HGMMA."""
+    res = ptxas_resources(build.LAST_BUILD["log"])
+    for body in (FLASH_BF16_BODY, EMBED_F32_BODY):
+        found = {k: v for k, v in res.items() if body in k}
+        check(bool(found), f"ptxas printed no entry of {body}")
+        for name, r in found.items():
+            print(f"ptxas {body}: {name}")
+            for line in r["lines"]:
+                print(f"  {line}")
+            if body == EMBED_F32_BODY:
+                check(r["registers"] is not None
+                      and r["registers"] <= REGS_PER_THREAD_2_CTAS
+                      and r["spill_bytes"] == 0,
+                      f"{name}: {r['registers']} registers, "
+                      f"{r['spill_bytes']} spill bytes (two CTAs per SM "
+                      f"need <= {REGS_PER_THREAD_2_CTAS} and no spills)")
+    counts = sass_opcode_counts(build.LAST_BUILD["path"], "HGMMA")
+    if counts is None:
+        print("HGMMA count: the toolkit has no cuobjdump; not counted")
+        return
+    flash = {k: v for k, v in counts.items() if FLASH_BF16_BODY in k}
+    for name, n in flash.items():
+        print(f"HGMMA instructions in {name}: {n}")
+    check(bool(flash) and all(n > 0 for n in flash.values()),
+          f"the flash bf16 body issues no wgmma: {flash}")
 
 
 # ---------------------------------------------------------------------------
@@ -505,6 +594,14 @@ def embedded_checks(torch, mods, x_tr, y_tr, gamma, x_rcv, y_rcv):
         for prec in ("f32", "bf16"):
             recs.append(check_embedded(torch, mods, x, fmap, cents, counts,
                                        prec, timed=True, tag="main"))
+    # the rest of the Fig.5 sweep's m, whose column tiles the f32 body
+    # chooses apart from m = 320's
+    for m in SWEEP_DIMS:
+        fmap = approx.make_rff(torch.Generator().manual_seed(3),
+                               x_tr.shape[1], m, spec, device=dev)
+        cents, counts = class_means(torch, fmap(x_tr), y_tr, 10)
+        recs.append(check_embedded(torch, mods, x_tr, fmap, cents, counts,
+                                   "f32", timed=True, tag=f"sweep-m{m}"))
     rng = torch.Generator().manual_seed(6)
 
     def rand(*shape):
@@ -977,6 +1074,7 @@ def main(argv=None) -> int:
     for line in mods["build"].LAST_BUILD["log"].splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas", line.strip())
+    redesigned_bodies(mods["build"])
 
     # -- phase 3: kernel checks ---------------------------------------------
     t0 = time.perf_counter()

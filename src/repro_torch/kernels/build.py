@@ -30,23 +30,27 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 #: C signature of every entry: argtypes (restype is int: the CUDA error)
 SIGNATURES = {
     "rt_kernel_matrix_f32": [_P] * 5 + [_I] * 4 + [_F, _F, _I, _P],
     "rt_kernel_matrix_bf16": [_P] * 5 + [_I] * 4 + [_F, _F, _I, _P],
     "rt_assign_fused_f32": [_P] * 9 + [_I] * 5 + [_F, _F, _I, _P],
     "rt_assign_fused_bf16": [_P] * 9 + [_I] * 5 + [_F, _F, _I, _P],
-    "rt_embed_assign_f32": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _F, _P],
+    "rt_embed_assign_f32": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _F, _I, _I,
+                                                        _P],
     "rt_embed_assign_bf16": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _F, _P],
     "rt_sketch_assign_f32": [_P] * 8 + [_I] * 4 + [_P],
     "rt_sketch_assign_bf16": [_P] * 8 + [_I] * 4 + [_P],
     "rt_flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _F, _P],
-    "rt_flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F, _F, _P],
+    "rt_flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F, _F]
+    + [_L] * 12 + [_P],
 }
 
 _LIB: ctypes.CDLL | None = None
-#: what the last build did: {"seconds": float, "log": str, "path": str}
+#: what the last build did: {"seconds": float, "log": str, "path": str};
+#: a cached library brings back the compiler output of its build
 LAST_BUILD: dict = {}
 
 
@@ -75,9 +79,10 @@ def build() -> Path:
     """Compile (if needed) and return the path of ``libkernels.so``."""
     sources = sorted(SRC_DIR.glob("*.cu"))
     out_dir = BUILD_ROOT / _digest()
-    lib = out_dir / "libkernels.so"
+    lib, log = out_dir / "libkernels.so", out_dir / "build.log"
     if lib.exists():
-        LAST_BUILD.update(seconds=0.0, log="(cached)", path=str(lib))
+        LAST_BUILD.update(seconds=0.0, path=str(lib),
+                          log=log.read_text() if log.exists() else "(cached)")
         return lib
     nvcc = _nvcc()
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
@@ -98,10 +103,13 @@ def build() -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode:
             raise RuntimeError(f"linking libkernels.so failed:\n{link.stdout}")
+        text = "\n".join(logs + [link.stdout])
+        (Path(tmp) / "build.log").write_text(text)
         out_dir.mkdir(parents=True, exist_ok=True)
+        os.replace(Path(tmp) / "build.log", log)
         os.replace(tmp_lib, lib)   # atomic: a concurrent build loses nothing
-    LAST_BUILD.update(seconds=time.perf_counter() - t0,
-                      log="\n".join(logs + [link.stdout]), path=str(lib))
+    LAST_BUILD.update(seconds=time.perf_counter() - t0, log=text,
+                      path=str(lib))
     return lib
 
 
@@ -135,9 +143,12 @@ def check_operand(t: torch.Tensor, name: str, *, dtype: torch.dtype,
 
 
 def launch(entry: str, *args) -> None:
-    """Call one C entry on the current stream of the operands' device and
+    """Call one C entry on the current stream of the current device and
     raise on a non-zero CUDA error (a refused launch never runs, and a later
-    synchronize would not report it)."""
-    err = getattr(load(), entry)(*args, torch.cuda.current_stream().cuda_stream)
+    synchronize would not report it). The raw stream handle is read without
+    building a ``torch.cuda.Stream`` object, which costs microseconds of
+    host time a launch."""
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+    err = getattr(load(), entry)(*args, stream)
     if err:
         raise RuntimeError(f"{entry} failed: CUDA error {err}")

@@ -20,14 +20,19 @@
 // D = 784, M = 320, C = 10) it does 2*n*M*(D + C) = 30.5 GFLOP against
 // 188 MB of f32 rows: ~160 flops per byte, far above the f32 ridge of 20.
 //
-// What the design does about it: it is assign_fused with another epilogue
-// (RffEpilogue for RFF, a type of its own, or the Mercer Epilogue), V in
-// place of H and no F output. One CTA owns 128 rows and loops over the
-// embed tiles of w (row_block.cuh): each [128 x 128] tile of x . w^T comes
-// from gram_tile.cuh (f32 FMA or bf16 mma.sync), the RFF or Mercer
-// epilogue runs in registers, and the tile is contracted at once against
-// V into the on-chip F [128 x Cp]; the argmin runs after the last tile.
-#include "row_block.cuh"
+// What the design does about it: two engines behind one contract.
+//   f32 tiles (embed_f32.cuh): f32 FMA on the CUDA cores at two CTAs of
+//     256 threads per SM (at most 128 registers a thread), X and W chunks
+//     streamed through a cp.async ring with one barrier per chunk, a
+//     column tile of 160, 80, 40 or 20 that follows M (the launcher's
+//     choice, kernels/embed_assign.py), any C up to 256 unpadded.
+//   bf16 tiles: assign_fused with another epilogue. One CTA owns 128 rows
+//     and loops over the embed tiles of w (row_block.cuh): each [128 x 128]
+//     tile of x . w^T comes from gram_tile.cuh (bf16 mma.sync).
+// Both apply the RFF epilogue (RffEpilogue, full-range cosf) or the Mercer
+// Epilogue on chip, contract each tile at once against V into the on-chip
+// F [rows x C], and take the argmin after the last tile.
+#include "embed_f32.cuh"
 
 namespace rt {
 
@@ -89,16 +94,22 @@ static int embed_assign(const void* x, const void* w, const void* xsq,
 
 }  // namespace rt
 
+// v [M, C] and csq [C] for any C up to MAX_CP (no padding); bn, bm: the
+// column tile and the row block, from the launcher
 extern "C" int rt_embed_assign_f32(const void* x, const void* w,
                                    const void* xsq, const void* aux,
                                    const void* v, const void* csq,
                                    void* labels, void* score, int n, int M,
-                                   int D, int Cp, int kind, float gamma,
+                                   int D, int C, int kind, float gamma,
                                    float coef0, int degree, float scale,
-                                   void* stream) {
-  return rt::embed_assign<rt::TileF32>(x, w, xsq, aux, v, csq, labels, score,
-                                       n, M, D, Cp, kind, gamma, coef0,
-                                       degree, scale, stream);
+                                   int bn, int bm, void* stream) {
+  using namespace rt;
+  if (C <= 0 || C > MAX_CP) return (int)cudaErrorInvalidValue;
+  if (kind == RFF)
+    return ef::dispatch(bn, bm, x, w, xsq, aux, v, csq, labels, score, n, M,
+                        D, C, RffEpilogue{scale}, stream);
+  return ef::dispatch(bn, bm, x, w, xsq, aux, v, csq, labels, score, n, M, D,
+                      C, Epilogue{kind, gamma, coef0, degree}, stream);
 }
 
 extern "C" int rt_embed_assign_bf16(const void* x, const void* w,

@@ -1,13 +1,14 @@
 """Launcher of the CUDA kernel ``embed_assign`` (``csrc/embed_assign.cu``).
 
 The port of ``embed_assign_pallas`` (``repro/kernels/embed_assign.py:111``):
-for each block of 128 rows, one CTA loops over the embed tiles of the map
-panel w, applies the random Fourier (``scale cos(x.w + b)``) or Mercer
-(Nystrom) epilogue on chip, contracts the tile at once against the value
-panel V into an on-chip F, and takes min_j (csq_j - 2 F_ij) and its argmin
-(lowest index on ties). The embedded rows never reach device memory.
-``ops.embed_assign`` is the wrapper callers use; this module only checks
-operands and launches.
+for each block of rows, one CTA loops over the embed tiles of the map panel
+w, applies the random Fourier (``scale cos(x.w + b)``) or Mercer (Nystrom)
+epilogue on chip, contracts the tile at once against the value panel V into
+an on-chip F, and takes min_j (csq_j - 2 F_ij) and its argmin (lowest index
+on ties). The embedded rows never reach device memory. The f32 body takes
+its column tile and row block from ``f32_geometry``; the bf16 body's are
+fixed (128 x 128). ``ops.embed_assign`` is the wrapper callers use; this
+module only checks operands and launches.
 """
 from __future__ import annotations
 
@@ -21,15 +22,38 @@ from .kernel_matrix import KINDS, VEC
 MAP_KINDS = {**KINDS, "rff": 4}
 _ENTRY = {torch.float32: "rt_embed_assign_f32",
           torch.bfloat16: "rt_embed_assign_bf16"}
+#: the f32 body's column tiles (widest first) and the row block built for
+#: each: 80 rows give n = 60,000 (Fig.5) 750 CTAs, 95% of three whole waves
+#: of 2 x 132, where 128 rows fill 89% of two
+F32_GEOMETRY = {160: 80, 80: 80, 40: 128, 20: 128}
+
+
+def padded_share(m: int, bn: int) -> float:
+    """The share of a row's Gram work spent on padded columns when M = m
+    is cut into tiles of bn columns."""
+    cols = -(-m // bn) * bn
+    return (cols - m) / cols
+
+
+def f32_geometry(m: int) -> tuple[int, int]:
+    """(column tile, row block) of the f32 body for an embedding of width
+    m: the widest tile whose padded columns stay under 1/8 of the work,
+    else the least padded one."""
+    fits = [bn for bn in F32_GEOMETRY if padded_share(m, bn) < 1 / 8]
+    bn = fits[0] if fits else min(F32_GEOMETRY,
+                                  key=lambda t: padded_share(m, t))
+    return bn, F32_GEOMETRY[bn]
 
 
 def embed_assign_cuda(x: torch.Tensor, w: torch.Tensor, xsq: torch.Tensor,
                       aux: torch.Tensor, v: torch.Tensor, csq: torch.Tensor, *,
                       map_kind: str, gamma: float, coef0: float, degree: int,
                       scale: float):
-    """x [n, D], w [M, D] in f32 or bf16 (D a multiple of ``VEC``); xsq [n],
-    aux [M] (phases for rff, landmark squared norms otherwise), v [M, Cp],
-    csq [Cp] f32, Cp a multiple of ``CP_MULTIPLE`` and at most ``MAX_CP``.
+    """x [n, D], w [M, D] in f32 or bf16 (D a multiple of ``VEC``); xsq [n]
+    (None for rff at f32, which reads no row norms); aux [M] (phases for
+    rff, landmark squared norms otherwise); v [M, Cp] and csq [Cp] f32, Cp
+    at most ``MAX_CP`` (at bf16 a multiple of ``CP_MULTIPLE``; the f32 body
+    masks any count itself).
     Returns (labels [n] int32, score [n] f32)."""
     if map_kind not in MAP_KINDS:
         raise ValueError(f"embed_assign has no epilogue for {map_kind!r}")
@@ -39,23 +63,33 @@ def embed_assign_cuda(x: torch.Tensor, w: torch.Tensor, xsq: torch.Tensor,
     m, cp = v.shape
     if d % VEC[x.dtype]:
         raise ValueError(f"D={d} must be a multiple of {VEC[x.dtype]}")
-    if cp % CP_MULTIPLE or not 0 < cp <= MAX_CP:
+    multiple = 1 if x.dtype == torch.float32 else CP_MULTIPLE
+    if cp % multiple or not 0 < cp <= MAX_CP:
         raise ValueError(
-            f"Cp={cp} must be a positive multiple of {CP_MULTIPLE} and at "
+            f"Cp={cp} must be a positive multiple of {multiple} and at "
             f"most {MAX_CP} (the on-chip F accumulator holds {MAX_CP} "
             f"clusters; ops.embed_assign launches once per {MAX_CP})")
     dev = x.device
     build.check_operand(x, "x", dtype=x.dtype, shape=(n, d), device=dev)
     build.check_operand(w, "w", dtype=x.dtype, shape=(m, d), device=dev)
-    build.check_operand(xsq, "xsq", dtype=torch.float32, shape=(n,), device=dev)
+    if xsq is None:
+        if map_kind != "rff" or x.dtype != torch.float32:
+            raise ValueError("only the f32 body's rff epilogue goes without "
+                             "row norms")
+    else:
+        build.check_operand(xsq, "xsq", dtype=torch.float32, shape=(n,),
+                            device=dev)
     build.check_operand(aux, "aux", dtype=torch.float32, shape=(m,), device=dev)
     build.check_operand(v, "v", dtype=torch.float32, shape=(m, cp), device=dev)
     build.check_operand(csq, "csq", dtype=torch.float32, shape=(cp,), device=dev)
     labels = torch.empty((n,), dtype=torch.int32, device=dev)
     score = torch.empty((n,), dtype=torch.float32, device=dev)
-    build.launch(_ENTRY[x.dtype], x.data_ptr(), w.data_ptr(), xsq.data_ptr(),
-                 aux.data_ptr(), v.data_ptr(), csq.data_ptr(),
-                 labels.data_ptr(), score.data_ptr(), n, m, d, cp,
-                 MAP_KINDS[map_kind], float(gamma), float(coef0), int(degree),
-                 float(scale))
+    args = (x.data_ptr(), w.data_ptr(), 0 if xsq is None else xsq.data_ptr(),
+            aux.data_ptr(),
+            v.data_ptr(), csq.data_ptr(), labels.data_ptr(), score.data_ptr(),
+            n, m, d, cp, MAP_KINDS[map_kind], float(gamma), float(coef0),
+            int(degree), float(scale))
+    if x.dtype == torch.float32:
+        args += f32_geometry(m)
+    build.launch(_ENTRY[x.dtype], *args)
     return labels, score

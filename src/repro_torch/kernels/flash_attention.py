@@ -6,10 +6,12 @@ The port of ``flash_attention_pallas``
 softmax(mask(softcap(q k^T dh^-1/2))) v with an online softmax whose state
 stays f32 on chip, GQA by head index (K and V are never repeated in memory),
 a top-left causal mask that skips key blocks wholly after the query block,
-and the output in the tiles' dtype. One CTA owns 64 query rows of one
-(batch, head) and loops over the key blocks; it masks keys past Sk and rows
-past Sq itself. ``ops.flash_attention`` is the wrapper callers use; this
-module only checks operands and launches.
+and the output in the tiles' dtype. The kernel masks keys past Sk and rows
+past Sq itself. Two bodies: f32 tiles on the CUDA cores (one CTA per 64
+query rows, contiguous operands), and bf16 tiles on wgmma with TMA loads
+(one CTA per 128 query rows), which reads q, k and v through their strides
+and writes o through its own. ``ops.flash_attention`` is the wrapper callers
+use; this module only checks operands and launches.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from . import build
 DH_MULTIPLE, DH_MAX = 16, 256
 _ENTRY = {torch.float32: "rt_flash_attention_f32",
           torch.bfloat16: "rt_flash_attention_bf16"}
+#: the bf16 body's TMA reads: 16-byte aligned base and strides
+_ALIGN = 16
 
 
 def check_head_dim(dh: int) -> None:
@@ -29,11 +33,30 @@ def check_head_dim(dh: int) -> None:
                          f"multiple of {DH_MULTIPLE} up to {DH_MAX}, got {dh}")
 
 
+def tma_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
+    """The (batch, head, row) element strides by which the bf16 body reads
+    a [B, heads, S, dh] tensor in place, or None where it cannot: dh must be
+    contiguous, and the base and every stride 16-byte aligned. A stride of
+    a dimension of size 1 is never used; it is replaced by the tensor's
+    span, which is valid whatever torch reports for it."""
+    st, sh = t.stride(), t.shape
+    if len(st) != 4 or st[3] != 1 or t.data_ptr() % _ALIGN:
+        return None
+    unit = _ALIGN // t.element_size()
+    span = max(st[0] * sh[0], st[1] * sh[1], st[2] * sh[2], sh[3])
+    span = -(-span // unit) * unit
+    out = tuple(span if sh[d] == 1 else st[d] for d in range(3))
+    return None if any(s <= 0 or s % unit for s in out) else out
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, softcap: float | None
                          ) -> torch.Tensor:
     """q [B, H, Sq, dh], k and v [B, KH, Sk, dh] in one dtype (f32 or bf16),
-    contiguous, H a multiple of KH -> o [B, H, Sq, dh] in that dtype."""
+    H a multiple of KH -> o [B, H, Sq, dh] in that dtype. f32 operands must
+    be contiguous. bf16 ones are read in place through their strides where
+    ``tma_strides`` allows (a view it refuses is copied once, contiguous),
+    and o is then a [B, H, Sq, dh] view of [B, Sq, H, dh] memory."""
     if q.dtype not in _ENTRY:
         raise TypeError(f"flash_attention takes f32 or bf16 tiles, "
                         f"got {q.dtype}")
@@ -47,14 +70,35 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
     dev = q.device
-    build.check_operand(q, "q", dtype=q.dtype, shape=(b, h, sq, dh),
-                        device=dev)
-    build.check_operand(k, "k", dtype=q.dtype, shape=(b, kh, sk, dh),
-                        device=dev)
-    build.check_operand(v, "v", dtype=q.dtype, shape=(b, kh, sk, dh),
-                        device=dev)
-    out = torch.empty_like(q)
+    shapes = {"q": (q, (b, h, sq, dh)), "k": (k, (b, kh, sk, dh)),
+              "v": (v, (b, kh, sk, dh))}
+    if q.dtype == torch.float32:
+        for name, (t, shape) in shapes.items():
+            build.check_operand(t, name, dtype=q.dtype, shape=shape,
+                                device=dev)
+        out = torch.empty_like(q)
+        build.launch(_ENTRY[q.dtype], q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), out.data_ptr(), b, h, kh, sq, sk, dh,
+                     int(causal), float(dh ** -0.5), float(softcap or 0.0))
+        return out
+    strides, operands = [], []
+    for name, (t, shape) in shapes.items():
+        if t.device != dev or t.dtype != q.dtype or t.shape != shape:
+            raise ValueError(f"{name} must be {q.dtype} {shape} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        st = tma_strides(t)
+        if st is None:   # a view TMA cannot read: one fresh contiguous copy
+            t = t.clone(memory_format=torch.contiguous_format)
+            st = tma_strides(t)
+        operands.append(t)
+        strides += st
+    q, k, v = operands
+    # o [B, H, Sq, dh] as a view of [B, Sq, H, dh] memory
+    out_strides = (sq * h * dh, dh, h * dh)
+    out = torch.empty_strided((b, h, sq, dh), out_strides + (1,),
+                              dtype=q.dtype, device=dev)
+    strides += out_strides
     build.launch(_ENTRY[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  out.data_ptr(), b, h, kh, sq, sk, dh, int(causal),
-                 float(dh ** -0.5), float(softcap or 0.0))
+                 float(dh ** -0.5), float(softcap or 0.0), *strides)
     return out

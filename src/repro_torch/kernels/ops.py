@@ -88,10 +88,12 @@ def kernel_matrix(x: torch.Tensor, y: torch.Tensor, *, kind: str = "rbf",
 
 
 def _over_cluster_chunks(panel: torch.Tensor, g: torch.Tensor, name: str,
-                         launch):
+                         launch, *, pad: bool = True):
     """Launch once per chunk of at most ``MAX_CP`` clusters (a kernel's
     on-chip accumulator), each padded to the kernel's multiple (zero panel
-    columns, +1e30 in g), and return (labels, best, *outputs [n, C]).
+    columns, +1e30 in g) unless ``pad`` is False (a kernel that masks a
+    ragged cluster count itself), and return (labels, best, *outputs [n,
+    C]).
 
     ``launch(panel_chunk, g_chunk)`` returns (labels, best, *outputs [n,
     Cp]). Each column comes out the same whatever the chunking. The merge
@@ -103,9 +105,10 @@ def _over_cluster_chunks(panel: torch.Tensor, g: torch.Tensor, name: str,
     for c0 in range(0, panel.shape[1], MAX_CP):
         pc, gc = panel[:, c0:c0 + MAX_CP], g[c0:c0 + MAX_CP]
         c = pc.shape[1]
-        cp = _round_up(c, CP_MULTIPLE)
-        lab, mn, *rest = launch(F.pad(pc, (0, cp - c)).contiguous(),
-                                F.pad(gc, (0, cp - c), value=BIG).contiguous())
+        if pad:
+            cp = _round_up(c, CP_MULTIPLE)
+            pc, gc = F.pad(pc, (0, cp - c)), F.pad(gc, (0, cp - c), value=BIG)
+        lab, mn, *rest = launch(pc.contiguous(), gc.contiguous())
         LAUNCHES[name] += 1
         outs.append([r[:, :c] for r in rest])
         if labels is None:
@@ -243,11 +246,16 @@ def embed_assign(x: torch.Tensor, fmap, centroids: torch.Tensor,
         return ref.embed_assign_ref(x, w, v, csq, b=aux, precision=p.tile,
                                     **statics)
     xo, wo = _operand(x), _operand(w)
-    # the rff epilogue reads no row norms
-    xsq = torch.zeros(x.shape[0], device=x.device) if rff else _sqnorms(x)
+    if rff:   # the rff epilogue reads no row norms; the bf16 body loads them
+        xsq = (None if x.dtype == torch.float32
+               else torch.zeros(x.shape[0], device=x.device))
+    else:     # one pass over x, no squared copy
+        xsq = torch.linalg.vector_norm(x, dim=1, dtype=torch.float32).square_()
+    # the f32 body masks a ragged cluster count itself
     return _over_cluster_chunks(
         v, csq, "embed_assign",
-        lambda vc, cc: embed_assign_cuda(xo, wo, xsq, aux, vc, cc, **statics))
+        lambda vc, cc: embed_assign_cuda(xo, wo, xsq, aux, vc, cc, **statics),
+        pad=x.dtype != torch.float32)
 
 
 def sketch_assign(x: torch.Tensor, fmap, centroids: torch.Tensor,
@@ -285,7 +293,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Non-causal attention needs Sk % 128 == 0, the reference's condition
     (its kernel pads keys, and only the causal mask removes them). On the
     card the kernel masks ragged Sq and Sk itself; it takes a head dim
-    that is a multiple of 16 up to 256 and raises on any other."""
+    that is a multiple of 16 up to 256 and raises on any other. bf16 tiles
+    are read in place through their strides (dh contiguous, 16-byte
+    strides), and the output is then a [B, H, Sq, dh] view of [B, Sq, H,
+    dh] memory, so a caller holding [B, S, H, dh] activations transposes
+    nothing either way."""
     p = resolve_precision(precision)
     if p.tile == "bf16":
         q, k, v = p.cast_tiles(q), p.cast_tiles(k), p.cast_tiles(v)
@@ -293,7 +305,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("non-causal flash_attention requires Sk % 128 == 0")
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap)
-    out = flash_attention_cuda(_aligned(q), _aligned(k), _aligned(v),
-                               causal=causal, softcap=softcap)
+    if q.dtype != torch.bfloat16:    # the f32 body reads contiguous tiles
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = flash_attention_cuda(q, k, v, causal=causal, softcap=softcap)
     LAUNCHES["flash_attention"] += 1
     return out

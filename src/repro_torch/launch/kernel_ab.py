@@ -1,0 +1,256 @@
+"""A/B timing of the port's CUDA kernels across source trees, on one card.
+
+    python src/repro_torch/launch/kernel_ab.py --trees OLD/src src \\
+        --order 0 1 1 0 --out build/kernel_ab.json
+
+Times every kernel wrapper the main path calls (``ops.assign_fused``,
+``ops.kernel_matrix``, ``ops.embed_assign``, ``ops.sketch_assign``,
+``ops.flash_attention``) at the shapes of ``chip_smoke.py``'s timed checks:
+the Tab.1 MNIST batch (15,000 x {15,000, 3,000} x 784, C = 10), the Fig.5
+embedding (60,000 x 784 -> m, C = 10; RFF at m = 20, 80, 160 and 320,
+Nystrom rbf at 320), the Tab.2 count sketch (188,000 x 256 -> 128, C = 50)
+and the attention of OLMo-1B, gemma2-2b and qwen3-32b at S 2048, at f32 and
+bf16. Beside each attention shape it times ``scaled_dot_product_attention``
+(or, with a softcap, matmul + tanh + masked softmax + matmul), and beside
+each embedding shape the composite of PyTorch calls that computes the same
+labels; the port never calls either.
+
+Each entry of ``--order`` is one process that imports ``repro_torch`` from
+that tree's ``src`` (so two trees never share a module or a built library),
+builds its kernels and times them, in the order given: ``0 1 1 0`` runs the
+first tree, the second twice, the first again, so a drift of the card over
+the call shows as a gap between the two runs of one tree. The data are made
+once (``repro_torch.data.synthetic`` of this tree, seed 0) and handed to
+every process as ``.npy`` files. Times are CUDA-event means over ``--reps``
+launches after one warm-up launch, in ms; the card's name and power limit
+are printed and stored beside them. Needs a CUDA card; imports no JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+# (name, B, H, KH, S, dh, softcap): chip_smoke.FLASH_MAIN
+FLASH = [("olmo-1b", 1, 16, 16, 2048, 128, None),
+         ("gemma2-2b", 1, 8, 4, 2048, 256, 50.0),
+         ("qwen3-32b", 1, 64, 8, 2048, 128, None)]
+EMBED_M = (20, 80, 160, 320)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def make_data(src: Path, out: Path) -> None:
+    """The MNIST-like and RCV1-like sets of chip_smoke.py, as .npy files."""
+    sys.path.insert(0, str(src))
+    import numpy as np
+    from repro_torch.data import synthetic
+    x, y = synthetic.make_mnist_like(70000, seed=0)
+    np.save(out / "x_mnist.npy", x[:60000])
+    np.save(out / "y_mnist.npy", y[:60000])
+    x, y = synthetic.make_rcv1_like(188000 + 5844, n_classes=50, seed=0)
+    np.save(out / "x_rcv1.npy", x[:188000])
+    np.save(out / "y_rcv1.npy", y[:188000])
+
+
+def worker(src: Path, data: Path, reps: int) -> dict:
+    """Import repro_torch from ``src`` and time its kernels: {key: ms}."""
+    sys.path.insert(0, str(src))
+    import numpy as np
+    import torch
+    from repro_torch import approx, core
+    from repro_torch.kernels import build, ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    build.load()
+    times = {"build_s": time.perf_counter() - t0}
+
+    def timed(key, fn):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times[key] = start.elapsed_time(end) / reps
+
+    x_tr = torch.as_tensor(np.load(data / "x_mnist.npy"), device=dev)
+    y_tr = torch.as_tensor(np.load(data / "y_mnist.npy"), device=dev)
+    gamma = core.gamma_from_dmax(x_tr[:4096])
+    spec = core.KernelSpec("rbf", gamma=gamma)
+
+    # Tab.1: one 15,000-row batch, |L| = 15,000 and 3,000
+    x_b, y_b = x_tr[0::4], y_tr[0::4]
+    gen = torch.Generator().manual_seed(0)
+    l3 = torch.sort(torch.randperm(len(x_b), generator=gen)[:3000]).values
+    for prec in ("f32", "bf16"):
+        for tag, idx in (("15000", torch.arange(len(x_b))), ("3000", l3)):
+            lm, lab = x_b[idx.to(dev)], y_b[idx.to(dev)]
+            counts = torch.bincount(lab.long(), minlength=10).float()
+            g = torch.rand(10, generator=gen).to(dev)
+            timed(f"assign_fused/{tag}/{prec}", lambda: ops.assign_fused(
+                x_b, lm, lab, counts, g, n_clusters=10, kind="rbf",
+                gamma=gamma, precision=prec))
+        timed(f"kernel_matrix/3000/{prec}", lambda: ops.kernel_matrix(
+            x_b, x_b[l3.to(dev)], kind="rbf", gamma=gamma, precision=prec))
+    del x_b, y_b
+
+    # Fig.5: the embedding of all 60,000 training rows
+    onehot = F.one_hot(y_tr.long(), 10).float()
+    counts = onehot.sum(dim=0)
+    for kind, ms in (("rff", EMBED_M), ("nystrom", (320,))):
+        for m in ms:
+            if kind == "rff":
+                fmap = approx.make_rff(torch.Generator().manual_seed(3),
+                                       x_tr.shape[1], m, spec, device=dev)
+            else:
+                fmap = approx.make_nystrom(torch.Generator().manual_seed(4),
+                                           x_tr, m, spec)
+            cents = (onehot.T @ fmap(x_tr)) / counts[:, None]
+            for prec in (("f32", "bf16") if m == 320 else ("f32",)):
+                timed(f"embed_assign/{kind}/{m}/{prec}",
+                      lambda: ops.embed_assign(x_tr, fmap, cents, counts,
+                                               precision=prec))
+            w, aux, v, csq, st = ops.embed_panels(fmap, cents, counts)
+            wf = w.float()
+            wsq = (wf * wf).sum(dim=1)
+            xsq = (x_tr * x_tr).sum(dim=1)
+
+            def composite():
+                a = x_tr @ wf.T
+                if kind == "rff":
+                    e = st["scale"] * torch.cos(a + aux)
+                else:
+                    d2 = xsq[:, None] + wsq[None] - 2.0 * a
+                    e = torch.exp(-st["gamma"] * d2.clamp_(min=0.0))
+                sc = csq[None] - 2.0 * (e @ v)
+                return torch.argmin(sc, dim=1), torch.amin(sc, dim=1)
+            timed(f"embed_assign/{kind}/{m}/library", composite)
+    del x_tr, y_tr, onehot
+
+    # Tab.2: the count sketch of 188,000 rows
+    xr = torch.as_tensor(np.load(data / "x_rcv1.npy"), device=dev)
+    yr = torch.as_tensor(np.load(data / "y_rcv1.npy"), device=dev)
+    fmap = approx.make_count_sketch(torch.Generator().manual_seed(5),
+                                    xr.shape[1], 128, core.KernelSpec("linear"),
+                                    device=dev)
+    oh = F.one_hot(yr.long(), 50).float()
+    cnt = oh.sum(dim=0)
+    cents = (oh.T @ fmap(xr)) / cnt.clamp(min=1.0)[:, None]
+    for prec in ("f32", "bf16"):
+        timed(f"sketch_assign/{prec}", lambda: ops.embed_assign(
+            xr, fmap, cents, cnt, precision=prec))
+    del xr, yr, oh
+
+    # attention at S 2048
+    for i, (name, b, h, kh, s, dh, cap) in enumerate(FLASH):
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        q0, k0, v0 = (torch.randn(shape, generator=gen, device=dev)
+                      for shape in ((b, h, s, dh), (b, kh, s, dh),
+                                    (b, kh, s, dh)))
+        q0 = q0 * 3.0
+        for prec, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            q, k, v = q0.to(dtype), k0.to(dtype), v0.to(dtype)
+            timed(f"flash_attention/{name}/{prec}", lambda: ops.flash_attention(
+                q, k, v, causal=True, softcap=cap, precision=prec))
+            if cap is None:
+                timed(f"flash_attention/{name}/{prec}/library",
+                      lambda: F.scaled_dot_product_attention(
+                          q, k, v, is_causal=True, enable_gqa=h != kh))
+            else:
+                mask = torch.tril(torch.ones(s, s, dtype=torch.bool,
+                                             device=dev))
+
+                def composite():
+                    kx = k.repeat_interleave(h // kh, dim=1)
+                    vx = v.repeat_interleave(h // kh, dim=1)
+                    sc = (q @ kx.transpose(-1, -2)).float() * dh ** -0.5
+                    sc = (cap * torch.tanh(sc / cap)).masked_fill(~mask, -1e30)
+                    return torch.softmax(sc, dim=-1).to(q.dtype) @ vx
+                timed(f"flash_attention/{name}/{prec}/library", composite)
+        del q0, k0, v0
+    return times
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trees", nargs="+", type=Path,
+                    help="the src directories to compare")
+    ap.add_argument("--order", nargs="+", type=int,
+                    help="indices into --trees, one process each")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--worker", type=Path, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--data", type=Path, default=None,
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker is not None:
+        print("RESULT " + json.dumps(worker(args.worker, args.data,
+                                            args.reps)))
+        return 0
+
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device is visible", file=sys.stderr)
+        return 2
+    trees = [t.resolve() for t in args.trees]
+    order = args.order or list(range(len(trees)))
+    card = card_line()
+    print(f"card: {card}")
+    here = Path(__file__).resolve()
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        make_data(here.parents[2], Path(tmp))
+        print(f"data: {time.perf_counter() - t0:.1f} s")
+        for i in order:
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, str(here), "--worker", str(trees[i]),
+                 "--data", tmp, "--reps", str(args.reps)],
+                capture_output=True, text=True, env=dict(os.environ),
+                cwd=str(trees[i].parent))
+            lines = [ln for ln in out.stdout.splitlines()
+                     if ln.startswith("RESULT ")]
+            if out.returncode or not lines:
+                print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
+                return 1
+            runs.append({"tree": str(trees[i]), "index": i,
+                         "times": json.loads(lines[-1][len("RESULT "):])})
+            print(f"run {len(runs)}: tree {i} ({trees[i]}) "
+                  f"{time.perf_counter() - t0:.1f} s")
+    keys = list(runs[0]["times"])
+    width = max(map(len, keys))
+    print(f"{'key':<{width}}  " + "  ".join(
+        f"tree{r['index']}" for r in runs))
+    for key in keys:
+        print(f"{key:<{width}}  " + "  ".join(
+            f"{r['times'].get(key, float('nan')):.4f}" for r in runs))
+    print(f"card: {card_line()}")
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps({"card": card, "order": order,
+                                        "trees": list(map(str, trees)),
+                                        "runs": runs}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -25,7 +25,8 @@ from repro_torch.approx import make_count_sketch, make_nystrom, make_rff
 from repro_torch.configs import get_arch
 from repro_torch.core import KernelSpec, MiniBatchConfig, fit_dataset
 from repro_torch.data.synthetic import toy2d
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.embed_assign import f32_geometry
 from repro_torch.kernels.precision import resolve_precision
 from repro_torch.models import get_model
 from repro_torch.serving import ServeConfig, ServingEngine
@@ -238,6 +239,37 @@ def test_embed_assign_every_mercer_kind(cuda, spec_kind, prec):
                       "embed_assign")
 
 
+# (n, d, m, C) and the geometry (column tile, row block) the f32 body takes
+# for them (kernels/embed_assign.py f32_geometry): every tile, n off the
+# row block, D off the chunk, C = 130 and 300 (two launches)
+EMBED_F32_SHAPES = [((300, 36, 20, 5), (20, 128)),
+                    ((500, 36, 40, 300), (40, 128)),
+                    ((1000, 100, 80, 10), (80, 80)),
+                    ((300, 40, 160, 130), (160, 80)),
+                    ((777, 784, 320, 10), (160, 80)),
+                    ((60000, 64, 320, 10), (160, 80))]
+
+
+@pytest.mark.parametrize("shape,geometry", EMBED_F32_SHAPES,
+                         ids=["x".join(map(str, s)) for s, _ in EMBED_F32_SHAPES])
+@pytest.mark.parametrize("kind", ["rff", "nystrom"])
+def test_embed_assign_f32_geometries(cuda, kind, shape, geometry):
+    n, d, m, c = shape
+    assert f32_geometry(m) == geometry
+    x, centroids = _rand((n, d), 33, cuda), _rand((c, m), 34, cuda)
+    _check_assignment(x, _embed_map(kind, x, m), centroids,
+                      torch.ones(c, device=cuda), "f32", "embed_assign")
+
+
+@pytest.mark.parametrize("m", [20, 40, 80, 160])
+@pytest.mark.parametrize("spec_kind", list(NYSTROM_SPECS))
+def test_embed_assign_f32_every_mercer_kind_per_tile(cuda, spec_kind, m):
+    x, centroids = _rand((500, 40), 35, cuda), _rand((13, m), 36, cuda)
+    fmap = _embed_map("nystrom", x, m, spec_kind)
+    _check_assignment(x, fmap, centroids, torch.ones(13, device=cuda), "f32",
+                      "embed_assign")
+
+
 @pytest.mark.parametrize("prec", PRECS)
 @pytest.mark.parametrize("shape", SKETCH_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
@@ -325,6 +357,16 @@ FLASH_CASES = [
     (1, 2, 1, 1000, 1000, 256, True, 50.0),
     (1, 2, 2, 2047, 2047, 128, True, None),
     (1, 4, 2, 77, 384, 256, False, 30.0),
+    # every tiling class of the bf16 body (dh padded to 64, 128, 256) with
+    # GQA 8:1, softcap, B > 1, S = 1 and S past a multiple of 128, Sq < Sk
+    # causal and Sq > Sk not
+    (1, 8, 1, 300, 300, 128, True, None),
+    (3, 8, 1, 129, 129, 48, True, 20.0),
+    (2, 8, 1, 257, 257, 16, True, None),
+    (1, 4, 2, 100, 384, 128, True, None),
+    (1, 2, 2, 300, 128, 128, False, None),
+    (1, 2, 1, 1, 1, 256, True, None),
+    (2, 16, 2, 640, 640, 256, True, 50.0),
 ]
 
 
@@ -348,6 +390,33 @@ def test_flash_attention_matches_plain(cuda, case, prec):
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got.float(), want.float(),
                                **_tol(1e-2 if prec == "bf16" else 2e-5))
+
+
+@pytest.mark.parametrize("dh,width", [(128, 128), (16, 24)],
+                         ids=["heads", "dh-slice"])
+def test_flash_attention_reads_strided_views(cuda, monkeypatch, dh, width):
+    """bf16 q, k and v as attention_block hands them over: [B, H, S, dh]
+    views of [B, S, H, dh] activations (here also a dh slice of wider
+    rows). The kernel reads them in place, writes o as a view of
+    [B, S, H, dh] memory, and agrees with contiguous inputs bit for bit."""
+    b, s, h, kh = 2, 300, 8, 2
+    q, k, v = (_rand((b, s, n, width), seed, cuda).to(torch.bfloat16)
+               [..., :dh].transpose(1, 2)
+               for n, seed in ((h, 30), (kh, 31), (kh, 32)))
+    assert not q.is_contiguous()
+    seen, launch = [], build.launch
+    monkeypatch.setattr(build, "launch",
+                        lambda entry, *a: (seen.append(a), launch(entry, *a)))
+    got = ops.flash_attention(q, k, v, precision="bf16")
+    monkeypatch.undo()
+    assert seen[0][:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert got.shape == (b, h, s, dh)
+    assert got.transpose(1, 2).is_contiguous()
+    dense = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), precision="bf16")
+    assert torch.equal(got, dense)
+    want = ref.flash_attention_ref(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(1e-2))
 
 
 def test_flash_attention_wrapper_raises(cuda):

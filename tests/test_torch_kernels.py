@@ -280,6 +280,18 @@ def test_build_without_nvcc_raises(monkeypatch):
         build.build()
 
 
+def test_cached_build_brings_back_its_compiler_output(monkeypatch, tmp_path):
+    """A library built earlier loads with the ptxas lines of its build, so
+    a run that finds it cached can still print registers and spills."""
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
+    out = tmp_path / build._digest()
+    out.mkdir()
+    (out / "libkernels.so").write_bytes(b"")
+    (out / "build.log").write_text("ptxas info    : Used 128 registers")
+    assert build.build() == out / "libkernels.so"
+    assert build.LAST_BUILD["log"] == "ptxas info    : Used 128 registers"
+
+
 def test_build_flags_target_hopper():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert {"assign.cu", "kernel_matrix.cu"} <= {
@@ -384,6 +396,90 @@ def test_cluster_chunk_ties_keep_the_lowest_index(monkeypatch):
     assert lab.tolist() == [3, 513, 3, 513, 3, 3]
     assert mind.tolist() == [1.0, 0.5, 1.0, 0.5, 1.0, 1.0]
     assert f.shape == (n, c)
+
+
+# ---------------------------------------------------------------------------
+# launch geometry of the redesigned bodies (computed here, used on the card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,tile", [(20, 20), (40, 40), (80, 80),
+                                    (160, 160), (320, 160)])
+def test_embed_f32_tile_keeps_padding_under_an_eighth(m, tile):
+    """At every m of the Fig.5 sweep (benchmarks/fig5_approx_sweep.py)
+    the f32 body's column tile wastes under 1/8 of the Gram work, and the
+    widest such tile is taken."""
+    from repro_torch.kernels.embed_assign import f32_geometry, padded_share
+    bn, _ = f32_geometry(m)
+    assert bn == tile and padded_share(m, bn) < 1 / 8
+
+
+def test_embed_f32_row_block_fills_whole_waves():
+    """At Fig.5's n = 60,000 the wide tiles' 80-row blocks make 750 CTAs,
+    95% of three whole waves of 2 x 132; 128-row blocks would fill 89% of
+    two. A tile wider than m falls back to the least padded one."""
+    from repro_torch.kernels.embed_assign import f32_geometry
+    slots = 2 * 132
+    for m in (80, 160, 320):
+        bm = f32_geometry(m)[1]
+        ctas = -(-60000 // bm)
+        assert ctas / (-(-ctas // slots) * slots) > 0.94
+    assert f32_geometry(13) == (20, 128)
+
+
+def _bf16(*shape):
+    return torch.zeros(*shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("contiguous", (8 * 100 * 64, 100 * 64, 64)),
+    ("heads-view", (100 * 8 * 64, 64, 8 * 64)),
+    ("dh-slice", (100 * 8 * 72, 72, 8 * 72)),
+    ("unit-batch", (100 * 8 * 64, 64, 8 * 64)),
+    ("dh-strided", None), ("odd-stride", None), ("unaligned", None)])
+def test_flash_tma_strides(case, want):
+    """The (batch, head, row) element strides the bf16 body's tensor maps
+    read a [B, H, S, dh] operand through, or None where TMA cannot."""
+    from repro_torch.kernels.flash_attention import tma_strides
+    t = {"contiguous": lambda: _bf16(2, 8, 100, 64),
+         "heads-view": lambda: _bf16(2, 100, 8, 64).transpose(1, 2),
+         "dh-slice": lambda: _bf16(2, 100, 8, 72)[..., :64].transpose(1, 2),
+         "unit-batch": lambda: _bf16(1, 100, 8, 64).transpose(1, 2),
+         "dh-strided": lambda: _bf16(2, 8, 100, 128)[..., ::2],
+         "odd-stride": lambda: _bf16(2, 100, 8, 68)[..., :64].transpose(1, 2),
+         "unaligned": lambda: _bf16(2 * 8 * 100 * 64 + 1)[1:].view(
+             2, 8, 100, 64)}[case]()
+    got = tma_strides(t)
+    if case == "unit-batch":
+        # a size-1 batch takes the tensor's span, valid whatever its stride
+        assert got[1:] == want[1:] and got[0] == 100 * 8 * 64
+    else:
+        assert got == want
+
+
+@pytest.mark.parametrize("case", ["heads-view", "odd-stride", "unaligned"])
+def test_flash_bf16_launch_reads_views_in_place(monkeypatch, case):
+    """The bf16 launcher hands the kernel the views of [B, S, H, dh]
+    activations as they are, with their strides; a view TMA cannot read
+    (a stride or base off 16 bytes) is copied once, contiguous. o is a
+    [B, H, S, dh] view of [B, S, H, dh] memory. (The kernel itself runs on
+    the card only.)"""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    seen = []
+    monkeypatch.setattr(build, "launch", lambda entry, *a: seen.append(a))
+    if case == "unaligned":
+        q = _bf16(2 * 8 * 100 * 64 + 1)[1:].view(2, 8, 100, 64)
+    else:
+        width = 64 if case == "heads-view" else 68
+        q = _bf16(2, 100, 8, width)[..., :64].transpose(1, 2)
+    out = flash_attention_cuda(q, q, q, causal=True, softcap=None)
+    args = seen[0]
+    in_place = case == "heads-view"
+    assert (args[0] == q.data_ptr()) == in_place
+    want = (100 * 8 * 64, 64, 8 * 64)
+    assert args[13:16] == (want if in_place else (8 * 100 * 64, 100 * 64, 64))
+    assert args[-3:] == want and args[3] == out.data_ptr()
+    assert out.shape == (2, 8, 100, 64) and out.transpose(1, 2).is_contiguous()
 
 
 # ---------------------------------------------------------------------------
