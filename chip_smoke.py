@@ -8,10 +8,12 @@ Phases, in order; any failure exits non-zero without the final line:
      TF32 flags (then both set to False);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
      sm_90a) and print the build seconds and ptxas resource lines; then
-     the ptxas lines of the two bodies redesigned for Hopper (the flash
-     bf16 body, which must issue wgmma: its HGMMA count in the library's
-     SASS is printed by cuobjdump; the embed_assign f32 body, which must fit
-     two CTAs per SM: <= 128 registers, no spills);
+     the ptxas lines of the four bodies redesigned for Hopper, with counts
+     of their tensor-core instructions in the library's SASS (cuobjdump):
+     the flash bf16 body must issue wgmma (HGMMA); the embed_assign f32
+     body must fit two CTAs per SM (<= 128 registers, no spills); the
+     3xTF32 bodies of assign_fused f32 and flash_attention f32 must not
+     spill and must issue mma.sync TF32 (HMMA.1688.F32.TF32);
   3. hold each wrapper the main path calls (``ops.kernel_matrix``,
      ``ops.assign_fused``, ``ops.gram_matvec``, ``ops.embed_assign`` for
      RFF / Nystrom and for the count sketch) against its plain PyTorch
@@ -20,7 +22,8 @@ Phases, in order; any failure exits non-zero without the final line:
      shapes for every epilogue kind, at f32 and bf16; time kernel, plain
      version, a composite of PyTorch calls (``library_ms``, never called by
      the port) and the bound. The main shapes: the paper's Tab.1 MNIST
-     setting (15,000-row batches of 784 features, C = 10, rbf), the Fig.5
+     setting (15,000-row batches of 784 features, C = 10, rbf; and the
+     g stats' ``ops.gram_matvec`` over the 3,000 landmarks), the Fig.5
      embedded sweep at its largest m (60,000 x 784 -> 320, C = 10; RFF at
      f32 also at the sweep's m = 20, 80 and 160) and the
      Tab.2 RCV1 sketch (188,000 x 256 -> 128, C = 50); then
@@ -51,7 +54,9 @@ Phases, in order; any failure exits non-zero without the final line:
      call), run F-chunked (the same weights and prompts in plain PyTorch;
      first tokens must agree outside near-ties) and run F-f32 (one 2048-token
      prompt, f32 weights and tiles, flash against chunked prefill logits);
-  5. print the per-kernel JSON line and, last, the ok line.
+  5. print the per-kernel JSON line (one entry per kernel; assign_fused
+     and flash_attention one per tile dtype, since both bodies run on the
+     main path) and, last, the ok line.
 
 Tolerances (normwise: max |kernel - plain| <= tol * max(1, max |plain|)):
 kernel_matrix 1e-5, assign_fused f and mind 1e-4, embed_assign and
@@ -77,7 +82,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}   # H100 SXM, dense
+# H100 SXM, dense. "f32": f32-accurate products, the least time of which
+# is 3xTF32 on the tensor cores (495 TFLOP/s TF32 / 3); bounds before the
+# f32 bodies moved to 3xTF32 used the CUDA cores' 67 TFLOP/s, which is
+# "f32_cuda"
+PEAK_FLOPS = {"f32": 495e12 / 3, "bf16": 989e12, "f32_cuda": 67e12}
 PEAK_BYTES = 3.35e12
 # the same limits at f32 and bf16: kernel and plain version get the same
 # rounded operands and both sum in f32, so only the order of the sums differs
@@ -144,13 +153,14 @@ def time_ms(torch, fn, reps: int) -> float:
 
 def bound_ms(flops: list, nbytes: float):
     """The least time for the work: the larger of the bytes and the
-    operations. The (type, count) pairs of one type add up on its pipe;
-    the tensor-core and the f32 pipes run side by side, so the operations
-    take the longest of the per-type times over their peaks."""
-    per_type: dict = {}
-    for prec, f in flops:
-        per_type[prec] = per_type.get(prec, 0.0) + f
-    t_ops = max(f / PEAK_FLOPS[prec] for prec, f in per_type.items())
+    operations. The operations take the better of two placements: all on
+    the tensor cores (bf16 and 3xTF32 f32 share them, so their times add),
+    or bf16 on the tensor cores beside f32 on the CUDA cores (the times
+    overlap). Work of one type always takes the first."""
+    f32 = sum(f for prec, f in flops if prec == "f32")
+    t_bf16 = sum(f for prec, f in flops if prec == "bf16") / PEAK_FLOPS["bf16"]
+    t_ops = min(f32 / PEAK_FLOPS["f32"] + t_bf16,
+                max(f32 / PEAK_FLOPS["f32_cuda"], t_bf16))
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -179,7 +189,14 @@ def label_mismatches(torch, got, want, dist_plain) -> tuple[int, int]:
 # their mangled names
 FLASH_BF16_BODY = "flash_bf16_kernel"
 EMBED_F32_BODY = "embed_assign_f32_kernel"
+# rt::af::assign_f32_kernel (a bare "assign_f32_kernel" would also match
+# embed_assign_f32_kernel)
+ASSIGN_F32_BODY = "2af17assign_f32_kernel"
+FLASH_F32_BODY = "flash_f32_kernel"
 REGS_PER_THREAD_2_CTAS = 128     # 65,536 registers / (2 x 256 threads)
+# SASS opcodes of the tensor cores: wgmma (bf16 flash) and mma.sync
+# m16n8k8 TF32 (the 3xTF32 bodies)
+HGMMA, HMMA_TF32 = "HGMMA", "HMMA.1688.F32.TF32"
 
 
 def ptxas_resources(log: str) -> dict:
@@ -202,32 +219,40 @@ def ptxas_resources(log: str) -> dict:
     return out
 
 
-def sass_opcode_counts(lib: str, opcode: str) -> dict | None:
-    """{mangled function: number of SASS instructions of ``opcode``} in the
+def sass_opcode_counts(lib: str, opcodes: tuple) -> dict | None:
+    """{opcode: {mangled function: number of its SASS instructions}} in the
     built library, by cuobjdump; None where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).is_file():
         return None
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
-    counts, cur = {}, None
+    counts = {op: {} for op in opcodes}
+    pattern = {op: re.compile(rf"\b{re.escape(op)}\b") for op in opcodes}
+    cur = None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             cur = m.group(1)
-            counts[cur] = 0
-        elif cur is not None and re.search(rf"\b{opcode}\b", line):
-            counts[cur] += 1
+            for op in opcodes:
+                counts[op][cur] = 0
+        elif cur is not None:
+            for op in opcodes:
+                if pattern[op].search(line):
+                    counts[op][cur] += 1
     return counts
 
 
 def redesigned_bodies(build) -> None:
-    """Print the ptxas lines of the two redesigned bodies and the wgmma
-    (HGMMA) count of the flash bf16 kernel's SASS; fail if the embed f32
-    body needs more registers than two CTAs per SM leave it, or spills, or
-    if the flash bf16 body issues no HGMMA."""
+    """Print the ptxas lines of the four redesigned bodies, the wgmma
+    (HGMMA) count of the flash bf16 kernel's SASS and the TF32 mma count
+    (HMMA.1688.F32.TF32) of the two 3xTF32 bodies; fail if the embed f32
+    body needs more registers than two CTAs per SM leave it, if any of the
+    embed f32, assign f32 and flash f32 bodies spills, or if a body issues
+    none of its tensor-core instructions."""
     res = ptxas_resources(build.LAST_BUILD["log"])
-    for body in (FLASH_BF16_BODY, EMBED_F32_BODY):
+    for body in (FLASH_BF16_BODY, EMBED_F32_BODY, ASSIGN_F32_BODY,
+                 FLASH_F32_BODY):
         found = {k: v for k, v in res.items() if body in k}
         check(bool(found), f"ptxas printed no entry of {body}")
         for name, r in found.items():
@@ -241,15 +266,19 @@ def redesigned_bodies(build) -> None:
                       f"{name}: {r['registers']} registers, "
                       f"{r['spill_bytes']} spill bytes (two CTAs per SM "
                       f"need <= {REGS_PER_THREAD_2_CTAS} and no spills)")
-    counts = sass_opcode_counts(build.LAST_BUILD["path"], "HGMMA")
-    if counts is None:
-        print("HGMMA count: the toolkit has no cuobjdump; not counted")
-        return
-    flash = {k: v for k, v in counts.items() if FLASH_BF16_BODY in k}
-    for name, n in flash.items():
-        print(f"HGMMA instructions in {name}: {n}")
-    check(bool(flash) and all(n > 0 for n in flash.values()),
-          f"the flash bf16 body issues no wgmma: {flash}")
+            if body in (ASSIGN_F32_BODY, FLASH_F32_BODY):
+                check(r["spill_bytes"] == 0,
+                      f"{name}: {r['spill_bytes']} spill bytes")
+    counts = sass_opcode_counts(build.LAST_BUILD["path"], (HGMMA, HMMA_TF32))
+    check(counts is not None, "the toolkit has no cuobjdump: the tensor-core "
+                              "instructions of the bodies cannot be counted")
+    for body, op in ((FLASH_BF16_BODY, HGMMA), (ASSIGN_F32_BODY, HMMA_TF32),
+                     (FLASH_F32_BODY, HMMA_TF32)):
+        found = {k: v for k, v in counts[op].items() if body in k}
+        for name, n in found.items():
+            print(f"{op} instructions in {name}: {n}")
+        check(bool(found) and all(n > 0 for n in found.values()),
+              f"{body} issues no {op}: {found}")
 
 
 # ---------------------------------------------------------------------------
@@ -364,16 +393,24 @@ def check_assign(torch, mods, x, lm, labels_l, g, n_clusters, kind, gamma,
     return rec
 
 
-def check_gram_matvec(torch, mods, lm, labels_l, n_clusters, gamma, prec):
+def check_gram_matvec(torch, mods, lm, labels_l, n_clusters, gamma, prec, *,
+                      timed=False):
     """ops.gram_matvec (the g stats: K(L, L) @ H) against the plain block
-    product, at the main path's landmark panel."""
+    product, at the main path's landmark panel; timed, beside the composite
+    of cdist + exp + matmul, at the 3000 x 3000 panel of runs B and C."""
     ops, ref = mods["ops"], mods["ref"]
     p = mods["precision"].resolve_precision(prec)
     lm = p.cast_tiles(lm).contiguous()
     h = torch.nn.functional.one_hot(labels_l.long(), n_clusters).float()
-    got = ops.gram_matvec(lm, lm, h, kind="rbf", gamma=gamma, precision=prec)
-    want = ref.kernel_matrix_ref(lm, lm, kind="rbf", gamma=gamma,
-                                 precision=prec) @ h
+    def kernel():
+        return ops.gram_matvec(lm, lm, h, kind="rbf", gamma=gamma,
+                               precision=prec)
+
+    def plain():
+        return ref.kernel_matrix_ref(lm, lm, kind="rbf", gamma=gamma,
+                                     precision=prec) @ h
+
+    got, want = kernel(), plain()
     torch.cuda.synchronize()
     # h is a plain one-hot here (sums of up to |L| values): normwise
     err, rel = normwise(torch, got, want)
@@ -382,6 +419,18 @@ def check_gram_matvec(torch, mods, lm, labels_l, n_clusters, gamma, prec):
            "shape": [lm.shape[0], lm.shape[0], lm.shape[1]], "C": n_clusters,
            "kind": "rbf", "gamma": gamma, "prec": prec, "max_abs_err": err,
            "rel_err": rel, "tol": tol}
+    if timed:
+        lf = lm.float()
+        nl, d = lm.shape
+        c = n_clusters
+        rec["ms"] = time_ms(torch, kernel, 10)
+        rec["plain_ms"] = time_ms(torch, plain, 10)
+        rec["library_ms"] = time_ms(
+            torch, lambda: torch.exp(torch.cdist(lf, lf).square_()
+                                     .mul_(-gamma)) @ h, 10)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            [(prec, 2.0 * nl * nl * d), ("f32", 2.0 * nl * nl * c)],
+            nl * d * p.tile_itemsize + nl * 4 + 2 * nl * c * 4)
     print("check", json.dumps(rec))
     check(rel <= tol, f"gram_matvec {prec} {rec['shape']}: rel err "
                       f"{rel:.3g} > {tol}")
@@ -421,6 +470,9 @@ def kernel_checks(torch, mods, x_b, y_b, gamma):
                                          10, "rbf", gam, prec, timed=timed))
             recs.append(check_gram_matvec(torch, mods, lm, labels_l, 10, wide,
                                           prec))
+            if len(lm) == len(l3):   # the g stats of runs B and C, timed
+                recs.append(check_gram_matvec(torch, mods, lm, labels_l, 10,
+                                              gamma, prec, timed=True))
     rng = torch.Generator().manual_seed(1)
     xs = torch.randn(300, 129, generator=rng).to(dev)
     ys = torch.randn(520, 129, generator=rng).to(dev)
@@ -956,7 +1008,8 @@ def run_serving(torch, mods, name, api, params, prompts):
 
 
 def serving_runs(torch, np, mods):
-    """Runs F (bf16, flash), F-chunked and F-f32 on OLMo-1B at full width."""
+    """Runs F (bf16, flash), F-chunked and F-f32 on OLMo-1B at full width;
+    returns the flash launches of run F (bf16) and of F-f32 (f32)."""
     configs, models = mods["configs"], mods["models"]
     base = configs.get_arch("olmo-1b")
     flash_cfg = dataclasses.replace(base, attn_impl="flash")
@@ -1030,7 +1083,7 @@ def serving_runs(torch, np, mods):
     check(launches == base.n_layers, f"run F-f32: {launches} flash launches")
     check(rel <= 1e-4, f"run F-f32: flash and chunked prefill logits differ "
                        f"by {rel} > 1e-4")
-    return rec_f["launches"]["flash_attention"] + launches
+    return rec_f["launches"]["flash_attention"], launches
 
 
 def main(argv=None) -> int:
@@ -1109,6 +1162,8 @@ def main(argv=None) -> int:
     spec = core.KernelSpec("rbf", gamma=gamma)
     base = dict(n_clusters=10, n_batches=4, kernel=spec, seed=0)
     totals = {"kernel_matrix": 0, "assign_fused": 0}
+    # launches of the bodies, (kernel, tile dtype)
+    bodies = {("assign_fused", "f32"): 0, ("assign_fused", "bf16"): 0}
     iters = 0
     runs = {}
     for name, kw in [("A", dict(s=1.0, engine="fused")),
@@ -1121,9 +1176,16 @@ def main(argv=None) -> int:
         runs[name] = (rec, labels)
         for k in totals:
             totals[k] += rec["launches"][k]
+        bodies["assign_fused", rec["precision"]] += \
+            rec["launches"]["assign_fused"]
         iters += sum(rec["inner_iters"])
-    check(all(v > 0 for v in totals.values()),
-          f"a kernel never launched on the main path: {totals}")
+    check(all(v > 0 for v in totals.values())
+          and all(v > 0 for v in bodies.values()),
+          f"a kernel never launched on the main path: {totals} {bodies}")
+    wall_f = runs["B-fused"][0]["wall_s"]
+    wall_m = runs["B-materialize"][0]["wall_s"]
+    print(f"B-fused wall {wall_f!r} s vs B-materialize {wall_m!r} s: "
+          f"ratio {wall_f / wall_m!r}")
     agree = float((runs["B-fused"][1] == runs["B-materialize"][1]).mean())
     nmi_cb = core.nmi(runs["B-fused"][1], runs["C"][1])
     print(f"B fused vs materialize test-label agreement {agree!r}; "
@@ -1186,18 +1248,18 @@ def main(argv=None) -> int:
     del fits, runs
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    totals["flash_attention"] = serving_runs(torch, np, mods)
+    flash_bf16, flash_f32 = serving_runs(torch, np, mods)
+    totals["flash_attention"] = flash_bf16 + flash_f32
+    bodies["flash_attention", "bf16"] = flash_bf16
+    bodies["flash_attention", "f32"] = flash_f32
     print(f"serving runs: {time.perf_counter() - t0:.1f} s")
     check(all(v > 0 for v in totals.values()),
           f"a kernel never launched on the main path: {totals}")
 
     # -- phase 5: result lines ----------------------------------------------
-    first = {}
-    for r in recs:
-        if "ms" in r and r["kernel"] not in first:
-            first[r["kernel"]] = r
-    errs = {k: max(r["max_abs_err"] for r in recs if r["kernel"] == k)
-            for k in first}
+    # one entry per kernel, from its first timed record, with the launches
+    # of all its bodies; the kernels whose two bodies both run on the main
+    # path also get one entry per body, named by its tile dtype
     src = {"kernel_matrix": ("src/repro_torch/kernels/csrc/kernel_matrix.cu",
                              "src/repro/kernels/kernel_matrix.py:78"),
            "assign_fused": ("src/repro_torch/kernels/csrc/assign.cu",
@@ -1209,15 +1271,28 @@ def main(argv=None) -> int:
            "flash_attention": (
                "src/repro_torch/kernels/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention.py:85")}
-    kernels = [{"name": k, "route": "cuda", "source": src[k][0],
-                "replaces": src[k][1], "launches": totals[k],
-                "max_abs_err": errs[k], "ms": first[k]["ms"],
-                "plain_ms": first[k]["plain_ms"],
-                "bound_ms": first[k]["bound_ms"],
-                "bound_by": first[k]["bound_by"],
-                "library_ms": first[k]["library_ms"]}
-               for k in ("assign_fused", "kernel_matrix", "embed_assign",
-                         "sketch_assign", "flash_attention")]
+    entries = [("assign_fused", "assign_fused", None),
+               ("assign_fused_f32", "assign_fused", "f32"),
+               ("assign_fused_bf16", "assign_fused", "bf16"),
+               ("kernel_matrix", "kernel_matrix", None),
+               ("embed_assign", "embed_assign", None),
+               ("sketch_assign", "sketch_assign", None),
+               ("flash_attention", "flash_attention", None),
+               ("flash_attention_bf16", "flash_attention", "bf16"),
+               ("flash_attention_f32", "flash_attention", "f32")]
+    kernels = []
+    for name, k, prec in entries:
+        mine = [r for r in recs if r["kernel"] == k
+                and (prec is None or r["prec"] == prec)]
+        first = next(r for r in mine if "ms" in r)
+        kernels.append({
+            "name": name, "route": "cuda", "source": src[k][0],
+            "replaces": src[k][1],
+            "launches": totals[k] if prec is None else bodies[k, prec],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"]})
     print(f"total inner iterations {iters}; card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -36,10 +36,10 @@
 
 namespace rt {
 
-template <class Tile, class Epi>
+template <class Epi>
 __global__ void __launch_bounds__(NTHREADS)
-embed_assign_kernel(const typename Tile::T* __restrict__ X,
-                    const typename Tile::T* __restrict__ W,
+embed_assign_kernel(const TileBF16::T* __restrict__ X,
+                    const TileBF16::T* __restrict__ W,
                     const float* __restrict__ xsq,
                     const float* __restrict__ aux,
                     const float* __restrict__ V,
@@ -48,26 +48,25 @@ embed_assign_kernel(const typename Tile::T* __restrict__ X,
                     int n, int M, int D, int Cp, Epi epi) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int r0 = blockIdx.x * BM;
-  const float* fs = row_block_contract<Tile>(X, W, xsq, aux, V, n, M, D, Cp,
-                                             epi, r0, smem);
+  const float* fs = row_block_contract(X, W, xsq, aux, V, n, M, D, Cp, epi,
+                                       r0, smem);
   row_block_argmin<BM>(fs, csq, Cp, r0, n, labels, score);
 }
 
-template <class Tile, class Epi>
+template <class Epi>
 static int launch_embed_assign(const void* x, const void* w, const void* xsq,
                                const void* aux, const void* v,
                                const void* csq, void* labels, void* score,
                                int n, int M, int D, int Cp, Epi epi,
                                void* stream) {
   const size_t bytes = row_block_smem_bytes(Cp);
-  cudaError_t err = cudaFuncSetAttribute(
-      embed_assign_kernel<Tile, Epi>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const cudaError_t err =
+      smem_once<embed_assign_kernel<Epi>>(row_block_smem_bytes(MAX_CP),
+                                          false);
   if (err != cudaSuccess) return (int)err;
-  embed_assign_kernel<Tile, Epi><<<(n + BM - 1) / BM, NTHREADS, bytes,
-                                   (cudaStream_t)stream>>>(
-      static_cast<const typename Tile::T*>(x),
-      static_cast<const typename Tile::T*>(w),
+  embed_assign_kernel<Epi><<<(n + BM - 1) / BM, NTHREADS, bytes,
+                             (cudaStream_t)stream>>>(
+      static_cast<const TileBF16::T*>(x), static_cast<const TileBF16::T*>(w),
       static_cast<const float*>(xsq), static_cast<const float*>(aux),
       static_cast<const float*>(v), static_cast<const float*>(csq),
       static_cast<int*>(labels), static_cast<float*>(score), n, M, D, Cp,
@@ -76,20 +75,18 @@ static int launch_embed_assign(const void* x, const void* w, const void* xsq,
 }
 
 // kind RFF takes the RffEpilogue, every other kind the Mercer Epilogue
-template <class Tile>
-static int embed_assign(const void* x, const void* w, const void* xsq,
-                        const void* aux, const void* v, const void* csq,
-                        void* labels, void* score, int n, int M, int D,
-                        int Cp, int kind, float gamma, float coef0,
-                        int degree, float scale, void* stream) {
+static int embed_assign_bf16(const void* x, const void* w, const void* xsq,
+                             const void* aux, const void* v, const void* csq,
+                             void* labels, void* score, int n, int M, int D,
+                             int Cp, int kind, float gamma, float coef0,
+                             int degree, float scale, void* stream) {
   if (Cp <= 0 || Cp > MAX_CP || Cp % HCH != 0) return (int)cudaErrorInvalidValue;
   if (kind == RFF)
-    return launch_embed_assign<Tile>(x, w, xsq, aux, v, csq, labels, score,
-                                     n, M, D, Cp, RffEpilogue{scale}, stream);
-  return launch_embed_assign<Tile>(x, w, xsq, aux, v, csq, labels, score, n,
-                                   M, D, Cp,
-                                   Epilogue{kind, gamma, coef0, degree},
-                                   stream);
+    return launch_embed_assign(x, w, xsq, aux, v, csq, labels, score, n, M,
+                               D, Cp, RffEpilogue{scale}, stream);
+  return launch_embed_assign(x, w, xsq, aux, v, csq, labels, score, n, M, D,
+                             Cp, Epilogue{kind, gamma, coef0, degree},
+                             stream);
 }
 
 }  // namespace rt
@@ -119,7 +116,7 @@ extern "C" int rt_embed_assign_bf16(const void* x, const void* w,
                                     int D, int Cp, int kind, float gamma,
                                     float coef0, int degree, float scale,
                                     void* stream) {
-  return rt::embed_assign<rt::TileBF16>(x, w, xsq, aux, v, csq, labels, score,
-                                        n, M, D, Cp, kind, gamma, coef0,
-                                        degree, scale, stream);
+  return rt::embed_assign_bf16(x, w, xsq, aux, v, csq, labels, score, n, M,
+                               D, Cp, kind, gamma, coef0, degree, scale,
+                               stream);
 }

@@ -27,6 +27,7 @@
 // columns of V past C load as zeros and the argmin stops at C).
 #pragma once
 
+#include "common.cuh"
 #include "row_block.cuh"
 
 namespace rt {
@@ -65,27 +66,6 @@ template <>
 struct IsRff<RffEpilogue> {
   static constexpr bool value = true;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from src, or zeros when bytes == 0
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 template <int TX, int TN, int TM, int KC, int NSTAGE, class Epi>
 __global__ void __launch_bounds__(NT, 2)
@@ -269,25 +249,12 @@ static int launch(const void* x, const void* w, const void* xsq,
   using G = Geo<TX, TN, TM, KC, NSTAGE>;
   const size_t bytes = G::smem_bytes((C + HCH - 1) / HCH * HCH);
   auto kernel = embed_assign_f32_kernel<TX, TN, TM, KC, NSTAGE, Epi>;
-  // The attributes are set once per instantiation and device, to the
-  // largest F (MAX_CP clusters): cudaFuncSetAttribute waits for launches of
-  // the kernel still in flight, so calling it per launch leaves the card
-  // idle while the host prepares the next one.
-  static unsigned long long sized = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  // sized once per instantiation and device, to the largest F (MAX_CP
+  // clusters)
+  const cudaError_t err =
+      smem_once<embed_assign_f32_kernel<TX, TN, TM, KC, NSTAGE, Epi>>(
+          G::smem_bytes(MAX_CP), true);
   if (err != cudaSuccess) return (int)err;
-  if (!(sized >> dev & 1ull)) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)G::smem_bytes(MAX_CP));
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-          (int)cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return (int)err;
-    sized |= 1ull << dev;
-  }
   kernel<<<(n + G::BM - 1) / G::BM, NT, bytes, (cudaStream_t)stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(xsq), static_cast<const float*>(aux),

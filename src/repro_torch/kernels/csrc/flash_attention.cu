@@ -23,17 +23,29 @@
 // What bounds it on an H100: at the main path's prefill (B 1, H = KH = 16,
 // S 2048, dh 128, causal) the work is 4 * H * dh * S (S + 1) / 2 = 17.2
 // GFLOP against 33.6 MB of q, k, v and o: ~510 flops per byte, above the
-// bf16 ridge (~295), so operations bound it: 17 us at bf16, 0.26 ms at
-// f32, at the published peaks of an H100 SXM at its 700 W limit.
+// bf16 ridge (~295), so operations bound it: 17 us at bf16 (989 TFLOP/s),
+// 0.10 ms at f32-accurate 3xTF32 (495 / 3 = 165 TFLOP/s), at the published
+// peaks of an H100 SXM at its 700 W limit.
 //
-// Two bodies:
-//   f32 tiles (rt_flash_attention_f32, namespace fa): one CTA of four warps
-//     per 64-row query block, 16 rows a warp; K and V staged through
-//     registers; both products in f32 FMA on the CUDA cores (no TF32), the
-//     score block and the accumulator in the mma.m16n8k16 C-fragment layout
-//     (lane = 4 g + t owns rows g and g + 8, columns 2t and 2t + 1 of every
-//     8-column tile), P moved to the lanes that need it by quad shuffles;
-//     expf. Contiguous operands only.
+// Two bodies, both reading q, k and v and writing o through their strides
+// (dh contiguous, 16-byte aligned rows), so the [B, S, H, dh] activations
+// are used in place:
+//   f32 tiles (rt_flash_attention_f32, namespace fa): both products on the
+//     tensor cores in 3xTF32 (common.cuh), mma.sync m16n8k8, so the result
+//     keeps f32 accuracy. One CTA per (b, h, query block) of NW warps of 16
+//     rows; Q and a two-stage ring of K/V blocks land in padded shared
+//     memory by cp.async, the next block's copies in flight while the
+//     current one is multiplied. Three tilings: dh up to 64 (8 warps, key
+//     blocks of 32, two CTAs per SM), up to 128 (8 warps, 64 keys), up to
+//     256 (4 warps, 32 keys; 128 accumulators a thread). The scores and the
+//     accumulator are C-fragments (lane 4 g + t: rows g and g + 8, columns
+//     2t and 2t + 1 of every 8-column tile). The k slots of an m16n8k8 step
+//     may hold any keys as long as A and B agree, so P's C-fragment of key
+//     tile j is the A-fragment of a step whose slots t and t + 4 are keys
+//     2t and 2t + 1, and V's B-fragment is rows 2t and 2t + 1 at column g:
+//     P moves between the two products without a shuffle. A warp skips a
+//     key block wholly after its rows; the mask runs only on blocks that
+//     cross the diagonal or Sk. expf, as the reference.
 //   bf16 tiles (rt_flash_attention_bf16, namespace fa3), built for the
 //     tensor cores' rate: one CTA per 128 query rows of one (b, h), as two
 //     consumer warpgroups of 64 rows and one producer warpgroup whose
@@ -54,167 +66,147 @@
 //     flash kernels do; the TPU body multiplied P in f32. l sums the f32 P.
 //     The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
 //     found through cudaGetDriverEntryPoint (no -lcuda at link time).
-#include "gram_tile.cuh"
+#include <cuda_bf16.h>
+
+#include "common.cuh"
 #include "hopper.cuh"
 
 namespace rt {
 namespace fa {
 
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = 32 * NWARPS;
-constexpr int BQ = 16 * NWARPS;    // query rows per CTA
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
+// element strides (batch, head, row) of each operand; dh is contiguous
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int B, H, KH, Sq, Sk, dh, causal;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
+      o_ss;
+  int H, KH, Sq, Sk, dh, causal;
   float scale, softcap;            // softcap <= 0: none
 };
 
-// rows [r0, r0 + rows) of a [*, dh] matrix into shared memory with leading
-// dimension ld; rows at or past nvalid load as zeros
-template <class T>
-__device__ __forceinline__ void stage_rows(T* dst, int ld,
-                                           const T* __restrict__ src, int r0,
-                                           int nvalid, int rows, int dh) {
-  constexpr int VEC = 16 / sizeof(T);
-  const int vpr = dh / VEC;
-  for (int i = threadIdx.x; i < rows * vpr; i += NTHREADS) {
-    const int r = i / vpr, c = (i - r * vpr) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < nvalid)
-      val = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * dh + c));
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
+static bool valid(int B, int H, int KH, int Sq, int Sk, int dh) {
+  return dh >= 16 && dh <= 256 && dh % 16 == 0 && KH > 0 && H % KH == 0 &&
+         Sq > 0 && Sk > 0 && B > 0;
 }
 
-// f32 tiles, f32 FMA on the CUDA cores
-template <int DHMAX, int BK_>
-struct EngF32 {
-  using T = float;
-  static constexpr int DH = DHMAX;        // largest head dim it takes
-  static constexpr int BK = BK_;
-  static constexpr int LDQ = DHMAX + 4;   // Q, K and V rows, 16-byte padded
-  static constexpr size_t smem_bytes() {
-    return sizeof(T) * (size_t)(BQ + 2 * BK) * LDQ;
-  }
-  T* sq;
-  T* sk;
-  T* sv;
-
-  __device__ __forceinline__ EngF32(unsigned char* smem) {
-    sq = reinterpret_cast<T*>(smem);
-    sk = sq + BQ * LDQ;
-    sv = sk + BK * LDQ;
-  }
-
-  __device__ __forceinline__ void stage_q(const T* Q, int q0, int Sq, int dh) {
-    stage_rows(sq, LDQ, Q, q0, Sq, BQ, dh);
-  }
-
-  __device__ __forceinline__ void stage_kv(const T* K, const T* V, int k0,
-                                           int Sk, int dh) {
-    stage_rows(sk, LDQ, K, k0, Sk, BK, dh);
-    stage_rows(sv, LDQ, V, k0, Sk, BK, dh);
-  }
-
-  __device__ __forceinline__ void scores(float (*S)[4], int dh) const {
-    const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16;
-    const int g = lane >> 2, t = lane & 3;
-    const T* qa = sq + (wr + g) * LDQ;
-    const T* qb = qa + 8 * LDQ;
-#pragma unroll 4
-    for (int d = 0; d < dh; d += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(qa + d);
-      const float4 y = *reinterpret_cast<const float4*>(qb + d);
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const T* kr = sk + (8 * j + 2 * t) * LDQ + d;
-        const float4 u = *reinterpret_cast<const float4*>(kr);
-        const float4 w = *reinterpret_cast<const float4*>(kr + LDQ);
-        S[j][0] = fmaf(x.w, u.w, fmaf(x.z, u.z, fmaf(x.y, u.y, fmaf(x.x, u.x, S[j][0]))));
-        S[j][1] = fmaf(x.w, w.w, fmaf(x.z, w.z, fmaf(x.y, w.y, fmaf(x.x, w.x, S[j][1]))));
-        S[j][2] = fmaf(y.w, u.w, fmaf(y.z, u.z, fmaf(y.y, u.y, fmaf(y.x, u.x, S[j][2]))));
-        S[j][3] = fmaf(y.w, w.w, fmaf(y.z, w.z, fmaf(y.y, w.y, fmaf(y.x, w.x, S[j][3]))));
-      }
-    }
-  }
-
-  __device__ __forceinline__ void pv(float (*S)[4], float (*O)[4],
-                                     int dh) const {
-    const int lane = threadIdx.x & 31;
-    const int t = lane & 3;
-#pragma unroll
-    for (int c = 0; c < BK; ++c) {
-      // key c's probabilities for rows g and g + 8 live in lane 4 g + (c % 8) / 2
-      const int src = (lane & ~3) | ((c & 7) >> 1);
-      const float pa = __shfl_sync(FULL, S[c >> 3][c & 1], src);
-      const float pb = __shfl_sync(FULL, S[c >> 3][2 + (c & 1)], src);
-      const T* vr = sv + c * LDQ + 2 * t;
-#pragma unroll
-      for (int n = 0; n < DHMAX / 8; ++n) {
-        if (8 * n < dh) {
-          const float2 vv = *reinterpret_cast<const float2*>(vr + 8 * n);
-          O[n][0] = fmaf(pa, vv.x, O[n][0]);
-          O[n][1] = fmaf(pa, vv.y, O[n][1]);
-          O[n][2] = fmaf(pb, vv.x, O[n][2]);
-          O[n][3] = fmaf(pb, vv.y, O[n][3]);
-        }
-      }
-    }
-  }
-
-  __device__ __forceinline__ static void store2(T* dst, float x, float y) {
-    *reinterpret_cast<float2*>(dst) = make_float2(x, y);
-  }
+// A tiling: head dims up to DHP, NW warps of 16 query rows, key blocks of
+// BK. Q and K rows are padded to DHP + 8 floats (8 mod 32: the float2
+// fragment reads of a half-warp fall in distinct banks), V rows to DHP + 4
+// (4 mod 32: lane (g, t) reads V rows 2t and 2t + 1 at column g, banks
+// 8t + g).
+template <int DHP, int NW, int BK>
+struct Tiling {
+  static constexpr int NT = 32 * NW;
+  static constexpr int BQ = 16 * NW;
+  static constexpr int LDK = DHP + 8;
+  static constexpr int LDV = DHP + 4;
+  static constexpr size_t SMEM =
+      sizeof(float) * ((size_t)BQ * LDK + 2 * BK * LDK + 2 * BK * LDV);
 };
 
-template <class Eng>
-__global__ void __launch_bounds__(NTHREADS) flash_kernel(Params p) {
-  using T = typename Eng::T;
-  constexpr int BK = Eng::BK, DHMAX = Eng::DH;
-  extern __shared__ __align__(16) unsigned char smem[];
-  Eng eng(smem);
+template <int DHP, int NW, int BK>
+__global__ void __launch_bounds__(32 * NW, DHP <= 64 ? 2 : 1)
+flash_f32_kernel(const Params p) {
+  using T = Tiling<DHP, NW, BK>;
+  constexpr int NT = T::NT, BQ = T::BQ, LDK = T::LDK, LDV = T::LDV;
+  extern __shared__ __align__(16) float sm[];
+  float* sq = sm;                          // [BQ][LDK]
+  float* sk = sq + BQ * LDK;               // [2][BK][LDK]
+  float* sv = sk + 2 * BK * LDK;           // [2][BK][LDV]
 
   // the heaviest causal query blocks (the last ones) start first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int h = blockIdx.x % p.H, b = blockIdx.x / p.H;
   const int kvh = h / (p.H / p.KH);
   const int dh = p.dh;
-  const T* Q = static_cast<const T*>(p.q) + (size_t)(b * p.H + h) * p.Sq * dh;
-  const T* K = static_cast<const T*>(p.k) + (size_t)(b * p.KH + kvh) * p.Sk * dh;
-  const T* V = static_cast<const T*>(p.v) + (size_t)(b * p.KH + kvh) * p.Sk * dh;
-  T* O = static_cast<T*>(p.o) + (size_t)(b * p.H + h) * p.Sq * dh;
+  constexpr int VPR = DHP / 4;             // 16-byte copies per row
+  const float* Q = p.q + (size_t)b * p.q_sb + (size_t)h * p.q_sh;
+  const float* K = p.k + (size_t)b * p.k_sb + (size_t)kvh * p.k_sh;
+  const float* V = p.v + (size_t)b * p.v_sb + (size_t)kvh * p.v_sh;
 
-  const int lane = threadIdx.x & 31;
+  // rows [r0, r0 + rows) of a strided operand into shared memory of pitch
+  // ld, DHP columns; rows at or past n and columns at or past dh load as
+  // zeros, so the products run over all DHP columns without a branch
+  auto stage_rows = [&](float* dst, int ld, const float* src, long long ss,
+                        int r0, int rows, int n) {
+    const uint32_t base = smem_addr(dst);
+    for (int i = threadIdx.x; i < rows * VPR; i += NT) {
+      const int r = i / VPR, c = (i % VPR) * 4;
+      const bool ok = r0 + r < n && c < dh;
+      cp_async16(base + (r * ld + c) * 4,
+                 ok ? src + (size_t)(r0 + r) * ss + c : src, ok ? 16 : 0);
+    }
+  };
+  auto stage_kv = [&](int kb) {
+    const int s = kb & 1;
+    stage_rows(sk + s * BK * LDK, LDK, K, p.k_ss, kb * BK, BK, p.Sk);
+    stage_rows(sv + s * BK * LDV, LDV, V, p.v_ss, kb * BK, BK, p.Sk);
+  };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int row_a = q0 + (threadIdx.x >> 5) * 16 + g;   // and row_a + 8
+  const int rw = q0 + 16 * warp;           // the warp's first row
+  const int row_a = rw + g;                // and row_a + 8
 
-  float acc[DHMAX / 8][4];
+  float acc[DHP / 8][4];
   float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int n = 0; n < DHMAX / 8; ++n)
+  for (int n = 0; n < DHP / 8; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
 
-  eng.stage_q(Q, q0, p.Sq, dh);
   int n_kb = (p.Sk + BK - 1) / BK;
   if (p.causal) n_kb = min(n_kb, (q0 + BQ + BK - 1) / BK);   // live blocks
 
+  stage_rows(sq, LDK, Q, p.q_ss, q0, BQ, p.Sq);
+  stage_kv(0);
+  cp_commit();
   for (int kb = 0; kb < n_kb; ++kb) {
+    cp_wait<0>();      // block kb (and Q) landed: this thread's copies
+    __syncthreads();   // everyone's; block kb - 1 is no longer read
+    if (kb + 1 < n_kb) stage_kv(kb + 1);   // in flight while kb is used
+    cp_commit();
     const int k0 = kb * BK;
-    __syncthreads();                 // the previous block's K and V are used
-    eng.stage_kv(K, V, k0, p.Sk, dh);
-    __syncthreads();
+    // a block wholly after the warp's rows adds nothing (every score -1e30
+    // against a finite m): skipped, as are rows wholly past Sq
+    if (rw >= p.Sq || (p.causal && k0 > rw + 15)) continue;
+    const float* ks = sk + (kb & 1) * BK * LDK;
+    const float* vs = sv + (kb & 1) * BK * LDV;
 
+    // S = Q . K^T: slot t of a k step is dim 2t, slot t + 4 dim 2t + 1
     float S[BK / 8][4];
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) S[j][0] = S[j][1] = S[j][2] = S[j][3] = 0.0f;
-    eng.scores(S, dh);
+    const float* qa = sq + (16 * warp + g) * LDK + 2 * t;
+    const float* kr = ks + g * LDK + 2 * t;
+#pragma unroll
+    for (int d = 0; d < DHP; d += 8) {
+      {
+        const float2 u = *reinterpret_cast<const float2*>(qa + d);
+        const float2 w = *reinterpret_cast<const float2*>(qa + 8 * LDK + d);
+        const Split a[4] = {split_tf32(u.x), split_tf32(w.x), split_tf32(u.y),
+                            split_tf32(w.y)};
+        Split bb[BK / 8][2];
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const float2 kv = *reinterpret_cast<const float2*>(kr + 8 * j * LDK + d);
+          bb[j][0] = split_tf32(kv.x);
+          bb[j][1] = split_tf32(kv.y);
+        }
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j) mma_3xtf32_part(q, S[j], a, bb[j]);
+      }
+    }
 
+    // online softmax on the C-fragments: S[j][e] is row row_a + 8 (e >> 1),
+    // key k0 + 8 j + 2 t + (e & 1)
+    const bool mask = k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > rw);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
@@ -222,10 +214,12 @@ __global__ void __launch_bounds__(NTHREADS) flash_kernel(Params p) {
       for (int e = 0; e < 4; ++e) {
         float s = S[j][e] * p.scale;
         if (p.softcap > 0.0f) s = p.softcap * tanhf(s / p.softcap);
-        const int row = row_a + (e >> 1) * 8, col = k0 + 8 * j + 2 * t + (e & 1);
-        const bool live = col < p.Sk && (!p.causal || row >= col);
-        S[j][e] = live ? s : NEG;
-        mx[e >> 1] = fmaxf(mx[e >> 1], S[j][e]);
+        if (mask) {
+          const int row = row_a + (e >> 1) * 8, col = k0 + 8 * j + 2 * t + (e & 1);
+          if (col >= p.Sk || (p.causal && col > row)) s = NEG;
+        }
+        S[j][e] = s;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s);
       }
     }
     float corr[2], rsum[2] = {0.0f, 0.0f};
@@ -251,58 +245,90 @@ __global__ void __launch_bounds__(NTHREADS) flash_kernel(Params p) {
       l[r] = l[r] * corr[r] + rsum[r];
     }
 #pragma unroll
-    for (int n = 0; n < DHMAX / 8; ++n) {
+    for (int n = 0; n < DHP / 8; ++n) {
       acc[n][0] *= corr[0]; acc[n][1] *= corr[0];
       acc[n][2] *= corr[1]; acc[n][3] *= corr[1];
     }
-    eng.pv(S, acc, dh);
+
+    // O += P . V: the C-fragment of key tile j is the A-fragment of a k
+    // step whose slot t is key 2t and slot t + 4 key 2t + 1; V's B-fragment
+    // follows (rows 2t and 2t + 1, column g)
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const Split a[4] = {split_tf32(S[j][0]), split_tf32(S[j][2]),
+                          split_tf32(S[j][1]), split_tf32(S[j][3])};
+      const float* vr = vs + (8 * j + 2 * t) * LDV + g;
+      // eight column tiles at a time
+#pragma unroll
+      for (int n0 = 0; n0 < DHP / 8; n0 += 8) {
+        Split bb[8][2];
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          bb[n][0] = split_tf32(vr[8 * (n0 + n)]);
+          bb[n][1] = split_tf32(vr[LDV + 8 * (n0 + n)]);
+        }
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+#pragma unroll
+          for (int n = 0; n < 8; ++n) mma_3xtf32_part(q, acc[n0 + n], a, bb[n]);
+      }
+    }
   }
 
+  if (rw >= p.Sq) return;
   const float la = fmaxf(l[0], 1e-30f), lb = fmaxf(l[1], 1e-30f);
+  float* O = p.o + (size_t)b * p.o_sb + (size_t)h * p.o_sh;
 #pragma unroll
-  for (int n = 0; n < DHMAX / 8; ++n) {
+  for (int n = 0; n < DHP / 8; ++n) {
     if (8 * n < dh) {
       const int col = 8 * n + 2 * t;
       if (row_a < p.Sq)
-        Eng::store2(O + (size_t)row_a * dh + col, acc[n][0] / la, acc[n][1] / la);
+        *reinterpret_cast<float2*>(O + (size_t)row_a * p.o_ss + col) =
+            make_float2(acc[n][0] / la, acc[n][1] / la);
       if (row_a + 8 < p.Sq)
-        Eng::store2(O + (size_t)(row_a + 8) * dh + col, acc[n][2] / lb,
-                    acc[n][3] / lb);
+        *reinterpret_cast<float2*>(O + (size_t)(row_a + 8) * p.o_ss + col) =
+            make_float2(acc[n][2] / lb, acc[n][3] / lb);
     }
   }
 }
 
-template <class Eng>
-static int launch(const Params& p, void* stream) {
-  const size_t smem = Eng::smem_bytes();
-  auto kernel = flash_kernel<Eng>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int DHP, int NW, int BK>
+static int launch(const Params& p, int B, void* stream) {
+  using T = Tiling<DHP, NW, BK>;
+  auto kernel = flash_f32_kernel<DHP, NW, BK>;
+  const cudaError_t err =
+      smem_once<flash_f32_kernel<DHP, NW, BK>>(T::SMEM, true);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, p.B);
-  kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(p);
+  const dim3 grid(B * p.H, (p.Sq + T::BQ - 1) / T::BQ);
+  kernel<<<grid, T::NT, T::SMEM, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
-}
-
-static bool valid(const Params& p) {
-  return p.dh >= 16 && p.dh <= 256 && p.dh % 16 == 0 && p.KH > 0 &&
-         p.H % p.KH == 0 && p.Sq > 0 && p.Sk > 0 && p.B > 0;
 }
 
 }  // namespace fa
 }  // namespace rt
 
-extern "C" int rt_flash_attention_f32(const void* q, const void* k,
-                                      const void* v, void* o, int B, int H,
-                                      int KH, int Sq, int Sk, int dh,
-                                      int causal, float scale, float softcap,
-                                      void* stream) {
+// strides: element strides (batch, head, row) of q, k, v and o, in that
+// order; each a multiple of 4 (16 bytes), dh contiguous
+extern "C" int rt_flash_attention_f32(
+    const void* q, const void* k, const void* v, void* o, int B, int H,
+    int KH, int Sq, int Sk, int dh, int causal, float scale, float softcap,
+    long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+    long long v_ss, long long o_sb, long long o_sh, long long o_ss,
+    void* stream) {
   using namespace rt::fa;
-  const Params p{q, k, v, o, B, H, KH, Sq, Sk, dh, causal, scale, softcap};
-  if (!valid(p)) return (int)cudaErrorInvalidValue;
-  if (dh <= 64) return launch<EngF32<64, 32>>(p, stream);
-  if (dh <= 128) return launch<EngF32<128, 32>>(p, stream);
-  return launch<EngF32<256, 32>>(p, stream);
+  if (!valid(B, H, KH, Sq, Sk, dh)) return (int)cudaErrorInvalidValue;
+  const long long st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+                            v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
+  for (long long s : st)
+    if (s <= 0 || s % 4) return (int)cudaErrorInvalidValue;
+  const Params p{static_cast<const float*>(q), static_cast<const float*>(k),
+                 static_cast<const float*>(v), static_cast<float*>(o),
+                 q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                 o_sb, o_sh, o_ss, H, KH, Sq, Sk, dh, causal, scale, softcap};
+  if (dh <= 64) return launch<64, 8, 32>(p, B, stream);
+  if (dh <= 128) return launch<128, 8, 64>(p, B, stream);
+  return launch<256, 4, 32>(p, B, stream);
 }
 
 
@@ -622,17 +648,8 @@ static int launch(const void* q, const void* k, const void* v, int B,
     return (int)cudaErrorInvalidValue;
   constexpr size_t smem = Tiles<DHP, BK>::SMEM;
   auto kernel = flash_bf16_kernel<DHP, BK>;
-  // once per instantiation and device: the call costs host time
-  static unsigned long long sized = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = smem_once<flash_bf16_kernel<DHP, BK>>(smem, false);
   if (err != cudaSuccess) return (int)err;
-  if (!(sized >> dev & 1ull)) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    sized |= 1ull << dev;
-  }
   const dim3 grid(B * p.H, (p.Sq + BQ - 1) / BQ);
   kernel<<<grid, NTHR, smem, (cudaStream_t)stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
@@ -653,9 +670,7 @@ extern "C" int rt_flash_attention_bf16(
   using namespace rt::fa3;
   const long long st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                             v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
-  const rt::fa::Params shape{q, k, v, o, B, H, KH, Sq, Sk, dh, causal, scale,
-                             softcap};
-  if (!rt::fa::valid(shape)) return (int)cudaErrorInvalidValue;
+  if (!rt::fa::valid(B, H, KH, Sq, Sk, dh)) return (int)cudaErrorInvalidValue;
   for (long long s : st)
     if (s <= 0 || s % 8) return (int)cudaErrorInvalidValue;
   const bool cap = softcap > 0.0f;

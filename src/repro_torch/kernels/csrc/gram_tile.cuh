@@ -5,7 +5,9 @@
 // registers.
 //
 // Two tile engines behind one interface:
-//   TileF32   f32 operands, f32 FMA on the CUDA cores (no TF32). Each
+//   TileF32   f32 operands, f32 FMA on the CUDA cores (no TF32); only
+//             kernel_matrix.cu takes it (the f32 bodies of assign.cu and
+//             embed_assign.cu have engines of their own). Each
 //             thread owns an 8 x 8 block of the tile (rows ty*4+i and
 //             64+ty*4+i, cols tx*4+j and 64+tx*4+j), read from k-major
 //             shared tiles with float4 loads: 4 shared loads per 64 FMAs.

@@ -1,9 +1,10 @@
-// The row-block contraction shared by assign.cu and embed_assign.cu.
+// The row-block contraction shared by the bf16 bodies of assign.cu and
+// embed_assign.cu.
 //
 // One CTA owns the BM = 128 rows from r0 and loops over all column tiles of
 // Y ([N, D]: landmarks, RFF frequencies or Nystrom landmarks):
 //   1. build the [128 x 128] tile X . Y^T from D-chunks staged through shared
-//      memory (gram_tile.cuh: f32 FMA or bf16 mma.sync), apply the epilogue
+//      memory (gram_tile.cuh: bf16 mma.sync), apply the epilogue
 //      in registers, and zero the columns past N — an epilogue need not be 0
 //      on a padded column (rbf: exp(-gamma |x|^2), RFF: scale cos(b)), so
 //      zero rows of the panel alone would not keep padding out;
@@ -28,7 +29,7 @@ constexpr int HCH = 16;        // cluster columns of P per contraction chunk
 constexpr int MAX_CP = 256;
 constexpr int KS_LD = BN + 1;  // row stride of the parked tile
 
-// parked tile; the staging buffers of either engine alias its start
+// parked tile; the staging buffers of TileBF16 alias its start
 constexpr size_t TILE_BYTES = sizeof(float) * BM * KS_LD;
 
 inline size_t row_block_smem_bytes(int cp) {
@@ -38,15 +39,15 @@ inline size_t row_block_smem_bytes(int cp) {
 // fs [BM][Cp] = sum over column tiles of epi(X . Y^T)[r0:r0+BM, :] . P for
 // the rows from r0 (epi an Epilogue or an RffEpilogue); returns fs (in
 // smem), complete after a final barrier.
-template <class Tile, class Epi>
+template <class Epi>
 __device__ __forceinline__ float* row_block_contract(
-    const typename Tile::T* __restrict__ X,
-    const typename Tile::T* __restrict__ Y, const float* __restrict__ xsq,
+    const TileBF16::T* __restrict__ X,
+    const TileBF16::T* __restrict__ Y, const float* __restrict__ xsq,
     const float* __restrict__ ysq, const float* __restrict__ P, int M, int N,
     int D, int Cp, const Epi& epi, int r0, unsigned char* smem) {
-  static_assert(sizeof(typename Tile::Smem) <= TILE_BYTES,
+  static_assert(sizeof(TileBF16::Smem) <= TILE_BYTES,
                 "staging buffers must fit in the parked-tile region");
-  auto& stage = *reinterpret_cast<typename Tile::Smem*>(smem);
+  auto& stage = *reinterpret_cast<TileBF16::Smem*>(smem);
   float(*ks)[KS_LD] = reinterpret_cast<float(*)[KS_LD]>(smem);
   float* ps = reinterpret_cast<float*>(smem + TILE_BYTES);     // [BN][HCH]
   float* fs = ps + BN * HCH;                                    // [BM][Cp]
@@ -59,12 +60,12 @@ __device__ __forceinline__ float* row_block_contract(
   const int hc = tid & (HCH - 1), hr = tid >> 4;
 
   for (int c0 = 0; c0 < N; c0 += BN) {
-    Tile tile;
+    TileBF16 tile;
     tile.compute(X, Y, M, N, D, r0, c0, stage);   // ends on a barrier
 #pragma unroll
     for (int e = 0; e < NACC; ++e) {
       int r, c;
-      Tile::coord(e, r, c);
+      TileBF16::coord(e, r, c);
       const int gr = r0 + r, gc = c0 + c;
       float v = 0.0f;   // columns past N contribute nothing
       if (gr < M && gc < N) v = epi(tile.acc[e], __ldg(xsq + gr), __ldg(ysq + gc));

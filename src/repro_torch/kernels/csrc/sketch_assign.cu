@@ -29,6 +29,7 @@
 // once per CTA. The chunk is then contracted against V's rows into the
 // on-chip F [64 x Cp], 16 cluster columns at a time, and the argmin runs
 // after the last chunk.
+#include "common.cuh"
 #include "row_block.cuh"
 
 namespace rt {
@@ -115,9 +116,8 @@ static int launch_sketch_assign(const void* x, const void* order,
   if (Cp <= 0 || Cp > MAX_CP || Cp % HCH != 0 || M <= 0)
     return (int)cudaErrorInvalidValue;
   const size_t bytes = sketch_smem_bytes(Cp);
-  cudaError_t err = cudaFuncSetAttribute(
-      sketch_assign_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+  const cudaError_t err = smem_once<sketch_assign_kernel<T, S>>(
+      sketch_smem_bytes(MAX_CP), false);
   if (err != cudaSuccess) return (int)err;
   sketch_assign_kernel<T, S><<<(n + SBM - 1) / SBM, NTHREADS, bytes,
                                (cudaStream_t)stream>>>(

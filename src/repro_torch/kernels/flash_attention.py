@@ -7,11 +7,10 @@ softmax(mask(softcap(q k^T dh^-1/2))) v with an online softmax whose state
 stays f32 on chip, GQA by head index (K and V are never repeated in memory),
 a top-left causal mask that skips key blocks wholly after the query block,
 and the output in the tiles' dtype. The kernel masks keys past Sk and rows
-past Sq itself. Two bodies: f32 tiles on the CUDA cores (one CTA per 64
-query rows, contiguous operands), and bf16 tiles on wgmma with TMA loads
-(one CTA per 128 query rows), which reads q, k and v through their strides
-and writes o through its own. ``ops.flash_attention`` is the wrapper callers
-use; this module only checks operands and launches.
+past Sq itself. Two bodies: f32 tiles in 3xTF32 on mma.sync with a
+cp.async ring, and bf16 tiles on wgmma with TMA loads; both read q, k and v
+through their strides and write o through its own. ``ops.flash_attention``
+is the wrapper callers use; this module only checks operands and launches.
 """
 from __future__ import annotations
 
@@ -34,8 +33,9 @@ def check_head_dim(dh: int) -> None:
 
 
 def tma_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
-    """The (batch, head, row) element strides by which the bf16 body reads
-    a [B, heads, S, dh] tensor in place, or None where it cannot: dh must be
+    """The (batch, head, row) element strides by which either body reads a
+    [B, heads, S, dh] tensor in place (the bf16 body's TMA maps, the f32
+    body's 16-byte cp.async copies), or None where it cannot: dh must be
     contiguous, and the base and every stride 16-byte aligned. A stride of
     a dimension of size 1 is never used; it is replaced by the tensor's
     span, which is valid whatever torch reports for it."""
@@ -53,10 +53,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, softcap: float | None
                          ) -> torch.Tensor:
     """q [B, H, Sq, dh], k and v [B, KH, Sk, dh] in one dtype (f32 or bf16),
-    H a multiple of KH -> o [B, H, Sq, dh] in that dtype. f32 operands must
-    be contiguous. bf16 ones are read in place through their strides where
-    ``tma_strides`` allows (a view it refuses is copied once, contiguous),
-    and o is then a [B, H, Sq, dh] view of [B, Sq, H, dh] memory."""
+    H a multiple of KH -> o [B, H, Sq, dh] in that dtype. The operands are
+    read in place through their strides where ``tma_strides`` allows (a view
+    it refuses is copied once, contiguous), and o is a [B, H, Sq, dh] view
+    of [B, Sq, H, dh] memory."""
     if q.dtype not in _ENTRY:
         raise TypeError(f"flash_attention takes f32 or bf16 tiles, "
                         f"got {q.dtype}")
@@ -72,22 +72,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     shapes = {"q": (q, (b, h, sq, dh)), "k": (k, (b, kh, sk, dh)),
               "v": (v, (b, kh, sk, dh))}
-    if q.dtype == torch.float32:
-        for name, (t, shape) in shapes.items():
-            build.check_operand(t, name, dtype=q.dtype, shape=shape,
-                                device=dev)
-        out = torch.empty_like(q)
-        build.launch(_ENTRY[q.dtype], q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), out.data_ptr(), b, h, kh, sq, sk, dh,
-                     int(causal), float(dh ** -0.5), float(softcap or 0.0))
-        return out
     strides, operands = [], []
     for name, (t, shape) in shapes.items():
         if t.device != dev or t.dtype != q.dtype or t.shape != shape:
             raise ValueError(f"{name} must be {q.dtype} {shape} on {dev}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
         st = tma_strides(t)
-        if st is None:   # a view TMA cannot read: one fresh contiguous copy
+        if st is None:   # a view the kernel cannot read: one contiguous copy
             t = t.clone(memory_format=torch.contiguous_format)
             st = tma_strides(t)
         operands.append(t)

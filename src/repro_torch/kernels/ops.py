@@ -293,9 +293,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Non-causal attention needs Sk % 128 == 0, the reference's condition
     (its kernel pads keys, and only the causal mask removes them). On the
     card the kernel masks ragged Sq and Sk itself; it takes a head dim
-    that is a multiple of 16 up to 256 and raises on any other. bf16 tiles
-    are read in place through their strides (dh contiguous, 16-byte
-    strides), and the output is then a [B, H, Sq, dh] view of [B, Sq, H,
+    that is a multiple of 16 up to 256 and raises on any other. Tiles of
+    either dtype are read in place through their strides (dh contiguous,
+    16-byte strides), and the output is a [B, H, Sq, dh] view of [B, Sq, H,
     dh] memory, so a caller holding [B, S, H, dh] activations transposes
     nothing either way."""
     p = resolve_precision(precision)
@@ -305,8 +305,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("non-causal flash_attention requires Sk % 128 == 0")
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap)
-    if q.dtype != torch.bfloat16:    # the f32 body reads contiguous tiles
-        q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = flash_attention_cuda(q, k, v, causal=causal, softcap=softcap)
     LAUNCHES["flash_attention"] += 1
     return out

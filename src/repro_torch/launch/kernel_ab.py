@@ -4,9 +4,10 @@
         --order 0 1 1 0 --out build/kernel_ab.json
 
 Times every kernel wrapper the main path calls (``ops.assign_fused``,
-``ops.kernel_matrix``, ``ops.embed_assign``, ``ops.sketch_assign``,
-``ops.flash_attention``) at the shapes of ``chip_smoke.py``'s timed checks:
-the Tab.1 MNIST batch (15,000 x {15,000, 3,000} x 784, C = 10), the Fig.5
+``ops.gram_matvec``, ``ops.kernel_matrix``, ``ops.embed_assign``,
+``ops.sketch_assign``, ``ops.flash_attention``) at the shapes of
+``chip_smoke.py``'s timed checks: the Tab.1 MNIST batch (15,000 x {15,000,
+3,000} x 784, C = 10, and the g stats' 3,000 x 3,000), the Fig.5
 embedding (60,000 x 784 -> m, C = 10; RFF at m = 20, 80, 160 and 320,
 Nystrom rbf at 320), the Tab.2 count sketch (188,000 x 256 -> 128, C = 50)
 and the attention of OLMo-1B, gemma2-2b and qwen3-32b at S 2048, at f32 and
@@ -109,6 +110,11 @@ def worker(src: Path, data: Path, reps: int) -> dict:
                 gamma=gamma, precision=prec))
         timed(f"kernel_matrix/3000/{prec}", lambda: ops.kernel_matrix(
             x_b, x_b[l3.to(dev)], kind="rbf", gamma=gamma, precision=prec))
+        # the g stats of runs B and C: K(L, L) @ H at |L| = 3,000
+        lm = x_b[l3.to(dev)]
+        h = F.one_hot(y_b[l3.to(dev)].long(), 10).float()
+        timed(f"gram_matvec/3000/{prec}", lambda: ops.gram_matvec(
+            lm, lm, h, kind="rbf", gamma=gamma, precision=prec))
     del x_b, y_b
 
     # Fig.5: the embedding of all 60,000 training rows

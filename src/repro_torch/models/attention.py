@@ -56,8 +56,8 @@ def attention_block(p, x, cfg: ModelConfig, *, window: int | None,
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions, prefix)
     if cfg.attn_impl == "flash" and window is None:
-        # [B, S, H, dh] -> [B, H, S, dh] views and back; bf16 tiles are
-        # read and written in place, f32 tiles copied
+        # [B, S, H, dh] -> [B, H, S, dh] views and back: the kernel reads
+        # and writes them in place
         out = ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, softcap=cfg.attn_softcap).transpose(1, 2)

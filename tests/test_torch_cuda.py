@@ -145,6 +145,119 @@ def test_cluster_chunks_keep_the_lowest_index_on_the_card(cuda):
     torch.testing.assert_close(f, want_f, **_tol(1e-4))
 
 
+def _assign_case(m, lm, d, n_clusters, seed, dev):
+    rng = np.random.default_rng(seed)
+    x, landmarks = _rand((m, d), seed + 1, dev), _rand((lm, d), seed + 2, dev)
+    labels_l = torch.from_numpy(
+        rng.integers(0, n_clusters, lm).astype(np.int32)).to(dev)
+    counts = torch.bincount(labels_l.long(), minlength=n_clusters).float()
+    g = torch.from_numpy(rng.random(n_clusters).astype(np.float32)).to(dev)
+    return x, landmarks, labels_l, counts, g
+
+
+def _labels_outside_near_ties(lab, want_lab, dist):
+    """Labels equal wherever the plain version's top-2 gap is at least 1e-4
+    of max(1, |min|) (chip_smoke.py's near-tie rule)."""
+    top2 = torch.topk(dist, 2, dim=1, largest=False).values
+    near = top2[:, 1] - top2[:, 0] <= 1e-4 * top2[:, 0].abs().clamp(min=1.0)
+    return bool(((lab == want_lab) | near).all())
+
+
+# (rows, landmarks, D) of the f32 body's split grid: one row, the main
+# path's 3,000 and 15,000 rows over 3,000 landmarks (47 tiles: no multiple
+# of the split count), L past no tile boundary, L within one tile
+SPLIT_SHAPES = [(1, 3000, 784), (3000, 3000, 784), (15000, 3000, 784),
+                (500, 777, 40), (200, 40, 40)]
+
+
+@pytest.mark.parametrize("n_clusters", [3, 10, 130])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES,
+                         ids=["x".join(map(str, s)) for s in SPLIT_SHAPES])
+@pytest.mark.parametrize("kind", KINDS)
+def test_assign_fused_f32_split_matches_plain(cuda, kind, shape, n_clusters):
+    m, lm, d = shape
+    x, landmarks, labels_l, counts, g = _assign_case(m, lm, d, n_clusters, 40,
+                                                     cuda)
+    gamma = _gamma(kind, d)
+    lab, mind, f = ops.assign_fused(x, landmarks, labels_l, counts, g,
+                                    n_clusters=n_clusters, kind=kind,
+                                    gamma=gamma)
+    h, gm = ops.assign_panels(labels_l, counts, g, n_clusters)
+    want_lab, want_min, want_f = ref.assign_fused_ref(
+        x, landmarks, h, gm, kind=kind, gamma=gamma)
+    assert f.shape == (m, n_clusters)
+    torch.testing.assert_close(f, want_f, **_tol(1e-4))
+    torch.testing.assert_close(mind, want_min, **_tol(1e-4))
+    assert _labels_outside_near_ties(lab, want_lab, gm[None] - 2.0 * want_f)
+
+
+def test_assign_fused_f32_split_at_run_a(cuda):
+    """Run A's shape: 15,000 rows against 15,000 landmarks, C = 10, and 300
+    clusters (two launches) on a slice of it."""
+    x, landmarks, labels_l, counts, g = _assign_case(15000, 15000, 784, 10,
+                                                     41, cuda)
+    lab, mind, f = ops.assign_fused(x, landmarks, labels_l, counts, g,
+                                    n_clusters=10, gamma=1 / 784)
+    h, gm = ops.assign_panels(labels_l, counts, g, 10)
+    want_lab, want_min, want_f = ref.assign_fused_ref(x, landmarks, h, gm,
+                                                      gamma=1 / 784)
+    torch.testing.assert_close(f, want_f, **_tol(1e-4))
+    torch.testing.assert_close(mind, want_min, **_tol(1e-4))
+    assert _labels_outside_near_ties(lab, want_lab, gm[None] - 2.0 * want_f)
+    x, landmarks, labels_l, counts, g = _assign_case(2000, 3000, 784, 300, 42,
+                                                     cuda)
+    before = ops.LAUNCHES["assign_fused"]
+    lab, mind, f = ops.assign_fused(x, landmarks, labels_l, counts, g,
+                                    n_clusters=300, gamma=1 / 784)
+    assert ops.LAUNCHES["assign_fused"] == before + 2
+    h, gm = ops.assign_panels(labels_l, counts, g, 300)
+    want_lab, want_min, want_f = ref.assign_fused_ref(x, landmarks, h, gm,
+                                                      gamma=1 / 784)
+    torch.testing.assert_close(f, want_f, **_tol(1e-4))
+    torch.testing.assert_close(mind, want_min, **_tol(1e-4))
+    assert _labels_outside_near_ties(lab, want_lab, gm[None] - 2.0 * want_f)
+
+
+@pytest.mark.parametrize("prec", PRECS)
+def test_gram_matvec_at_the_g_stats_shape(cuda, prec):
+    """K(L, L) @ H at |L| = 3,000 x 784, C = 10: the g stats of runs B and
+    C, normwise (H is a plain one-hot: sums of up to |L| values)."""
+    lm = _rand((3000, 784), 43, cuda)
+    labels = torch.from_numpy(
+        np.random.default_rng(43).integers(0, 10, 3000)).to(cuda)
+    h = torch.nn.functional.one_hot(labels, 10).float()
+    got = ops.gram_matvec(lm, lm, h, kind="rbf", gamma=1 / 784,
+                          precision=prec)
+    want = ref.kernel_matrix_ref(lm, lm, kind="rbf", gamma=1 / 784,
+                                 precision=prec) @ h
+    err = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+    assert err <= 1e-4
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_assign_f32_occupancy(cuda, kind):
+    """The library reports what the split choice assumes: two CTAs of the
+    f32 body share an SM at C = 10 (Cp 16), one at 256 clusters."""
+    from repro_torch.kernels.assign import f32_ctas_per_sm
+    index = torch.cuda.current_device()
+    assert f32_ctas_per_sm(16, kind, index) == 2
+    assert f32_ctas_per_sm(256, kind, index) == 1
+
+
+@pytest.mark.parametrize("shape", [(3000, 3000, 784), (500, 777, 40)],
+                         ids=["3000x3000", "500x777"])
+def test_assign_fused_f32_is_bitwise_repeatable(cuda, shape):
+    """The splits are summed in a fixed order, without atomics: two
+    launches on the same inputs give the same bits."""
+    m, lm, d = shape
+    x, landmarks, labels_l, counts, g = _assign_case(m, lm, d, 10, 44, cuda)
+    a = ops.assign_fused(x, landmarks, labels_l, counts, g, n_clusters=10,
+                         gamma=1 / d)
+    b = ops.assign_fused(x, landmarks, labels_l, counts, g, n_clusters=10,
+                         gamma=1 / d)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
 @pytest.mark.parametrize("engine", ["fused", "materialize", "tiled"])
 def test_small_fit_on_the_card_matches_the_cpu(cuda, engine):
     """Same seed, same landmark draws (a CPU generator): the fit on the
@@ -417,6 +530,39 @@ def test_flash_attention_reads_strided_views(cuda, monkeypatch, dh, width):
     assert torch.equal(got, dense)
     want = ref.flash_attention_ref(q, k, v)
     torch.testing.assert_close(got.float(), want.float(), **_tol(1e-2))
+
+
+# (B, H, KH, S, dh, softcap): every tiling of the f32 body, ragged S, GQA
+F32_VIEW_CASES = [(2, 8, 2, 300, 16, None), (1, 4, 4, 129, 64, 30.0),
+                  (2, 8, 1, 257, 128, None), (1, 4, 2, 100, 256, 50.0)]
+
+
+@pytest.mark.parametrize("case", F32_VIEW_CASES,
+                         ids=[f"B{c[0]}H{c[1]}KH{c[2]}S{c[3]}d{c[4]}"
+                              for c in F32_VIEW_CASES])
+def test_flash_attention_f32_reads_strided_views(cuda, monkeypatch, case):
+    """f32 q, k and v as attention_block hands them over: [B, H, S, dh]
+    views of [B, S, H, dh] activations. The wrapper makes no contiguous
+    copy (the kernel gets the views' own pointers), o is a view of
+    [B, S, H, dh] memory, and the result equals that of contiguous inputs
+    bit for bit and the plain version within 2e-5."""
+    b, h, kh, s, dh, cap = case
+    q, k, v = (_rand((b, s, n, dh), seed, cuda).transpose(1, 2)
+               for n, seed in ((h, 33), (kh, 34), (kh, 35)))
+    assert not q.is_contiguous()
+    seen, launch = [], build.launch
+    monkeypatch.setattr(build, "launch",
+                        lambda entry, *a: (seen.append(a), launch(entry, *a)))
+    got = ops.flash_attention(q, k, v, softcap=cap)
+    monkeypatch.undo()
+    assert seen[0][:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert got.shape == (b, h, s, dh) and got.dtype == torch.float32
+    assert got.transpose(1, 2).is_contiguous()
+    dense = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), softcap=cap)
+    assert torch.equal(got, dense)
+    want = ref.flash_attention_ref(q, k, v, softcap=cap)
+    torch.testing.assert_close(got, want, **_tol(2e-5))
 
 
 def test_flash_attention_wrapper_raises(cuda):

@@ -482,6 +482,118 @@ def test_flash_bf16_launch_reads_views_in_place(monkeypatch, case):
     assert out.shape == (2, 8, 100, 64) and out.transpose(1, 2).is_contiguous()
 
 
+@pytest.mark.parametrize("case", ["heads-view", "dh-slice", "odd-stride",
+                                  "unaligned"])
+def test_flash_f32_launch_reads_views_in_place(monkeypatch, case):
+    """The f32 launcher, like the bf16 one, hands the kernel the views of
+    [B, S, H, dh] activations with their strides (16-byte rows: a multiple
+    of 4 floats); a stride or base off 16 bytes is copied once, contiguous.
+    o is a [B, H, S, dh] view of [B, S, H, dh] memory."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    seen = []
+    monkeypatch.setattr(build, "launch", lambda entry, *a: seen.append(
+        (entry, a)))
+    if case == "unaligned":
+        q = torch.zeros(2 * 8 * 100 * 64 + 1)[1:].view(2, 8, 100, 64)
+    else:
+        width = {"heads-view": 64, "dh-slice": 68, "odd-stride": 66}[case]
+        q = torch.zeros(2, 100, 8, width)[..., :64].transpose(1, 2)
+    out = flash_attention_cuda(q, q, q, causal=True, softcap=None)
+    entry, args = seen[0]
+    assert entry == "rt_flash_attention_f32"
+    in_place = case in ("heads-view", "dh-slice")
+    assert (args[0] == q.data_ptr()) == in_place
+    width = {"heads-view": 64, "dh-slice": 68}.get(case)
+    want = (100 * 8 * width, width, 8 * width) if in_place else \
+        (8 * 100 * 64, 100 * 64, 64)
+    assert args[13:16] == want
+    assert args[-3:] == (100 * 8 * 64, 64, 8 * 64)
+    assert args[3] == out.data_ptr()
+    assert out.shape == (2, 8, 100, 64) and out.transpose(1, 2).is_contiguous()
+
+
+# (rows, landmarks): the main path's three shapes (runs A, B and C, and the
+# g stats at s = 0.2), one row, small and ragged landmark counts
+SPLIT_SHAPES = [(15000, 15000), (15000, 3000), (3000, 3000), (1, 3000),
+                (300, 130), (64, 32), (100, 64), (5000, 65), (15000, 1000),
+                (200, 777)]
+
+
+@pytest.mark.parametrize("ctas_per_sm", [1, 2])
+@pytest.mark.parametrize("sms", [132, 114, 8])
+@pytest.mark.parametrize("m,n_landmarks", SPLIT_SHAPES,
+                         ids=[f"{m}x{n}" for m, n in SPLIT_SHAPES])
+def test_assign_f32_splits_cover_the_landmarks(m, n_landmarks, sms,
+                                               ctas_per_sm):
+    """The landmark ranges of the f32 body's splits cover [0, L) once, in
+    whole tiles of 64 (the last one ragged), each at least MIN_SPLIT_TILES
+    tiles where there are several; L within one tile takes one split."""
+    from repro_torch.kernels.assign import (F32_BN, MIN_SPLIT_TILES,
+                                            landmark_splits, split_ranges)
+    splits = landmark_splits(m, n_landmarks, sms, ctas_per_sm)
+    tiles = -(-n_landmarks // F32_BN)
+    assert 1 <= splits <= max(1, tiles // MIN_SPLIT_TILES)
+    if n_landmarks <= F32_BN:
+        assert splits == 1
+    ranges = split_ranges(n_landmarks, splits)
+    assert len(ranges) == splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == n_landmarks
+    for (_, hi), (lo, _) in zip(ranges, ranges[1:]):
+        assert hi == lo                       # no gap, no overlap
+    for lo, hi in ranges:
+        assert lo % F32_BN == 0 and hi > lo
+        assert hi % F32_BN == 0 or hi == n_landmarks
+        if splits > 1:
+            assert -(-(hi - lo) // F32_BN) >= MIN_SPLIT_TILES
+
+
+def test_assign_f32_splits_fill_the_card_at_the_main_shapes():
+    """On 132 SMs at two CTAs each (the card's occupancy at C = 10, which
+    the card test test_assign_f32_occupancy checks), the g stats' 3000 x
+    3000 call runs ten or more splits (24 row blocks alone would fill 9% of
+    the slots), and every main shape's grid fills at least 80% of its
+    waves."""
+    from repro_torch.kernels.assign import (F32_BM, F32_BN, landmark_splits)
+    assert landmark_splits(3000, 3000, 132, 2) >= 10
+    for m, n in [(15000, 15000), (15000, 3000), (3000, 3000)]:
+        s = landmark_splits(m, n, 132, 2)
+        rows, tiles = -(-m // F32_BM), -(-n // F32_BN)
+        waves = -(-rows * s // 264)
+        assert rows * tiles / (waves * 264 * -(-tiles // s)) >= 0.8
+
+
+@pytest.mark.parametrize("n_landmarks", [64, 3000])
+def test_assign_f32_launch_passes_splits_and_scratch(monkeypatch,
+                                                     n_landmarks):
+    """The f32 launcher passes the split count it chose and a scratch of
+    [splits, M, Cp] (f itself for one split); the bf16 one neither."""
+    from repro_torch.kernels import assign
+    seen = []
+    monkeypatch.setattr(build, "launch", lambda entry, *a: seen.append(
+        (entry, a)))
+    monkeypatch.setattr(assign, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(assign, "f32_ctas_per_sm",
+                        lambda cp, kind, index: 2)
+    m, d, cp = 3000, 8, 16
+    x, lm = torch.zeros(m, d), torch.zeros(n_landmarks, d)
+    xsq, lsq = torch.zeros(m), torch.zeros(n_landmarks)
+    h, g = torch.zeros(n_landmarks, cp), torch.zeros(cp)
+    _, _, f = assign.assign_fused_cuda(x, lm, xsq, lsq, h, g, kind="rbf",
+                                       gamma=1.0, coef0=1.0, degree=3)
+    entry, args = seen[0]
+    splits = assign.landmark_splits(m, n_landmarks, 132, 2)
+    assert entry == "rt_assign_fused_f32" and args[14] == splits
+    assert args[8] == f.data_ptr()
+    assert (args[9] == f.data_ptr()) == (splits == 1)
+    assert (splits == 1) == (n_landmarks == 64)
+    assert args[10:14] == (m, n_landmarks, d, cp)
+    assign.assign_fused_cuda(x.bfloat16(), lm.bfloat16(), xsq, lsq, h, g,
+                             kind="rbf", gamma=1.0, coef0=1.0, degree=3)
+    entry, args = seen[1]
+    assert entry == "rt_assign_fused_bf16" and args[9:13] == (m, n_landmarks,
+                                                             d, cp)
+
+
 # ---------------------------------------------------------------------------
 # hygiene: the port stands alone and never falls back to the CPU quietly
 # ---------------------------------------------------------------------------
