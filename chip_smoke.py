@@ -8,12 +8,14 @@ Phases, in order; any failure exits non-zero without the final line:
      TF32 flags (then both set to False);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
      sm_90a) and print the build seconds and ptxas resource lines; then
-     the ptxas lines of the four bodies redesigned for Hopper, with counts
+     the ptxas lines of the six bodies redesigned for Hopper, with counts
      of their tensor-core instructions in the library's SASS (cuobjdump):
-     the flash bf16 body must issue wgmma (HGMMA); the embed_assign f32
-     body must fit two CTAs per SM (<= 128 registers, no spills); the
-     3xTF32 bodies of assign_fused f32 and flash_attention f32 must not
-     spill and must issue mma.sync TF32 (HMMA.1688.F32.TF32);
+     the flash bf16 and assign_fused bf16 bodies must issue wgmma (HGMMA);
+     the embed_assign f32 body must fit two CTAs per SM (<= 128 registers,
+     no spills); the 3xTF32 bodies of assign_fused f32 and
+     flash_attention f32 and the contraction of assign_fused bf16 must
+     issue mma.sync TF32 (HMMA.1688.F32.TF32); none of those nor the
+     kernel_matrix column body may spill;
   3. hold each wrapper the main path calls (``ops.kernel_matrix``,
      ``ops.assign_fused``, ``ops.gram_matvec``, ``ops.embed_assign`` for
      RFF / Nystrom and for the count sketch) against its plain PyTorch
@@ -23,7 +25,11 @@ Phases, in order; any failure exits non-zero without the final line:
      version, a composite of PyTorch calls (``library_ms``, never called by
      the port) and the bound. The main shapes: the paper's Tab.1 MNIST
      setting (15,000-row batches of 784 features, C = 10, rbf; and the
-     g stats' ``ops.gram_matvec`` over the 3,000 landmarks), the Fig.5
+     g stats' ``ops.gram_matvec`` over the 3,000 landmarks), the skinny
+     ``ops.kernel_matrix`` calls of k-means++ and Eq.8 / predict in every
+     run (``kernel_ab.SKINNY``: [15,000 | 10,000, 1 | 4 | 10] x 784,
+     [60,000, 1 | 4] x 320, [47,000, 1 | 5] x 128; the column body, with
+     x @ y.T plus the epilogue and the norms as ``library_ms``), the Fig.5
      embedded sweep at its largest m (60,000 x 784 -> 320, C = 10; RFF at
      f32 also at the sweep's m = 20, 80 and 160) and the
      Tab.2 RCV1 sketch (188,000 x 256 -> 128, C = 50); then
@@ -44,7 +50,10 @@ Phases, in order; any failure exits non-zero without the final line:
      ``predict_embedded``; E-sketch, its repeat (which must match it
      bitwise) and E-sketch-bf16 (Tab.2's count sketch on the dense 256-d
      RCV1 view, B=4, m=128, C=50, linear); the launch counters are zeroed
-     before each run and read after it; then small fits on the card against
+     before each run and read after it, and each run prints how many of
+     its kernel_matrix launches took the column body (in runs A-C every
+     k-means++ and Eq.8 / predict launch must); then small fits on the card
+     against
      the same fits on the CPU; then LM serving of OLMo-1B at full width
      (16 layers, d_model 2048, vocab 50,304; bf16 weights from a
      torch.Generator of seed 0) through ``get_model`` and ``ServingEngine``
@@ -56,10 +65,12 @@ Phases, in order; any failure exits non-zero without the final line:
      prompt, f32 weights and tiles, flash against chunked prefill logits);
   5. print the per-kernel JSON line (one entry per kernel; assign_fused
      and flash_attention one per tile dtype, since both bodies run on the
-     main path) and, last, the ok line.
+     main path, and kernel_matrix one for its column body) and, last, the
+     ok line.
 
 Tolerances (normwise: max |kernel - plain| <= tol * max(1, max |plain|)):
-kernel_matrix 1e-5, assign_fused f and mind 1e-4, embed_assign and
+kernel_matrix 1e-5 (and the rbf diagonal of K(x, x) within 1e-5 of 1, on
+both bodies), assign_fused f and mind 1e-4, embed_assign and
 sketch_assign scores 1e-4, at f32 and bf16 alike. Labels must be equal
 except where the plain version's top-2 gap is below 1e-4 * max(1, |min|) (a
 near-tie; counted and printed). flash_attention: 2e-5 at f32 (the JAX
@@ -190,9 +201,11 @@ def label_mismatches(torch, got, want, dist_plain) -> tuple[int, int]:
 FLASH_BF16_BODY = "flash_bf16_kernel"
 EMBED_F32_BODY = "embed_assign_f32_kernel"
 # rt::af::assign_f32_kernel (a bare "assign_f32_kernel" would also match
-# embed_assign_f32_kernel)
+# embed_assign_f32_kernel), rt::ab::assign_bf16_kernel
 ASSIGN_F32_BODY = "2af17assign_f32_kernel"
+ASSIGN_BF16_BODY = "2ab18assign_bf16_kernel"
 FLASH_F32_BODY = "flash_f32_kernel"
+COLUMN_BODY = "kernel_matrix_col_kernel"
 REGS_PER_THREAD_2_CTAS = 128     # 65,536 registers / (2 x 256 threads)
 # SASS opcodes of the tensor cores: wgmma (bf16 flash) and mma.sync
 # m16n8k8 TF32 (the 3xTF32 bodies)
@@ -244,15 +257,17 @@ def sass_opcode_counts(lib: str, opcodes: tuple) -> dict | None:
 
 
 def redesigned_bodies(build) -> None:
-    """Print the ptxas lines of the four redesigned bodies, the wgmma
-    (HGMMA) count of the flash bf16 kernel's SASS and the TF32 mma count
-    (HMMA.1688.F32.TF32) of the two 3xTF32 bodies; fail if the embed f32
-    body needs more registers than two CTAs per SM leave it, if any of the
-    embed f32, assign f32 and flash f32 bodies spills, or if a body issues
+    """Print the ptxas lines of the six redesigned bodies, the wgmma
+    (HGMMA) count of the two wgmma bodies' SASS (flash bf16, assign bf16)
+    and the TF32 mma count (HMMA.1688.F32.TF32) of the three bodies that
+    multiply in 3xTF32 (assign f32, flash f32, and assign bf16's
+    contraction); fail if the embed f32 body needs more registers than two
+    CTAs per SM leave it, if any of the embed f32, assign f32, assign bf16,
+    flash f32 and kernel_matrix column bodies spills, or if a body issues
     none of its tensor-core instructions."""
     res = ptxas_resources(build.LAST_BUILD["log"])
     for body in (FLASH_BF16_BODY, EMBED_F32_BODY, ASSIGN_F32_BODY,
-                 FLASH_F32_BODY):
+                 ASSIGN_BF16_BODY, FLASH_F32_BODY, COLUMN_BODY):
         found = {k: v for k, v in res.items() if body in k}
         check(bool(found), f"ptxas printed no entry of {body}")
         for name, r in found.items():
@@ -266,13 +281,16 @@ def redesigned_bodies(build) -> None:
                       f"{name}: {r['registers']} registers, "
                       f"{r['spill_bytes']} spill bytes (two CTAs per SM "
                       f"need <= {REGS_PER_THREAD_2_CTAS} and no spills)")
-            if body in (ASSIGN_F32_BODY, FLASH_F32_BODY):
+            if body in (ASSIGN_F32_BODY, ASSIGN_BF16_BODY, FLASH_F32_BODY,
+                        COLUMN_BODY):
                 check(r["spill_bytes"] == 0,
                       f"{name}: {r['spill_bytes']} spill bytes")
     counts = sass_opcode_counts(build.LAST_BUILD["path"], (HGMMA, HMMA_TF32))
     check(counts is not None, "the toolkit has no cuobjdump: the tensor-core "
                               "instructions of the bodies cannot be counted")
-    for body, op in ((FLASH_BF16_BODY, HGMMA), (ASSIGN_F32_BODY, HMMA_TF32),
+    for body, op in ((FLASH_BF16_BODY, HGMMA), (ASSIGN_BF16_BODY, HGMMA),
+                     (ASSIGN_BF16_BODY, HMMA_TF32),
+                     (ASSIGN_F32_BODY, HMMA_TF32),
                      (FLASH_F32_BODY, HMMA_TF32)):
         found = {k: v for k, v in counts[op].items() if body in k}
         for name, n in found.items():
@@ -296,7 +314,10 @@ def spread_gamma(torch, x, y) -> float:
 def check_kernel_matrix(torch, mods, x, y, kind, gamma, prec, *, timed):
     """ops.kernel_matrix (the wrapper the main path calls) against
     ref.kernel_matrix_ref on the same operands, already in the tile dtype
-    as the main path hands them over."""
+    as the main path hands them over. The record names the body the
+    wrapper routed to. Timed on a skinny Y (the column body), the library
+    call is x @ y.T with the epilogue and the row norms, and the bound the
+    bytes of X, Y and K (the norms are the kernel's own)."""
     ops, ref = mods["ops"], mods["ref"]
     p = mods["precision"].resolve_precision(prec)
     x, y = p.cast_tiles(x).contiguous(), p.cast_tiles(y).contiguous()
@@ -314,21 +335,30 @@ def check_kernel_matrix(torch, mods, x, y, kind, gamma, prec, *, timed):
     torch.cuda.synchronize()
     err, rel = normwise(torch, got, want)
     tol = TOL["kernel_matrix"]
-    rec = {"kernel": "kernel_matrix", "shape": [m, n, d], "kind": kind,
-           "gamma": gamma, "prec": prec, "max_abs_err": err, "rel_err": rel,
-           "tol": tol}
+    body = mods["kernel_matrix"].route(n, d)
+    rec = {"kernel": "kernel_matrix", "body": body, "shape": [m, n, d],
+           "kind": kind, "gamma": gamma, "prec": prec, "max_abs_err": err,
+           "rel_err": rel, "tol": tol}
     if kind == "rbf" and m == n:
         rec["diag_err"] = float(torch.max(torch.abs(torch.diagonal(got) - 1)))
     if timed:
         xf, yf = x.float(), y.float()
+
+        def library():
+            if body == "tile":
+                return torch.exp(torch.cdist(xf, yf).square_().mul_(-gamma))
+            dot = xf @ yf.T
+            if kind == "linear":
+                return dot
+            d2 = (xf * xf).sum(1)[:, None] + (yf * yf).sum(1)[None] - 2 * dot
+            return torch.exp(-gamma * d2.clamp_(min=0.0))
         rec["ms"] = time_ms(torch, kernel, 10)
         rec["plain_ms"] = time_ms(torch, plain, 10)
-        rec["library_ms"] = time_ms(
-            torch, lambda: torch.exp(torch.cdist(xf, yf).square_()
-                                     .mul_(-gamma)), 10)
+        rec["library_ms"] = time_ms(torch, library, 10)
+        norms = (m + n) * 4 if body == "tile" else 0
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             [(prec, 2.0 * m * n * d)],
-            (m + n) * d * p.tile_itemsize + (m + n) * 4 + m * n * 4)
+            (m + n) * d * p.tile_itemsize + norms + m * n * 4)
     print("check", json.dumps(rec))
     check(rel <= tol, f"kernel_matrix {kind} {prec} {[m, n, d]}: "
                       f"rel err {rel:.3g} > {tol}")
@@ -491,11 +521,42 @@ def kernel_checks(torch, mods, x_b, y_b, gamma):
                 recs.append(check_assign(torch, mods, xa, la, lab, g, c, kind,
                                          gam, prec, timed=False))
         xd = torch.randn(40, 6, generator=rng).to(dev)
-        rbf_diag = check_kernel_matrix(torch, mods, xd, xd, "rbf", 0.7, prec,
-                                       timed=False)
-        check(rbf_diag["diag_err"] <= TOL["kernel_matrix"],
-              f"rbf diagonal is not 1 at {prec}: {rbf_diag['diag_err']}")
+        # the tile body at 40 x 40, the column body at 16 x 16
+        for xdiag in (xd, xd[:16]):
+            rbf_diag = check_kernel_matrix(torch, mods, xdiag, xdiag, "rbf",
+                                           0.7, prec, timed=False)
+            check(rbf_diag["diag_err"] <= TOL["kernel_matrix"],
+                  f"rbf diagonal is not 1 at {prec} ({rbf_diag['body']} "
+                  f"body): {rbf_diag['diag_err']}")
     tie_and_empty_fixtures(torch, mods, dev)
+    return recs
+
+
+def skinny_checks(torch, mods, x_b, x_te, x_tr, x_rcv, gamma):
+    """ops.kernel_matrix at the skinny shapes the runs launch
+    (``kernel_ab.SKINNY``: k-means++ columns and Eq.8 / predict blocks of
+    runs A-C, k-means++ of the D runs on the RFF embedding and of the E
+    runs on a count-sketch batch), timed, in the tile dtypes the runs
+    give them: the column body's shapes."""
+    approx, core = mods["approx"], mods["core"]
+    dev = x_b.device
+    rows = {"batch": x_b, "test": x_te,
+            "rff": approx.make_rff(
+                torch.Generator().manual_seed(3), x_tr.shape[1], EMBED_DIM,
+                core.KernelSpec("rbf", gamma=gamma), device=dev)(x_tr),
+            "sketch": approx.make_count_sketch(
+                torch.Generator().manual_seed(5), x_rcv.shape[1], SKETCH_DIM,
+                core.KernelSpec("linear"), device=dev)(x_rcv[0::4])}
+    recs = []
+    for m, n, d, kind, src, precs in mods["kernel_ab"].SKINNY:
+        x = rows[src][:m]
+        check(tuple(x.shape) == (m, d), f"skinny rows {src}: {x.shape}")
+        for prec in precs:
+            rec = check_kernel_matrix(torch, mods, x, x[:n], kind, gamma,
+                                      prec, timed=True)
+            check(rec["body"] == "column",
+                  f"kernel_matrix {[m, n, d]} took the {rec['body']} body")
+            recs.append(rec)
     return recs
 
 
@@ -1104,6 +1165,8 @@ def main(argv=None) -> int:
     mods = {name: importlib.import_module(f"repro_torch.{path}") for name, path
             in [("ops", "kernels.ops"), ("ref", "kernels.ref"),
                 ("build", "kernels.build"), ("precision", "kernels.precision"),
+                ("kernel_matrix", "kernels.kernel_matrix"),
+                ("kernel_ab", "launch.kernel_ab"),
                 ("core", "core"), ("synthetic", "data.synthetic"),
                 ("approx", "approx"), ("configs", "configs"),
                 ("models", "models"), ("serving", "serving")]}
@@ -1148,6 +1211,9 @@ def main(argv=None) -> int:
     y_b = torch.as_tensor(y_tr[0::4], device="cuda")
     t0 = time.perf_counter()
     recs = kernel_checks(torch, mods, x_b, y_b, gamma)
+    recs += skinny_checks(torch, mods, x_b, torch.as_tensor(x_te, device="cuda"),
+                          torch.as_tensor(x_tr, device="cuda"),
+                          torch.as_tensor(xr_tr, device="cuda"), gamma)
     del x_b, y_b
     recs += embedded_checks(
         torch, mods, torch.as_tensor(x_tr, device="cuda"),
@@ -1163,7 +1229,8 @@ def main(argv=None) -> int:
     base = dict(n_clusters=10, n_batches=4, kernel=spec, seed=0)
     totals = {"kernel_matrix": 0, "assign_fused": 0}
     # launches of the bodies, (kernel, tile dtype)
-    bodies = {("assign_fused", "f32"): 0, ("assign_fused", "bf16"): 0}
+    bodies = {("assign_fused", "f32"): 0, ("assign_fused", "bf16"): 0,
+              ("kernel_matrix", "column"): 0}
     iters = 0
     runs = {}
     for name, kw in [("A", dict(s=1.0, engine="fused")),
@@ -1178,7 +1245,19 @@ def main(argv=None) -> int:
             totals[k] += rec["launches"][k]
         bodies["assign_fused", rec["precision"]] += \
             rec["launches"]["assign_fused"]
+        bodies["kernel_matrix", "column"] += \
+            rec["launches"]["kernel_matrix_column"]
         iters += sum(rec["inner_iters"])
+        # every k-means++ column and Eq.8 / predict block takes the column
+        # body; only materialize's Gram builds (one a batch) take the tile
+        km, col = (rec["launches"]["kernel_matrix"],
+                   rec["launches"]["kernel_matrix_column"])
+        print(f"run {name}: kernel_matrix {km} launches, {col} on the "
+              f"column body")
+        check(km - col == (base["n_batches"] if kw["engine"] == "materialize"
+                           else 0),
+              f"run {name}: {km - col} kernel_matrix launches took the tile "
+              f"body")
     check(all(v > 0 for v in totals.values())
           and all(v > 0 for v in bodies.values()),
           f"a kernel never launched on the main path: {totals} {bodies}")
@@ -1217,6 +1296,11 @@ def main(argv=None) -> int:
         for k in totals:
             totals[k] += rec["launches"][k]
         iters += sum(rec["inner_iters"])
+        bodies["kernel_matrix", "column"] += \
+            rec["launches"]["kernel_matrix_column"]
+        print(f"run {name}: kernel_matrix {rec['launches']['kernel_matrix']} "
+              f"launches, {rec['launches']['kernel_matrix_column']} on the "
+              f"column body")
         kernel = "sketch_assign" if kw["method"] == "sketch" else \
             "embed_assign"
         check(rec["launches"][kernel] > 0,
@@ -1271,24 +1355,26 @@ def main(argv=None) -> int:
            "flash_attention": (
                "src/repro_torch/kernels/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention.py:85")}
+    # (name, kernel, the body's tile dtype or kernel_matrix's body)
     entries = [("assign_fused", "assign_fused", None),
                ("assign_fused_f32", "assign_fused", "f32"),
                ("assign_fused_bf16", "assign_fused", "bf16"),
                ("kernel_matrix", "kernel_matrix", None),
+               ("kernel_matrix_column", "kernel_matrix", "column"),
                ("embed_assign", "embed_assign", None),
                ("sketch_assign", "sketch_assign", None),
                ("flash_attention", "flash_attention", None),
                ("flash_attention_bf16", "flash_attention", "bf16"),
                ("flash_attention_f32", "flash_attention", "f32")]
     kernels = []
-    for name, k, prec in entries:
+    for name, k, body in entries:
         mine = [r for r in recs if r["kernel"] == k
-                and (prec is None or r["prec"] == prec)]
+                and body in (None, r["prec"], r.get("body"))]
         first = next(r for r in mine if "ms" in r)
         kernels.append({
             "name": name, "route": "cuda", "source": src[k][0],
             "replaces": src[k][1],
-            "launches": totals[k] if prec is None else bodies[k, prec],
+            "launches": totals[k] if body is None else bodies[k, body],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

@@ -36,9 +36,12 @@ _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 SIGNATURES = {
     "rt_kernel_matrix_f32": [_P] * 5 + [_I] * 4 + [_F, _F, _I, _P],
     "rt_kernel_matrix_bf16": [_P] * 5 + [_I] * 4 + [_F, _F, _I, _P],
-    "rt_assign_fused_f32": [_P] * 10 + [_I] * 6 + [_F, _F, _I, _P],
-    "rt_assign_fused_bf16": [_P] * 9 + [_I] * 5 + [_F, _F, _I, _P],
+    "rt_kernel_matrix_col_f32": [_P] * 3 + [_I] * 4 + [_F, _F, _I, _P],
+    "rt_kernel_matrix_col_bf16": [_P] * 3 + [_I] * 4 + [_F, _F, _I, _P],
+    "rt_assign_fused_f32": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P],
+    "rt_assign_fused_bf16": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P],
     "rt_assign_f32_ctas_per_sm": [_I, _I, _P],
+    "rt_assign_bf16_ctas_per_sm": [_I, _I, _P],
     "rt_embed_assign_f32": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _F, _I, _I,
                                                         _P],
     "rt_embed_assign_bf16": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _F, _P],

@@ -1,0 +1,341 @@
+// The bf16 body of assign.cu: the Gram tiles on wgmma from a TMA ring, the
+// landmark axis split over the grid, the contraction against H in 3xTF32.
+//
+// Grid (splits, row blocks), as the f32 body (assign_f32.cuh): split s of
+// S takes the landmark tiles [s T / S, (s + 1) T / S) of the T = ceil(L /
+// BN) tiles (af::split_begin); the launcher, kernels/assign.py
+// landmark_splits, picks S from M, L, the SM count and the CTAs an SM
+// holds (rt_assign_bf16_ctas_per_sm). One CTA of two warpgroups owns BM =
+// 128 rows, 64 a warpgroup, and walks over its tiles of BN = 128
+// landmarks and, within a tile, over D in chunks of KC = 64 features (one
+// 128-byte row of bf16). The (tile, chunk) steps form one sequence through
+// a ring of NSTAGE stages; each stage is X [128 rows, 64] and L [128 rows,
+// 64] loaded by TMA with 128-byte swizzle (rows past M or L and features
+// past D zero-filled by TMA's bounds), counted on a `full` mbarrier. Thread
+// 0 issues the loads; a stage is reloaded once all eight warps have
+// arrived on its `empty` mbarrier, NSTAGE - 1 steps ahead of the products.
+//
+// Per step a warpgroup issues four wgmma m64n128k16 (both operands K-major
+// in shared memory, the layout X . L^T has) into its 64 accumulators a
+// thread, commits them, and waits only for the previous step's group, so
+// one group is always queued on the tensor cores while the next stage's
+// barrier is awaited. After a tile's last chunk the epilogue runs on the
+// accumulators in registers (columns past L zeroed), and each warp
+// contracts its 16 rows against H [L, Cp] with mma.sync m16n8k8 in 3xTF32
+// (common.cuh), so the contraction keeps the f32 accuracy of the
+// reference's f32 K . H: the wgmma accumulator of a warp has the mma.sync
+// C-fragment layout (rows g and g + 8, columns 2t and 2t + 1 of every 8),
+// which is the A-fragment of a k step whose slots t and t + 4 are
+// landmarks 2t and 2t + 1, as in the f32 body. Two CTAs share an SM (at
+// most 128 registers a thread, 105 KB of shared memory at C <= 16), so one
+// CTA's epilogue and contraction run while the other's products occupy
+// the tensor cores. The partial f [BM, Cp] of the split stays in shared
+// memory, each element owned by one lane, and is written to part [S, M,
+// Cp] at the end; af::assign_reduce_kernel sums the splits in a fixed
+// order and takes the argmin, so two launches give the same bits. The
+// contraction walks two landmark tiles of 8 at a time over all cluster
+// columns, so their accumulators die as it goes (no spills at 128
+// registers).
+//
+// What holds it back: each CTA reads 32 KB of stages a step from L2 for
+// 2.1 MFLOP (64 flops a byte), so at the card's bf16 rate the SMs would
+// draw more from L2 than it delivers; the contraction's mma.sync shares
+// the tensor cores with the other CTA's wgmma. A variant that paired row
+// blocks in clusters of two sharing the landmark half-tiles by TMA
+// multicast read a quarter less from L2 but ran slower on the card (each
+// pair waits for its slower CTA at every stage), so it is not used.
+#pragma once
+
+#include <cuda_bf16.h>
+
+#include "assign_f32.cuh"
+#include "hopper.cuh"
+
+namespace rt {
+namespace ab {
+
+using namespace rt::hop;
+
+constexpr int NT = 256;                       // two warpgroups
+constexpr int NWARPS = NT / 32;
+constexpr int BM = 128;                       // rows per CTA, 64 a warpgroup
+constexpr int BN = 128;                       // landmarks per tile
+constexpr int KC = 64;                        // features per ring step
+constexpr int NSTAGE = 3;
+constexpr uint32_t X_BYTES = BM * KC * 2;     // one stage of X
+constexpr uint32_t L_BYTES = BN * KC * 2;     // one stage of L
+constexpr uint32_t STAGE_BYTES = X_BYTES + L_BYTES;
+constexpr uint32_t RING_BYTES = NSTAGE * STAGE_BYTES;
+
+// 1024 to align the ring to the swizzle period, the ring, f [BM][Cp] and
+// the 2 NSTAGE mbarriers
+inline size_t smem_bytes(int cp) {
+  return 1024 + RING_BYTES + sizeof(float) * (size_t)BM * cp + 16 * NSTAGE;
+}
+
+// f [16 rows of the warp][0, Cp) += tile . H[l0 : l0 + BN], JB landmark
+// tiles of 8 at a time and, within them, 16 cluster columns at a time:
+// landmark tile j of the C-fragments is k step j of the A-fragments. Each
+// block of JB tiles is done with all cluster columns before the next, so
+// its accumulators are dead once it is contracted.
+constexpr int JB = 2;
+
+__device__ __forceinline__ void contract(const float (&acc)[BN / 2],
+                                         float* fw,
+                                         const float* __restrict__ H, int l0,
+                                         int L, int Cp, int g, int t) {
+#pragma unroll
+  for (int j0 = 0; j0 < BN / 8; j0 += JB) {
+    for (int p0 = 0; p0 < Cp; p0 += 16) {
+      float f[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[n][e] = 0.0f;
+#pragma unroll
+      for (int j = j0; j < j0 + JB; ++j) {
+        const int la = l0 + 8 * j + 2 * t;   // slot t; slot t + 4: la + 1
+        Split a[4], b[2][2];
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const float* hp = H + (size_t)la * Cp + p0 + 8 * n + g;
+          b[n][0] = split_tf32(la < L ? __ldg(hp) : 0.0f);
+          b[n][1] = split_tf32(la + 1 < L ? __ldg(hp + Cp) : 0.0f);
+        }
+        a[0] = split_tf32(acc[4 * j + 0]);
+        a[1] = split_tf32(acc[4 * j + 2]);
+        a[2] = split_tf32(acc[4 * j + 1]);
+        a[3] = split_tf32(acc[4 * j + 3]);
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+#pragma unroll
+          for (int n = 0; n < 2; ++n) mma_3xtf32_part(p, f[n], a, b[n]);
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float2* q = reinterpret_cast<float2*>(fw + (8 * h + g) * Cp + p0 +
+                                                8 * n + 2 * t);
+          float2 cur = *q;
+          cur.x += f[n][2 * h];
+          cur.y += f[n][2 * h + 1];
+          *q = cur;
+        }
+    }
+  }
+}
+
+template <int KIND>
+__global__ void __launch_bounds__(NT, 2)
+assign_bf16_kernel(const __grid_constant__ CUtensorMap tx,
+                   const __grid_constant__ CUtensorMap tl,
+                   const float* __restrict__ xsq,
+                   const float* __restrict__ lsq,
+                   const float* __restrict__ H, float* __restrict__ part,
+                   int M, int L, int D, int Cp, Epilogue epi) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  float* fs = reinterpret_cast<float*>(smem_raw + (ring - raw) + RING_BYTES);
+  const uint32_t bars = ring + RING_BYTES + (uint32_t)(sizeof(float) * BM * Cp);
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (NSTAGE + s); };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.y * BM;
+  const int wg = warp >> 2;
+  const int wr = 64 * wg + 16 * (warp & 3);   // the warp's first row
+  // the warp's rows of f; lane (g, t) owns columns 2t, 2t + 1 of each 8 in
+  // rows g and g + 8
+  float* fw = fs + wr * Cp;
+  for (int c = 2 * t; c < Cp; c += 8)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(fw + (g + 8 * h) * Cp + c) =
+          make_float2(0.0f, 0.0f);
+
+  const int tiles = (L + BN - 1) / BN;
+  const int tb = af::split_begin(blockIdx.x, gridDim.x, tiles);
+  const int te = af::split_begin(blockIdx.x + 1, gridDim.x, tiles);
+  const int nc = (D + KC - 1) / KC;
+  const int nsteps = (te - tb) * nc;
+
+  if (tid == 0) {
+    for (int s = 0; s < NSTAGE; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), NWARPS);   // one arrival per warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // step u: X rows r0 .. r0 + 127 and the rows of its landmark tile, at
+  // features (u % nc) * KC, into stage u % NSTAGE
+  const CUtensorMap* mx = &tx;
+  const CUtensorMap* ml = &tl;
+  auto issue = [&](int u) {
+    const int st = u % NSTAGE;
+    const uint32_t dst = ring + st * STAGE_BYTES;
+    const int k0 = (u % nc) * KC, l0 = (tb + u / nc) * BN;
+    mbar_expect_tx(full(st), STAGE_BYTES);
+    tma_load_2d(dst, mx, full(st), k0, r0);
+    tma_load_2d(dst + X_BYTES, ml, full(st), k0, l0);
+  };
+  if (tid == 0) {
+    tma_prefetch(mx);
+    tma_prefetch(ml);
+    for (int u = 0; u < NSTAGE && u < nsteps; ++u) issue(u);
+  }
+  __syncwarp();
+  // step u's products have completed in this warp: once every warp says
+  // so, thread 0 reloads its stage with step u + NSTAGE
+  auto release = [&](int u) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(u % NSTAGE));
+    if (tid == 0 && u + NSTAGE < nsteps) {
+      mbar_wait(empty(u % NSTAGE), (u / NSTAGE) & 1);
+      issue(u + NSTAGE);
+    }
+    __syncwarp();
+  };
+
+  float xs_n[2];                              // |x|^2 of rows g, g + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gr = r0 + wr + g + 8 * h;
+    xs_n[h] = gr < M ? __ldg(xsq + gr) : 0.0f;
+  }
+
+  // acc[4 j + e]: row g + 8 (e >> 1), landmark 8 j + 2 t + (e & 1)
+  float acc[BN / 2];
+  const uint32_t xoff = wg * 64 * 128;        // the warpgroup's rows of X
+  int u = 0;
+  for (int tile = tb; tile < te; ++tile) {
+    for (int c = 0; c < nc; ++c, ++u) {
+      const int st = u % NSTAGE;
+      mbar_wait(full(st), (u / NSTAGE) & 1);
+      __syncwarp();   // converged for the .sync.aligned wgmma
+      const uint32_t xs = ring + st * STAGE_BYTES + xoff;
+      const uint32_t ls = ring + st * STAGE_BYTES + X_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk)   // 16 features = 32 bytes
+        wgmma_ss(acc, desc_sw128(xs + 32 * kk, 0), desc_sw128(ls + 32 * kk, 0),
+                 c > 0 || kk > 0);
+      wgmma_commit();
+      if (c + 1 < nc) {
+        wgmma_wait<1>();   // step u - 1 is done; step u stays queued
+        if (c > 0) release(u - 1);
+      } else {
+        wgmma_wait_all();
+        if (c > 0) release(u - 1);
+        release(u);
+      }
+    }
+    fence_regs(acc);
+
+    // epilogue on the accumulators, columns past L zeroed (an epilogue need
+    // not be 0 there: rbf gives exp(-gamma |x|^2))
+    const int l0 = tile * BN;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int gc = l0 + 8 * j + 2 * t + e;
+        const float ys = gc < L ? __ldg(lsq + gc) : 0.0f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float& v = acc[4 * j + 2 * h + e];
+          v = gc < L ? af::epilogue<KIND>(epi, v, xs_n[h], ys) : 0.0f;
+        }
+      }
+    }
+    contract(acc, fw, H, l0, L, Cp, g, t);
+  }
+
+  // this split's f for the warp's rows (each lane its own elements)
+  float* out = part + ((size_t)blockIdx.x * M + r0 + wr) * Cp;
+  for (int c = 2 * t; c < Cp; c += 8)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (r0 + wr + g + 8 * h < M)
+        *reinterpret_cast<float2*>(out + (size_t)(g + 8 * h) * Cp + c) =
+            *reinterpret_cast<const float2*>(fw + (g + 8 * h) * Cp + c);
+}
+
+// norms [M + L] f32 scratch: the row norms of x and l (common.cuh
+// launch_sqnorms)
+template <int KIND>
+static int launch(const __nv_bfloat16* x, const __nv_bfloat16* l,
+                  float* norms, const float* h, const float* g, int* labels,
+                  float* mind, float* f, float* part, int M, int L, int D,
+                  int Cp, int splits, const Epilogue& epi,
+                  cudaStream_t stream) {
+  const int tiles = (L + BN - 1) / BN;
+  if (M <= 0 || L <= 0 || splits < 1 || splits > tiles)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tl;
+  if (!encode_2d(&tx, x, M, D, D, BM) || !encode_2d(&tl, l, L, D, D, BN))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = assign_bf16_kernel<KIND>;
+  cudaError_t err =
+      smem_once<assign_bf16_kernel<KIND>>(smem_bytes(MAX_CP), true);
+  if (err != cudaSuccess) return (int)err;
+  const float* lsq = nullptr;
+  if ((err = (cudaError_t)launch_sqnorms(x, M, l, L, D, norms, &lsq,
+                                         stream)) != cudaSuccess)
+    return (int)err;
+  kernel<<<dim3(splits, (M + BM - 1) / BM), NT, smem_bytes(Cp), stream>>>(
+      tx, tl, norms, lsq, h, part, M, L, D, Cp, epi);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  af::assign_reduce_kernel<<<(M + af::REDUCE_ROWS - 1) / af::REDUCE_ROWS,
+                             32 * af::REDUCE_ROWS, 0, stream>>>(
+      part, splits, g, f, labels, mind, M, Cp);
+  return (int)cudaGetLastError();
+}
+
+// CTAs of kind KIND's instantiation one SM holds at Cp clusters
+template <int KIND>
+static int ctas_per_sm(int Cp, int* out) {
+  const cudaError_t err =
+      smem_once<assign_bf16_kernel<KIND>>(smem_bytes(MAX_CP), true);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, assign_bf16_kernel<KIND>, NT, smem_bytes(Cp));
+}
+
+// one instantiation per Mercer kind
+static int dispatch(const __nv_bfloat16* x, const __nv_bfloat16* l,
+                    float* norms, const float* h, const float* g, int* labels,
+                    float* mind, float* f, float* part, int M, int L, int D,
+                    int Cp, int splits, const Epilogue& epi,
+                    cudaStream_t stream) {
+#define RT_AB_CASE(K)                                                   \
+  case K:                                                               \
+    return launch<K>(x, l, norms, h, g, labels, mind, f, part, M, L, D, \
+                     Cp, splits, epi, stream);
+  switch (epi.kind) {
+    RT_AB_CASE(LINEAR)
+    RT_AB_CASE(POLYNOMIAL)
+    RT_AB_CASE(COSINE)
+    RT_AB_CASE(RBF)
+  }
+#undef RT_AB_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+static int dispatch_ctas_per_sm(int kind, int Cp, int* out) {
+  switch (kind) {
+    case LINEAR: return ctas_per_sm<LINEAR>(Cp, out);
+    case POLYNOMIAL: return ctas_per_sm<POLYNOMIAL>(Cp, out);
+    case COSINE: return ctas_per_sm<COSINE>(Cp, out);
+    case RBF: return ctas_per_sm<RBF>(Cp, out);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace ab
+}  // namespace rt

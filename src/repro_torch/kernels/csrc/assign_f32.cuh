@@ -319,12 +319,13 @@ assign_reduce_kernel(const float* part, int splits,
   }
 }
 
+// norms [M + L] f32 scratch: the row norms of x and l (common.cuh
+// launch_sqnorms)
 template <int KIND>
-static int launch(const float* x, const float* l, const float* xsq,
-                  const float* lsq, const float* h, const float* g,
-                  int* labels, float* mind, float* f, float* part, int M,
-                  int L, int D, int Cp, int splits, const Epilogue& epi,
-                  cudaStream_t stream) {
+static int launch(const float* x, const float* l, float* norms,
+                  const float* h, const float* g, int* labels, float* mind,
+                  float* f, float* part, int M, int L, int D, int Cp,
+                  int splits, const Epilogue& epi, cudaStream_t stream) {
   const int tiles = (L + BN - 1) / BN;
   if (M <= 0 || L <= 0 || splits < 1 || splits > tiles)
     return (int)cudaErrorInvalidValue;
@@ -332,8 +333,12 @@ static int launch(const float* x, const float* l, const float* xsq,
   cudaError_t err = smem_once<assign_f32_kernel<KIND>>(smem_bytes(MAX_CP),
                                                        true);
   if (err != cudaSuccess) return (int)err;
+  const float* lsq = nullptr;
+  if ((err = (cudaError_t)launch_sqnorms(x, M, l, L, D, norms, &lsq,
+                                         stream)) != cudaSuccess)
+    return (int)err;
   kernel<<<dim3(splits, (M + BM - 1) / BM), NT, smem_bytes(Cp), stream>>>(
-      x, l, xsq, lsq, h, part, M, L, D, Cp, epi);
+      x, l, norms, lsq, h, part, M, L, D, Cp, epi);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   assign_reduce_kernel<<<(M + REDUCE_ROWS - 1) / REDUCE_ROWS,
@@ -353,14 +358,13 @@ static int ctas_per_sm(int Cp, int* out) {
 }
 
 // one instantiation per Mercer kind
-static int dispatch(const float* x, const float* l, const float* xsq,
-                    const float* lsq, const float* h, const float* g,
-                    int* labels, float* mind, float* f, float* part, int M,
-                    int L, int D, int Cp, int splits, const Epilogue& epi,
-                    cudaStream_t stream) {
-#define RT_AF_CASE(K)                                                      \
-  case K:                                                                  \
-    return launch<K>(x, l, xsq, lsq, h, g, labels, mind, f, part, M, L, D, \
+static int dispatch(const float* x, const float* l, float* norms,
+                    const float* h, const float* g, int* labels, float* mind,
+                    float* f, float* part, int M, int L, int D, int Cp,
+                    int splits, const Epilogue& epi, cudaStream_t stream) {
+#define RT_AF_CASE(K)                                                   \
+  case K:                                                               \
+    return launch<K>(x, l, norms, h, g, labels, mind, f, part, M, L, D, \
                      Cp, splits, epi, stream);
   switch (epi.kind) {
     RT_AF_CASE(LINEAR)

@@ -11,9 +11,13 @@
 //   - smem_once: the dynamic shared-memory attribute of a kernel, set once
 //     per kernel and device. cudaFuncSetAttribute waits for the kernel's
 //     launches still in flight, so calling it per launch leaves the card
-//     idle while the host prepares the next one.
+//     idle while the host prepares the next one;
+//   - Vec16: a 16-byte load of f32 or bf16 features as f32 values, and
+//     row_sqnorms_kernel, the f32 squared norms of the rows of two
+//     matrices (the assign_fused entries take their norms from it).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -102,6 +106,76 @@ cudaError_t smem_once(size_t bytes, bool max_carveout) {
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess) seen.fetch_or(1ull << dev);
   return err;
+}
+
+// 16 bytes of a row as floats
+template <class T>
+struct Vec16;
+
+template <>
+struct Vec16<float> {
+  static constexpr int W = 4;
+  __device__ __forceinline__ static void load(const float* p, float (&v)[W]) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  }
+};
+
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int W = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
+                                              float (&v)[W]) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {   // bf16 -> f32 is a 16-bit shift
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+constexpr int SQNORM_ROWS = 8;   // rows (warps) per block
+
+// out[r] = |A_r|^2 for the na rows of A [na, D], then out[na + r] = |B_r|^2
+// for the nb rows of B [nb, D], summed in f32 from the stored values, one
+// warp a row (D a multiple of Vec16<T>::W)
+template <class T>
+__global__ void __launch_bounds__(32 * SQNORM_ROWS)
+row_sqnorms_kernel(const T* __restrict__ A, int na, const T* __restrict__ B,
+                   int nb, int D, float* __restrict__ out) {
+  using V = Vec16<T>;
+  const int row = blockIdx.x * SQNORM_ROWS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= na + nb) return;
+  const T* src = row < na ? A + (size_t)row * D : B + (size_t)(row - na) * D;
+  float s = 0.0f;
+  for (int k = lane * V::W; k < D; k += 32 * V::W) {
+    float v[V::W];
+    V::load(src + k, v);
+#pragma unroll
+    for (int w = 0; w < V::W; ++w) s = fmaf(v[w], v[w], s);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (lane == 0) out[row] = s;
+}
+
+// the squared norms of x [M, D] into norms[0, M) and of l [L, D] into
+// norms[M, M + L); *lsq points at l's (at x's when l is x: the g stats
+// pass one panel as both)
+template <class T>
+static int launch_sqnorms(const T* x, int M, const T* l, int L, int D,
+                          float* norms, const float** lsq,
+                          cudaStream_t stream) {
+  const bool same = l == x && L == M;
+  const int rows = M + (same ? 0 : L);
+  *lsq = same ? norms : norms + M;
+  row_sqnorms_kernel<T><<<(rows + SQNORM_ROWS - 1) / SQNORM_ROWS,
+                          32 * SQNORM_ROWS, 0, stream>>>(
+      x, M, l, rows - M, D, norms);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace rt

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) primitives for the bf16 flash-attention body
-// (flash_attention.cu): mbarriers, TMA tile loads, wgmma descriptors and
-// the wgmma shapes it issues, and setmaxnreg. PTX by inline assembly, no
-// library. Every shared-memory address here is a 32-bit shared-window
-// address (__cvta_generic_to_shared).
+// Hopper (sm_90a) primitives for the bf16 bodies of flash_attention.cu
+// and assign.cu (assign_bf16.cuh): mbarriers, TMA tile loads and the host
+// encoder of their tensor maps, wgmma descriptors and the wgmma shapes they
+// issue, and setmaxnreg. PTX by inline assembly, no library. Every
+// shared-memory address here is a 32-bit shared-window address
+// (__cvta_generic_to_shared).
 #pragma once
 
 #include <cuda.h>
@@ -63,6 +64,17 @@ __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
                : "memory");
 }
 
+// a 2-d box of `map` at coordinates (c0 innermost, c1) into shared memory
+// at dst; completion is counted on `bar` in bytes
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
 // a 4-d box of `map` at coordinates (c0 innermost .. c3) into shared memory
 // at dst; completion is counted on `bar` in bytes
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
@@ -113,6 +125,12 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // keep the compiler from moving accesses of accumulator registers across
@@ -234,6 +252,52 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[128],
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ---- tensor maps (host) ------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded (no -lcuda
+// at link time)
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// A row-major [rows, cols] bf16 matrix (cols contiguous, rows `ld`
+// elements apart), read in boxes of 64 columns by `box_rows` rows, 128-byte
+// swizzled; out-of-bounds elements load as zeros.
+inline bool encode_2d(CUtensorMap* map, const void* ptr, int rows, int cols,
+                      long long ld, int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hop

@@ -1,5 +1,5 @@
-// The row-block contraction shared by the bf16 bodies of assign.cu and
-// embed_assign.cu.
+// The row-block contraction of the bf16 body of embed_assign.cu (and the
+// row argmin sketch_assign.cu takes too).
 //
 // One CTA owns the BM = 128 rows from r0 and loops over all column tiles of
 // Y ([N, D]: landmarks, RFF frequencies or Nystrom landmarks):
@@ -10,7 +10,7 @@
 //      zero rows of the panel alone would not keep padding out;
 //   2. park the tile in shared memory (aliasing the staging buffers, which
 //      are idle by then) and contract it at once against the panel P [N, Cp]
-//      (H for the exact assignment, V for the embedded one), 16 cluster
+//      (V of the embedded assignment), 16 cluster
 //      columns at a time, into the accumulator fs [128 x Cp] that stays in
 //      shared memory across the whole column loop.
 // row_block_argmin then takes min_j (g_j - 2 fs_ij) and its first (lowest)

@@ -2,11 +2,16 @@
 
 The port of ``kernel_matrix_pallas`` (``repro/kernels/kernel_matrix.py:78``):
 K(X, Y) [M, N] f32 with f32 accumulation and the Mercer epilogue for rbf,
-polynomial, cosine or linear. The source's header says what bounds it on
-an H100 and how its tiles are laid out. ``ops.kernel_matrix`` is the
-wrapper callers use; this module only checks operands and launches.
+polynomial, cosine or linear. Two bodies: a tile body for wide Y (the Gram
+builds) and a column body for skinny Y (the k-means++ columns and the
+Eq.8 / predict blocks), which reads X once and computes |x|^2 and |y|^2
+from its own loads; ``route`` picks one. The source's header says what bounds each on an
+H100 and how it is laid out. ``ops.kernel_matrix`` is the wrapper callers
+use; this module only checks operands, routes and launches.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -16,30 +21,80 @@ from . import build
 KINDS = {"linear": 0, "polynomial": 1, "cosine": 2, "rbf": 3}
 #: features per 16-byte vector load: D must be a multiple of it
 VEC = {torch.float32: 4, torch.bfloat16: 8}
-_ENTRY = {torch.float32: "rt_kernel_matrix_f32",
-          torch.bfloat16: "rt_kernel_matrix_bf16"}
+_ENTRY = {("tile", torch.float32): "rt_kernel_matrix_f32",
+          ("tile", torch.bfloat16): "rt_kernel_matrix_bf16",
+          ("column", torch.float32): "rt_kernel_matrix_col_f32",
+          ("column", torch.bfloat16): "rt_kernel_matrix_col_bf16"}
+
+#: Y's widths the column body is instantiated for (``col::dispatch``): N
+#: runs in the fewest columns >= N, the rest zero
+COL_WIDTHS = (1, 4, 8, 16, 32)
+#: the widest Y the route sends to the column body: all its widths. In the
+#: sweep of ``launch/kernel_ab.py`` at [15000, N] x 784 (N = 1, 4, 5, 10,
+#: 16, 32; NVIDIA H100 80GB HBM3, 700 W) the column body took 0.019-0.073
+#: ms of the card's time at f32 and 0.012-0.068 at bf16, the tile body with
+#: the norm pass it needs 0.143-0.146 and 0.132-0.137 at every N: one pass
+#: over X against a 128-column tile and a second read of X. Past 32 the
+#: column body's time grows with N and the tile body's does not.
+NCOL_MAX = 32
+#: Y [width, D] and |y|^2 f32 in shared memory: at most what a block may
+#: use
+COL_SMEM_MAX = 232448
 
 
-def kernel_matrix_cuda(x: torch.Tensor, y: torch.Tensor, xsq: torch.Tensor,
-                       ysq: torch.Tensor, *, kind: str, gamma: float,
-                       coef0: float, degree: int) -> torch.Tensor:
-    """x [M, D], y [N, D] in f32 or bf16 (D a multiple of ``VEC``);
-    xsq [M], ysq [N] f32 squared norms of the same values -> [M, N] f32."""
+def col_smem_bytes(n: int, d: int) -> int:
+    """Shared memory of the column body for Y [n, d]."""
+    return 4 * (d + 1) * next(w for w in COL_WIDTHS if w >= n)
+
+
+@functools.lru_cache(maxsize=256)
+def route(n: int, d: int) -> str:
+    """"column" for Y [n, d] with 0 < n <= ``NCOL_MAX`` whose staged copy
+    fits in shared memory, else "tile"."""
+    if 0 < n <= NCOL_MAX and col_smem_bytes(n, d) <= COL_SMEM_MAX:
+        return "column"
+    return "tile"
+
+
+def kernel_matrix_cuda(x: torch.Tensor, y: torch.Tensor,
+                       norms: tuple[torch.Tensor, torch.Tensor] | None, *,
+                       kind: str, gamma: float, coef0: float, degree: int,
+                       body: str | None = None) -> torch.Tensor:
+    """x [M, D], y [N, D] in f32 or bf16 (D a multiple of ``VEC``) ->
+    [M, N] f32. ``body`` forces "tile" or "column" (default: ``route``).
+    The tile body takes ``norms`` = (xsq [M], ysq [N]) f32, the squared
+    norms of the same values; the column body computes them and takes
+    ``norms=None``."""
     if kind not in KINDS:
         raise ValueError(f"kernel_matrix has no epilogue for {kind!r}")
-    if x.dtype not in _ENTRY:
+    if x.dtype not in VEC:
         raise TypeError(f"kernel_matrix takes f32 or bf16 tiles, got {x.dtype}")
     m, d = x.shape
     n = y.shape[0]
     if d % VEC[x.dtype]:
         raise ValueError(f"D={d} must be a multiple of {VEC[x.dtype]}")
+    if body is None:
+        body = route(n, d)
+    elif body == "column" and not (0 < n <= COL_WIDTHS[-1]
+                                   and col_smem_bytes(n, d) <= COL_SMEM_MAX):
+        raise ValueError(f"the column body takes 1 to {COL_WIDTHS[-1]} "
+                         f"columns within {COL_SMEM_MAX} bytes, got N={n}, "
+                         f"D={d}")
+    if (norms is None) != (body == "column"):
+        raise ValueError(f"the {body} body takes "
+                         f"{'no' if body == 'column' else 'the'} row norms")
     dev = x.device
     build.check_operand(x, "x", dtype=x.dtype, shape=(m, d), device=dev)
     build.check_operand(y, "y", dtype=x.dtype, shape=(n, d), device=dev)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    epi = (KINDS[kind], float(gamma), float(coef0), int(degree))
+    if body == "column":
+        build.launch(_ENTRY[body, x.dtype], x.data_ptr(), y.data_ptr(),
+                     out.data_ptr(), m, n, d, *epi)
+        return out
+    xsq, ysq = norms
     build.check_operand(xsq, "xsq", dtype=torch.float32, shape=(m,), device=dev)
     build.check_operand(ysq, "ysq", dtype=torch.float32, shape=(n,), device=dev)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    build.launch(_ENTRY[x.dtype], x.data_ptr(), y.data_ptr(), xsq.data_ptr(),
-                 ysq.data_ptr(), out.data_ptr(), m, n, d, KINDS[kind],
-                 float(gamma), float(coef0), int(degree))
+    build.launch(_ENTRY[body, x.dtype], x.data_ptr(), y.data_ptr(),
+                 xsq.data_ptr(), ysq.data_ptr(), out.data_ptr(), m, n, d, *epi)
     return out

@@ -5,8 +5,9 @@ of ``repro/kernels/ops.py:195-333``), and ``flash_attention`` for the LM
 zoo's prefill (the port of ``repro/kernels/ops.py:390-417``).
 
 Each wrapper casts the tile operands to the policy's tile dtype ONCE at
-entry and computes the squared norms FROM the cast values, so kernel and
-plain version see identical inputs. ``assign_fused`` builds H as
+entry, and the squared norms come FROM the cast values (``assign_fused``'s
+and the ``kernel_matrix`` column body's launches compute them on the card
+themselves), so kernel and plain version see identical inputs. ``assign_fused`` builds H as
 one-hot(labels)/counts and puts +1e30 on empty clusters; ``embed_assign``
 and ``sketch_assign`` put +1e30 on the centroid norms of empty clusters.
 
@@ -36,7 +37,7 @@ from . import ref
 from .assign import CP_MULTIPLE, MAX_CP, assign_fused_cuda
 from .embed_assign import embed_assign_cuda
 from .flash_attention import flash_attention_cuda
-from .kernel_matrix import VEC, kernel_matrix_cuda
+from .kernel_matrix import VEC, kernel_matrix_cuda, route
 from .precision import resolve_precision
 from .sketch_assign import sketch_assign_cuda
 
@@ -44,7 +45,9 @@ BIG = 1e30   # "+inf" of empty and padded clusters that survives min/argmin
 
 #: launches of each CUDA kernel
 LAUNCHES = {"kernel_matrix": 0, "assign_fused": 0, "embed_assign": 0,
-            "sketch_assign": 0, "flash_attention": 0}
+            "sketch_assign": 0, "flash_attention": 0,
+            # of the kernel_matrix launches, those of the column body
+            "kernel_matrix_column": 0}
 
 
 def _round_up(v: int, m: int) -> int:
@@ -80,10 +83,14 @@ def kernel_matrix(x: torch.Tensor, y: torch.Tensor, *, kind: str = "rbf",
         return ref.kernel_matrix_ref(x, y, kind=kind, gamma=gamma,
                                      coef0=coef0, degree=degree,
                                      precision=p.tile)
-    out = kernel_matrix_cuda(_operand(x), _operand(y), _sqnorms(x),
-                             _sqnorms(y), kind=kind, gamma=gamma,
-                             coef0=coef0, degree=degree)
+    xo, yo = _operand(x), _operand(y)
+    # the column body sums |x|^2 and |y|^2 from its own loads
+    column = route(*yo.shape) == "column"
+    out = kernel_matrix_cuda(
+        xo, yo, None if column else (_sqnorms(x), _sqnorms(y)), kind=kind,
+        gamma=gamma, coef0=coef0, degree=degree)
     LAUNCHES["kernel_matrix"] += 1
+    LAUNCHES["kernel_matrix_column"] += column
     return out
 
 
@@ -122,12 +129,14 @@ def _over_cluster_chunks(panel: torch.Tensor, g: torch.Tensor, name: str,
 
 
 def _launch_assign(x, landmarks, h, g, *, kind, gamma, coef0, degree):
-    """assign_fused on the card -> (labels, mind, f [n, C])."""
-    xo, lo = _operand(x), _operand(landmarks)
-    xsq, lsq = _sqnorms(x), _sqnorms(landmarks)
+    """assign_fused on the card -> (labels, mind, f [n, C]); the launch
+    computes the row norms (once when the g stats pass the landmark panel as
+    both operands)."""
+    xo = _operand(x)
+    lo = xo if landmarks is x else _operand(landmarks)
     return _over_cluster_chunks(
         h, g, "assign_fused",
-        lambda hc, gc: assign_fused_cuda(xo, lo, xsq, lsq, hc, gc, kind=kind,
+        lambda hc, gc: assign_fused_cuda(xo, lo, hc, gc, kind=kind,
                                          gamma=gamma, coef0=coef0,
                                          degree=degree))
 
@@ -171,7 +180,10 @@ def gram_matvec(x: torch.Tensor, landmarks: torch.Tensor, h: torch.Tensor, *,
     the [n, L] block in device memory: the fused assignment kernel with
     g = 0, whose argmin outputs are dropped."""
     p = resolve_precision(precision)
-    x, landmarks = p.cast_tiles(x), p.cast_tiles(landmarks)
+    # the g stats pass one panel as both operands: cast it once
+    same = landmarks is x
+    x = p.cast_tiles(x)
+    landmarks = x if same else p.cast_tiles(landmarks)
     h = h.to(torch.float32)
     if not x.is_cuda:
         return ref.kernel_matrix_ref(x, landmarks, kind=kind, gamma=gamma,

@@ -7,14 +7,23 @@ Times every kernel wrapper the main path calls (``ops.assign_fused``,
 ``ops.gram_matvec``, ``ops.kernel_matrix``, ``ops.embed_assign``,
 ``ops.sketch_assign``, ``ops.flash_attention``) at the shapes of
 ``chip_smoke.py``'s timed checks: the Tab.1 MNIST batch (15,000 x {15,000,
-3,000} x 784, C = 10, and the g stats' 3,000 x 3,000), the Fig.5
+3,000} x 784, C = 10, and the g stats' 3,000 x 3,000), the skinny
+``kernel_matrix`` calls of k-means++ and Eq.8 (``SKINNY``), the Fig.5
 embedding (60,000 x 784 -> m, C = 10; RFF at m = 20, 80, 160 and 320,
 Nystrom rbf at 320), the Tab.2 count sketch (188,000 x 256 -> 128, C = 50)
 and the attention of OLMo-1B, gemma2-2b and qwen3-32b at S 2048, at f32 and
 bf16. Beside each attention shape it times ``scaled_dot_product_attention``
-(or, with a softcap, matmul + tanh + masked softmax + matmul), and beside
-each embedding shape the composite of PyTorch calls that computes the same
-labels; the port never calls either.
+(or, with a softcap, matmul + tanh + masked softmax + matmul), beside each
+skinny ``kernel_matrix`` shape ``x @ y.T`` with the epilogue and the norms
+as the wrapper takes them, and beside each embedding shape the composite
+of PyTorch calls that computes the same labels; the port never calls any
+of them. The assign, g stats and skinny ``kernel_matrix`` shapes also get
+the card's own time a call (``.../device``: the device activities of a
+``torch.profiler`` trace), since a back-to-back loop of small calls reads
+the host's launch path rather than the card. A tree whose
+``kernel_matrix`` has two bodies also gets the sweep that chose
+``NCOL_MAX``: each body forced at [15,000, N] x 784, N = 1, 4, 5, 10, 16
+and 32 (keys ``kernel_matrix/sweep/...``).
 
 Each entry of ``--order`` is one process that imports ``repro_torch`` from
 that tree's ``src`` (so two trees never share a module or a built library),
@@ -42,6 +51,20 @@ FLASH = [("olmo-1b", 1, 16, 16, 2048, 128, None),
          ("gemma2-2b", 1, 8, 4, 2048, 256, 50.0),
          ("qwen3-32b", 1, 64, 8, 2048, 128, None)]
 EMBED_M = (20, 80, 160, 320)
+# the skinny kernel_matrix calls of the runs (rows, columns, D, kind, data,
+# tile dtypes): k-means++ (two a step) and Eq.8 / predict of runs A-C on
+# the MNIST batch and on 10,000 rows in place of the test rows, k-means++
+# of the D runs on the RFF embedding (m = 320) and of the E runs on a
+# count-sketch batch (m = 128)
+SKINNY = [(15000, 1, 784, "rbf", "batch", ("f32",)),
+          (15000, 4, 784, "rbf", "batch", ("f32",)),
+          (15000, 10, 784, "rbf", "batch", ("f32",)),
+          (10000, 10, 784, "rbf", "test", ("f32",)),
+          (60000, 1, 320, "linear", "rff", ("f32", "bf16")),
+          (60000, 4, 320, "linear", "rff", ("f32", "bf16")),
+          (47000, 1, 128, "linear", "sketch", ("f32", "bf16")),
+          (47000, 5, 128, "linear", "sketch", ("f32", "bf16"))]
+SWEEP_N = (1, 4, 5, 10, 16, 32)
 
 
 def card_line() -> str:
@@ -79,7 +102,7 @@ def worker(src: Path, data: Path, reps: int) -> dict:
     build.load()
     times = {"build_s": time.perf_counter() - t0}
 
-    def timed(key, fn):
+    def timed(key, fn, device=False):
         fn()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -90,11 +113,71 @@ def worker(src: Path, data: Path, reps: int) -> dict:
         end.record()
         end.synchronize()
         times[key] = start.elapsed_time(end) / reps
+        if device:   # the card's own time a call, without the host's
+            times[key + "/device"] = device_ms(fn)
+
+    def device_ms(fn):
+        """The summed time of the device activities (kernels, copies) of
+        one call, from a torch.profiler trace of ``reps`` calls."""
+        act = torch.profiler.ProfilerActivity.CUDA
+        with torch.profiler.profile(activities=[act]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(e, "device_time_total", 0)
+                    for e in prof.key_averages())
+        return total / reps / 1e3
 
     x_tr = torch.as_tensor(np.load(data / "x_mnist.npy"), device=dev)
     y_tr = torch.as_tensor(np.load(data / "y_mnist.npy"), device=dev)
     gamma = core.gamma_from_dmax(x_tr[:4096])
     spec = core.KernelSpec("rbf", gamma=gamma)
+
+    # the skinny kernel_matrix calls, Y the first rows of X as k-means++'s;
+    # each X contiguous, as the fits hand their batches over
+    xr = torch.as_tensor(np.load(data / "x_rcv1.npy"), device=dev)
+    rows = {"batch": x_tr[0::4].contiguous(), "test": x_tr[-10000:],
+            "rff": approx.make_rff(torch.Generator().manual_seed(3),
+                                   x_tr.shape[1], 320, spec, device=dev)(x_tr),
+            "sketch": approx.make_count_sketch(
+                torch.Generator().manual_seed(5), xr.shape[1], 128,
+                core.KernelSpec("linear"), device=dev)(xr[0::4].contiguous())}
+    del xr
+    for m, n, d, kind, src, precs in SKINNY:
+        x = rows[src][:m]
+        for prec in precs:
+            xp = x.to(torch.bfloat16) if prec == "bf16" else x
+            yp = xp[:n]
+            timed(f"kernel_matrix/{m}x{n}x{d}/{kind}/{prec}",
+                  lambda: ops.kernel_matrix(xp, yp, kind=kind, gamma=gamma,
+                                            precision=prec), device=True)
+            xf, yf = xp.float(), yp.float()
+
+            def library():
+                dot = xf @ yf.T
+                if kind == "linear":
+                    return dot
+                d2 = ((xf * xf).sum(1)[:, None] + (yf * yf).sum(1)[None]
+                      - 2.0 * dot)
+                return torch.exp(-gamma * d2.clamp_(min=0.0))
+            timed(f"kernel_matrix/{m}x{n}x{d}/{kind}/{prec}/library", library,
+                  device=True)
+    from repro_torch.kernels import kernel_matrix as km
+    if hasattr(km, "route"):   # the column body: the sweep behind NCOL_MAX
+        for prec, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            x = rows["batch"].to(dtype)
+            for n in SWEEP_N:
+                y = x[:n]
+                # each body as the wrapper calls it: the tile body with the
+                # norms of x and y computed for it
+                for body in ("column", "tile"):
+                    timed(f"kernel_matrix/sweep/{n}/{prec}/{body}",
+                          lambda: km.kernel_matrix_cuda(
+                              x, y, None if body == "column"
+                              else (ops._sqnorms(x), ops._sqnorms(y)),
+                              kind="rbf", gamma=gamma, coef0=1.0, degree=3,
+                              body=body), device=True)
+    del rows
 
     # Tab.1: one 15,000-row batch, |L| = 15,000 and 3,000
     x_b, y_b = x_tr[0::4], y_tr[0::4]
@@ -107,14 +190,15 @@ def worker(src: Path, data: Path, reps: int) -> dict:
             g = torch.rand(10, generator=gen).to(dev)
             timed(f"assign_fused/{tag}/{prec}", lambda: ops.assign_fused(
                 x_b, lm, lab, counts, g, n_clusters=10, kind="rbf",
-                gamma=gamma, precision=prec))
+                gamma=gamma, precision=prec), device=True)
         timed(f"kernel_matrix/3000/{prec}", lambda: ops.kernel_matrix(
             x_b, x_b[l3.to(dev)], kind="rbf", gamma=gamma, precision=prec))
         # the g stats of runs B and C: K(L, L) @ H at |L| = 3,000
         lm = x_b[l3.to(dev)]
         h = F.one_hot(y_b[l3.to(dev)].long(), 10).float()
         timed(f"gram_matvec/3000/{prec}", lambda: ops.gram_matvec(
-            lm, lm, h, kind="rbf", gamma=gamma, precision=prec))
+            lm, lm, h, kind="rbf", gamma=gamma, precision=prec),
+            device=True)
     del x_b, y_b
 
     # Fig.5: the embedding of all 60,000 training rows
@@ -242,7 +326,8 @@ def main(argv=None) -> int:
                          "times": json.loads(lines[-1][len("RESULT "):])})
             print(f"run {len(runs)}: tree {i} ({trees[i]}) "
                   f"{time.perf_counter() - t0:.1f} s")
-    keys = list(runs[0]["times"])
+    # every tree's keys, in the order they were first timed
+    keys = list(dict.fromkeys(k for r in runs for k in r["times"]))
     width = max(map(len, keys))
     print(f"{'key':<{width}}  " + "  ".join(
         f"tree{r['index']}" for r in runs))

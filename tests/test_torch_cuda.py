@@ -238,10 +238,157 @@ def test_gram_matvec_at_the_g_stats_shape(cuda, prec):
 def test_assign_f32_occupancy(cuda, kind):
     """The library reports what the split choice assumes: two CTAs of the
     f32 body share an SM at C = 10 (Cp 16), one at 256 clusters."""
-    from repro_torch.kernels.assign import f32_ctas_per_sm
+    from repro_torch.kernels.assign import ctas_per_sm
     index = torch.cuda.current_device()
-    assert f32_ctas_per_sm(16, kind, index) == 2
-    assert f32_ctas_per_sm(256, kind, index) == 1
+    assert ctas_per_sm(torch.float32, 16, kind, index) == 2
+    assert ctas_per_sm(torch.float32, 256, kind, index) == 1
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_assign_bf16_occupancy(cuda, kind):
+    """Two CTAs of the bf16 body (two warpgroups each, at most 128
+    registers a thread) share an SM at C = 10, one at 256 clusters (its f
+    accumulator takes 128 KB of shared memory)."""
+    from repro_torch.kernels.assign import ctas_per_sm
+    index = torch.cuda.current_device()
+    assert ctas_per_sm(torch.bfloat16, 16, kind, index) == 2
+    assert ctas_per_sm(torch.bfloat16, 256, kind, index) == 1
+
+
+# (rows, landmarks, D) of the bf16 body's split grid: one row, the g stats'
+# 3,000 x 3,000 and run C's 15,000 x 3,000 (24 tiles of 128), L past no
+# tile boundary, L within one tile, D past no 64-feature chunk, D within one
+BF16_SPLIT_SHAPES = [(1, 3000, 784), (3000, 3000, 784), (15000, 3000, 784),
+                     (500, 777, 40), (200, 40, 40), (300, 1000, 136)]
+
+
+@pytest.mark.parametrize("n_clusters", [3, 10, 130])
+@pytest.mark.parametrize("shape", BF16_SPLIT_SHAPES,
+                         ids=["x".join(map(str, s)) for s in BF16_SPLIT_SHAPES])
+@pytest.mark.parametrize("kind", KINDS)
+def test_assign_fused_bf16_split_matches_plain(cuda, kind, shape, n_clusters):
+    m, lm, d = shape
+    x, landmarks, labels_l, counts, g = _assign_case(m, lm, d, n_clusters, 45,
+                                                     cuda)
+    gamma = _gamma(kind, d)
+    lab, mind, f = ops.assign_fused(x, landmarks, labels_l, counts, g,
+                                    n_clusters=n_clusters, kind=kind,
+                                    gamma=gamma, precision="bf16")
+    h, gm = ops.assign_panels(labels_l, counts, g, n_clusters)
+    want_lab, want_min, want_f = ref.assign_fused_ref(
+        x, landmarks, h, gm, kind=kind, gamma=gamma, precision="bf16")
+    assert f.shape == (m, n_clusters)
+    torch.testing.assert_close(f, want_f, **_tol(1e-4))
+    torch.testing.assert_close(mind, want_min, **_tol(1e-4))
+    assert _labels_outside_near_ties(lab, want_lab, gm[None] - 2.0 * want_f)
+
+
+@pytest.mark.parametrize("shape", [(3000, 3000, 784), (15000, 3000, 784),
+                                   (500, 777, 40)],
+                         ids=["3000x3000", "15000x3000", "500x777"])
+def test_assign_fused_bf16_is_bitwise_repeatable(cuda, shape):
+    """The bf16 body's splits are summed in the same fixed order: two
+    launches give the same bits, as ops.gram_matvec (the g stats) too."""
+    m, lm, d = shape
+    x, landmarks, labels_l, counts, g = _assign_case(m, lm, d, 10, 46, cuda)
+    a, b = (ops.assign_fused(x, landmarks, labels_l, counts, g, n_clusters=10,
+                             gamma=1 / d, precision="bf16") for _ in range(2))
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    h = torch.nn.functional.one_hot(labels_l.long(), 10).float()
+    a, b = (ops.gram_matvec(landmarks, landmarks, h, gamma=1 / d,
+                            precision="bf16") for _ in range(2))
+    assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# kernel_matrix's column body (skinny Y: k-means++ columns, Eq.8 blocks)
+# ---------------------------------------------------------------------------
+
+def _column_widths():
+    from repro_torch.kernels.kernel_matrix import NCOL_MAX
+    return [1, 4, 5, 10, NCOL_MAX, NCOL_MAX + 1]
+
+
+def _assert_normwise(got, want, tol=1e-5):
+    """max |got - want| <= tol * max(1, max |want|) (chip_smoke.py's rule:
+    at D = 784 a dot product near 0 carries the rounding of terms near 1)."""
+    err = float((got - want).abs().max())
+    assert err <= tol * max(1.0, float(want.abs().max())), err
+
+
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("d", [784, 130, 5])
+@pytest.mark.parametrize("col", range(6), ids=["1", "4", "5", "10", "ncol_max",
+                                               "ncol_max+1"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_matrix_column_body_matches_plain(cuda, kind, col, d, prec):
+    """N = 1, 4, 5, 10 and NCOL_MAX take the column body, NCOL_MAX + 1 the
+    tile body; 1,001 rows leave a ragged row group, D = 130 and 5 a ragged
+    vector (padded by the wrapper)."""
+    from repro_torch.kernels.kernel_matrix import NCOL_MAX
+    n = _column_widths()[col]
+    x, y = _rand((1001, d), 50, cuda), _rand((n, d), 51, cuda)
+    gamma = _gamma(kind, d)
+    before = dict(ops.LAUNCHES)
+    got = ops.kernel_matrix(x, y, kind=kind, gamma=gamma, precision=prec)
+    assert ops.LAUNCHES["kernel_matrix"] == before["kernel_matrix"] + 1
+    assert (ops.LAUNCHES["kernel_matrix_column"]
+            == before["kernel_matrix_column"] + (n <= NCOL_MAX))
+    want = ref.kernel_matrix_ref(x, y, kind=kind, gamma=gamma, precision=prec)
+    assert got.shape == (1001, n) and got.dtype == torch.float32
+    _assert_normwise(got, want)
+
+
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("n", [2, 8, 17, 32])
+def test_kernel_matrix_column_body_forced_to_its_widest(cuda, n, prec):
+    """The column body, called with body="column" as the sweep that chose
+    NCOL_MAX calls it, at widths between its instantiations and at its
+    widest."""
+    from repro_torch.kernels.kernel_matrix import kernel_matrix_cuda
+    p = resolve_precision(prec)
+    x = p.cast_tiles(_rand((3000, 320), 52, cuda))
+    y = p.cast_tiles(_rand((n, 320), 53, cuda))
+    got = kernel_matrix_cuda(x, y, None, kind="rbf", gamma=1 / 320,
+                             coef0=1.0, degree=3, body="column")
+    want = ref.kernel_matrix_ref(x, y, kind="rbf", gamma=1 / 320,
+                                 precision=prec)
+    _assert_normwise(got, want)
+
+
+@pytest.mark.parametrize("prec", PRECS)
+def test_kernel_matrix_column_body_at_the_run_shapes(cuda, prec):
+    """The k-means++ columns and Eq.8 blocks at the runs' sizes: [15000, 1
+    | 4 | 10] x 784, [60000, 4] x 320, [47000, 5] x 128; rbf K(x, x) is 1
+    on the diagonal of the first rows."""
+    for m, n, d in [(15000, 1, 784), (15000, 4, 784), (15000, 10, 784),
+                    (60000, 4, 320), (47000, 5, 128)]:
+        x = _rand((m, d), 54, cuda)
+        for kind in ("rbf", "linear"):
+            gamma = _gamma(kind, d)
+            got = ops.kernel_matrix(x, x[:n], kind=kind, gamma=gamma,
+                                    precision=prec)
+            want = ref.kernel_matrix_ref(x, x[:n], kind=kind, gamma=gamma,
+                                         precision=prec)
+            _assert_normwise(got, want)
+            if kind == "rbf":
+                diag = torch.diagonal(got[:n])
+                assert float((diag - 1).abs().max()) <= 1e-5
+
+
+def test_column_route_takes_strided_and_unaligned_operands(cuda):
+    """On the column route as on the tile route, a column slice and a row
+    slice off a 16-byte boundary are copied by the wrapper."""
+    base = _rand((64, 33), 55, cuda)
+    x = base[:, :32]
+    y = base.flatten()[1:1 + 4 * 32].view(4, 32)
+    before = ops.LAUNCHES["kernel_matrix_column"]
+    got = ops.kernel_matrix(x, y, kind="linear")
+    assert ops.LAUNCHES["kernel_matrix_column"] == before + 1
+    torch.testing.assert_close(got, x @ y.T, rtol=1e-5, atol=1e-5)
+    got = ops.kernel_matrix(y, x[:3], kind="rbf", gamma=1 / 32)
+    want = ref.kernel_matrix_ref(y, x[:3], kind="rbf", gamma=1 / 32)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("shape", [(3000, 3000, 784), (500, 777, 40)],

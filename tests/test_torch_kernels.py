@@ -327,8 +327,7 @@ def test_too_many_clusters_for_the_kernel_raise():
     x = torch.zeros(16, 8)
     for cp in (272, 8):
         with pytest.raises(ValueError, match="256 clusters"):
-            assign_fused_cuda(x, x, torch.zeros(16), torch.zeros(16),
-                              torch.zeros(16, cp), torch.zeros(cp),
+            assign_fused_cuda(x, x, torch.zeros(16, cp), torch.zeros(cp),
                               kind="rbf", gamma=1.0, coef0=1.0, degree=3)
 
 
@@ -337,7 +336,7 @@ def _kernel_stand_in(calls):
     then answer with the plain version (what the kernel computes)."""
     from repro_torch.kernels.assign import CP_MULTIPLE, MAX_CP
 
-    def launch(x, landmarks, xsq, lsq, h, g, *, kind, gamma, coef0, degree):
+    def launch(x, landmarks, h, g, *, kind, gamma, coef0, degree):
         cp = h.shape[1]
         assert cp % CP_MULTIPLE == 0 and 0 < cp <= MAX_CP
         assert g.shape == (cp,) and h.is_contiguous() and g.is_contiguous()
@@ -385,7 +384,7 @@ def test_cluster_chunk_ties_keep_the_lowest_index(monkeypatch):
          torch.tensor([1.0, 0.5, 1.0, 0.5, 1.0, 1.0])),
     ])
 
-    def launch(x, landmarks, xsq, lsq, h, g, **_):
+    def launch(x, landmarks, h, g, **_):
         lab, mind = next(answers)
         return lab, mind, torch.zeros(n, h.shape[1])
 
@@ -517,34 +516,54 @@ def test_flash_f32_launch_reads_views_in_place(monkeypatch, case):
 SPLIT_SHAPES = [(15000, 15000), (15000, 3000), (3000, 3000), (1, 3000),
                 (300, 130), (64, 32), (100, 64), (5000, 65), (15000, 1000),
                 (200, 777)]
+# each shape for the f32 body (ids as before) and for the bf16 body
+SPLIT_CASES = ([(m, n, "f32") for m, n in SPLIT_SHAPES]
+               + [(m, n, "bf16") for m, n in SPLIT_SHAPES])
 
 
 @pytest.mark.parametrize("ctas_per_sm", [1, 2])
 @pytest.mark.parametrize("sms", [132, 114, 8])
-@pytest.mark.parametrize("m,n_landmarks", SPLIT_SHAPES,
-                         ids=[f"{m}x{n}" for m, n in SPLIT_SHAPES])
-def test_assign_f32_splits_cover_the_landmarks(m, n_landmarks, sms,
+@pytest.mark.parametrize("m,n_landmarks,body", SPLIT_CASES,
+                         ids=[("" if b == "f32" else "bf16-") + f"{m}x{n}"
+                              for m, n, b in SPLIT_CASES])
+def test_assign_f32_splits_cover_the_landmarks(m, n_landmarks, body, sms,
                                                ctas_per_sm):
-    """The landmark ranges of the f32 body's splits cover [0, L) once, in
-    whole tiles of 64 (the last one ragged), each at least MIN_SPLIT_TILES
-    tiles where there are several; L within one tile takes one split."""
-    from repro_torch.kernels.assign import (F32_BN, MIN_SPLIT_TILES,
-                                            landmark_splits, split_ranges)
-    splits = landmark_splits(m, n_landmarks, sms, ctas_per_sm)
-    tiles = -(-n_landmarks // F32_BN)
-    assert 1 <= splits <= max(1, tiles // MIN_SPLIT_TILES)
-    if n_landmarks <= F32_BN:
+    """The landmark ranges of a body's splits (the f32 body's tiles of 64,
+    the bf16 body's of 128) cover [0, L) once, in whole tiles (the last
+    one ragged), each at least the body's min_split_tiles tiles where there
+    are several; L within one tile takes one split."""
+    from repro_torch.kernels.assign import (BF16, F32, landmark_splits,
+                                            split_ranges)
+    geo = F32 if body == "f32" else BF16
+    splits = landmark_splits(m, n_landmarks, sms, ctas_per_sm, geo)
+    tiles = -(-n_landmarks // geo.bn)
+    assert 1 <= splits <= max(1, tiles // geo.min_split_tiles)
+    if n_landmarks <= geo.bn:
         assert splits == 1
-    ranges = split_ranges(n_landmarks, splits)
+    ranges = split_ranges(n_landmarks, splits, geo)
     assert len(ranges) == splits
     assert ranges[0][0] == 0 and ranges[-1][1] == n_landmarks
     for (_, hi), (lo, _) in zip(ranges, ranges[1:]):
         assert hi == lo                       # no gap, no overlap
     for lo, hi in ranges:
-        assert lo % F32_BN == 0 and hi > lo
-        assert hi % F32_BN == 0 or hi == n_landmarks
+        assert lo % geo.bn == 0 and hi > lo
+        assert hi % geo.bn == 0 or hi == n_landmarks
         if splits > 1:
-            assert -(-(hi - lo) // F32_BN) >= MIN_SPLIT_TILES
+            assert -(-(hi - lo) // geo.bn) >= geo.min_split_tiles
+
+
+@pytest.mark.parametrize("m,n_landmarks,sms,ctas_per_sm,splits", [
+    (15000, 15000, 132, 2, 11), (15000, 3000, 132, 2, 2),
+    (3000, 3000, 132, 2, 10), (3000, 3000, 132, 1, 5), (1, 3000, 132, 2, 2),
+    (15000, 1000, 132, 2, 2), (200, 777, 114, 1, 1),
+    (15000, 15000, 114, 1, 14)])
+def test_assign_f32_split_counts_stay_as_they_were(m, n_landmarks, sms,
+                                                   ctas_per_sm, splits):
+    """Generalising landmark_splits to a body's geometry leaves the f32
+    body's answers as they were (the counts of the PR that split it)."""
+    from repro_torch.kernels.assign import F32, landmark_splits
+    assert landmark_splits(m, n_landmarks, sms, ctas_per_sm) == splits
+    assert landmark_splits(m, n_landmarks, sms, ctas_per_sm, F32) == splits
 
 
 def test_assign_f32_splits_fill_the_card_at_the_main_shapes():
@@ -553,45 +572,112 @@ def test_assign_f32_splits_fill_the_card_at_the_main_shapes():
     3000 call runs ten or more splits (24 row blocks alone would fill 9% of
     the slots), and every main shape's grid fills at least 80% of its
     waves."""
-    from repro_torch.kernels.assign import (F32_BM, F32_BN, landmark_splits)
+    from repro_torch.kernels.assign import F32, landmark_splits
     assert landmark_splits(3000, 3000, 132, 2) >= 10
     for m, n in [(15000, 15000), (15000, 3000), (3000, 3000)]:
         s = landmark_splits(m, n, 132, 2)
-        rows, tiles = -(-m // F32_BM), -(-n // F32_BN)
+        rows, tiles = -(-m // F32.bm), -(-n // F32.bn)
         waves = -(-rows * s // 264)
         assert rows * tiles / (waves * 264 * -(-tiles // s)) >= 0.8
+
+
+def test_assign_bf16_splits_fill_the_card_at_the_main_shapes():
+    """On 132 SMs at two CTAs each (the bf16 body's occupancy at C = 10,
+    test_assign_bf16_occupancy on the card), the g stats' 3000 x 3000 and
+    run C's 15000 x 3000 launch at least 132 CTAs (24 and 118 row blocks
+    alone would not), and run A's 15000 x 15000 fills 90% of its waves."""
+    from repro_torch.kernels.assign import BF16, landmark_splits
+    for m, n in [(3000, 3000), (15000, 3000), (15000, 15000)]:
+        s = landmark_splits(m, n, 132, 2, BF16)
+        rows, tiles = -(-m // BF16.bm), -(-n // BF16.bn)
+        assert rows * s >= 132
+        waves = -(-rows * s // 264)
+        share = rows * tiles / (waves * 264 * -(-tiles // s))
+        assert share >= (0.9 if n == 15000 else 0.7)
 
 
 @pytest.mark.parametrize("n_landmarks", [64, 3000])
 def test_assign_f32_launch_passes_splits_and_scratch(monkeypatch,
                                                      n_landmarks):
-    """The f32 launcher passes the split count it chose and a scratch of
-    [splits, M, Cp] (f itself for one split); the bf16 one neither."""
+    """Both launchers pass the split count they chose for their body, a
+    scratch of [splits, M, Cp] (f itself for one split) and no row norms
+    (the launch computes them)."""
     from repro_torch.kernels import assign
     seen = []
     monkeypatch.setattr(build, "launch", lambda entry, *a: seen.append(
         (entry, a)))
     monkeypatch.setattr(assign, "_sm_count", lambda index: 132)
-    monkeypatch.setattr(assign, "f32_ctas_per_sm",
-                        lambda cp, kind, index: 2)
+    monkeypatch.setattr(assign, "ctas_per_sm",
+                        lambda dtype, cp, kind, index: 2)
     m, d, cp = 3000, 8, 16
     x, lm = torch.zeros(m, d), torch.zeros(n_landmarks, d)
-    xsq, lsq = torch.zeros(m), torch.zeros(n_landmarks)
     h, g = torch.zeros(n_landmarks, cp), torch.zeros(cp)
-    _, _, f = assign.assign_fused_cuda(x, lm, xsq, lsq, h, g, kind="rbf",
-                                       gamma=1.0, coef0=1.0, degree=3)
-    entry, args = seen[0]
-    splits = assign.landmark_splits(m, n_landmarks, 132, 2)
-    assert entry == "rt_assign_fused_f32" and args[14] == splits
-    assert args[8] == f.data_ptr()
-    assert (args[9] == f.data_ptr()) == (splits == 1)
-    assert (splits == 1) == (n_landmarks == 64)
-    assert args[10:14] == (m, n_landmarks, d, cp)
-    assign.assign_fused_cuda(x.bfloat16(), lm.bfloat16(), xsq, lsq, h, g,
-                             kind="rbf", gamma=1.0, coef0=1.0, degree=3)
-    entry, args = seen[1]
-    assert entry == "rt_assign_fused_bf16" and args[9:13] == (m, n_landmarks,
-                                                             d, cp)
+    for i, (dtype, geo) in enumerate([(torch.float32, assign.F32),
+                                      (torch.bfloat16, assign.BF16)]):
+        _, _, f = assign.assign_fused_cuda(x.to(dtype), lm.to(dtype), h, g,
+                                           kind="rbf", gamma=1.0, coef0=1.0,
+                                           degree=3)
+        entry, args = seen[i]
+        splits = assign.landmark_splits(m, n_landmarks, 132, 2, geo)
+        assert entry == assign._ENTRY[dtype] and args[13] == splits
+        assert args[7] == f.data_ptr()
+        assert (args[8] == f.data_ptr()) == (splits == 1)
+        assert (splits == 1) == (n_landmarks == 64)
+        assert args[9:13] == (m, n_landmarks, d, cp)
+
+
+# ---------------------------------------------------------------------------
+# kernel_matrix: the route between the tile body and the column body
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,d,body", [
+    (1, 784, "column"), (4, 784, "column"), (5, 128, "column"),
+    (10, 784, "column"), (16, 320, "column"), (17, 784, "column"),
+    (32, 784, "column"), (33, 784, "tile"), (320, 784, "tile"),
+    (3000, 784, "tile"), (0, 784, "tile"), (16, 3631, "column"),
+    (16, 3632, "tile"), (32, 1815, "column"), (32, 1816, "tile"),
+    (1, 58111, "column"), (1, 58112, "tile")])
+def test_kernel_matrix_route(n, d, body):
+    """Y of at most NCOL_MAX rows takes the column body, wider Y the tile
+    body, and so does a Y whose f32 copy (in the column body's width)
+    would not fit in a block's shared memory."""
+    from repro_torch.kernels import kernel_matrix as km
+    assert km.NCOL_MAX == km.COL_WIDTHS[-1] == 32
+    assert km.route(n, d) == body
+
+
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("n", [1, 4, 5, 10, 16, 32, 33, 40])
+def test_kernel_matrix_launch_passes_norms_by_route(monkeypatch, n, prec):
+    """ops.kernel_matrix hands the column body no norms (it sums |x|^2 and
+    |y|^2 from its own loads, so x is read once) and the tile body both;
+    the launches count the route."""
+    from repro_torch.kernels import kernel_matrix as km
+    seen = []
+    monkeypatch.setattr(build, "launch", lambda entry, *a: seen.append(
+        (entry, a)))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    before = dict(ops.LAUNCHES)
+    x, y = torch.randn(50, 16), torch.randn(n, 16)
+    sq = []
+    real = ops._sqnorms
+    monkeypatch.setattr(ops, "_sqnorms", lambda a: sq.append(a.shape[0])
+                        or real(a))
+    out = ops.kernel_matrix(x, y, kind="rbf", precision=prec)
+    (entry, args), = seen
+    dt = "bf16" if prec == "bf16" else "f32"
+    column = n <= km.NCOL_MAX
+    assert out.shape == (50, n)
+    if column:
+        assert entry == f"rt_kernel_matrix_col_{dt}" and sq == []
+        assert args[2:6] == (out.data_ptr(), 50, n, 16)
+    else:
+        assert entry == f"rt_kernel_matrix_{dt}" and sorted(sq) == [n, 50]
+        assert args[4:8] == (out.data_ptr(), 50, n, 16)
+    assert ops.LAUNCHES["kernel_matrix"] == before["kernel_matrix"] + 1
+    assert (ops.LAUNCHES["kernel_matrix_column"]
+            == before["kernel_matrix_column"] + column)
 
 
 # ---------------------------------------------------------------------------
