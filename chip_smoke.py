@@ -8,13 +8,14 @@ Phases, in order; any failure exits non-zero without the final line:
      TF32 flags (then both set to False);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
      sm_90a) and print the build seconds and ptxas resource lines; then
-     the ptxas lines of the six bodies redesigned for Hopper, with counts
+     the ptxas lines of the nine bodies redesigned for Hopper, with counts
      of their tensor-core instructions in the library's SASS (cuobjdump):
-     the flash bf16 and assign_fused bf16 bodies must issue wgmma (HGMMA);
-     the embed_assign f32 body must fit two CTAs per SM (<= 128 registers,
-     no spills); the 3xTF32 bodies of assign_fused f32 and
-     flash_attention f32 and the contraction of assign_fused bf16 must
-     issue mma.sync TF32 (HMMA.1688.F32.TF32); none of those nor the
+     the flash bf16, assign_fused bf16 and kernel_matrix bf16 tile bodies
+     must issue wgmma (HGMMA); the embed_assign f32 body must fit two CTAs
+     per SM (<= 128 registers, no spills); the 3xTF32 bodies of
+     assign_fused f32, flash_attention f32 and the kernel_matrix f32 tile,
+     the contraction of assign_fused bf16 and sketch_assign's must issue
+     mma.sync TF32 (HMMA.1688.F32.TF32); none of those nor the
      kernel_matrix column body may spill;
   3. hold each wrapper the main path calls (``ops.kernel_matrix``,
      ``ops.assign_fused``, ``ops.gram_matvec``, ``ops.embed_assign`` for
@@ -32,7 +33,9 @@ Phases, in order; any failure exits non-zero without the final line:
      x @ y.T plus the epilogue and the norms as ``library_ms``), the Fig.5
      embedded sweep at its largest m (60,000 x 784 -> 320, C = 10; RFF at
      f32 also at the sweep's m = 20, 80 and 160) and the
-     Tab.2 RCV1 sketch (188,000 x 256 -> 128, C = 50); then
+     Tab.2 RCV1 sketch (188,000 x 256 -> 128, C = 50; timed on the f32
+     rows the runs pass, the wrapper's cast to bf16 included, and as
+     ``kernel_ms`` on rows already in the tile dtype); then
      ``ops.flash_attention`` against ``ref.flash_attention_ref`` at bf16 and
      f32 at the attention shapes of OLMo-1B's prefill (B 1, H = KH = 16,
      S 2048, dh 128, causal), gemma2-2b's global layers (H 8, KH 4, dh 256,
@@ -63,10 +66,10 @@ Phases, in order; any failure exits non-zero without the final line:
      call), run F-chunked (the same weights and prompts in plain PyTorch;
      first tokens must agree outside near-ties) and run F-f32 (one 2048-token
      prompt, f32 weights and tiles, flash against chunked prefill logits);
-  5. print the per-kernel JSON line (one entry per kernel; assign_fused
-     and flash_attention one per tile dtype, since both bodies run on the
-     main path, and kernel_matrix one for its column body) and, last, the
-     ok line.
+  5. print the per-kernel JSON line (one entry per kernel; assign_fused,
+     sketch_assign and flash_attention one per tile dtype, since both
+     bodies run on the main path, and kernel_matrix one for its column
+     body) and, last, the ok line.
 
 Tolerances (normwise: max |kernel - plain| <= tol * max(1, max |plain|)):
 kernel_matrix 1e-5 (and the rbf diagonal of K(x, x) within 1e-5 of 1, on
@@ -206,6 +209,11 @@ ASSIGN_F32_BODY = "2af17assign_f32_kernel"
 ASSIGN_BF16_BODY = "2ab18assign_bf16_kernel"
 FLASH_F32_BODY = "flash_f32_kernel"
 COLUMN_BODY = "kernel_matrix_col_kernel"
+# rt::tile::tile_f32_kernel, rt::tile::tile_bf16_kernel (kernel_matrix's
+# tile bodies), rt::sk::sketch_kernel
+TILE_F32_BODY = "tile_f32_kernel"
+TILE_BF16_BODY = "tile_bf16_kernel"
+SKETCH_BODY = "2sk13sketch_kernel"
 REGS_PER_THREAD_2_CTAS = 128     # 65,536 registers / (2 x 256 threads)
 # SASS opcodes of the tensor cores: wgmma (bf16 flash) and mma.sync
 # m16n8k8 TF32 (the 3xTF32 bodies)
@@ -257,17 +265,18 @@ def sass_opcode_counts(lib: str, opcodes: tuple) -> dict | None:
 
 
 def redesigned_bodies(build) -> None:
-    """Print the ptxas lines of the six redesigned bodies, the wgmma
-    (HGMMA) count of the two wgmma bodies' SASS (flash bf16, assign bf16)
-    and the TF32 mma count (HMMA.1688.F32.TF32) of the three bodies that
-    multiply in 3xTF32 (assign f32, flash f32, and assign bf16's
-    contraction); fail if the embed f32 body needs more registers than two
-    CTAs per SM leave it, if any of the embed f32, assign f32, assign bf16,
-    flash f32 and kernel_matrix column bodies spills, or if a body issues
-    none of its tensor-core instructions."""
+    """Print the ptxas lines of the nine redesigned bodies, the wgmma
+    (HGMMA) count of the three wgmma bodies' SASS (flash bf16, assign bf16,
+    the kernel_matrix bf16 tile) and the TF32 mma count (HMMA.1688.F32.TF32)
+    of the five bodies that multiply in 3xTF32 (assign f32, flash f32, the
+    kernel_matrix f32 tile, assign bf16's contraction and sketch_assign's);
+    fail if the embed f32 body needs more registers than two CTAs per SM
+    leave it, if any body but flash bf16 spills, or if a body issues none of
+    its tensor-core instructions."""
     res = ptxas_resources(build.LAST_BUILD["log"])
     for body in (FLASH_BF16_BODY, EMBED_F32_BODY, ASSIGN_F32_BODY,
-                 ASSIGN_BF16_BODY, FLASH_F32_BODY, COLUMN_BODY):
+                 ASSIGN_BF16_BODY, FLASH_F32_BODY, COLUMN_BODY, TILE_F32_BODY,
+                 TILE_BF16_BODY, SKETCH_BODY):
         found = {k: v for k, v in res.items() if body in k}
         check(bool(found), f"ptxas printed no entry of {body}")
         for name, r in found.items():
@@ -281,17 +290,17 @@ def redesigned_bodies(build) -> None:
                       f"{name}: {r['registers']} registers, "
                       f"{r['spill_bytes']} spill bytes (two CTAs per SM "
                       f"need <= {REGS_PER_THREAD_2_CTAS} and no spills)")
-            if body in (ASSIGN_F32_BODY, ASSIGN_BF16_BODY, FLASH_F32_BODY,
-                        COLUMN_BODY):
+            if body not in (FLASH_BF16_BODY, EMBED_F32_BODY):
                 check(r["spill_bytes"] == 0,
                       f"{name}: {r['spill_bytes']} spill bytes")
     counts = sass_opcode_counts(build.LAST_BUILD["path"], (HGMMA, HMMA_TF32))
     check(counts is not None, "the toolkit has no cuobjdump: the tensor-core "
                               "instructions of the bodies cannot be counted")
     for body, op in ((FLASH_BF16_BODY, HGMMA), (ASSIGN_BF16_BODY, HGMMA),
-                     (ASSIGN_BF16_BODY, HMMA_TF32),
+                     (TILE_BF16_BODY, HGMMA), (ASSIGN_BF16_BODY, HMMA_TF32),
                      (ASSIGN_F32_BODY, HMMA_TF32),
-                     (FLASH_F32_BODY, HMMA_TF32)):
+                     (FLASH_F32_BODY, HMMA_TF32), (TILE_F32_BODY, HMMA_TF32),
+                     (SKETCH_BODY, HMMA_TF32)):
         found = {k: v for k, v in counts[op].items() if body in k}
         for name, n in found.items():
             print(f"{op} instructions in {name}: {n}")
@@ -316,8 +325,9 @@ def check_kernel_matrix(torch, mods, x, y, kind, gamma, prec, *, timed):
     ref.kernel_matrix_ref on the same operands, already in the tile dtype
     as the main path hands them over. The record names the body the
     wrapper routed to. Timed on a skinny Y (the column body), the library
-    call is x @ y.T with the epilogue and the row norms, and the bound the
-    bytes of X, Y and K (the norms are the kernel's own)."""
+    call is x @ y.T with the epilogue and the row norms; on a wide one,
+    cdist and exp. The bound counts X, Y and K once (either body's launch
+    computes the norms itself)."""
     ops, ref = mods["ops"], mods["ref"]
     p = mods["precision"].resolve_precision(prec)
     x, y = p.cast_tiles(x).contiguous(), p.cast_tiles(y).contiguous()
@@ -355,10 +365,9 @@ def check_kernel_matrix(torch, mods, x, y, kind, gamma, prec, *, timed):
         rec["ms"] = time_ms(torch, kernel, 10)
         rec["plain_ms"] = time_ms(torch, plain, 10)
         rec["library_ms"] = time_ms(torch, library, 10)
-        norms = (m + n) * 4 if body == "tile" else 0
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             [(prec, 2.0 * m * n * d)],
-            (m + n) * d * p.tile_itemsize + norms + m * n * 4)
+            (m + n) * d * p.tile_itemsize + m * n * 4)
     print("check", json.dumps(rec))
     check(rel <= tol, f"kernel_matrix {kind} {prec} {[m, n, d]}: "
                       f"rel err {rel:.3g} > {tol}")
@@ -482,6 +491,15 @@ def kernel_checks(torch, mods, x_b, y_b, gamma):
                                         gamma, prec, timed=True))
         recs.append(check_kernel_matrix(torch, mods, x_b, x_b[:10], "rbf",
                                         gamma, prec, timed=False))
+        # the tile body at the narrowest Y it takes (NCOL_MAX + 1 rows) and
+        # at D-nystrom's K_LL [320 x 320], timed
+        rec = check_kernel_matrix(torch, mods, x_b, x_b[:33], "rbf", wide,
+                                  prec, timed=False)
+        check(rec["body"] == "tile", f"N = 33 took the {rec['body']} body")
+        recs.append(rec)
+        recs.append(check_kernel_matrix(torch, mods, x_b[l3[:320]],
+                                        x_b[l3[:320]], "rbf", gamma, prec,
+                                        timed=True))
         for kind, gam in (("rbf", wide), ("linear", 1.0)):
             recs.append(check_kernel_matrix(torch, mods, x_b, x_b[l3], kind,
                                             gam, prec, timed=False))
@@ -603,8 +621,9 @@ def check_embedded(torch, mods, x, fmap, centroids, counts, prec, *, timed,
     m, c = fmap.dim, centroids.shape[0]
     xc = p.cast_tiles(x)
 
-    def kernel():
-        return ops.embed_assign(x, fmap, centroids, counts, precision=prec)
+    def kernel(rows=x):
+        return ops.embed_assign(rows, fmap, centroids, counts,
+                                precision=prec)
 
     if sketch:
         args = (xc, fmap.h, fmap.sign.to(p.sign_dtype), c32.T, csq)
@@ -663,6 +682,8 @@ def check_embedded(torch, mods, x, fmap, centroids, counts, prec, *, timed,
             nbytes = ((n + m) * d * p.tile_itemsize + (n + m) * 4
                       + (m + 1) * c * 4 + n * 8)
         rec["ms"] = time_ms(torch, kernel, 10)
+        if sketch:   # on rows already in the tile dtype: no wrapper cast
+            rec["kernel_ms"] = time_ms(torch, lambda: kernel(xc), 10)
         rec["plain_ms"] = time_ms(torch, plain, 10)
         rec["library_ms"] = time_ms(torch, library, 10)
         rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes)
@@ -1305,6 +1326,9 @@ def main(argv=None) -> int:
             "embed_assign"
         check(rec["launches"][kernel] > 0,
               f"run {name}: {kernel} never launched")
+        if kernel == "sketch_assign":
+            key = ("sketch_assign", kw.get("precision", "f32"))
+            bodies[key] = bodies.get(key, 0) + rec["launches"][kernel]
     nmi_d = core.nmi(runs["D-rff"][1], runs["D-rff-bf16"][1])
     nmi_e = core.nmi(runs["E-sketch"][1], runs["E-sketch-bf16"][1])
     print(f"NMI(D-rff-bf16, D-rff) {nmi_d!r}; NMI(E-sketch-bf16, E-sketch) "
@@ -1363,6 +1387,8 @@ def main(argv=None) -> int:
                ("kernel_matrix_column", "kernel_matrix", "column"),
                ("embed_assign", "embed_assign", None),
                ("sketch_assign", "sketch_assign", None),
+               ("sketch_assign_f32", "sketch_assign", "f32"),
+               ("sketch_assign_bf16", "sketch_assign", "bf16"),
                ("flash_attention", "flash_attention", None),
                ("flash_attention_bf16", "flash_attention", "bf16"),
                ("flash_attention_f32", "flash_attention", "f32")]
@@ -1379,6 +1405,8 @@ def main(argv=None) -> int:
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"]})
+        if "kernel_ms" in first:   # the sketch's time on pre-cast rows
+            kernels[-1]["kernel_ms"] = first["kernel_ms"]
     print(f"total inner iterations {iters}; card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -74,6 +74,12 @@ class CountSketchMap:
         (order, offsets, sign in that order), built once per map."""
         return bucket_tables(self.h, self.sign, self.m)
 
+    @functools.cached_property
+    def programs(self) -> dict:
+        """The ``sketch_assign`` kernel's gather programs of ``buckets``
+        by chunk width, built at a dtype's first launch, once per map."""
+        return {}
+
     def __call__(self, x) -> torch.Tensor:
         check_dense(x)
         return count_sketch_features(x, self)

@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from . import build
-from .kernel_matrix import KINDS, VEC
+from .kernel_matrix import KINDS, VEC, _sm_count
 
 #: cluster columns per contraction chunk: Cp must be a multiple of it
 CP_MULTIPLE = 16
@@ -98,18 +98,13 @@ def landmark_splits(m: int, n_landmarks: int, sms: int, ctas_per_sm: int,
 def split_ranges(n_landmarks: int, splits: int,
                  geometry: Geometry = F32) -> list[tuple[int, int]]:
     """The landmark range [lo, hi) of each split, as the kernels cut them
-    (``split_begin`` in ``csrc/assign_f32.cuh``): split s takes tiles
+    (``range_begin`` in ``csrc/gram_f32.cuh``): split s takes tiles
     [s T / S, (s + 1) T / S) of the T = ceil(L / bn) tiles."""
     bn = geometry.bn
     tiles = -(-n_landmarks // bn)
     edges = [s * tiles // splits for s in range(splits + 1)]
     return [(edges[s] * bn, min(edges[s + 1] * bn, n_landmarks))
             for s in range(splits)]
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def assign_fused_cuda(x: torch.Tensor, landmarks: torch.Tensor,

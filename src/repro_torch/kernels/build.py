@@ -34,8 +34,10 @@ _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
 #: C signature of every entry: argtypes (restype is int: the CUDA error)
 SIGNATURES = {
-    "rt_kernel_matrix_f32": [_P] * 5 + [_I] * 4 + [_F, _F, _I, _P],
-    "rt_kernel_matrix_bf16": [_P] * 5 + [_I] * 4 + [_F, _F, _I, _P],
+    "rt_kernel_matrix_f32": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P],
+    "rt_kernel_matrix_bf16": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P],
+    "rt_kernel_matrix_f32_ctas_per_sm": [_I, _P],
+    "rt_kernel_matrix_bf16_ctas_per_sm": [_I, _P],
     "rt_kernel_matrix_col_f32": [_P] * 3 + [_I] * 4 + [_F, _F, _I, _P],
     "rt_kernel_matrix_col_bf16": [_P] * 3 + [_I] * 4 + [_F, _F, _I, _P],
     "rt_assign_fused_f32": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P],
@@ -45,8 +47,8 @@ SIGNATURES = {
     "rt_embed_assign_f32": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _F, _I, _I,
                                                         _P],
     "rt_embed_assign_bf16": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _F, _P],
-    "rt_sketch_assign_f32": [_P] * 8 + [_I] * 4 + [_P],
-    "rt_sketch_assign_bf16": [_P] * 8 + [_I] * 4 + [_P],
+    "rt_sketch_assign_f32": [_P] * 7 + [_I] * 7 + [_P],
+    "rt_sketch_assign_bf16": [_P] * 7 + [_I] * 7 + [_P],
     "rt_flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _F]
     + [_L] * 12 + [_P],
     "rt_flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F, _F]

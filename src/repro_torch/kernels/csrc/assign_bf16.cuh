@@ -3,23 +3,14 @@
 //
 // Grid (splits, row blocks), as the f32 body (assign_f32.cuh): split s of
 // S takes the landmark tiles [s T / S, (s + 1) T / S) of the T = ceil(L /
-// BN) tiles (af::split_begin); the launcher, kernels/assign.py
+// BN) tiles (gf::range_begin); the launcher, kernels/assign.py
 // landmark_splits, picks S from M, L, the SM count and the CTAs an SM
 // holds (rt_assign_bf16_ctas_per_sm). One CTA of two warpgroups owns BM =
 // 128 rows, 64 a warpgroup, and walks over its tiles of BN = 128
-// landmarks and, within a tile, over D in chunks of KC = 64 features (one
-// 128-byte row of bf16). The (tile, chunk) steps form one sequence through
-// a ring of NSTAGE stages; each stage is X [128 rows, 64] and L [128 rows,
-// 64] loaded by TMA with 128-byte swizzle (rows past M or L and features
-// past D zero-filled by TMA's bounds), counted on a `full` mbarrier. Thread
-// 0 issues the loads; a stage is reloaded once all eight warps have
-// arrived on its `empty` mbarrier, NSTAGE - 1 steps ahead of the products.
-//
-// Per step a warpgroup issues four wgmma m64n128k16 (both operands K-major
-// in shared memory, the layout X . L^T has) into its 64 accumulators a
-// thread, commits them, and waits only for the previous step's group, so
-// one group is always queued on the tensor cores while the next stage's
-// barrier is awaited. After a tile's last chunk the epilogue runs on the
+// landmarks. Its Gram tiles come from gram_bf16.cuh (the product loop the
+// kernel_matrix bf16 tile body shares): wgmma m64n128k16 from a 3-stage
+// TMA ring with 128-byte swizzle whose steps run on across the split's
+// tiles. After a tile's last chunk the epilogue runs on the
 // accumulators in registers (columns past L zeroed), and each warp
 // contracts its 16 rows against H [L, Cp] with mma.sync m16n8k8 in 3xTF32
 // (common.cuh), so the contraction keeps the f32 accuracy of the
@@ -49,37 +40,31 @@
 #include <cuda_bf16.h>
 
 #include "assign_f32.cuh"
-#include "hopper.cuh"
+#include "gram_bf16.cuh"
 
 namespace rt {
 namespace ab {
 
 using namespace rt::hop;
-
-constexpr int NT = 256;                       // two warpgroups
-constexpr int NWARPS = NT / 32;
-constexpr int BM = 128;                       // rows per CTA, 64 a warpgroup
-constexpr int BN = 128;                       // landmarks per tile
-constexpr int KC = 64;                        // features per ring step
-constexpr int NSTAGE = 3;
-constexpr uint32_t X_BYTES = BM * KC * 2;     // one stage of X
-constexpr uint32_t L_BYTES = BN * KC * 2;     // one stage of L
-constexpr uint32_t STAGE_BYTES = X_BYTES + L_BYTES;
-constexpr uint32_t RING_BYTES = NSTAGE * STAGE_BYTES;
+using gb::BM;                                 // rows per CTA, 64 a warpgroup
+using gb::BN;                                 // landmarks per tile
+using gb::NT;                                 // two warpgroups
 
 // 1024 to align the ring to the swizzle period, the ring, f [BM][Cp] and
 // the 2 NSTAGE mbarriers
 inline size_t smem_bytes(int cp) {
-  return 1024 + RING_BYTES + sizeof(float) * (size_t)BM * cp + 16 * NSTAGE;
+  return 1024 + gb::RING_BYTES + sizeof(float) * (size_t)BM * cp +
+         gb::BAR_BYTES;
 }
 
 // f [16 rows of the warp][0, Cp) += tile . H[l0 : l0 + BN], JB landmark
 // tiles of 8 at a time and, within them, 16 cluster columns at a time:
 // landmark tile j of the C-fragments is k step j of the A-fragments. Each
 // block of JB tiles is done with all cluster columns before the next, so
-// its accumulators are dead once it is contracted.
-constexpr int JB = 2;
-
+// its accumulators are dead once it is contracted. Two tiles a block; one
+// for the cosine epilogue, whose divisions leave the contraction too few
+// of the 128 registers for two (ptxas spilled 104 bytes).
+template <int JB>
 __device__ __forceinline__ void contract(const float (&acc)[BN / 2],
                                          float* fw,
                                          const float* __restrict__ H, int l0,
@@ -137,10 +122,10 @@ assign_bf16_kernel(const __grid_constant__ CUtensorMap tx,
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
-  float* fs = reinterpret_cast<float*>(smem_raw + (ring - raw) + RING_BYTES);
-  const uint32_t bars = ring + RING_BYTES + (uint32_t)(sizeof(float) * BM * Cp);
-  auto full = [&](int s) { return bars + 8u * s; };
-  auto empty = [&](int s) { return bars + 8u * (NSTAGE + s); };
+  float* fs =
+      reinterpret_cast<float*>(smem_raw + (ring - raw) + gb::RING_BYTES);
+  const uint32_t bars =
+      ring + gb::RING_BYTES + (uint32_t)(sizeof(float) * BM * Cp);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -157,49 +142,11 @@ assign_bf16_kernel(const __grid_constant__ CUtensorMap tx,
           make_float2(0.0f, 0.0f);
 
   const int tiles = (L + BN - 1) / BN;
-  const int tb = af::split_begin(blockIdx.x, gridDim.x, tiles);
-  const int te = af::split_begin(blockIdx.x + 1, gridDim.x, tiles);
-  const int nc = (D + KC - 1) / KC;
-  const int nsteps = (te - tb) * nc;
-
-  if (tid == 0) {
-    for (int s = 0; s < NSTAGE; ++s) {
-      mbar_init(full(s), 1);
-      mbar_init(empty(s), NWARPS);   // one arrival per warp
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  // step u: X rows r0 .. r0 + 127 and the rows of its landmark tile, at
-  // features (u % nc) * KC, into stage u % NSTAGE
-  const CUtensorMap* mx = &tx;
-  const CUtensorMap* ml = &tl;
-  auto issue = [&](int u) {
-    const int st = u % NSTAGE;
-    const uint32_t dst = ring + st * STAGE_BYTES;
-    const int k0 = (u % nc) * KC, l0 = (tb + u / nc) * BN;
-    mbar_expect_tx(full(st), STAGE_BYTES);
-    tma_load_2d(dst, mx, full(st), k0, r0);
-    tma_load_2d(dst + X_BYTES, ml, full(st), k0, l0);
-  };
-  if (tid == 0) {
-    tma_prefetch(mx);
-    tma_prefetch(ml);
-    for (int u = 0; u < NSTAGE && u < nsteps; ++u) issue(u);
-  }
-  __syncwarp();
-  // step u's products have completed in this warp: once every warp says
-  // so, thread 0 reloads its stage with step u + NSTAGE
-  auto release = [&](int u) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty(u % NSTAGE));
-    if (tid == 0 && u + NSTAGE < nsteps) {
-      mbar_wait(empty(u % NSTAGE), (u / NSTAGE) & 1);
-      issue(u + NSTAGE);
-    }
-    __syncwarp();
-  };
+  const int tb = gf::range_begin(blockIdx.x, gridDim.x, tiles);
+  const int te = gf::range_begin(blockIdx.x + 1, gridDim.x, tiles);
+  // the split's tiles of this row block, in the ring's row-major order
+  gb::Ring<false> rg(ring, bars, &tx, &tl, D, tiles,
+                     blockIdx.y * tiles + tb, blockIdx.y * tiles + te);
 
   float xs_n[2];                              // |x|^2 of rows g, g + 8
 #pragma unroll
@@ -210,31 +157,8 @@ assign_bf16_kernel(const __grid_constant__ CUtensorMap tx,
 
   // acc[4 j + e]: row g + 8 (e >> 1), landmark 8 j + 2 t + (e & 1)
   float acc[BN / 2];
-  const uint32_t xoff = wg * 64 * 128;        // the warpgroup's rows of X
-  int u = 0;
   for (int tile = tb; tile < te; ++tile) {
-    for (int c = 0; c < nc; ++c, ++u) {
-      const int st = u % NSTAGE;
-      mbar_wait(full(st), (u / NSTAGE) & 1);
-      __syncwarp();   // converged for the .sync.aligned wgmma
-      const uint32_t xs = ring + st * STAGE_BYTES + xoff;
-      const uint32_t ls = ring + st * STAGE_BYTES + X_BYTES;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < KC / 16; ++kk)   // 16 features = 32 bytes
-        wgmma_ss(acc, desc_sw128(xs + 32 * kk, 0), desc_sw128(ls + 32 * kk, 0),
-                 c > 0 || kk > 0);
-      wgmma_commit();
-      if (c + 1 < nc) {
-        wgmma_wait<1>();   // step u - 1 is done; step u stays queued
-        if (c > 0) release(u - 1);
-      } else {
-        wgmma_wait_all();
-        if (c > 0) release(u - 1);
-        release(u);
-      }
-    }
-    fence_regs(acc);
+    rg.product(acc, &tx, &tl);
 
     // epilogue on the accumulators, columns past L zeroed (an epilogue need
     // not be 0 there: rbf gives exp(-gamma |x|^2))
@@ -248,11 +172,11 @@ assign_bf16_kernel(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float& v = acc[4 * j + 2 * h + e];
-          v = gc < L ? af::epilogue<KIND>(epi, v, xs_n[h], ys) : 0.0f;
+          v = gc < L ? mercer<KIND>(epi, v, xs_n[h], ys) : 0.0f;
         }
       }
     }
-    contract(acc, fw, H, l0, L, Cp, g, t);
+    contract<KIND == COSINE ? 1 : 2>(acc, fw, H, l0, L, Cp, g, t);
   }
 
   // this split's f for the warp's rows (each lane its own elements)

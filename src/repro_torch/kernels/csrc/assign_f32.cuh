@@ -2,36 +2,26 @@
 // split over CTAs so the grid fills the card, a cp.async ring.
 //
 // Grid (splits, row blocks); split s of S takes the landmark tiles
-// [s T / S, (s + 1) T / S) of the T = ceil(L / BN) tiles (split_begin; the
+// [s T / S, (s + 1) T / S) of the T = ceil(L / BN) tiles (gf::range_begin; the
 // launcher, kernels/assign.py landmark_splits, picks S from M, L, the SM
-// count and the CTAs an SM holds, which rt_assign_f32_ctas_per_sm reports). One CTA of four warps owns BM = 128 rows, 32 a warp, and walks
-// over its tiles of BN = 64 landmarks and, within a tile, over D in chunks
-// of KC = 32 features. The (tile, chunk) steps form one sequence, so the
-// ring of NSTAGE stages runs on across tiles: each step copies X [BM, KC]
-// and L [BN, KC] row-major with 16-byte cp.async copies (rows past M or L
-// and features past D zero-filled), NSTAGE - 1 steps in flight while one
-// is multiplied, one barrier a step. A row block's splits are adjacent in
-// launch order, so the CTAs resident at once share a few row blocks of X
-// and stream their own landmark ranges. The kernel is instantiated per
-// Mercer kind, so the epilogue on its 64 accumulators compiles to one
-// formula (no spills at two CTAs per SM).
+// count and the CTAs an SM holds, which rt_assign_f32_ctas_per_sm
+// reports). One CTA of four warps owns BM = 128 rows, 32 a warp, and
+// walks over its tiles of BN = 64 landmarks. Its Gram tiles X . L^T come
+// from gram_f32.cuh (the product loop the kernel_matrix f32 tile body
+// shares): a cp.async ring whose steps run on across the split's tiles,
+// 3xTF32 mma.sync with f32 accumulation. A row block's splits are
+// adjacent in launch order, so the CTAs resident at once share a few row
+// blocks of X and stream their own landmark ranges. The kernel is
+// instantiated per Mercer kind, so the epilogue on its 64 accumulators
+// compiles to one formula (no spills at two CTAs per SM).
 //
-// Both products run as mma.sync m16n8k8 TF32, three products per fragment
-// pair (common.cuh, 3xTF32), f32 accumulation:
-//   1. the Gram tile X . L^T: a warp owns 32 rows x 64 landmarks, 2 x 8
-//      C-fragments (64 accumulators). The k index of an m16n8k8 step is
-//      summed over, so any assignment of features to its 8 slots serves
-//      if A and B agree: slot t takes feature 2t and slot t + 4 feature
-//      2t + 1 of each group of 8, so each fragment pair is one float2
-//      read, and the 40-float row pitch puts the 16 lanes of a half-warp
-//      in distinct banks;
-//   2. after the chunk loop of a tile, the epilogue runs on the
-//      accumulators (columns past L zeroed), and the tile is contracted
-//      against H [L, Cp] at once: the C-fragment of landmark tile j holds
-//      columns 2t and 2t + 1 for rows g and g + 8, which is the A-fragment
-//      of a k step whose slots t and t + 4 are landmarks 2t and 2t + 1, so
-//      the tile needs no shuffle and no trip through shared memory; H's
-//      B-fragments are read from global memory (L1 / L2 resident).
+// After each tile, the epilogue runs on the accumulators (columns past L
+// zeroed), and the tile is contracted against H [L, Cp] at once, also in
+// 3xTF32: the C-fragment of landmark tile j holds columns 2t and 2t + 1
+// for rows g and g + 8, which is the A-fragment of a k step whose slots t
+// and t + 4 are landmarks 2t and 2t + 1, so the tile needs no shuffle and
+// no trip through shared memory; H's B-fragments are read from global
+// memory (L1 / L2 resident).
 // The partial f [BM, Cp] of a warp's rows lives in shared memory, each
 // element owned by one lane, across the split's tiles; after the last it
 // is written to part [S, M, Cp]. assign_reduce_kernel then sums the splits
@@ -40,43 +30,21 @@
 // same bits.
 #pragma once
 
-#include "common.cuh"
+#include "gram_f32.cuh"
 #include "row_block.cuh"
 
 namespace rt {
 namespace af {
 
-constexpr int NT = 128;              // four warps
-constexpr int BM = 128;              // rows per CTA, 32 a warp
-constexpr int BN = 64;               // landmarks per tile
-constexpr int KC = 32;               // features per ring step
-constexpr int LD = KC + 8;           // row pitch (floats), 8 mod 32
-constexpr int NSTAGE = 3;
-constexpr int STAGE = (BM + BN) * LD;
-constexpr int QPR = KC / 4;          // 16-byte copies per row
+using gf::BM;                        // rows per CTA, 32 a warp
+using gf::BN;                        // landmarks per tile
+using gf::NT;                        // four warps
 constexpr int FS_PAD = 8;            // f row pitch Cp + 8
 constexpr int REDUCE_ROWS = 8;       // rows per block of the reduction
 constexpr unsigned FULL = 0xffffffffu;
-static_assert(NT == 16 * QPR, "a thread copies rows cr + 16 u");
 
 inline size_t smem_bytes(int cp) {
-  return sizeof(float) *
-         ((size_t)NSTAGE * STAGE + (size_t)BM * (cp + FS_PAD));
-}
-
-// the first landmark tile of split s (of `splits`, over `tiles` tiles)
-__host__ __device__ __forceinline__ int split_begin(int s, int splits,
-                                                    int tiles) {
-  return (int)((long long)s * tiles / splits);
-}
-
-// The Mercer epilogue of kind KIND: the switch of Epilogue folds away, so
-// that the 64 accumulators of a thread meet only one formula.
-template <int KIND>
-__device__ __forceinline__ float epilogue(Epilogue e, float acc, float xs,
-                                          float ys) {
-  e.kind = KIND;
-  return e(acc, xs, ys);
+  return gf::RING_BYTES + sizeof(float) * (size_t)BM * (cp + FS_PAD);
 }
 
 template <int KIND>
@@ -86,8 +54,7 @@ assign_f32_kernel(const float* __restrict__ X, const float* __restrict__ Lm,
                   const float* __restrict__ lsq,
                   const float* __restrict__ H, float* __restrict__ part,
                   int M, int L, int D, int Cp, Epilogue epi) {
-  extern __shared__ __align__(16) float sm[];
-  float* ring = sm;                           // [NSTAGE][BM + BN][LD]
+  extern __shared__ __align__(16) float sm[];   // the ring, then f
   const int FP = Cp + FS_PAD;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -95,7 +62,7 @@ assign_f32_kernel(const float* __restrict__ X, const float* __restrict__ Lm,
   const int wr = 32 * warp;                   // the warp's first row
   // the warp's rows of f; lane (g, t) owns columns 2t, 2t + 1 of each 8
   // in rows g, g + 8, g + 16, g + 24
-  float* fw = sm + NSTAGE * STAGE + wr * FP;
+  float* fw = sm + gf::NSTAGE * gf::STAGE + wr * FP;
   for (int c = 2 * t; c < Cp; c += 8)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -103,9 +70,8 @@ assign_f32_kernel(const float* __restrict__ X, const float* __restrict__ Lm,
           make_float2(0.0f, 0.0f);
 
   const int tiles = (L + BN - 1) / BN;
-  const int tb = split_begin(blockIdx.x, gridDim.x, tiles);
-  const int te = split_begin(blockIdx.x + 1, gridDim.x, tiles);
-  const int nsteps = (te - tb) * ((D + KC - 1) / KC);
+  const int tb = gf::range_begin(blockIdx.x, gridDim.x, tiles);
+  const int te = gf::range_begin(blockIdx.x + 1, gridDim.x, tiles);
 
   float xs_n[4];                              // |x|^2 of rows g + 8 i
 #pragma unroll
@@ -114,95 +80,17 @@ assign_f32_kernel(const float* __restrict__ X, const float* __restrict__ Lm,
     xs_n[i] = gr < M ? __ldg(xsq + gr) : 0.0f;
   }
 
-  // The producer side walks the steps in order: (tile, chunk) advance by
-  // counters. Every thread commits one group per step, empty or not. A
-  // thread copies features cq .. cq + 3 of the chunk for rows cr + 16 u:
-  // X rows r0 + cr + 16 u (u < 8), then landmark rows l0 + cr + 16 u (u < 4).
-  const int cr = tid / QPR, cq = (tid % QPR) * 4;
-  const float* xsrc = X + (size_t)(r0 + cr) * D + cq;
-  const uint32_t dst0 = smem_addr(ring) + (cr * LD + cq) * 4;
-  int is_l0 = tb * BN, is_k0 = 0, is_stage = 0, issued = 0;
-  auto issue = [&]() {
-    if (issued < nsteps) {
-      const uint32_t st = dst0 + is_stage * STAGE * 4;
-      const bool k_ok = is_k0 + cq < D;
-#pragma unroll
-      for (int u = 0; u < BM / 16; ++u) {
-        const bool ok = k_ok && r0 + cr + 16 * u < M;
-        cp_async16(st + 16 * u * LD * 4,
-                   ok ? xsrc + (size_t)16 * u * D + is_k0 : X, ok ? 16 : 0);
-      }
-      const float* lsrc = Lm + (size_t)(is_l0 + cr) * D + cq + is_k0;
-#pragma unroll
-      for (int u = 0; u < BN / 16; ++u) {
-        const bool ok = k_ok && is_l0 + cr + 16 * u < L;
-        cp_async16(st + (BM + 16 * u) * LD * 4,
-                   ok ? lsrc + (size_t)16 * u * D : Lm, ok ? 16 : 0);
-      }
-      ++issued;
-      is_stage = is_stage + 1 == NSTAGE ? 0 : is_stage + 1;
-      is_k0 += KC;
-      if (is_k0 >= D) {
-        is_k0 = 0;
-        is_l0 += BN;
-      }
-    }
-    cp_commit();
-  };
-
-#pragma unroll
-  for (int s = 0; s < NSTAGE - 1; ++s) issue();
-
-  float acc[2][8][4];                         // [row tile][landmark tile]
-  int l0 = tb * BN, k0 = 0, stage = 0;        // the step being multiplied
-  for (int s = 0; s < nsteps; ++s) {
-    if (k0 == 0) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
-    }
-    cp_wait<NSTAGE - 2>();   // step s has landed (this thread's copies)
-    __syncthreads();         // everyone's copies; step s - 1 is multiplied
-    issue();                 // step s + NSTAGE - 1, into step s - 1's stage
-    const float* xs = ring + stage * STAGE + (wr + g) * LD + 2 * t;
-    const float* ls = ring + stage * STAGE + (BM + g) * LD + 2 * t;
-    stage = stage + 1 == NSTAGE ? 0 : stage + 1;
-#pragma unroll
-    for (int ks = 0; ks < KC; ks += 8) {
-      Split a[2][4], b[8][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const float2 u = *reinterpret_cast<const float2*>(xs + 16 * mi * LD + ks);
-        const float2 v =
-            *reinterpret_cast<const float2*>(xs + (16 * mi + 8) * LD + ks);
-        a[mi][0] = split_tf32(u.x);   // row g,     slot t
-        a[mi][1] = split_tf32(v.x);   // row g + 8, slot t
-        a[mi][2] = split_tf32(u.y);   // row g,     slot t + 4
-        a[mi][3] = split_tf32(v.y);   // row g + 8, slot t + 4
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 w = *reinterpret_cast<const float2*>(ls + 8 * j * LD + ks);
-        b[j][0] = split_tf32(w.x);
-        b[j][1] = split_tf32(w.y);
-      }
-#pragma unroll
-      for (int p = 0; p < 3; ++p)
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            mma_3xtf32_part(p, acc[mi][j], a[mi], b[j]);
-    }
-    k0 += KC;
-    if (k0 < D) continue;
+  // the split's tiles of this row block, in the row-major order of the
+  // ring's (row block, landmark tile) walk
+  gf::Ring ring(sm, X, Lm, M, L, D, tiles, blockIdx.y * tiles + tb,
+                blockIdx.y * tiles + te);
+  ring.prime();
+  for (int l0 = tb * BN; l0 < te * BN; l0 += BN) {
+    float acc[2][8][4];                       // [row tile][landmark tile]
+    ring.product<false>(acc);
 
     // the tile is complete: epilogue on the accumulators, columns past L
     // zeroed (an epilogue need not be 0 there: rbf gives exp(-gamma |x|^2))
-    k0 = 0;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -214,7 +102,7 @@ assign_f32_kernel(const float* __restrict__ X, const float* __restrict__ Lm,
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             float& v = acc[mi][j][2 * h + e];
-            v = gc < L ? epilogue<KIND>(epi, v, xs_n[2 * mi + h], ys) : 0.0f;
+            v = gc < L ? mercer<KIND>(epi, v, xs_n[2 * mi + h], ys) : 0.0f;
           }
       }
     }
@@ -267,7 +155,6 @@ assign_f32_kernel(const float* __restrict__ X, const float* __restrict__ Lm,
             *q = cur;
           }
     }
-    l0 += BN;
   }
 
   // this split's f for the warp's rows (each lane its own elements)

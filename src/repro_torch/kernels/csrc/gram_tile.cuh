@@ -1,28 +1,20 @@
-// Shared machinery of the port's Gram kernels (kernel_matrix.cu, assign.cu,
-// embed_assign.cu): one CTA of 256 threads computes a [128 x 128] tile of
-// X . Y^T, reducing over the feature dimension D in chunks staged through
-// shared memory, then applies the Mercer (or random Fourier) epilogue in
-// registers.
+// The Mercer and random Fourier epilogues of the port's Gram kernels, and
+// TileBF16, the tile engine of the bf16 embed_assign body (row_block.cuh):
+// one CTA of 256 threads computes a [128 x 128] tile of X . Y^T, reducing
+// over the feature dimension D in chunks staged through shared memory.
 //
-// Two tile engines behind one interface:
-//   TileF32   f32 operands, f32 FMA on the CUDA cores (no TF32); only
-//             kernel_matrix.cu takes it (the f32 bodies of assign.cu and
-//             embed_assign.cu have engines of their own). Each
-//             thread owns an 8 x 8 block of the tile (rows ty*4+i and
-//             64+ty*4+i, cols tx*4+j and 64+tx*4+j), read from k-major
-//             shared tiles with float4 loads: 4 shared loads per 64 FMAs.
 //   TileBF16  bf16 operands, mma.sync.m16n8k16 bf16 -> f32 on the tensor
 //             cores. 8 warps as 2 (rows) x 4 (cols), each warp a 64 x 32
 //             sub-tile = 4 x 4 mma tiles; fragments are read from row-major
 //             shared tiles whose 80-byte row stride keeps the reads free of
 //             bank conflicts.
-// Both stage the next D-chunk from global memory into registers while the
+// It stages the next D-chunk from global memory into registers while the
 // current chunk is multiplied out of shared memory (one chunk in flight).
 // Rows past M, columns past N and features past D load as zeros, so the
 // callers need not pad anything but D to the 16-byte vector width.
 //
-// Accumulator element e of a thread lies at tile position coord(e); both
-// engines hold 64 elements per thread.
+// Accumulator element e of a thread lies at tile position coord(e), 64
+// elements per thread.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -84,84 +76,14 @@ struct RffEpilogue {
   }
 };
 
-struct TileF32 {
-  using T = float;
-  static constexpr int BK = 16;   // features per staged chunk
-  static constexpr int VEC = 4;   // floats per 16-byte load
-  struct __align__(16) Smem {
-    float a[BK][BM + 4];          // k-major; +4 keeps rows 16-byte aligned
-    float b[BK][BN + 4];
-  };
-
-  float acc[NACC];
-
-  __device__ __forceinline__ static void coord(int e, int& r, int& c) {
-    const int i = e >> 3, j = e & 7;
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-    r = (i & 4) * 16 + ty * 4 + (i & 3);
-    c = (j & 4) * 16 + tx * 4 + (j & 3);
-  }
-
-  __device__ __forceinline__ void compute(const float* __restrict__ X,
-                                          const float* __restrict__ Y,
-                                          int M, int N, int D, int r0, int c0,
-                                          Smem& s) {
-    const int tid = threadIdx.x;
-    const int ty = tid >> 4, tx = tid & 15;
-    // staging: thread t moves row (t >> 2) + 64p, features (t & 3)*4 .. +3
-    const int lr = tid >> 2, lk = (tid & 3) * VEC;
-    float4 ra[2], rb[2];
-#pragma unroll
-    for (int e = 0; e < NACC; ++e) acc[e] = 0.0f;
-
-    auto load = [&](int k0) {
-      const int k = k0 + lk;
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int r = lr + 64 * p;
-        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-        ra[p] = (r0 + r < M && k < D)
-            ? __ldg(reinterpret_cast<const float4*>(X + (size_t)(r0 + r) * D + k))
-            : z;
-        rb[p] = (c0 + r < N && k < D)
-            ? __ldg(reinterpret_cast<const float4*>(Y + (size_t)(c0 + r) * D + k))
-            : z;
-      }
-    };
-    auto store = [&]() {
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int r = lr + 64 * p;
-        s.a[lk + 0][r] = ra[p].x; s.a[lk + 1][r] = ra[p].y;
-        s.a[lk + 2][r] = ra[p].z; s.a[lk + 3][r] = ra[p].w;
-        s.b[lk + 0][r] = rb[p].x; s.b[lk + 1][r] = rb[p].y;
-        s.b[lk + 2][r] = rb[p].z; s.b[lk + 3][r] = rb[p].w;
-      }
-    };
-
-    load(0);
-    for (int k0 = 0; k0 < D; k0 += BK) {
-      store();
-      __syncthreads();
-      if (k0 + BK < D) load(k0 + BK);   // next chunk in flight
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&s.a[kk][ty * 4]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&s.a[kk][64 + ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&s.b[kk][tx * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&s.b[kk][64 + tx * 4]);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            acc[i * 8 + j] = fmaf(av[i], bv[j], acc[i * 8 + j]);
-      }
-      __syncthreads();
-    }
-  }
-};
+// The Mercer epilogue of kind KIND: the switch of Epilogue folds away, so
+// that the accumulators of a body instantiated per kind meet one formula.
+template <int KIND>
+__device__ __forceinline__ float mercer(Epilogue e, float acc, float xs,
+                                        float ys) {
+  e.kind = KIND;
+  return e(acc, xs, ys);
+}
 
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
                                          const uint32_t* b) {

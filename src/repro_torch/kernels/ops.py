@@ -5,8 +5,8 @@ of ``repro/kernels/ops.py:195-333``), and ``flash_attention`` for the LM
 zoo's prefill (the port of ``repro/kernels/ops.py:390-417``).
 
 Each wrapper casts the tile operands to the policy's tile dtype ONCE at
-entry, and the squared norms come FROM the cast values (``assign_fused``'s
-and the ``kernel_matrix`` column body's launches compute them on the card
+entry, and the squared norms come FROM the cast values (the
+``assign_fused`` and ``kernel_matrix`` launches compute them on the card
 themselves), so kernel and plain version see identical inputs. ``assign_fused`` builds H as
 one-hot(labels)/counts and puts +1e30 on empty clusters; ``embed_assign``
 and ``sketch_assign`` put +1e30 on the centroid norms of empty clusters.
@@ -83,12 +83,12 @@ def kernel_matrix(x: torch.Tensor, y: torch.Tensor, *, kind: str = "rbf",
         return ref.kernel_matrix_ref(x, y, kind=kind, gamma=gamma,
                                      coef0=coef0, degree=degree,
                                      precision=p.tile)
-    xo, yo = _operand(x), _operand(y)
-    # the column body sums |x|^2 and |y|^2 from its own loads
+    xo = _operand(x)
+    yo = xo if y is x else _operand(y)
+    # either body sums |x|^2 and |y|^2 in the launch
     column = route(*yo.shape) == "column"
-    out = kernel_matrix_cuda(
-        xo, yo, None if column else (_sqnorms(x), _sqnorms(y)), kind=kind,
-        gamma=gamma, coef0=coef0, degree=degree)
+    out = kernel_matrix_cuda(xo, yo, kind=kind, gamma=gamma, coef0=coef0,
+                             degree=degree)
     LAUNCHES["kernel_matrix"] += 1
     LAUNCHES["kernel_matrix_column"] += column
     return out
@@ -274,19 +274,22 @@ def sketch_assign(x: torch.Tensor, fmap, centroids: torch.Tensor,
                   counts: torch.Tensor | None = None, *,
                   precision: str = "f32"):
     """Fused count-sketch + nearest-centroid assignment (dense rows), the
-    contract of ``embed_assign``. The sign table is int8 under bf16."""
+    contract of ``embed_assign``. The plain version takes the sign table
+    in int8 under bf16; the kernel takes the signs from its gather program."""
     p = resolve_precision(precision)
     c32, csq = _masked_csq(centroids, counts)
     x = p.cast_tiles(x)
     if not x.is_cuda:
         return ref.sketch_assign_ref(x, fmap.h, fmap.sign.to(p.sign_dtype),
                                      c32.T, csq, precision=p.tile)
-    order, offsets, sign = fmap.buckets        # sorted once per map
-    sign = sign.to(p.sign_dtype)
-    xo = _aligned(x)
+    # sorted once per map; the kernel reads the signs from its gather
+    # program, built once per map and dtype, so the f32 table serves both
+    order, offsets, sign = fmap.buckets
+    xo = _operand(x)
     return _over_cluster_chunks(
         c32.T, csq, "sketch_assign",
-        lambda vc, cc: sketch_assign_cuda(xo, order, offsets, sign, vc, cc))
+        lambda vc, cc: sketch_assign_cuda(xo, order, offsets, sign, vc, cc,
+                                          programs=fmap.programs))
 
 
 # ---------------------------------------------------------------------------

@@ -8,16 +8,18 @@ Times every kernel wrapper the main path calls (``ops.assign_fused``,
 ``ops.sketch_assign``, ``ops.flash_attention``) at the shapes of
 ``chip_smoke.py``'s timed checks: the Tab.1 MNIST batch (15,000 x {15,000,
 3,000} x 784, C = 10, and the g stats' 3,000 x 3,000), the skinny
-``kernel_matrix`` calls of k-means++ and Eq.8 (``SKINNY``), the Fig.5
+``kernel_matrix`` calls of k-means++ and Eq.8 (``SKINNY``), the tile body
+at the Gram build's 15,000 x 3,000 and D-nystrom's K_LL 320 x 320, the Fig.5
 embedding (60,000 x 784 -> m, C = 10; RFF at m = 20, 80, 160 and 320,
-Nystrom rbf at 320), the Tab.2 count sketch (188,000 x 256 -> 128, C = 50)
+Nystrom rbf at 320), the Tab.2 count sketch (188,000 x 256 -> 128, C = 50,
+on rows already in the tile dtype; also at C = 10 and 200 and at D = 128)
 and the attention of OLMo-1B, gemma2-2b and qwen3-32b at S 2048, at f32 and
 bf16. Beside each attention shape it times ``scaled_dot_product_attention``
 (or, with a softcap, matmul + tanh + masked softmax + matmul), beside each
 skinny ``kernel_matrix`` shape ``x @ y.T`` with the epilogue and the norms
-as the wrapper takes them, and beside each embedding shape the composite
-of PyTorch calls that computes the same labels; the port never calls any
-of them. The assign, g stats and skinny ``kernel_matrix`` shapes also get
+as the wrapper takes them, beside the tile body's shapes cdist and exp,
+and beside each embedding shape and the sketch the composite of PyTorch
+calls that computes the same labels; the port never calls any of them. The assign, g stats, sketch and skinny ``kernel_matrix`` shapes also get
 the card's own time a call (``.../device``: the device activities of a
 ``torch.profiler`` trace), since a back-to-back loop of small calls reads
 the host's launch path rather than the card. A tree whose
@@ -38,6 +40,7 @@ are printed and stored beside them. Needs a CUDA card; imports no JAX.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -164,19 +167,22 @@ def worker(src: Path, data: Path, reps: int) -> dict:
                   device=True)
     from repro_torch.kernels import kernel_matrix as km
     if hasattr(km, "route"):   # the column body: the sweep behind NCOL_MAX
+        # trees before the tile body computed its own norms take them as an
+        # argument, computed here as the wrapper did
+        takes_norms = "norms" in inspect.signature(
+            km.kernel_matrix_cuda).parameters
         for prec, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             x = rows["batch"].to(dtype)
             for n in SWEEP_N:
                 y = x[:n]
-                # each body as the wrapper calls it: the tile body with the
-                # norms of x and y computed for it
                 for body in ("column", "tile"):
+                    norms = (() if not takes_norms else (None,)
+                             if body == "column" else
+                             ((ops._sqnorms(x), ops._sqnorms(y)),))
                     timed(f"kernel_matrix/sweep/{n}/{prec}/{body}",
                           lambda: km.kernel_matrix_cuda(
-                              x, y, None if body == "column"
-                              else (ops._sqnorms(x), ops._sqnorms(y)),
-                              kind="rbf", gamma=gamma, coef0=1.0, degree=3,
-                              body=body), device=True)
+                              x, y, *norms, kind="rbf", gamma=gamma,
+                              coef0=1.0, degree=3, body=body), device=True)
     del rows
 
     # Tab.1: one 15,000-row batch, |L| = 15,000 and 3,000
@@ -191,8 +197,19 @@ def worker(src: Path, data: Path, reps: int) -> dict:
             timed(f"assign_fused/{tag}/{prec}", lambda: ops.assign_fused(
                 x_b, lm, lab, counts, g, n_clusters=10, kind="rbf",
                 gamma=gamma, precision=prec), device=True)
-        timed(f"kernel_matrix/3000/{prec}", lambda: ops.kernel_matrix(
-            x_b, x_b[l3.to(dev)], kind="rbf", gamma=gamma, precision=prec))
+        # the tile body: materialize's Gram build and D-nystrom's K_LL,
+        # beside cdist and exp on the same (rounded) operands
+        for tag, xk, yk in (("3000", x_b, x_b[l3.to(dev)]),
+                            ("320x320", x_b[l3[:320].to(dev)],
+                             x_b[l3[:320].to(dev)])):
+            if prec == "bf16":
+                xk, yk = xk.to(torch.bfloat16), yk.to(torch.bfloat16)
+            timed(f"kernel_matrix/{tag}/{prec}", lambda: ops.kernel_matrix(
+                xk, yk, kind="rbf", gamma=gamma, precision=prec),
+                device=True)
+            xf, yf = xk.float(), yk.float()
+            timed(f"kernel_matrix/{tag}/{prec}/library", lambda: torch.exp(
+                torch.cdist(xf, yf).square_().mul_(-gamma)), device=True)
         # the g stats of runs B and C: K(L, L) @ H at |L| = 3,000
         lm = x_b[l3.to(dev)]
         h = F.one_hot(y_b[l3.to(dev)].long(), 10).float()
@@ -244,8 +261,35 @@ def worker(src: Path, data: Path, reps: int) -> dict:
     cnt = oh.sum(dim=0)
     cents = (oh.T @ fmap(xr)) / cnt.clamp(min=1.0)[:, None]
     for prec in ("f32", "bf16"):
+        # rows already in the tile dtype: the kernel's time, not the
+        # wrapper's cast of f32 rows
+        xp = xr.to(torch.bfloat16) if prec == "bf16" else xr
         timed(f"sketch_assign/{prec}", lambda: ops.embed_assign(
-            xr, fmap, cents, cnt, precision=prec))
+            xp, fmap, cents, cnt, precision=prec), device=True)
+        # index_add_ + matmul + argmin on the same (rounded) rows
+        xs = xp.float()
+        csq = (cents * cents).sum(dim=1)
+
+        def library():
+            z = torch.zeros(len(xs), 128, device=dev).index_add_(
+                1, fmap.h.long(), xs * fmap.sign[None])
+            sc = csq[None] - 2.0 * (z @ cents.T)
+            return torch.argmin(sc, dim=1), torch.amin(sc, dim=1)
+        timed(f"sketch_assign/{prec}/library", library, device=True)
+    # what the sketch's time follows: C = 10 and 200 clusters (random
+    # centroids), and half the columns
+    for d, c in ((256, 10), (256, 200), (128, 50)):
+        xd = xr[:, :d].contiguous()
+        fd = approx.make_count_sketch(torch.Generator().manual_seed(5), d,
+                                      128, core.KernelSpec("linear"),
+                                      device=dev)
+        gen = torch.Generator(device=dev).manual_seed(c)
+        cd = torch.randn(c, 128, device=dev, generator=gen)
+        ones = torch.ones(c, device=dev)
+        for prec in ("f32", "bf16"):
+            xp = xd.to(torch.bfloat16) if prec == "bf16" else xd
+            timed(f"sketch_assign/D{d}/C{c}/{prec}", lambda: ops.embed_assign(
+                xp, fd, cd, ones, precision=prec), device=True)
     del xr, yr, oh
 
     # attention at S 2048

@@ -252,7 +252,7 @@ def test_cluster_chunks_merge_for_the_embedded_kernels(monkeypatch,
         return ref.embed_assign_ref(x, w, v, csq, map_kind=map_kind,
                                     scale=scale, b=aux)
 
-    def sketch_plain(x, order, offsets, sign, v, csq):
+    def sketch_plain(x, order, offsets, sign, v, csq, programs):
         h = torch.empty(x.shape[1], dtype=torch.int32)
         for j in range(v.shape[0]):
             h[order[offsets[j]:offsets[j + 1]].long()] = j
@@ -278,8 +278,9 @@ def test_cluster_chunks_merge_for_the_embedded_kernels(monkeypatch,
             order, offsets, sign = fmap.buckets
             lab, score = ops._over_cluster_chunks(
                 c32.T, csq, "sketch_assign",
-                lambda vc, cc: ops.sketch_assign_cuda(xt, order, offsets,
-                                                      sign, vc, cc))
+                lambda vc, cc: ops.sketch_assign_cuda(
+                    xt, order, offsets, sign, vc, cc,
+                    programs=fmap.programs))
         assert calls == chunks
         want_lab, want_score = ops.embed_assign(xt, fmap, ct)
         assert torch.equal(lab, want_lab)

@@ -349,8 +349,8 @@ def test_kernel_matrix_column_body_forced_to_its_widest(cuda, n, prec):
     p = resolve_precision(prec)
     x = p.cast_tiles(_rand((3000, 320), 52, cuda))
     y = p.cast_tiles(_rand((n, 320), 53, cuda))
-    got = kernel_matrix_cuda(x, y, None, kind="rbf", gamma=1 / 320,
-                             coef0=1.0, degree=3, body="column")
+    got = kernel_matrix_cuda(x, y, kind="rbf", gamma=1 / 320, coef0=1.0,
+                             degree=3, body="column")
     want = ref.kernel_matrix_ref(x, y, kind="rbf", gamma=1 / 320,
                                  precision=prec)
     _assert_normwise(got, want)
@@ -389,6 +389,94 @@ def test_column_route_takes_strided_and_unaligned_operands(cuda):
     got = ops.kernel_matrix(y, x[:3], kind="rbf", gamma=1 / 32)
     want = ref.kernel_matrix_ref(y, x[:3], kind="rbf", gamma=1 / 32)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# kernel_matrix's tile bodies (wide Y: the Gram builds)
+# ---------------------------------------------------------------------------
+
+# (M, N, D): M and N off the 128-row tile and the 64-column (f32) and
+# 128-column (bf16) tiles, N = NCOL_MAX + 1 (the narrowest Y the tile route
+# takes), N a multiple of 4 (16-byte stores) and not (4-byte stores), D off
+# the rings' chunks (32 features at f32, 64 at bf16) and off the bf16
+# vector (padded by the wrapper), more tiles than the card has CTAs, and
+# D-nystrom's K_LL
+TILE_SHAPES = [(1001, 130, 100), (1001, 33, 784), (257, 65, 36),
+               (1001, 200, 40), (130, 1001, 5), (2000, 3000, 72),
+               (320, 320, 784)]
+
+
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("shape", TILE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in TILE_SHAPES])
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_matrix_tile_body_at_ragged_edges(cuda, kind, shape, prec):
+    m, n, d = shape
+    x, y = _rand((m, d), 60, cuda), _rand((n, d), 61, cuda)
+    gamma = _gamma(kind, d)
+    before = dict(ops.LAUNCHES)
+    got = ops.kernel_matrix(x, y, kind=kind, gamma=gamma, precision=prec)
+    assert ops.LAUNCHES["kernel_matrix"] == before["kernel_matrix"] + 1
+    assert (ops.LAUNCHES["kernel_matrix_column"]
+            == before["kernel_matrix_column"])
+    want = ref.kernel_matrix_ref(x, y, kind=kind, gamma=gamma, precision=prec)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    _assert_normwise(got, want)
+
+
+def _offset_rows(m, d, ratio, seed, dev):
+    """Rows c + noise whose squared norm is `ratio` times the median
+    squared distance between them, and gamma = 1 / that median."""
+    rng = np.random.default_rng(seed)
+    noise = rng.normal(size=(m, d))
+    spread = 2.0 * d                     # E |n_i - n_j|^2 of unit noise
+    c = rng.normal(size=d)
+    c *= np.sqrt(ratio * spread) / np.linalg.norm(c)
+    x = torch.from_numpy((c + noise).astype(np.float32)).to(dev)
+    return x, 1.0 / spread
+
+
+@pytest.mark.parametrize("prec,ratio", [("f32", 0.0), ("f32", 10.0),
+                                        ("f32", 30.0), ("bf16", 0.0),
+                                        ("bf16", 1.0)])
+def test_kernel_matrix_tile_rbf_diagonal_at_large_norms(cuda, prec, ratio):
+    """K(x, x)'s diagonal on the tile body, for rows whose squared norms
+    are `ratio` times their spread 1 / gamma, where |x|^2 + |x|^2 - 2 x.x
+    cancels terms of 2 ratio / gamma. The f32 body sums |x|^2 on the tensor
+    cores exactly as its product sums x.x, so its diagonal is 1 at any
+    ratio; the bf16 body's norms are f32 sums beside a wgmma product, as
+    the plain version's are beside its matmul, so its ratio stays where an
+    f32 sum of 784 terms keeps 1e-5."""
+    x, gamma = _offset_rows(1000, 784, ratio, 62, cuda)
+    x = resolve_precision(prec).cast_tiles(x)
+    got = ops.kernel_matrix(x, x, kind="rbf", gamma=gamma, precision=prec)
+    diag = torch.diagonal(got)
+    assert float((diag - 1).abs().max()) <= 1e-5
+    if prec == "f32":
+        assert bool((diag == 1.0).all())
+    if ratio <= 1.0:   # past that the plain version's own sums miss 1e-5
+        want = ref.kernel_matrix_ref(x, x, kind="rbf", gamma=gamma,
+                                     precision=prec)
+        _assert_normwise(got, want)
+
+
+@pytest.mark.parametrize("prec", PRECS)
+def test_kernel_matrix_tile_body_is_bitwise_repeatable(cuda, prec):
+    """No atomics: two launches on the Gram build's widths give the same
+    bits."""
+    x, y = _rand((3000, 784), 63, cuda), _rand((3000, 784), 64, cuda)
+    a, b = (ops.kernel_matrix(x, y, kind="rbf", gamma=1 / 784,
+                              precision=prec) for _ in range(2))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_matrix_tile_occupancy(cuda, kind):
+    """Two CTAs of either tile body share an SM, as tile_ctas assumes."""
+    from repro_torch.kernels.kernel_matrix import ctas_per_sm
+    index = torch.cuda.current_device()
+    assert ctas_per_sm(torch.float32, kind, index) == 2
+    assert ctas_per_sm(torch.bfloat16, kind, index) == 2
 
 
 @pytest.mark.parametrize("shape", [(3000, 3000, 784), (500, 777, 40)],
@@ -562,6 +650,50 @@ def test_embedded_ties_and_empty_clusters(cuda, kind, prec):
 def test_sketch_assign_is_deterministic(cuda, prec):
     x, centroids = _rand((3000, 256), 19, cuda), _rand((50, 128), 20, cuda)
     fmap = _embed_map("sketch", x, 128)
+    one = ops.sketch_assign(x, fmap, centroids, precision=prec)
+    two = ops.sketch_assign(x, fmap, centroids, precision=prec)
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+
+
+def _sketch_map_dropping_columns(d, m, seed, dev):
+    """A count sketch whose hash sends about one column in ten nowhere
+    (h = -1), which make_count_sketch never draws."""
+    from repro_torch.approx.sketch import CountSketchMap
+    rng = np.random.default_rng(seed)
+    h = rng.integers(0, m, d)
+    h[rng.random(d) < 0.1] = -1
+    sign = rng.choice([-1.0, 1.0], d)
+    return CountSketchMap(h=torch.from_numpy(h.astype(np.int32)).to(dev),
+                          sign=torch.from_numpy(sign.astype(np.float32)).to(
+                              dev), m=m)
+
+
+# (n, D, m, C): n off the 32-row block; m = 77 (off the 8-bucket k step);
+# D off the bf16 vector (padded) and over several 512-byte column chunks;
+# C = 300 (two launches); m = 260 with C = 130, whose V does not fit beside
+# the ring, so the buckets go in two chunks; Tab.2's widths
+SKETCH_EDGE_SHAPES = [(1001, 130, 77, 300), (1001, 520, 77, 13),
+                      (333, 520, 260, 130), (1001, 256, 128, 50),
+                      (40, 20, 77, 5)]
+
+
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("shape", SKETCH_EDGE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in SKETCH_EDGE_SHAPES])
+def test_sketch_assign_at_ragged_edges(cuda, shape, prec):
+    n, d, m, c = shape
+    x, centroids = _rand((n, d), 65, cuda), _rand((c, m), 66, cuda)
+    fmap = _sketch_map_dropping_columns(d, m, 67, cuda)
+    _check_assignment(x, fmap, centroids, torch.ones(c, device=cuda), prec,
+                      "sketch_assign")
+
+
+@pytest.mark.parametrize("prec", PRECS)
+def test_sketch_assign_is_bitwise_repeatable_over_launches(cuda, prec):
+    """Two calls over 20,000 rows and 300 clusters (two launches each, with
+    dropped columns) give the same bits."""
+    x, centroids = _rand((20000, 256), 68, cuda), _rand((300, 128), 69, cuda)
+    fmap = _sketch_map_dropping_columns(256, 128, 70, cuda)
     one = ops.sketch_assign(x, fmap, centroids, precision=prec)
     two = ops.sketch_assign(x, fmap, centroids, precision=prec)
     assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])

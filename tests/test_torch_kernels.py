@@ -650,14 +650,17 @@ def test_kernel_matrix_route(n, d, body):
 @pytest.mark.parametrize("prec", PRECS)
 @pytest.mark.parametrize("n", [1, 4, 5, 10, 16, 32, 33, 40])
 def test_kernel_matrix_launch_passes_norms_by_route(monkeypatch, n, prec):
-    """ops.kernel_matrix hands the column body no norms (it sums |x|^2 and
-    |y|^2 from its own loads, so x is read once) and the tile body both;
-    the launches count the route."""
+    """ops.kernel_matrix computes no norms on either route: the column body
+    sums |x|^2 and |y|^2 from its own loads (x read once), the tile body's
+    launch sums them into a scratch of M + N it is handed, on a persistent
+    grid of tile_ctas; the launches count the route."""
     from repro_torch.kernels import kernel_matrix as km
     seen = []
     monkeypatch.setattr(build, "launch", lambda entry, *a: seen.append(
         (entry, a)))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    monkeypatch.setattr(km, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(km, "ctas_per_sm", lambda dtype, kind, index: 2)
     before = dict(ops.LAUNCHES)
     x, y = torch.randn(50, 16), torch.randn(n, 16)
     sq = []
@@ -668,16 +671,212 @@ def test_kernel_matrix_launch_passes_norms_by_route(monkeypatch, n, prec):
     (entry, args), = seen
     dt = "bf16" if prec == "bf16" else "f32"
     column = n <= km.NCOL_MAX
-    assert out.shape == (50, n)
+    assert out.shape == (50, n) and sq == []
     if column:
-        assert entry == f"rt_kernel_matrix_col_{dt}" and sq == []
+        assert entry == f"rt_kernel_matrix_col_{dt}"
         assert args[2:6] == (out.data_ptr(), 50, n, 16)
     else:
-        assert entry == f"rt_kernel_matrix_{dt}" and sorted(sq) == [n, 50]
-        assert args[4:8] == (out.data_ptr(), 50, n, 16)
+        assert entry == f"rt_kernel_matrix_{dt}"
+        assert args[3:7] == (out.data_ptr(), 50, n, 16)
+        dtype = torch.bfloat16 if prec == "bf16" else torch.float32
+        assert args[7] == km.tile_ctas(50, n, dtype, 132, 2) == 1
     assert ops.LAUNCHES["kernel_matrix"] == before["kernel_matrix"] + 1
     assert (ops.LAUNCHES["kernel_matrix_column"]
             == before["kernel_matrix_column"] + column)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,n", [(15000, 3000), (320, 320), (1001, 130),
+                                 (50, 33), (15000, 15000), (1, 40)])
+def test_kernel_matrix_tile_grid_covers_the_tiles(m, n, dtype):
+    """The tile body's persistent grid: at most one CTA a slot of the card
+    and one a tile; the ranges [i T / G, (i + 1) T / G) cover the T tiles
+    once, each CTA within one tile of every other's share."""
+    from repro_torch.kernels.kernel_matrix import TILE, tile_ctas
+    bm, bn = TILE[dtype]
+    tiles = -(-m // bm) * -(-n // bn)
+    ctas = tile_ctas(m, n, dtype, 132, 2)
+    assert 1 <= ctas == min(tiles, 264)
+    edges = [i * tiles // ctas for i in range(ctas + 1)]
+    assert edges[0] == 0 and edges[-1] == tiles
+    sizes = [hi - lo for lo, hi in zip(edges, edges[1:])]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+
+
+def test_kernel_matrix_tile_grid_at_the_main_shapes():
+    """The Gram build [15000 x 3000] fills all 264 slots of 132 SMs at two
+    CTAs each, 21 tiles a CTA at f32 (128 x 64) and 10-11 at bf16 (128 x
+    128); D-nystrom's K_LL [320 x 320] takes 15 and 9 CTAs, one tile each."""
+    from repro_torch.kernels.kernel_matrix import TILE, tile_ctas
+    assert TILE == {torch.float32: (128, 64), torch.bfloat16: (128, 128)}
+    assert tile_ctas(15000, 3000, torch.float32, 132, 2) == 264
+    assert 118 * 47 // 264 == 21
+    assert tile_ctas(15000, 3000, torch.bfloat16, 132, 2) == 264
+    assert tile_ctas(320, 320, torch.float32, 132, 2) == 15
+    assert tile_ctas(320, 320, torch.bfloat16, 132, 2) == 9
+
+
+# ---------------------------------------------------------------------------
+# sketch_assign: the bucket chunk, the shared memory and the grid
+# ---------------------------------------------------------------------------
+
+
+def test_sketch_geometry_at_the_main_shape():
+    """Tab.2's sketch (D = 256, m = 128, C = 50 padded to 64): every bucket
+    in one chunk, so X is read once, and two CTAs an SM at either dtype."""
+    from repro_torch.kernels import sketch_assign as sk
+    for itemsize in (4, 2):
+        mb, per_sm = sk.geometry(256, 128, 64, itemsize)
+        assert (mb, per_sm) == (128, 2)
+        nch = -(-256 // sk.chunk_features(itemsize))
+        assert 2 * (sk.smem_bytes(256, nch, 128, 64, mb) + 1024) <= sk.SMEM_SM
+    assert sk.chunk_features(4) == 128 and sk.chunk_features(2) == 256
+    assert sk.grid(188000, 132, 2) == 264
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,m,cp", [(256, 128, 64), (16, 32, 16),
+                                    (30, 77, 16), (520, 260, 144),
+                                    (520, 77, 256), (24, 40, 16),
+                                    (4000, 1000, 256), (3000, 77, 48)])
+def test_sketch_geometry_fits_the_block(d, m, cp, itemsize):
+    """The bucket chunk is a multiple of 8 and at most m rounded up to 8,
+    its shared memory fits a block (two CTAs an SM where it says so), and a
+    chunk below all m buckets takes the widest that fits one CTA."""
+    from repro_torch.kernels import sketch_assign as sk
+    mb, per_sm = sk.geometry(d, m, cp, itemsize)
+    nch = -(-d // sk.chunk_features(itemsize))
+    assert mb % 8 == 0 and 8 <= mb <= -(-m // 8) * 8
+    bytes_ = sk.smem_bytes(d, nch, m, cp, mb)
+    assert bytes_ <= sk.SMEM_BLOCK
+    assert per_sm in (1, 2)
+    assert (2 * (bytes_ + 1024) <= sk.SMEM_SM) == (per_sm == 2)
+    if mb < m:
+        assert sk.smem_bytes(d, nch, m, cp, mb + 8) > sk.SMEM_BLOCK
+
+
+def test_sketch_geometry_smem_counts_each_buffer():
+    """smem_bytes mirrors sk::smem_bytes of csrc/sketch_assign.cu: the
+    3-stage ring of 32 rows of 528 bytes, zT [mb][40], V [mb][Cp rounded to
+    32, + 8], the program (8 bytes an entry), its positions [nch][m rounded
+    to 8, + 8] and the argmin's slots."""
+    from repro_torch.kernels import sketch_assign as sk
+    ring = 3 * 32 * 528
+    assert sk.mpos(128) == 136 and sk.mpos(77) == 88
+    assert sk.smem_bytes(256, 2, 128, 64, 128) == (
+        ring + 4 * (128 * 40 + 128 * 72) + 8 * 256 + 4 * 272 + 8 * 32 * 4)
+    assert sk.smem_bytes(29, 1, 77, 16, 80) == (
+        ring + 4 * (80 * 40 + 80 * 40) + 8 * 30 + 4 * 88 + 8 * 32 * 4)
+
+
+def test_sketch_geometry_raises_when_the_program_fills_the_block():
+    from repro_torch.kernels import sketch_assign as sk
+    with pytest.raises(ValueError, match="no room"):
+        sk.geometry(30000, 128, 64, 4)
+
+
+@pytest.mark.parametrize("n,sms,per_sm,want", [
+    (188000, 132, 2, 264), (300, 132, 2, 10), (64, 132, 1, 2), (1, 132, 2, 1),
+    (188000, 114, 1, 114)])
+def test_sketch_grid_is_the_card_or_the_row_blocks(n, sms, per_sm, want):
+    from repro_torch.kernels import sketch_assign as sk
+    assert sk.grid(n, sms, per_sm) == want
+
+
+def _emulate_gather(x, program, positions, m, kd, mb):
+    """The kernel's gather (csrc/sketch_assign.cu ``gather``) in numpy f32,
+    all rows at once: z [n, m] after every column chunk of every bucket
+    chunk, warp by warp."""
+    from repro_torch.kernels import sketch_assign as sk
+    prog, pos = program.numpy(), positions.numpy()
+    n = x.shape[0]
+    mr = sk.mpos(m) - sk.WARPS
+    z = np.zeros((n, m), np.float32)
+    for jb in range(0, m, mb):
+        for c in range(pos.shape[0]):
+            if c == 0:
+                z[:, jb:jb + mb] = 0.0
+            for w in range(sk.WARPS):
+                acc = None
+                for k in range(pos[c, jb + w], pos[c, min(jb + mb, mr) + w]):
+                    ex, ey = int(prog[k, 0]), int(prog[k, 1])
+                    j = ey & (sk.LAST - 1)
+                    assert j % sk.WARPS == w and jb <= j < jb + mb
+                    if ey & sk.FIRST:
+                        acc = z[:, j].copy()
+                    col = (ex & 0x7fffffff) + c * kd
+                    acc = (acc + np.float32(-1.0 if ex < 0 else 1.0)
+                           * x[:, col]).astype(np.float32)
+                    if ey & sk.LAST:
+                        z[:, j] = acc
+    return z
+
+
+@pytest.mark.parametrize("d,m,kd,mb", [(256, 128, 128, 128), (256, 128, 256, 128),
+                                       (130, 77, 32, 40), (520, 260, 128, 208),
+                                       (20, 77, 128, 80)])
+def test_sketch_gather_program_sums_each_bucket_in_column_order(d, m, kd, mb):
+    """The gather program, walked as the kernel walks it (per bucket chunk,
+    column chunk and warp), gives z bitwise equal to the fixed-order chain
+    sum over each bucket's columns in increasing index (the parent
+    kernel's), columns with h = -1 dropped; every column with h >= 0 is
+    read once."""
+    from repro_torch.kernels import sketch_assign as sk
+    rng = np.random.default_rng(11)
+    h = rng.integers(0, m, d).astype(np.int32)
+    h[rng.random(d) < 0.1] = -1
+    sign = rng.choice([-1.0, 1.0], d).astype(np.float32)
+    x = (rng.normal(size=(17, d)) * 10).astype(np.float32)
+    order, offsets, ssign = sk.bucket_tables(torch.from_numpy(h),
+                                             torch.from_numpy(sign), m)
+    program, positions = sk.gather_program(order, offsets, ssign, m, kd)
+    assert program.dtype == positions.dtype == torch.int32
+    assert program.shape == (int((h >= 0).sum()), 2)
+    assert positions.shape == (-(-d // kd), sk.mpos(m))
+    got = _emulate_gather(x, program, positions, m, kd, mb)
+    want = np.zeros((17, m), np.float32)
+    for j in range(m):
+        for col in np.flatnonzero(h == j):       # increasing column order
+            want[:, j] = (want[:, j] + sign[col] * x[:, col]).astype(
+                np.float32)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("d", [256, 30])
+def test_sketch_launch_passes_padded_rows_and_geometry(monkeypatch, prec, d):
+    """ops.sketch_assign pads D to the 16-byte vector (zero columns no
+    program entry names) and hands the kernel the gather program of its
+    chunk width, the row stride, the bucket chunk and the grid of
+    ``geometry`` and ``grid``; the program is built once per map."""
+    from repro_torch.approx import make_count_sketch
+    from repro_torch.core import KernelSpec
+    from repro_torch.kernels import kernel_matrix as km
+    from repro_torch.kernels import sketch_assign as sk
+    seen = []
+    monkeypatch.setattr(build, "launch", lambda entry, *a: seen.append(
+        (entry, a)))
+    monkeypatch.setattr(km, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(sk, "_sm_count", lambda index: 132)
+    fmap = make_count_sketch(torch.Generator().manual_seed(0), d, 77,
+                             KernelSpec("linear"), device="cpu")
+    x, cents = torch.randn(300, d), torch.randn(13, 77)
+    built = []
+    real = sk.gather_program
+    monkeypatch.setattr(sk, "gather_program", lambda *a: built.append(a[-1])
+                        or real(*a))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    for _ in range(2):
+        ops.sketch_assign(x, fmap, cents, precision=prec)
+    (entry, args), _ = seen
+    dt = "bf16" if prec == "bf16" else "f32"
+    item = 2 if prec == "bf16" else 4
+    dp = -(-d // (16 // item)) * (16 // item)
+    mb, per_sm = sk.geometry(d, 77, 16, item)
+    assert entry == f"rt_sketch_assign_{dt}"
+    assert built == [sk.chunk_features(item)]
+    assert args[7:14] == (300, d, dp, 77, 16, mb, sk.grid(300, 132, per_sm))
 
 
 # ---------------------------------------------------------------------------
