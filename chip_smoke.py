@@ -8,14 +8,16 @@ Phases, in order; any failure exits non-zero without the final line:
      TF32 flags (then both set to False);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
      sm_90a) and print the build seconds and ptxas resource lines; then
-     the ptxas lines of the nine bodies redesigned for Hopper, with counts
+     the ptxas lines of the ten bodies redesigned for Hopper, with counts
      of their tensor-core instructions in the library's SASS (cuobjdump):
-     the flash bf16, assign_fused bf16 and kernel_matrix bf16 tile bodies
-     must issue wgmma (HGMMA); the embed_assign f32 body must fit two CTAs
-     per SM (<= 128 registers, no spills); the 3xTF32 bodies of
-     assign_fused f32, flash_attention f32 and the kernel_matrix f32 tile,
-     the contraction of assign_fused bf16 and sketch_assign's must issue
-     mma.sync TF32 (HMMA.1688.F32.TF32); none of those nor the
+     the flash bf16, assign_fused bf16, kernel_matrix bf16 tile and
+     embed_assign bf16 bodies must issue wgmma (HGMMA); the embed_assign
+     f32 body and every epilogue instantiation of the embed_assign bf16
+     body (RFF and the four Mercer kinds) must fit two CTAs per SM (<= 128
+     registers, no spills); the 3xTF32 bodies of assign_fused f32,
+     flash_attention f32 and the kernel_matrix f32 tile, the contractions
+     of assign_fused bf16 and embed_assign bf16 and sketch_assign's must
+     issue mma.sync TF32 (HMMA.1688.F32.TF32); none of those nor the
      kernel_matrix column body may spill;
   3. hold each wrapper the main path calls (``ops.kernel_matrix``,
      ``ops.assign_fused``, ``ops.gram_matvec``, ``ops.embed_assign`` for
@@ -33,9 +35,10 @@ Phases, in order; any failure exits non-zero without the final line:
      x @ y.T plus the epilogue and the norms as ``library_ms``), the Fig.5
      embedded sweep at its largest m (60,000 x 784 -> 320, C = 10; RFF at
      f32 also at the sweep's m = 20, 80 and 160) and the
-     Tab.2 RCV1 sketch (188,000 x 256 -> 128, C = 50; timed on the f32
-     rows the runs pass, the wrapper's cast to bf16 included, and as
-     ``kernel_ms`` on rows already in the tile dtype); then
+     Tab.2 RCV1 sketch (188,000 x 256 -> 128, C = 50); both embedded
+     kernels are timed on the f32 rows the runs pass (the wrapper's cast
+     to bf16 included) and, the sketch at both dtypes and embed_assign at
+     bf16, as ``kernel_ms`` on rows already in the tile dtype; then
      ``ops.flash_attention`` against ``ref.flash_attention_ref`` at bf16 and
      f32 at the attention shapes of OLMo-1B's prefill (B 1, H = KH = 16,
      S 2048, dh 128, causal), gemma2-2b's global layers (H 8, KH 4, dh 256,
@@ -67,9 +70,9 @@ Phases, in order; any failure exits non-zero without the final line:
      first tokens must agree outside near-ties) and run F-f32 (one 2048-token
      prompt, f32 weights and tiles, flash against chunked prefill logits);
   5. print the per-kernel JSON line (one entry per kernel; assign_fused,
-     sketch_assign and flash_attention one per tile dtype, since both
-     bodies run on the main path, and kernel_matrix one for its column
-     body) and, last, the ok line.
+     embed_assign, sketch_assign and flash_attention one per tile dtype,
+     since both bodies run on the main path, and kernel_matrix one for its
+     column body) and, last, the ok line.
 
 Tolerances (normwise: max |kernel - plain| <= tol * max(1, max |plain|)):
 kernel_matrix 1e-5 (and the rbf diagonal of K(x, x) within 1e-5 of 1, on
@@ -207,6 +210,10 @@ EMBED_F32_BODY = "embed_assign_f32_kernel"
 # embed_assign_f32_kernel), rt::ab::assign_bf16_kernel
 ASSIGN_F32_BODY = "2af17assign_f32_kernel"
 ASSIGN_BF16_BODY = "2ab18assign_bf16_kernel"
+# rt::embed_bf16_kernel<KIND>, one instantiation per epilogue: RFF and
+# the four Mercer kinds
+EMBED_BF16_BODY = "embed_bf16_kernel"
+EMBED_BF16_EPILOGUES = 5
 FLASH_F32_BODY = "flash_f32_kernel"
 COLUMN_BODY = "kernel_matrix_col_kernel"
 # rt::tile::tile_f32_kernel, rt::tile::tile_bf16_kernel (kernel_matrix's
@@ -265,25 +272,31 @@ def sass_opcode_counts(lib: str, opcodes: tuple) -> dict | None:
 
 
 def redesigned_bodies(build) -> None:
-    """Print the ptxas lines of the nine redesigned bodies, the wgmma
-    (HGMMA) count of the three wgmma bodies' SASS (flash bf16, assign bf16,
-    the kernel_matrix bf16 tile) and the TF32 mma count (HMMA.1688.F32.TF32)
-    of the five bodies that multiply in 3xTF32 (assign f32, flash f32, the
-    kernel_matrix f32 tile, assign bf16's contraction and sketch_assign's);
-    fail if the embed f32 body needs more registers than two CTAs per SM
-    leave it, if any body but flash bf16 spills, or if a body issues none of
-    its tensor-core instructions."""
+    """Print the ptxas lines of the ten redesigned bodies, the wgmma
+    (HGMMA) count of the four wgmma bodies' SASS (flash bf16, assign bf16,
+    the kernel_matrix bf16 tile, embed bf16) and the TF32 mma count
+    (HMMA.1688.F32.TF32) of the six bodies that multiply in 3xTF32 (assign
+    f32, flash f32, the kernel_matrix f32 tile, the contractions of assign
+    bf16 and embed bf16, and sketch_assign's); fail if the embed f32 body
+    or an instantiation of the embed bf16 body (all five epilogues must be
+    there) needs more registers than two CTAs per SM leave it, if any body
+    but flash bf16 spills, or if a body issues none of its tensor-core
+    instructions."""
     res = ptxas_resources(build.LAST_BUILD["log"])
     for body in (FLASH_BF16_BODY, EMBED_F32_BODY, ASSIGN_F32_BODY,
                  ASSIGN_BF16_BODY, FLASH_F32_BODY, COLUMN_BODY, TILE_F32_BODY,
-                 TILE_BF16_BODY, SKETCH_BODY):
+                 TILE_BF16_BODY, SKETCH_BODY, EMBED_BF16_BODY):
         found = {k: v for k, v in res.items() if body in k}
         check(bool(found), f"ptxas printed no entry of {body}")
+        if body == EMBED_BF16_BODY:
+            check(len(found) == EMBED_BF16_EPILOGUES,
+                  f"{body}: {len(found)} instantiations, expected one per "
+                  f"epilogue ({EMBED_BF16_EPILOGUES})")
         for name, r in found.items():
             print(f"ptxas {body}: {name}")
             for line in r["lines"]:
                 print(f"  {line}")
-            if body == EMBED_F32_BODY:
+            if body in (EMBED_F32_BODY, EMBED_BF16_BODY):
                 check(r["registers"] is not None
                       and r["registers"] <= REGS_PER_THREAD_2_CTAS
                       and r["spill_bytes"] == 0,
@@ -297,7 +310,9 @@ def redesigned_bodies(build) -> None:
     check(counts is not None, "the toolkit has no cuobjdump: the tensor-core "
                               "instructions of the bodies cannot be counted")
     for body, op in ((FLASH_BF16_BODY, HGMMA), (ASSIGN_BF16_BODY, HGMMA),
-                     (TILE_BF16_BODY, HGMMA), (ASSIGN_BF16_BODY, HMMA_TF32),
+                     (TILE_BF16_BODY, HGMMA), (EMBED_BF16_BODY, HGMMA),
+                     (ASSIGN_BF16_BODY, HMMA_TF32),
+                     (EMBED_BF16_BODY, HMMA_TF32),
                      (ASSIGN_F32_BODY, HMMA_TF32),
                      (FLASH_F32_BODY, HMMA_TF32), (TILE_F32_BODY, HMMA_TF32),
                      (SKETCH_BODY, HMMA_TF32)):
@@ -611,7 +626,8 @@ def check_embedded(torch, mods, x, fmap, centroids, counts, prec, *, timed,
     """ops.embed_assign (the wrapper predict_embedded calls) against the
     plain version on the same operands: ref.embed_assign_ref on the panels
     of ops.embed_panels, or ref.sketch_assign_ref for the count sketch.
-    The sketch is also launched twice and compared bitwise."""
+    The sketch and the bf16 embed body are also launched twice and
+    compared bitwise."""
     ops, ref = mods["ops"], mods["ref"]
     p = mods["precision"].resolve_precision(prec)
     sketch = fmap.kind == "sketch"
@@ -647,7 +663,7 @@ def check_embedded(torch, mods, x, fmap, centroids, counts, prec, *, timed,
            "rff" else f"nystrom-{st['map_kind']}", "shape": [n, d, m],
            "C": c, "prec": prec, "max_abs_err": err, "rel_err": rel,
            "tol": tol, "label_mismatch": bad, "near_ties": near, "tag": tag}
-    if sketch:
+    if sketch or prec == "bf16":   # the bf16 embed body sums its splits
         lab2, score2 = kernel()
         rec["bitwise_repeat"] = bool(torch.equal(lab, lab2)
                                      and torch.equal(score, score2))
@@ -682,7 +698,8 @@ def check_embedded(torch, mods, x, fmap, centroids, counts, prec, *, timed,
             nbytes = ((n + m) * d * p.tile_itemsize + (n + m) * 4
                       + (m + 1) * c * 4 + n * 8)
         rec["ms"] = time_ms(torch, kernel, 10)
-        if sketch:   # on rows already in the tile dtype: no wrapper cast
+        if sketch or prec == "bf16":
+            # on rows already in the tile dtype: no wrapper cast
             rec["kernel_ms"] = time_ms(torch, lambda: kernel(xc), 10)
         rec["plain_ms"] = time_ms(torch, plain, 10)
         rec["library_ms"] = time_ms(torch, library, 10)
@@ -950,12 +967,18 @@ def run_embedded(torch, mods, name, cfg, x_tr, y_tr, x_te, y_te):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = core.fit_dataset(x_tr, cfg)
-    labels = res.predict(x_te).cpu().numpy()
+    labels = res.predict(x_te).cpu().numpy()     # at f32 tiles, always
+    at_predict = dict(ops.LAUNCHES)
     labels_tr = mods["approx"].predict_embedded(
         x_tr, res.state, res.fmap, precision=cfg.precision).cpu().numpy()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, calls = dict(ops.LAUNCHES), dict(ref.CALLS)
+    kernel = "sketch_assign" if cfg.method == "sketch" else "embed_assign"
+    # the launches of each body: predict's at f32, the training rows' at
+    # the run's tile dtype
+    by_tile = {"f32": at_predict[kernel], "bf16": 0}
+    by_tile[cfg.precision] += launches[kernel] - at_predict[kernel]
     cents = res.state.centroids
     m = res.fmap.dim
     check(tuple(cents.shape) == (cfg.n_clusters, m)
@@ -974,7 +997,7 @@ def run_embedded(torch, mods, name, cfg, x_tr, y_tr, x_te, y_te):
            "nmi": core.nmi(y_te, labels),
            "train_acc": core.clustering_accuracy(y_tr, labels_tr),
            "train_nmi": core.nmi(y_tr, labels_tr), "launches": launches,
-           "plain_calls": calls}
+           "launches_by_tile": by_tile, "plain_calls": calls}
     print("run", json.dumps(rec))
     check(all(v == 0 for v in calls.values()),
           f"run {name}: a plain version ran on the card: {calls}")
@@ -1326,9 +1349,8 @@ def main(argv=None) -> int:
             "embed_assign"
         check(rec["launches"][kernel] > 0,
               f"run {name}: {kernel} never launched")
-        if kernel == "sketch_assign":
-            key = ("sketch_assign", kw.get("precision", "f32"))
-            bodies[key] = bodies.get(key, 0) + rec["launches"][kernel]
+        for tile, n in rec["launches_by_tile"].items():
+            bodies[kernel, tile] = bodies.get((kernel, tile), 0) + n
     nmi_d = core.nmi(runs["D-rff"][1], runs["D-rff-bf16"][1])
     nmi_e = core.nmi(runs["E-sketch"][1], runs["E-sketch-bf16"][1])
     print(f"NMI(D-rff-bf16, D-rff) {nmi_d!r}; NMI(E-sketch-bf16, E-sketch) "
@@ -1350,8 +1372,9 @@ def main(argv=None) -> int:
           f"labels at bf16 vs f32 tiles agree on {agree_e!r}")
     check(agree_e >= 0.99, f"bf16 sketch_assign strays from f32 on one "
                            f"fitted state: agreement {agree_e}")
-    check(all(v > 0 for v in totals.values()),
-          f"a kernel never launched on the main path: {totals}")
+    check(all(v > 0 for v in totals.values())
+          and all(v > 0 for v in bodies.values()),
+          f"a kernel never launched on the main path: {totals} {bodies}")
     small_reference_fit(torch, mods)
     del fits, runs
     torch.cuda.empty_cache()
@@ -1386,6 +1409,8 @@ def main(argv=None) -> int:
                ("kernel_matrix", "kernel_matrix", None),
                ("kernel_matrix_column", "kernel_matrix", "column"),
                ("embed_assign", "embed_assign", None),
+               ("embed_assign_f32", "embed_assign", "f32"),
+               ("embed_assign_bf16", "embed_assign", "bf16"),
                ("sketch_assign", "sketch_assign", None),
                ("sketch_assign_f32", "sketch_assign", "f32"),
                ("sketch_assign_bf16", "sketch_assign", "bf16"),
@@ -1405,7 +1430,7 @@ def main(argv=None) -> int:
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"]})
-        if "kernel_ms" in first:   # the sketch's time on pre-cast rows
+        if "kernel_ms" in first:   # the time on pre-cast rows
             kernels[-1]["kernel_ms"] = first["kernel_ms"]
     print(f"total inner iterations {iters}; card: {card_line()}")
     print(json.dumps({"kernels": kernels}))

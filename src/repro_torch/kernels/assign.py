@@ -57,17 +57,22 @@ SHARE_SLACK = 0.03
 
 
 @functools.lru_cache(maxsize=None)
-def ctas_per_sm(dtype: torch.dtype, cp: int, kind: str, index: int) -> int:
-    """CTAs of the ``dtype`` body (``kind``'s instantiation) one SM of card
-    ``index`` holds at Cp clusters, from the CUDA occupancy calculator."""
+def occupancy(entry: str, cp: int, code: int, index: int) -> int:
+    """CTAs of a body one SM of card ``index`` holds at Cp clusters, from
+    the CUDA occupancy calculator behind the C entry ``entry`` (the body's
+    instantiation of epilogue code ``code``)."""
     out = ctypes.c_int(0)
     with torch.cuda.device(index):
-        err = getattr(build.load(), _OCCUPANCY[dtype])(
-            cp, KINDS[kind], ctypes.addressof(out))
+        err = getattr(build.load(), entry)(cp, code, ctypes.addressof(out))
     if err or out.value < 1:
-        raise RuntimeError(f"{_OCCUPANCY[dtype]} gave {out.value} CTAs, "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"{entry} gave {out.value} CTAs, CUDA error {err}")
     return out.value
+
+
+def ctas_per_sm(dtype: torch.dtype, cp: int, kind: str, index: int) -> int:
+    """CTAs of the ``dtype`` body (``kind``'s instantiation) one SM of card
+    ``index`` holds at Cp clusters."""
+    return occupancy(_OCCUPANCY[dtype], cp, KINDS[kind], index)
 
 
 @functools.lru_cache(maxsize=256)

@@ -30,8 +30,8 @@
 // same bits.
 #pragma once
 
+#include "epilogue.cuh"
 #include "gram_f32.cuh"
-#include "row_block.cuh"
 
 namespace rt {
 namespace af {
@@ -168,14 +168,16 @@ assign_f32_kernel(const float* __restrict__ X, const float* __restrict__ Lm,
 }
 
 // F = sum over splits of part (in split order), mind = min_j (g_j - 2
-// F_ij) and its lowest index; one warp a row. F may be part itself (one
-// split): each element is read before it is written, by the same lane.
-__global__ void __launch_bounds__(32 * REDUCE_ROWS)
+// F_ij) and its lowest index; one warp a row, ROWS (REDUCE_ROWS) rows a
+// block. F may be part itself: each element is read before it is written,
+// by the same lane. A template, as embed_assign.cu launches it too.
+template <int ROWS>
+__global__ void __launch_bounds__(32 * ROWS)
 assign_reduce_kernel(const float* part, int splits,
                      const float* __restrict__ g, float* F,
                      int* __restrict__ labels, float* __restrict__ mind,
                      int M, int Cp) {
-  const int row = blockIdx.x * REDUCE_ROWS + (threadIdx.x >> 5);
+  const int row = blockIdx.x * ROWS + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= M) return;
   float best = 0.0f;
@@ -228,9 +230,9 @@ static int launch(const float* x, const float* l, float* norms,
       x, l, norms, lsq, h, part, M, L, D, Cp, epi);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  assign_reduce_kernel<<<(M + REDUCE_ROWS - 1) / REDUCE_ROWS,
-                         32 * REDUCE_ROWS, 0, stream>>>(part, splits, g, f,
-                                                        labels, mind, M, Cp);
+  assign_reduce_kernel<REDUCE_ROWS><<<(M + REDUCE_ROWS - 1) / REDUCE_ROWS,
+                                      32 * REDUCE_ROWS, 0, stream>>>(
+      part, splits, g, f, labels, mind, M, Cp);
   return (int)cudaGetLastError();
 }
 

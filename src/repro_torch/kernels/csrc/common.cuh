@@ -14,7 +14,9 @@
 //     idle while the host prepares the next one;
 //   - Vec16: a 16-byte load of f32 or bf16 features as f32 values, and
 //     row_sqnorms_kernel, the f32 squared norms of the rows of two
-//     matrices (the assign_fused entries take their norms from it).
+//     matrices (the assign_fused and embed_assign entries take their
+//     norms from it);
+//   - HCH and MAX_CP, the cluster panel's limits in the assignment bodies.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,6 +26,13 @@
 #include <atomic>
 
 namespace rt {
+
+// The assignment bodies (assign, embed_assign, sketch_assign) keep F [rows,
+// Cp] on chip: Cp is at most MAX_CP clusters, a multiple of HCH where a
+// body contracts HCH cluster columns at a time; the wrappers (ops.py)
+// launch once per MAX_CP clusters beyond that.
+constexpr int HCH = 16;
+constexpr int MAX_CP = 256;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

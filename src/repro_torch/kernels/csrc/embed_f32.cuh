@@ -28,7 +28,7 @@
 #pragma once
 
 #include "common.cuh"
-#include "row_block.cuh"
+#include "epilogue.cuh"
 
 namespace rt {
 namespace ef {

@@ -64,7 +64,7 @@
 
 #include "gram_bf16.cuh"
 #include "gram_f32.cuh"
-#include "gram_tile.cuh"
+#include "epilogue.cuh"
 
 namespace rt {
 

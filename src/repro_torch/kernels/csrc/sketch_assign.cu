@@ -73,7 +73,6 @@
 #include <type_traits>
 
 #include "common.cuh"
-#include "row_block.cuh"
 
 namespace rt {
 namespace sk {

@@ -20,7 +20,7 @@ import torch
 
 from . import build
 
-#: epilogue codes of ``gram_tile.cuh``'s ``Kind``
+#: epilogue codes of ``epilogue.cuh``'s ``Kind``
 KINDS = {"linear": 0, "polynomial": 1, "cosine": 2, "rbf": 3}
 #: features per 16-byte vector load: D must be a multiple of it
 VEC = {torch.float32: 4, torch.bfloat16: 8}

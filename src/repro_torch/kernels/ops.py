@@ -6,8 +6,9 @@ zoo's prefill (the port of ``repro/kernels/ops.py:390-417``).
 
 Each wrapper casts the tile operands to the policy's tile dtype ONCE at
 entry, and the squared norms come FROM the cast values (the
-``assign_fused`` and ``kernel_matrix`` launches compute them on the card
-themselves), so kernel and plain version see identical inputs. ``assign_fused`` builds H as
+``assign_fused``, ``kernel_matrix`` and ``embed_assign`` launches compute
+them on the card themselves), so kernel and plain version see identical
+inputs. ``assign_fused`` builds H as
 one-hot(labels)/counts and puts +1e30 on empty clusters; ``embed_assign``
 and ``sketch_assign`` put +1e30 on the centroid norms of empty clusters.
 
@@ -20,9 +21,9 @@ in g; padded clusters can never be chosen), pad D with zero features up to the
 16-byte vector width when needed, and slice the results back. The kernels
 mask ragged rows and landmarks themselves, and zero the Gram columns of
 landmarks past L (and the embedding columns past M), so padding never
-reaches f. Block shapes are the kernels' own (``csrc/gram_tile.cuh``),
-chosen for Hopper's shared memory and registers — nothing here is a TPU
-tiling.
+reaches f. Block shapes are the kernels' own (``csrc/gram_f32.cuh``,
+``csrc/gram_bf16.cuh``, ``csrc/embed_f32.cuh``), chosen for Hopper's
+shared memory and registers — nothing here is a TPU tiling.
 
 ``LAUNCHES`` counts kernel launches per kernel (plain integers, reset by the
 caller), so a run on the card can show that its main path went through the
@@ -52,10 +53,6 @@ LAUNCHES = {"kernel_matrix": 0, "assign_fused": 0, "embed_assign": 0,
 
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
-
-
-def _sqnorms(a: torch.Tensor) -> torch.Tensor:
-    return torch.sum(a.to(torch.float32) ** 2, dim=1)
 
 
 def _aligned(a: torch.Tensor) -> torch.Tensor:
@@ -211,10 +208,10 @@ def _masked_csq(centroids: torch.Tensor, counts: torch.Tensor | None):
 def embed_panels(fmap, centroids: torch.Tensor,
                  counts: torch.Tensor | None = None):
     """Lower an RFF or Nystrom map and its centroids to the kernel's panels:
-    (w [M, d], aux [M] or None, v [M, C] f32, csq [C] f32, statics). RFF
-    gives w = frequencies, aux = phases, v = centroids^T; Nystrom gives
-    w = landmarks, no aux (``embed_assign`` takes |w|^2 of the cast tiles)
-    and v = proj @ centroids^T, in f32."""
+    (w [M, d], b [M] or None, v [M, C] f32, csq [C] f32, statics). RFF
+    gives w = frequencies, b = phases, v = centroids^T; Nystrom gives
+    w = landmarks, no b (kernel and plain version take |w|^2 of the cast
+    tiles themselves) and v = proj @ centroids^T, in f32."""
     c32, csq = _masked_csq(centroids, counts)
     if fmap.kind == "rff":
         statics = dict(map_kind="rff", gamma=1.0, coef0=1.0, degree=1,
@@ -248,25 +245,19 @@ def embed_assign(x: torch.Tensor, fmap, centroids: torch.Tensor,
         score = csq[None, :] - 2.0 * (fmap(x) @ c32.T)
         return (torch.argmin(score, dim=1).to(torch.int32),
                 torch.amin(score, dim=1))
-    w, aux, v, csq, statics = embed_panels(fmap, centroids, counts)
+    w, b, v, csq, statics = embed_panels(fmap, centroids, counts)
     p = resolve_precision(precision)
     x, w = p.cast_tiles(x), p.cast_tiles(w)
-    rff = statics["map_kind"] == "rff"
-    if not rff:
-        aux = _sqnorms(w)         # |w|^2 of the tile values, as the kernel's
     if not x.is_cuda:
-        return ref.embed_assign_ref(x, w, v, csq, b=aux, precision=p.tile,
+        return ref.embed_assign_ref(x, w, v, csq, b=b, precision=p.tile,
                                     **statics)
+    # no norm pass: the Mercer kinds' launch sums |x|^2 and |w|^2 of the
+    # tile values itself, rff reads none; the f32 body masks a ragged
+    # cluster count itself
     xo, wo = _operand(x), _operand(w)
-    if rff:   # the rff epilogue reads no row norms; the bf16 body loads them
-        xsq = (None if x.dtype == torch.float32
-               else torch.zeros(x.shape[0], device=x.device))
-    else:     # one pass over x, no squared copy
-        xsq = torch.linalg.vector_norm(x, dim=1, dtype=torch.float32).square_()
-    # the f32 body masks a ragged cluster count itself
     return _over_cluster_chunks(
         v, csq, "embed_assign",
-        lambda vc, cc: embed_assign_cuda(xo, wo, xsq, aux, vc, cc, **statics),
+        lambda vc, cc: embed_assign_cuda(xo, wo, b, vc, cc, **statics),
         pad=x.dtype != torch.float32)
 
 

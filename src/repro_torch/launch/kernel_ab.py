@@ -19,10 +19,13 @@ bf16. Beside each attention shape it times ``scaled_dot_product_attention``
 skinny ``kernel_matrix`` shape ``x @ y.T`` with the epilogue and the norms
 as the wrapper takes them, beside the tile body's shapes cdist and exp,
 and beside each embedding shape and the sketch the composite of PyTorch
-calls that computes the same labels; the port never calls any of them. The assign, g stats, sketch and skinny ``kernel_matrix`` shapes also get
-the card's own time a call (``.../device``: the device activities of a
-``torch.profiler`` trace), since a back-to-back loop of small calls reads
-the host's launch path rather than the card. A tree whose
+calls that computes the same labels; the port never calls any of them.
+Every kernel key but the attention's also gets the card's own time a call
+(``.../device``: the device activities of a ``torch.profiler`` trace),
+since a back-to-back loop of small calls reads the host's launch path
+rather than the card.
+The bf16 embedding at m = 320 is also timed on rows already in bf16
+(``.../bf16/precast``: without the wrapper's cast of the f32 rows). A tree whose
 ``kernel_matrix`` has two bodies also gets the sweep that chose
 ``NCOL_MAX``: each body forced at [15,000, N] x 784, N = 1, 4, 5, 10, 16
 and 32 (keys ``kernel_matrix/sweep/...``).
@@ -233,7 +236,13 @@ def worker(src: Path, data: Path, reps: int) -> dict:
             for prec in (("f32", "bf16") if m == 320 else ("f32",)):
                 timed(f"embed_assign/{kind}/{m}/{prec}",
                       lambda: ops.embed_assign(x_tr, fmap, cents, counts,
-                                               precision=prec))
+                                               precision=prec), device=True)
+            if m == 320:   # on rows already in the tile dtype: no cast
+                xb = x_tr.to(torch.bfloat16)
+                timed(f"embed_assign/{kind}/{m}/bf16/precast",
+                      lambda: ops.embed_assign(xb, fmap, cents, counts,
+                                               precision="bf16"), device=True)
+                del xb
             w, aux, v, csq, st = ops.embed_panels(fmap, cents, counts)
             wf = w.float()
             wsq = (wf * wf).sum(dim=1)
@@ -248,7 +257,7 @@ def worker(src: Path, data: Path, reps: int) -> dict:
                     e = torch.exp(-st["gamma"] * d2.clamp_(min=0.0))
                 sc = csq[None] - 2.0 * (e @ v)
                 return torch.argmin(sc, dim=1), torch.amin(sc, dim=1)
-            timed(f"embed_assign/{kind}/{m}/library", composite)
+            timed(f"embed_assign/{kind}/{m}/library", composite, device=True)
     del x_tr, y_tr, onehot
 
     # Tab.2: the count sketch of 188,000 rows

@@ -248,9 +248,9 @@ def test_cluster_chunks_merge_for_the_embedded_kernels(monkeypatch,
     x, centroids = _inputs(120, 12, 24, n_clusters, seed=9)
     xt, ct = _t(x), _t(centroids)
 
-    def embed_plain(x, w, xsq, aux, v, csq, *, map_kind, scale, **_):
+    def embed_plain(x, w, b, v, csq, *, map_kind, scale, **_):
         return ref.embed_assign_ref(x, w, v, csq, map_kind=map_kind,
-                                    scale=scale, b=aux)
+                                    scale=scale, b=b)
 
     def sketch_plain(x, order, offsets, sign, v, csq, programs):
         h = torch.empty(x.shape[1], dtype=torch.int32)
@@ -271,9 +271,8 @@ def test_cluster_chunks_merge_for_the_embedded_kernels(monkeypatch,
             lab, score = ops._over_cluster_chunks(
                 c32.T, csq, "embed_assign",
                 lambda vc, cc: ops.embed_assign_cuda(
-                    xt, fmap.w, torch.zeros(120), fmap.b, vc, cc,
-                    map_kind="rff", gamma=1.0, coef0=1.0, degree=1,
-                    scale=fmap.scale))
+                    xt, fmap.w, fmap.b, vc, cc, map_kind="rff", gamma=1.0,
+                    coef0=1.0, degree=1, scale=fmap.scale))
         else:
             order, offsets, sign = fmap.buckets
             lab, score = ops._over_cluster_chunks(
@@ -285,6 +284,46 @@ def test_cluster_chunks_merge_for_the_embedded_kernels(monkeypatch,
         want_lab, want_score = ops.embed_assign(xt, fmap, ct)
         assert torch.equal(lab, want_lab)
         torch.testing.assert_close(score, want_score, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("method", ["rff", "nystrom"])
+def test_embed_assign_wrapper_passes_no_row_norms(monkeypatch, method, prec):
+    """On the card ops.embed_assign hands the launcher the cast tiles, the
+    phases (rff only) and the panels, and computes no row norms of x or w
+    at either dtype: the Mercer kinds' launch sums them itself. The answer
+    is the plain version's."""
+    x, centroids = _inputs(120, 12, 24, 10, seed=10)
+    xt, ct = _t(x), _t(centroids)
+    fmap = _port_map(_jax_map(method, x, 24))
+    want_lab, want_score = ops.embed_assign(xt, fmap, ct, precision=prec)
+
+    def embed_plain(x, w, b, v, csq, *, map_kind, gamma, coef0, degree,
+                    scale):
+        return ref.embed_assign_ref(x, w, v, csq, map_kind=map_kind,
+                                    gamma=gamma, coef0=coef0, degree=degree,
+                                    scale=scale, b=b, precision="f32")
+
+    seen, norms = [], []
+    monkeypatch.setattr(ops, "embed_assign_cuda", lambda *a, **kw:
+                        seen.append(a) or embed_plain(*a, **kw))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    real_norm = torch.linalg.vector_norm
+    monkeypatch.setattr(torch.linalg, "vector_norm", lambda *a, **kw:
+                        norms.append(a) or real_norm(*a, **kw))
+    lab, score = ops.embed_assign(xt, fmap, ct, precision=prec)
+    (xo, wo, b, v, csq), = seen
+    dtype = torch.bfloat16 if prec == "bf16" else torch.float32
+    assert xo.dtype == wo.dtype == dtype and norms == []
+    assert xo.shape[0] == 120 and wo.shape[0] == 24
+    if method == "rff":
+        assert torch.equal(b, fmap.b.to(torch.float32))
+    else:
+        assert b is None
+    # bf16 pads the clusters to the kernel's multiple; f32 masks them itself
+    assert v.shape == (24, 16 if prec == "bf16" else 10)
+    assert torch.equal(lab, want_lab)
+    torch.testing.assert_close(score, want_score, rtol=1e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

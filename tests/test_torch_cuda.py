@@ -618,6 +618,115 @@ def test_embed_assign_f32_every_mercer_kind_per_tile(cuda, spec_kind, m):
                       "embed_assign")
 
 
+# (n, d, m, C) of the bf16 body (the assign bf16 body with the map as its
+# epilogue): Fig.5's width at n off the 128-row block, ragged m (77 in one
+# tile, 320 in three), D off the 64-feature chunk, C = 300 (two cluster
+# chunks), and m = 700 (three splits of the w axis)
+EMBED_BF16_SHAPES = [(1001, 784, 320, 10), (1001, 100, 77, 13),
+                     (400, 40, 320, 300), (2000, 784, 700, 10)]
+EMBED_BF16_KINDS = ["rff", *NYSTROM_SPECS]
+
+
+def _bf16_embed_map(kind, x, m):
+    """An RFF map of the rbf kernel or a Nystrom map of ``kind``, with
+    gamma 1/D, where rbf values spread over (0, 1) at any D."""
+    gen, d = torch.Generator().manual_seed(0), x.shape[1]
+    spec = {"rff": dict(gamma=1 / d), "rbf": dict(gamma=1 / d),
+            "linear": {}, "polynomial": dict(gamma=1 / d, coef0=1.0,
+                                             degree=3),
+            "cosine": {}}[kind]
+    if kind == "rff":
+        return make_rff(gen, d, m, KernelSpec("rbf", **spec), device=x.device)
+    return make_nystrom(gen, x, m, KernelSpec(kind, **spec))
+
+
+@pytest.mark.parametrize("shape", EMBED_BF16_SHAPES,
+                         ids=["x".join(map(str, s)) for s in EMBED_BF16_SHAPES])
+@pytest.mark.parametrize("kind", EMBED_BF16_KINDS)
+def test_embed_bf16_body_matches_plain(cuda, kind, shape):
+    n, d, m, c = shape
+    x = _rand((n, d), 37, cuda)
+    centroids = _rand((c, m), 38, cuda) * m ** -0.5   # |c|^2 near 1
+    _check_assignment(x, _bf16_embed_map(kind, x, m), centroids,
+                      torch.ones(c, device=cuda), "bf16", "embed_assign")
+
+
+@pytest.mark.parametrize("kind", ["rff", "rbf"])
+def test_embed_bf16_ties_and_empty_clusters_at_fig5_width(cuda, kind):
+    """At m = 320 over rows off the row block: two identical centroids tie
+    bitwise (the lower index wins), an empty cluster (+1e30) is never
+    chosen, even with a zero centroid."""
+    x = _rand((1001, 784), 39, cuda)
+    fmap = _bf16_embed_map(kind, x, 320)
+    a, b = _rand((2, 320), 40, cuda) * 320 ** -0.5
+    lab, _ = ops.embed_assign(x, fmap, torch.stack([a, b, a]),
+                              torch.ones(3, device=cuda), precision="bf16")
+    assert int(lab.max()) <= 1 and bool((lab == 0).any())
+    lab, score = ops.embed_assign(
+        x, fmap, torch.stack([a, torch.zeros_like(a), b]),
+        torch.tensor([5.0, 0.0, 3.0], device=cuda), precision="bf16")
+    assert not bool((lab == 1).any()) and float(score.max()) < 1e29
+
+
+def test_embed_bf16_rff_at_large_phases(cuda):
+    """At gamma 4 and D = 784, |x.w + b| reaches tens of pi: the
+    full-range cosine keeps the bf16 body within 1e-4 of the plain version
+    on the same bf16 tiles."""
+    x = _rand((1001, 784), 41, cuda)
+    fmap = make_rff(torch.Generator().manual_seed(0), 784, 320,
+                    KernelSpec("rbf", gamma=4.0), device=cuda)
+    arg = (x.to(torch.bfloat16).float() @ fmap.w.to(torch.bfloat16).float().T
+           + fmap.b[None])
+    assert float(arg.abs().max()) > 20 * np.pi
+    centroids = _rand((10, 320), 42, cuda) * 320 ** -0.5
+    _check_assignment(x, fmap, centroids, torch.ones(10, device=cuda), "bf16",
+                      "embed_assign")
+
+
+@pytest.mark.parametrize("step", [256, 1024], ids=["reduced", "past"])
+def test_embed_bf16_rff_cosine_at_exact_arguments(cuda, step):
+    """One-hot rows make x.w a single bf16 product, exact in any order, so
+    kernel and plain version take the cosine of the same f32 arguments
+    x.w + b: up to 65,280 (within the reduced cosine's range, where the
+    body's tiles take it without a branch) and up to 261,120 (most past
+    it, where a tile falls back to the library's cosf)."""
+    from repro_torch import convert
+    n, d, m, c = 1000, 16, 200, 10
+    rng = np.random.default_rng(45)
+    x = np.zeros((n, d), np.float32)
+    x[np.arange(n), np.arange(n) % d] = 1.0
+    w = (rng.integers(-255, 256, (m, d)) * step).astype(np.float32)
+    b = rng.uniform(0.0, 2 * np.pi, m).astype(np.float32)
+    fmap = convert.feature_map_from_numpy(
+        "rff", {"w": w, "b": b}, {"scale": (2.0 / m) ** 0.5}, cuda)
+    centroids = _rand((c, m), 46, cuda) * m ** -0.5
+    _check_assignment(torch.from_numpy(x).to(cuda), fmap, centroids,
+                      torch.ones(c, device=cuda), "bf16", "embed_assign")
+
+
+@pytest.mark.parametrize("kind", ["rff", "rbf"])
+def test_embed_bf16_is_bitwise_repeatable(cuda, kind):
+    """The splits of the w axis are summed in a fixed order: two launches
+    give the same bits (m = 700: three splits)."""
+    x = _rand((2000, 784), 43, cuda)
+    fmap = _bf16_embed_map(kind, x, 700)
+    centroids = _rand((10, 700), 44, cuda)
+    one, two = (ops.embed_assign(x, fmap, centroids, precision="bf16")
+                for _ in range(2))
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+
+
+@pytest.mark.parametrize("kind", EMBED_BF16_KINDS)
+def test_embed_bf16_occupancy(cuda, kind):
+    """Two CTAs of the bf16 body share an SM at C = 10 for every epilogue,
+    RFF's cosine included (at most 128 registers a thread), one at 256
+    clusters."""
+    from repro_torch.kernels.embed_assign import ctas_per_sm
+    index = torch.cuda.current_device()
+    assert ctas_per_sm(16, kind, index) == 2
+    assert ctas_per_sm(256, kind, index) == 1
+
+
 @pytest.mark.parametrize("prec", PRECS)
 @pytest.mark.parametrize("shape", SKETCH_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))

@@ -426,6 +426,66 @@ def test_embed_f32_row_block_fills_whole_waves():
     assert f32_geometry(13) == (20, 128)
 
 
+def test_embed_bf16_split_at_fig5():
+    """The bf16 body splits the w axis as assign bf16 splits its
+    landmarks: at Fig.5's 60,000 x 784 -> 320 (3 tiles of 128, two a split
+    at least) one split, 469 CTAs; a wide map splits where the row blocks
+    alone would not fill the card."""
+    from repro_torch.kernels.assign import BF16, landmark_splits
+    assert landmark_splits(60000, 320, 132, 2, BF16) == 1
+    assert -(-60000 // BF16.bm) == 469
+    assert landmark_splits(1000, 3000, 132, 2, BF16) > 1
+
+
+@pytest.mark.parametrize("map_kind", ["rff", "rbf", "cosine"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_embed_assign_launch_passes_no_norms(monkeypatch, map_kind, dtype):
+    """The launcher hands the kernel no row norms: rff its phases and no
+    scratch, a Mercer kind no phases and a scratch of n + M that the launch
+    sums |x|^2 and |w|^2 into. The bf16 body also gets the split count
+    landmark_splits chooses for it and a scratch of [splits, n, Cp] (none
+    for one split, whose argmin the kernel takes)."""
+    from repro_torch.kernels import embed_assign as ea
+    from repro_torch.kernels.assign import BF16, landmark_splits
+    seen = []
+    monkeypatch.setattr(build, "launch", lambda entry, *a: seen.append(
+        (entry, a)))
+    monkeypatch.setattr(ea, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(ea, "ctas_per_sm", lambda cp, kind, index: 2)
+    n, d, cp = 1000, 8, 16
+    for m, splits in ((700, 3), (320, 1)):
+        assert landmark_splits(n, m, 132, 2, BF16) == splits
+        b = torch.zeros(m) if map_kind == "rff" else None
+        ea.embed_assign_cuda(torch.zeros(n, d, dtype=dtype),
+                             torch.zeros(m, d, dtype=dtype), b,
+                             torch.zeros(m, cp), torch.zeros(cp),
+                             map_kind=map_kind, gamma=1.0, coef0=1.0,
+                             degree=3, scale=1.0)
+        entry, args = seen.pop()
+        assert entry == ea._ENTRY[dtype]
+        assert (args[2] == 0) == (map_kind != "rff")     # the phases
+        assert (args[3] == 0) == (map_kind == "rff")     # the norm scratch
+        if dtype == torch.float32:
+            assert args[8:12] == (n, m, d, cp)
+            assert args[-2:] == ea.f32_geometry(m)
+        else:
+            assert (args[8] == 0) == (splits == 1)       # the partial F
+            assert args[9:14] == (n, m, d, cp, splits)
+            assert args[14] == ea.MAP_KINDS[map_kind]
+
+
+def test_embed_assign_launch_checks_its_phases():
+    """rff needs its phases and a Mercer kind takes none."""
+    from repro_torch.kernels import embed_assign as ea
+    x, w, v = torch.zeros(4, 8), torch.zeros(3, 8), torch.zeros(3, 16)
+    for map_kind, b in (("rff", None), ("rbf", torch.zeros(3))):
+        with pytest.raises(ValueError, match="phases"):
+            ea.embed_assign_cuda(x, w, b, v, torch.zeros(16),
+                                 map_kind=map_kind, gamma=1.0, coef0=1.0,
+                                 degree=3, scale=1.0)
+
+
 def _bf16(*shape):
     return torch.zeros(*shape, dtype=torch.bfloat16)
 
@@ -663,15 +723,11 @@ def test_kernel_matrix_launch_passes_norms_by_route(monkeypatch, n, prec):
     monkeypatch.setattr(km, "ctas_per_sm", lambda dtype, kind, index: 2)
     before = dict(ops.LAUNCHES)
     x, y = torch.randn(50, 16), torch.randn(n, 16)
-    sq = []
-    real = ops._sqnorms
-    monkeypatch.setattr(ops, "_sqnorms", lambda a: sq.append(a.shape[0])
-                        or real(a))
     out = ops.kernel_matrix(x, y, kind="rbf", precision=prec)
     (entry, args), = seen
     dt = "bf16" if prec == "bf16" else "f32"
     column = n <= km.NCOL_MAX
-    assert out.shape == (50, n) and sq == []
+    assert out.shape == (50, n)
     if column:
         assert entry == f"rt_kernel_matrix_col_{dt}"
         assert args[2:6] == (out.data_ptr(), 50, n, 16)
