@@ -48,19 +48,43 @@ Phases, in order; any failure exits non-zero without the final line:
      ragged and small shapes (S 1, 100, 1000; dh 16 and 64; non-causal
      Sk 256); on the OLMo shape the plain output must differ from uniform
      attention (the running mean of v) by more than 10x the bf16 limit;
+     and the shapes of the landmark selectors and of serving: RLS's pilot
+     Gram at Fig.5's [60000, 320] x 784 rbf (tile body), and at every
+     bucket M in (1, 8, 64, 512) ``ops.predict_assign`` on frozen
+     artifacts (``serving.freeze_map``: embed_assign rff and Nystrom rbf
+     784 -> 320, C = 10, sketch_assign 256 -> 128, C = 50, f32 and bf16)
+     and the exact kind's ``ops.kernel_matrix`` column body at [M, 10] x
+     784, each against its plain version with the bucket's last quarter
+     filled with rows of 1e6 that must change no real label, timed;
   4. drive the exact mini-batch fit through ``fit_dataset``: run A (B=4,
-     s=1, fused, f32), run B (B=4, s=0.2, fused and materialize, f32) and
+     s=1, fused, f32) and its repeat (the first fit of phase 4 pays the
+     process's one-time costs), run B (B=4, s=0.2, fused and materialize, f32) and
      run C (as B fused, bf16); the embedded fits D-rff, D-nystrom (Fig.5,
      B=1, m=320, f32) and D-rff-bf16, each labelling the test rows with
      ``FitResult.predict`` and the 60,000 training rows with
      ``predict_embedded``; E-sketch, its repeat (which must match it
      bitwise) and E-sketch-bf16 (Tab.2's count sketch on the dense 256-d
-     RCV1 view, B=4, m=128, C=50, linear); the launch counters are zeroed
-     before each run and read after it, and each run prints how many of
-     its kernel_matrix launches took the column body (in runs A-C every
-     k-means++ and Eq.8 / predict launch must); then small fits on the card
-     against
-     the same fits on the CPU; then LM serving of OLMo-1B at full width
+     RCV1 view, B=4, m=128, C=50, linear); A-rls (as B fused with
+     ``selector="rls"``), D-nystrom-rls and D-nystrom-kpp (D-nystrom with
+     those selectors), each at test NMI >= 0.9; the launch counters are
+     zeroed before each run and read after it, and each run prints how
+     many of its kernel_matrix launches took the column body (in runs A-C
+     every k-means++ and Eq.8 / predict launch must; only materialize's
+     Gram builds and RLS's two Grams a batch take the tile body);
+     ``FitResult.predict`` labels through the serving ladder of 512-row
+     buckets, and each run prints its fit and labelling seconds apart; then small fits on the card against the same fits on the
+     CPU; then run G, assignment serving: the A fit (exact), D-rff,
+     D-nystrom and E-sketch frozen at f32 and D-rff-bf16 at bf16, each
+     served by an ``AssignService`` (one captured CUDA graph per bucket, 4
+     each) on its test rows as a seeded ragged mix of requests of 1-700
+     rows, labels bitwise equal to ``FitResult.predict``'s eager launches
+     of the same buckets (the bf16 artifact: to the offline bucketed
+     predict at bf16); then ``launch/serve_bench.py``'s open loop on the
+     D-rff service (200 requests of 1 and of 64 rows at 100 and 500
+     offered requests/s, the reference benchmark's rates; the eager
+     offline predict in the same loop beside it), p50/p99 ms and rows/s
+     printed with the card's name and power limit; then LM
+     serving of OLMo-1B at full width
      (16 layers, d_model 2048, vocab 50,304; bf16 weights from a
      torch.Generator of seed 0) through ``get_model`` and ``ServingEngine``
      (8 slots, max_len 4096, 32 greedy tokens, 16 requests of 256-2048
@@ -137,6 +161,13 @@ SWEEP_DIMS = (20, 80, 160)       # more of its m, timed at f32 (rff)
 # Tab.2 (benchmarks/tab2_rcv1.py:58-70, 176-186): RCV1, 50 classes, the
 # selector column's count sketch at m = 128, B = 4
 RCV1_TRAIN, RCV1_TEST, RCV1_C, SKETCH_DIM = 188000, 5844, 50, 128
+# assignment serving (run G): the bucket ladder (serving.DEFAULT_BUCKETS),
+# the largest request of the ragged mix, and serve_bench's open loop:
+# offered rates (requests/s) and requests per cell, at 1 and 64 rows (the
+# rates and count of benchmarks/serve_bench.py:86-88, full mode)
+BUCKETS = (1, 8, 64, 512)
+G_REQUEST_MAX = 700
+BENCH_QPS, BENCH_REQUESTS = (100.0, 500.0), 200
 
 
 class SmokeFailure(RuntimeError):
@@ -920,6 +951,281 @@ def flash_checks(torch, mods):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the landmark selectors' and the serving buckets' shapes
+# ---------------------------------------------------------------------------
+
+
+def bucket_call(mods, art, xp, *, plain=False):
+    """(labels, score) of one bucket of a fused artifact, as
+    ``serving.assign.run_bucket`` launches it (``ops.predict_assign``), or
+    from its plain version ``ref.predict_assign_ref``."""
+    a, s, rt = art.arrays, art.statics, art.runtime
+    if art.kind == "sketch":
+        args = (a["h"], a["sign"], a["v"], a["csq"])
+        kw = dict(map_kind="sketch")
+    else:
+        args = (a["w"], rt.get("b", a["aux"]), a["v"], a["csq"])
+        kw = {k: s[k] for k in ("map_kind", "gamma", "coef0", "degree",
+                                "scale")}
+    if plain:
+        p = mods["precision"].resolve_precision(art.precision)
+        return mods["ref"].predict_assign_ref(p.cast_tiles(xp), *args,
+                                              precision=art.precision, **kw)
+    return mods["ops"].predict_assign(xp, *args, precision=art.precision,
+                                      tables=rt.get("tables"), **kw)
+
+
+def garbage_tail(torch, x, bucket):
+    """(rows of a bucket whose last quarter is rows of 1e6, the same bucket
+    zero-padded, the real rows)."""
+    real = max(1, bucket * 3 // 4)
+    xp = x[:bucket].clone()
+    xp[real:] = 1e6
+    clean = x[:bucket].clone()
+    clean[real:] = 0.0
+    return xp, clean, real
+
+
+def check_bucket(torch, mods, art, x, bucket):
+    """ops.predict_assign at a bucket shape (the serving hot path) against
+    its plain version on the same rows, with a garbage tail that must
+    change no real label; timed on f32 rows (the wrapper's cast
+    included)."""
+    ref = mods["ref"]
+    p = mods["precision"].resolve_precision(art.precision)
+    sketch = art.kind == "sketch"
+    name = "sketch_assign" if sketch else "embed_assign"
+    check(x.shape[0] >= bucket, f"{x.shape[0]} rows for bucket {bucket}")
+    xp, clean, real = garbage_tail(torch, x, bucket)
+    (lab, score), (lab_p, score_p) = (bucket_call(mods, art, xp),
+                                      bucket_call(mods, art, xp, plain=True))
+    lab_clean = bucket_call(mods, art, clean)[0]
+    torch.cuda.synchronize()
+    a, st = art.arrays, art.statics
+    xc = p.cast_tiles(xp)
+    if sketch:
+        full = ref.sketch_score_ref(xc, a["h"], a["sign"], a["v"], a["csq"],
+                                    precision=p.tile)
+    else:
+        full = ref.embed_score_ref(
+            xc, a["w"], a["v"], a["csq"], b=art.runtime.get("b"),
+            precision=p.tile, **{k: st[k] for k in ("map_kind", "gamma",
+                                                    "coef0", "degree",
+                                                    "scale")})
+    err, rel = normwise(torch, score[:real], score_p[:real])
+    bad, near = label_mismatches(torch, lab[:real], lab_p[:real],
+                                 full[:real])
+    trap = bool(torch.equal(lab[:real], lab_clean[:real]))
+    n, d, m, c = bucket, art.in_dim, art.dim, art.n_clusters
+    xf, v, csq = xp.float(), a["v"], a["csq"]
+    if sketch:
+        h, sgn = a["h"].long(), a["sign"].float()
+
+        def library():
+            z = torch.zeros(n, m, device=x.device).index_add_(
+                1, h, xf * sgn[None])
+            sc = csq[None] - 2.0 * (z @ v)
+            return torch.argmin(sc, dim=1), torch.amin(sc, dim=1)
+        flops = [("f32", 2.0 * n * m * c + n * d)]
+        nbytes = (n * d * p.tile_itemsize + d * (4 + p.sign_dtype.itemsize)
+                  + (m + 1) * 4 + (m + 1) * c * 4 + n * 8)
+    else:
+        wf = a["w"].float()
+        wsq = torch.sum(wf * wf, dim=1)
+        b = art.runtime.get("b")
+
+        def library():
+            e = xf @ wf.T
+            if st["map_kind"] == "rff":
+                e = st["scale"] * torch.cos(e + b)
+            else:      # nystrom rbf
+                d2 = torch.sum(xf * xf, 1)[:, None] + wsq[None] - 2.0 * e
+                e = torch.exp(-st["gamma"] * d2.clamp_(min=0.0))
+            sc = csq[None] - 2.0 * (e @ v)
+            return torch.argmin(sc, dim=1), torch.amin(sc, dim=1)
+        flops = [(p.tile, 2.0 * n * m * d), ("f32", 2.0 * n * m * c)]
+        nbytes = ((n + m) * d * p.tile_itemsize + (n + m) * 4
+                  + (m + 1) * c * 4 + n * 8)
+    rec = {"kernel": name, "map": art.kind if sketch or st["map_kind"] ==
+           "rff" else f"nystrom-{st['map_kind']}", "shape": [n, d, m],
+           "C": c, "prec": art.precision, "tag": f"bucket-{bucket}",
+           "real_rows": real, "max_abs_err": err, "rel_err": rel,
+           "tol": TOL[name], "label_mismatch": bad, "near_ties": near,
+           "garbage_tail_changes_no_label": trap,
+           "ms": time_ms(torch, lambda: bucket_call(mods, art, xp), 20),
+           "plain_ms": time_ms(torch, lambda: bucket_call(mods, art, xp,
+                                                          plain=True), 20),
+           "library_ms": time_ms(torch, library, 20)}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes)
+    print("check", json.dumps(rec))
+    what = f"{name} {rec['map']} {art.precision} bucket {bucket}"
+    check(rel <= TOL[name], f"{what}: rel err {rel:.3g} > {TOL[name]}")
+    check(bad == 0, f"{what}: {bad} labels differ outside near-ties")
+    check(trap, f"{what}: the garbage tail changed a real label")
+    return rec
+
+
+def serving_checks(torch, mods, x_tr, y_tr, x_te, gamma, x_rcv, y_rcv,
+                   xr_te):
+    """The shapes this slice adds: RLS's tile-body Gram at Fig.5's
+    [60000, 320] x 784 rbf (the pilot's K(X, S)), timed; then at every
+    bucket (1, 8, 64, 512) the fused serving kernels on frozen artifacts
+    (embed_assign rff and Nystrom rbf at 784 -> 320, C = 10; sketch_assign
+    at Tab.2's 256 -> 128, C = 50; f32 and bf16) and the exact kind's
+    kernel_matrix column body at [M, 10] x 784 rbf, each against its plain
+    version with a garbage tail."""
+    approx, core, serving = mods["approx"], mods["core"], mods["serving"]
+    sel = mods["selectors"]
+    dev = x_tr.device
+    spec = core.KernelSpec("rbf", gamma=gamma)
+    n = x_tr.shape[0]
+    pilot = sel.RLSSelector.pilot_indices(
+        sel.keyed_uniform(0, 1, torch.arange(n, device=dev)), EMBED_DIM)
+    recs = [check_kernel_matrix(torch, mods, x_tr, x_tr[pilot], "rbf",
+                                gamma, "f32", timed=True)]
+    check(recs[0]["body"] == "tile", "the RLS Gram took the column body")
+    maps = [approx.make_rff(torch.Generator().manual_seed(3), x_tr.shape[1],
+                            EMBED_DIM, spec, device=dev),
+            approx.make_nystrom(torch.Generator().manual_seed(4), x_tr,
+                                EMBED_DIM, spec),
+            approx.make_count_sketch(torch.Generator().manual_seed(5),
+                                     x_rcv.shape[1], SKETCH_DIM,
+                                     core.KernelSpec("linear"), device=dev)]
+    for fmap in maps:
+        x, y, c, rows = ((x_rcv, y_rcv, RCV1_C, xr_te) if fmap.kind ==
+                         "sketch" else (x_tr, y_tr, 10, x_te))
+        cents, counts = class_means(torch, fmap(x), y, c)
+        for prec in ("f32", "bf16"):
+            art = serving.freeze_map(fmap, cents, counts, precision=prec)
+            for bucket in BUCKETS:
+                recs.append(check_bucket(torch, mods, art, rows, bucket))
+    medoids = x_tr[:10]
+    for bucket in BUCKETS:
+        xp, clean, real = garbage_tail(torch, x_te, bucket)
+        rec = check_kernel_matrix(torch, mods, xp, medoids, "rbf", gamma,
+                                  "f32", timed=True)
+        check(rec["body"] == "column", f"bucket {bucket}: the exact kind's "
+                                       f"K took the {rec['body']} body")
+        diag = spec.diag(medoids)
+        labs = [core.predict(z, medoids, diag, spec=spec,
+                             device=z.device)[:real]
+                for z in (xp, clean)]
+        check(bool(torch.equal(*labs)), f"exact bucket {bucket}: the "
+                                        f"garbage tail changed a real label")
+        recs.append(rec)
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: run G, assignment serving off frozen artifacts
+# ---------------------------------------------------------------------------
+
+
+def ragged_requests(np, n: int, seed: int) -> list:
+    """Cut n rows into requests of 1..G_REQUEST_MAX rows: [(start, rows)]."""
+    rng = np.random.default_rng(seed)
+    out, start = [], 0
+    while start < n:
+        take = min(int(rng.integers(1, G_REQUEST_MAX + 1)), n - start)
+        out.append((start, take))
+        start += take
+    return out
+
+
+def serve_requests(svc, x, requests):
+    """Submit every request, drain, return (labels by request, wall s)."""
+    t0 = time.perf_counter()
+    uids = [svc.submit(x[a:a + k]) for a, k in requests]
+    done = svc.drain()
+    return [done[u] for u in uids], time.perf_counter() - t0
+
+
+def run_g(torch, np, mods, fits, x_te, xr_te):
+    """Freeze the A fit (exact), D-rff, D-nystrom and E-sketch at f32 and
+    D-rff-bf16 at bf16; serve each fit's test rows as a seeded ragged mix
+    of requests of 1-700 rows through an AssignService (one captured CUDA
+    graph per bucket). Every request is in the queue before the first
+    tick, so FIFO packing fills the ticks with the rows and buckets of the
+    offline predict's chunks: the labels must equal FitResult.predict's
+    bitwise (the bf16 artifact: the offline predict at bf16), which
+    launches the same buckets eagerly. Returns {(kernel, tile dtype or
+    body): launches} of the services and the D-rff service for
+    serve_bench."""
+    ops, ref, serving = mods["ops"], mods["ref"], mods["serving"]
+    launches = {}
+    keep = None
+    for name, prec in (("A", "f32"), ("D-rff", "f32"), ("D-nystrom", "f32"),
+                       ("E-sketch", "f32"), ("D-rff-bf16", "bf16")):
+        res = fits[name]
+        x = xr_te if name == "E-sketch" else x_te
+        art = serving.freeze(res, precision=prec)
+        requests = ragged_requests(np, len(x), seed=len(name))
+        cfg = serving.AssignServeConfig(max_queue_rows=len(x))
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        for k in ref.CALLS:
+            ref.CALLS[k] = 0
+        torch.cuda.synchronize()
+        svc = serving.AssignService(art, cfg)
+        got, wall = serve_requests(svc, x, requests)
+        counts, calls = dict(ops.LAUNCHES), dict(ref.CALLS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        offline = (res.predict(x) if prec == "f32" else
+                   serving.predict_frozen(art, x)).cpu().numpy()
+        wall_eager = time.perf_counter() - t0
+        same = np.array_equal(np.concatenate(got), offline)
+        kernel = {"exact": "kernel_matrix", "sketch": "sketch_assign"}.get(
+            art.kind, "embed_assign")
+        body = "column" if art.kind == "exact" else prec
+        launches[kernel, body] = launches.get((kernel, body), 0) + \
+            counts[kernel]
+        rec = {"run": f"G-{name}", "kind": art.kind, "precision": prec,
+               "requests": len(requests), "rows": len(x),
+               "programs": svc.compiled_programs,
+               "warm_s": svc.warm_seconds, "wall_s": wall,
+               "rows_per_s": len(x) / wall, "eager_wall_s": wall_eager,
+               "artifact_bytes": serving.artifact_nbytes(art),
+               "equal_to_predict": same,
+               "launches": counts, "plain_calls": calls}
+        print("run", json.dumps(rec))
+        check(svc.compiled_programs == len(BUCKETS),
+              f"run G-{name}: {svc.compiled_programs} graphs")
+        check(same, f"run G-{name}: the graph replays' labels differ from "
+                    f"FitResult.predict's eager launches")
+        check(counts[kernel] > 0, f"run G-{name}: {kernel} never launched")
+        check(all(v == 0 for v in calls.values()),
+              f"run G-{name}: a plain version ran on the card: {calls}")
+        if name == "D-rff":
+            keep = svc
+    return launches, keep
+
+
+def serve_bench_run(torch, mods, svc):
+    """serve_bench's open loop on the D-rff service: BENCH_REQUESTS
+    requests of 1 and of 64 rows at each of BENCH_QPS, the reference
+    benchmark's rates; then the same loop labelling each request on
+    arrival with the eager offline predict, beside it."""
+    bench = mods["serve_bench"].bench
+    rec = bench(svc, qps_levels=BENCH_QPS, row_sizes=(1, 64),
+                n_req=BENCH_REQUESTS)
+    rec_eager = bench(svc, qps_levels=BENCH_QPS, row_sizes=(1, 64),
+                      n_req=BENCH_REQUESTS, eager=True)
+    card = card_line()
+    for what, r in (("graphs", rec), ("eager", rec_eager)):
+        for name, cell in r["cells"].items():
+            print(f"serve_bench {what} {name}: p50 {cell['p50_ms']!r} ms, "
+                  f"p99 {cell['p99_ms']!r} ms, {cell['rows_per_s']!r} "
+                  f"rows/s (compute p50 {cell['compute_p50_ms']!r} ms; "
+                  f"{card})")
+    print("serve_bench", json.dumps(rec))
+    print("serve_bench eager", json.dumps(rec_eager))
+    check(rec["compiled_programs"] == len(BUCKETS),
+          f"serve_bench: {rec['compiled_programs']} graphs")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
@@ -933,10 +1239,17 @@ def run_fit(torch, mods, name, cfg, x_tr, x_te, y_te):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = core.fit_dataset(x_tr, cfg)
-    labels = res.predict(x_te).cpu().numpy()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    labels = res.predict(x_te).cpu().numpy()
+    t2 = time.perf_counter()
     launches, calls = dict(ops.LAUNCHES), dict(ref.CALLS)
+    # the one-launch labelling FitResult.predict made before it went
+    # through the serving ladder, timed beside it (after the counters)
+    t3 = time.perf_counter()
+    one_call = core.predict(x_te, res.state.medoids, res.state.medoid_diag,
+                            spec=cfg.kernel, device="cuda").cpu().numpy()
+    one_call_s = time.perf_counter() - t3
     medoids = res.state.medoids
     check(tuple(medoids.shape) == (cfg.n_clusters, x_tr.shape[1])
           and bool(torch.isfinite(medoids).all()),
@@ -945,7 +1258,11 @@ def run_fit(torch, mods, name, cfg, x_tr, x_te, y_te):
           and labels.max() < cfg.n_clusters, f"run {name}: bad test labels")
     iters = [h.inner_iters for h in res.history]
     rec = {"run": name, "engine": cfg.engine, "precision": cfg.precision,
-           "B": cfg.n_batches, "s": cfg.s, "wall_s": wall,
+           "selector": mods["selectors"].name_of(cfg.selector),
+           "B": cfg.n_batches, "s": cfg.s, "wall_s": t2 - t0,
+           "fit_s": t1 - t0, "label_s": t2 - t1,
+           "label_one_call_s": one_call_s,
+           "label_one_call_equal": bool((one_call == labels).all()),
            "inner_iters": iters, "max_inner_iters": cfg.max_inner_iters,
            "acc": core.clustering_accuracy(y_te, labels),
            "nmi": core.nmi(y_te, labels), "launches": launches,
@@ -953,7 +1270,7 @@ def run_fit(torch, mods, name, cfg, x_tr, x_te, y_te):
     print("run", json.dumps(rec))
     check(all(v == 0 for v in calls.values()),
           f"run {name}: a plain version ran on the card: {calls}")
-    return rec, labels
+    return rec, labels, res
 
 
 def run_embedded(torch, mods, name, cfg, x_tr, y_tr, x_te, y_te):
@@ -967,13 +1284,20 @@ def run_embedded(torch, mods, name, cfg, x_tr, y_tr, x_te, y_te):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = core.fit_dataset(x_tr, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     labels = res.predict(x_te).cpu().numpy()     # at f32 tiles, always
+    t2 = time.perf_counter()
     at_predict = dict(ops.LAUNCHES)
     labels_tr = mods["approx"].predict_embedded(
         x_tr, res.state, res.fmap, precision=cfg.precision).cpu().numpy()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, calls = dict(ops.LAUNCHES), dict(ref.CALLS)
+    t3 = time.perf_counter()          # the one-launch labelling, as run_fit
+    one_call = mods["approx"].predict_embedded(
+        x_te, res.state, res.fmap, precision="f32").cpu().numpy()
+    one_call_s = time.perf_counter() - t3
     kernel = "sketch_assign" if cfg.method == "sketch" else "embed_assign"
     # the launches of each body: predict's at f32, the training rows' at
     # the run's tile dtype
@@ -990,7 +1314,11 @@ def run_embedded(torch, mods, name, cfg, x_tr, y_tr, x_te, y_te):
         check(len(lab) == len(ys) and lab.min() >= 0
               and lab.max() < cfg.n_clusters, f"run {name}: bad labels")
     rec = {"run": name, "method": cfg.method, "m": m,
+           "selector": mods["selectors"].name_of(cfg.selector),
            "precision": cfg.precision, "B": cfg.n_batches, "wall_s": wall,
+           "fit_s": t1 - t0, "label_s": t2 - t1,
+           "label_one_call_s": one_call_s,
+           "label_one_call_equal": bool((one_call == labels).all()),
            "inner_iters": [h.inner_iters for h in res.history],
            "max_inner_iters": cfg.max_inner_iters,
            "acc": core.clustering_accuracy(y_te, labels),
@@ -1213,7 +1541,9 @@ def main(argv=None) -> int:
                 ("kernel_ab", "launch.kernel_ab"),
                 ("core", "core"), ("synthetic", "data.synthetic"),
                 ("approx", "approx"), ("configs", "configs"),
-                ("models", "models"), ("serving", "serving")]}
+                ("models", "models"), ("serving", "serving"),
+                ("selectors", "approx.selectors"),
+                ("serve_bench", "launch.serve_bench")]}
     core = mods["core"]
 
     # -- phase 1: the card --------------------------------------------------
@@ -1264,6 +1594,13 @@ def main(argv=None) -> int:
         torch.as_tensor(y_tr, device="cuda"), gamma,
         torch.as_tensor(xr_tr, device="cuda"),
         torch.as_tensor(yr_tr, device="cuda"))
+    recs += serving_checks(
+        torch, mods, torch.as_tensor(x_tr, device="cuda"),
+        torch.as_tensor(y_tr, device="cuda"),
+        torch.as_tensor(x_te, device="cuda"), gamma,
+        torch.as_tensor(xr_tr, device="cuda"),
+        torch.as_tensor(yr_tr, device="cuda"),
+        torch.as_tensor(xr_te, device="cuda"))
     recs += flash_checks(torch, mods)
     torch.cuda.empty_cache()
     print(f"kernel checks: {len(recs)} passed ({time.perf_counter() - t0:.1f} s)")
@@ -1276,15 +1613,19 @@ def main(argv=None) -> int:
     bodies = {("assign_fused", "f32"): 0, ("assign_fused", "bf16"): 0,
               ("kernel_matrix", "column"): 0}
     iters = 0
-    runs = {}
+    runs, fits = {}, {}
     for name, kw in [("A", dict(s=1.0, engine="fused")),
+                     ("A-repeat", dict(s=1.0, engine="fused")),
                      ("B-fused", dict(s=0.2, engine="fused")),
                      ("B-materialize", dict(s=0.2, engine="materialize")),
-                     ("C", dict(s=0.2, engine="fused", precision="bf16"))]:
-        rec, labels = run_fit(torch, mods, name,
-                              core.MiniBatchConfig(**base, **kw),
-                              x_tr, x_te, y_te)
+                     ("C", dict(s=0.2, engine="fused", precision="bf16")),
+                     ("A-rls", dict(s=0.2, engine="fused", selector="rls"))]:
+        rec, labels, res = run_fit(torch, mods, name,
+                                   core.MiniBatchConfig(**base, **kw),
+                                   x_tr, x_te, y_te)
         runs[name] = (rec, labels)
+        if name == "A":
+            fits[name] = res
         for k in totals:
             totals[k] += rec["launches"][k]
         bodies["assign_fused", rec["precision"]] += \
@@ -1293,18 +1634,21 @@ def main(argv=None) -> int:
             rec["launches"]["kernel_matrix_column"]
         iters += sum(rec["inner_iters"])
         # every k-means++ column and Eq.8 / predict block takes the column
-        # body; only materialize's Gram builds (one a batch) take the tile
+        # body; only materialize's Gram builds (one a batch) and RLS's
+        # K(X, pilot) and K_SS (two a batch) take the tile
         km, col = (rec["launches"]["kernel_matrix"],
                    rec["launches"]["kernel_matrix_column"])
         print(f"run {name}: kernel_matrix {km} launches, {col} on the "
               f"column body")
-        check(km - col == (base["n_batches"] if kw["engine"] == "materialize"
-                           else 0),
-              f"run {name}: {km - col} kernel_matrix launches took the tile "
-              f"body")
-    check(all(v > 0 for v in totals.values())
-          and all(v > 0 for v in bodies.values()),
-          f"a kernel never launched on the main path: {totals} {bodies}")
+        tile = base["n_batches"] * ((kw["engine"] == "materialize")
+                                    + 2 * (kw.get("selector") == "rls"))
+        check(km - col == tile, f"run {name}: {km - col} kernel_matrix "
+                                f"launches took the tile body, not {tile}")
+    a1, a2 = runs["A"][0], runs["A-repeat"][0]
+    print(f"run A then its repeat: fit {a1['fit_s']!r} / {a2['fit_s']!r} s, "
+          f"labelling {a1['label_s']!r} / {a2['label_s']!r} s")
+    check(runs["A-rls"][0]["nmi"] >= 0.9,
+          f"run A-rls: test NMI {runs['A-rls'][0]['nmi']} < 0.9")
     wall_f = runs["B-fused"][0]["wall_s"]
     wall_m = runs["B-materialize"][0]["wall_s"]
     print(f"B-fused wall {wall_f!r} s vs B-materialize {wall_m!r} s: "
@@ -1318,7 +1662,6 @@ def main(argv=None) -> int:
 
     # the embedded methods: Fig.5 (MNIST, rbf) and Tab.2 (RCV1 dense view)
     totals.update(embed_assign=0, sketch_assign=0)
-    fits = {}
     fig5 = dict(n_clusters=10, n_batches=1, kernel=spec, seed=0,
                 embed_dim=EMBED_DIM)
     tab2 = dict(n_clusters=RCV1_C, n_batches=4, seed=0, method="sketch",
@@ -1328,6 +1671,10 @@ def main(argv=None) -> int:
             ("D-nystrom", dict(fig5, method="nystrom"),
              (x_tr, y_tr, x_te, y_te)),
             ("D-rff-bf16", dict(fig5, method="rff", precision="bf16"),
+             (x_tr, y_tr, x_te, y_te)),
+            ("D-nystrom-rls", dict(fig5, method="nystrom", selector="rls"),
+             (x_tr, y_tr, x_te, y_te)),
+            ("D-nystrom-kpp", dict(fig5, method="nystrom", selector="kpp"),
              (x_tr, y_tr, x_te, y_te)),
             ("E-sketch", tab2, (xr_tr, yr_tr, xr_te, yr_te)),
             ("E-sketch-repeat", tab2, (xr_tr, yr_tr, xr_te, yr_te)),
@@ -1351,6 +1698,9 @@ def main(argv=None) -> int:
               f"run {name}: {kernel} never launched")
         for tile, n in rec["launches_by_tile"].items():
             bodies[kernel, tile] = bodies.get((kernel, tile), 0) + n
+    for name in ("D-nystrom-rls", "D-nystrom-kpp"):
+        check(runs[name][0]["nmi"] >= 0.9,
+              f"run {name}: test NMI {runs[name][0]['nmi']} < 0.9")
     nmi_d = core.nmi(runs["D-rff"][1], runs["D-rff-bf16"][1])
     nmi_e = core.nmi(runs["E-sketch"][1], runs["E-sketch-bf16"][1])
     print(f"NMI(D-rff-bf16, D-rff) {nmi_d!r}; NMI(E-sketch-bf16, E-sketch) "
@@ -1376,7 +1726,14 @@ def main(argv=None) -> int:
           and all(v > 0 for v in bodies.values()),
           f"a kernel never launched on the main path: {totals} {bodies}")
     small_reference_fit(torch, mods)
-    del fits, runs
+    t0 = time.perf_counter()
+    served, svc = run_g(torch, np, mods, fits, x_te, xr_te)
+    for (k, body), n in served.items():
+        totals[k] += n
+        bodies[k, body] = bodies.get((k, body), 0) + n
+    serve_bench_run(torch, mods, svc)
+    print(f"run G and serve_bench: {time.perf_counter() - t0:.1f} s")
+    del fits, runs, svc
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     flash_bf16, flash_f32 = serving_runs(torch, np, mods)

@@ -8,8 +8,8 @@ do not care which map they hold; ``core.minibatch`` dispatches on
 ``MiniBatchConfig.method``:
 
 * ``rff`` (+ ``rff_orthogonal``): random Fourier features, rbf only;
-* ``nystrom``: landmark embedding, any Mercer kernel (uniform landmarks in
-  this slice);
+* ``nystrom``: landmark embedding, any Mercer kernel; its landmarks come
+  from a selector (``selectors``: uniform, rls, kpp);
 * ``sketch``: count-sketch, linear kernel;
 * ``tensorsketch``: FFT composition of count-sketches, polynomial kernel.
 
@@ -25,6 +25,9 @@ from .embed_kmeans import (EmbedInnerResult, EmbedState, assign_embedded,
 from .nystrom import (NystromMap, make_nystrom, nystrom_features,
                       nystrom_from_landmarks, whiten_gram)
 from .rff import RFFMap, make_rff, rff_features
+from . import selectors
+from .selectors import (KPPSelector, LandmarkSelector, RLSSelector,
+                        SelectorState, UniformSelector, select_streaming)
 from .sketch import (CountSketchMap, TensorSketchMap, count_sketch_features,
                      make_count_sketch, make_tensor_sketch,
                      tensor_sketch_features)
@@ -38,10 +41,17 @@ def default_embed_dim(n_clusters: int) -> int:
 
 
 def make_feature_map(method: str, gen: torch.Generator, x_sample, m: int,
-                     spec, *, orthogonal: bool = False):
+                     spec, *, orthogonal: bool = False, selector=None):
     """Build a feature map from a dense sample (the first mini-batch) with
     the CPU generator ``gen``; the map's tables live on the sample's device.
-    The sketch maps read only the sample's column count."""
+    The sketch maps read only the sample's column count. ``selector`` picks
+    Nystrom's landmark rows; the other maps have none, so a non-uniform
+    selector with them is rejected rather than ignored."""
+    if method != "nystrom" and selectors.name_of(selector) != "uniform":
+        raise ValueError(
+            f"selector {selectors.name_of(selector)!r} only applies to "
+            f"landmark-based maps (method 'nystrom', or the exact path); "
+            f"method {method!r} is data-oblivious")
     d, dev = x_sample.shape[1], x_sample.device
     if method == "sketch":
         return make_count_sketch(gen, d, m, spec, device=dev)
@@ -50,7 +60,7 @@ def make_feature_map(method: str, gen: torch.Generator, x_sample, m: int,
     if method == "rff":
         return make_rff(gen, d, m, spec, orthogonal=orthogonal, device=dev)
     if method == "nystrom":
-        return make_nystrom(gen, x_sample, m, spec)
+        return make_nystrom(gen, x_sample, m, spec, selector=selector)
     raise ValueError(f"unknown feature-map method {method!r}; have {METHODS}")
 
 
@@ -61,6 +71,8 @@ __all__ = [
     "nystrom_from_landmarks", "whiten_gram",
     "CountSketchMap", "make_count_sketch", "count_sketch_features",
     "TensorSketchMap", "make_tensor_sketch", "tensor_sketch_features",
+    "LandmarkSelector", "UniformSelector", "RLSSelector", "KPPSelector",
+    "SelectorState", "select_streaming", "selectors",
     "EmbedState", "EmbedInnerResult", "assign_embedded", "fit_embedded",
     "lloyd_fit", "predict_embedded",
 ]

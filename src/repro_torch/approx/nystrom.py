@@ -9,16 +9,14 @@ Pick m landmarks L from a data sample and whiten the landmark Gram matrix,
 so that ``z(x) . z(y) = K(x, L) K_LL^+ K(L, y)``, the rank-m Nystrom
 approximation of the Gram matrix, for any Mercer kernel. The Gram blocks
 go through ``KernelSpec``, which is the ``kernel_matrix`` CUDA kernel on the
-card. This slice ports the uniform landmark selector only; the
-leverage-aware ones are rejected by ``core.landmarks.check_selector``.
+card. Which landmarks is a strategy (``approx.selectors``: uniform, rls,
+kpp).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
-
-from repro_torch.core.landmarks import choose_landmarks
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -70,13 +68,16 @@ def nystrom_from_landmarks(landmarks: torch.Tensor, spec, *,
 
 
 def make_nystrom(gen: torch.Generator, x: torch.Tensor, m: int, spec, *,
-                 eps: float = 1e-6) -> NystromMap:
-    """An m-landmark Nystrom map from the sample ``x`` [n, d], the landmarks
-    drawn uniformly without replacement by the CPU generator ``gen``."""
+                 eps: float = 1e-6, selector=None) -> NystromMap:
+    """An m-landmark Nystrom map from the sample ``x`` [n, d]. ``selector``
+    (a name or ``approx.selectors.LandmarkSelector``) picks the landmark
+    rows with the CPU generator ``gen``; ``None`` or "uniform" draws them
+    uniformly without replacement, as this function always did."""
+    from .selectors import resolve
     n = x.shape[0]
     if not 1 <= m <= n:
         raise ValueError(f"need 1 <= m <= n={n} landmarks, got m={m}")
-    idx = choose_landmarks(gen, n, m).to(x.device)
+    idx = resolve(selector).select_indices(gen, x, m, spec)
     return nystrom_from_landmarks(x[idx], spec, eps=eps)
 
 

@@ -21,29 +21,47 @@ import torch
 from .kernels import KernelSpec
 
 
-def kmeans_pp_indices(x: torch.Tensor, diag_k: torch.Tensor,
-                      gen: torch.Generator, *, n_clusters: int,
-                      spec: KernelSpec) -> torch.Tensor:
+class GeneratorDraws:
+    """k-means++'s draws from a CPU ``torch.Generator``: the first seed
+    uniformly, then each step's candidates by the inverse D^2 CDF (uniform
+    numbers mapped on the device; an all-zero distance vector, all rows
+    duplicates of the seeds, draws uniformly)."""
+
+    def __init__(self, gen: torch.Generator):
+        self.gen = gen
+
+    def first(self, n: int) -> int:
+        return int(torch.randint(n, (1,), generator=self.gen))
+
+    def candidates(self, mind2: torch.Tensor, n_cand: int) -> torch.Tensor:
+        w = torch.where((mind2 > 0).any(), mind2, torch.ones_like(mind2))
+        cdf = torch.cumsum(w.to(torch.float64), dim=0)
+        u = torch.rand(n_cand, generator=self.gen,
+                       dtype=torch.float64).to(mind2.device)
+        cands = torch.searchsorted(cdf, u * cdf[-1], right=True)
+        return torch.clamp(cands, max=mind2.shape[0] - 1)
+
+
+def kmeans_pp_indices(x: torch.Tensor, diag_k: torch.Tensor, gen, *,
+                      n_clusters: int, spec: KernelSpec) -> torch.Tensor:
     """Pick C seed indices from the batch ``x`` via greedy kernel
-    k-means++ -> [C] int64 on ``x``'s device."""
+    k-means++ -> [C] int64 on ``x``'s device. ``gen`` is a CPU generator,
+    or an object with ``GeneratorDraws``' two methods (a test hands in
+    another library's draws that way)."""
     n, dev = x.shape[0], x.device
+    draws = GeneratorDraws(gen) if isinstance(gen, torch.Generator) else gen
     diag_k = diag_k.to(torch.float32)
     n_cand = 2 + int(math.log(max(n_clusters, 1)))
 
     chosen = torch.zeros(n_clusters, dtype=torch.int64, device=dev)
-    chosen[0] = int(torch.randint(n, (1,), generator=gen))
+    chosen[0] = draws.first(n)
     mind2 = torch.full((n,), float("inf"), device=dev)
     for t in range(n_clusters - 1):
         c = chosen[t:t + 1]
         kc = spec(x, x[c])[:, 0]                                   # [n]
         d2 = torch.clamp(diag_k + diag_k[c] - 2.0 * kc, min=0.0)
         mind2 = torch.minimum(mind2, d2)
-        # candidates ~ mind2 by inverse CDF; all-zero (duplicates) -> uniform
-        w = torch.where((mind2 > 0).any(), mind2, torch.ones_like(mind2))
-        cdf = torch.cumsum(w.to(torch.float64), dim=0)
-        u = torch.rand(n_cand, generator=gen, dtype=torch.float64).to(dev)
-        cands = torch.searchsorted(cdf, u * cdf[-1], right=True)
-        cands = torch.clamp(cands, max=n - 1)
+        cands = draws.candidates(mind2, n_cand)
         # greedy: keep the candidate with the smallest resulting potential
         kc2 = spec(x, x[cands])                                    # [n, n_cand]
         d2c = torch.clamp(diag_k[:, None] + diag_k[cands][None, :] - 2.0 * kc2,

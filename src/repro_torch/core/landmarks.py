@@ -2,17 +2,15 @@
 
 The centroid expansion (Eq.14) is restricted to |L| landmarks per
 mini-batch, ``s = (|L| / N) * B`` (Eq.18), so ``s = 1`` is the exact
-mini-batch algorithm. The port has the paper's uniform selector so far;
-the leverage-aware ones (``rls``, ``kpp``) arrive with a later slice.
+mini-batch algorithm. *Which* |L| rows is a strategy
+(``repro_torch.approx.selectors``: uniform, rls, kpp), and
+``select_landmark_indices`` is the dispatch the mini-batch steps call.
 Draws come from a CPU ``torch.Generator``, so CPU and GPU runs of the same
-seed pick the same landmarks.
+seed pick the same uniform landmarks.
 """
 from __future__ import annotations
 
 import torch
-
-SELECTORS = ("uniform", "rls", "kpp")
-
 
 def num_landmarks(batch_size: int, s: float, *, n_clusters: int,
                   multiple_of: int = 1) -> int:
@@ -40,16 +38,9 @@ def num_landmarks(batch_size: int, s: float, *, n_clusters: int,
 
 
 def check_selector(selector) -> str:
-    """Validate a selector name; the non-uniform ones are a later slice."""
-    if selector not in SELECTORS:
-        raise ValueError(
-            f"unknown landmark selector {selector!r}; have {SELECTORS}")
-    if selector != "uniform":
-        raise NotImplementedError(
-            f"landmark selector {selector!r} is not ported yet: the "
-            f"leverage-aware selectors arrive with a later slice (ROADMAP "
-            f"Queue 1 item 5); use selector='uniform'")
-    return selector
+    """Validate a selector name or instance and return its name."""
+    from repro_torch.approx.selectors import name_of
+    return name_of(selector)
 
 
 def choose_landmarks(gen: torch.Generator, batch_size: int,
@@ -64,9 +55,13 @@ def choose_landmarks(gen: torch.Generator, batch_size: int,
     return torch.sort(idx).values
 
 
-def select_landmark_indices(gen: torch.Generator, batch_size: int,
-                            n_landmarks: int,
-                            selector: str = "uniform") -> torch.Tensor:
-    """Strategy-dispatched landmark indices for one mini-batch."""
-    check_selector(selector)
-    return choose_landmarks(gen, batch_size, n_landmarks)
+def select_landmark_indices(gen: torch.Generator, x: torch.Tensor,
+                            n_landmarks: int, spec,
+                            selector="uniform") -> torch.Tensor:
+    """Strategy-dispatched landmark indices for one mini-batch ``x``, on its
+    device. ``selector`` is a name or ``approx.selectors.LandmarkSelector``;
+    ``spec`` is the ``KernelSpec`` the leverage-aware ones score with.
+    ``uniform`` draws ``choose_landmarks(gen, ...)``; the others draw one
+    key from ``gen``."""
+    from repro_torch.approx.selectors import resolve
+    return resolve(selector).select_indices(gen, x, n_landmarks, spec)

@@ -24,7 +24,8 @@ previous state (``_first_batch_step``, ``_next_batch_step``).
 explicit m-dimensional feature space instead (``repro_torch.approx``): the
 map is drawn from the first batch with a CPU generator of ``seed`` alone
 (``map_generator``), every batch is embedded once, the inner loop is plain
-Lloyd, and ``FitResult.predict`` labels through the fused ``embed_assign`` /
+Lloyd, and ``FitResult.predict`` labels through the serving bucket ladder
+(``serving.assign.predict``) and the fused ``embed_assign`` /
 ``sketch_assign`` kernels.
 """
 from __future__ import annotations
@@ -60,7 +61,10 @@ class MiniBatchConfig:
     method: str = "exact"
     embed_dim: int = 0                   # m; 0 -> approx.default_embed_dim(C)
     rff_orthogonal: bool = False         # ORF variant (lower variance)
-    selector: str = "uniform"            # only "uniform" is ported so far
+    # landmark selection (approx.selectors): "uniform" | "rls" | "kpp" or a
+    # LandmarkSelector; for the paths that pick landmark rows, "exact"
+    # (Eq.14) and "nystrom" (the map's landmarks)
+    selector: object = "uniform"
     # Gram residency of the inner loop: "materialize" | "fused" | "tiled"
     # or a GramEngine (core/engine.py)
     engine: object = "materialize"
@@ -72,13 +76,12 @@ class MiniBatchConfig:
         if self.method not in self._METHODS:
             raise ValueError(
                 f"method must be one of {self._METHODS}, got {self.method!r}")
-        if self.selector != "uniform" and self.method not in ("exact",
-                                                               "nystrom"):
+        name = check_selector(self.selector)
+        if name != "uniform" and self.method not in ("exact", "nystrom"):
             raise ValueError(
-                f"selector {self.selector!r} only applies to landmark-based "
+                f"selector {name!r} only applies to landmark-based "
                 f"methods ('exact', 'nystrom'); method {self.method!r} has "
                 f"no landmarks")
-        check_selector(self.selector)
         eng = dataclasses.replace(resolve_engine(self.engine, self.precision),
                                   precision="f32")
         if eng != GramEngine() and self.method != "exact":
@@ -110,21 +113,22 @@ class FitResult(NamedTuple):
     spec: Optional[KernelSpec] = None
 
     def predict(self, x) -> torch.Tensor:
-        """Label new rows on the device the fit ran on: by nearest global
-        medoid, or for an embedded fit by nearest centroid through the fused
-        kernel at f32 tiles (the reference's predict freezes its artifact at
-        f32 whatever the fit's precision)."""
-        if self.fmap is not None:
-            from repro_torch.approx import predict_embedded
-            return predict_embedded(x, self.state, self.fmap,
-                                    precision="f32",
-                                    device=self.state.centroids.device)
-        if self.spec is None:
+        """Label new rows on the device the fit ran on -> [n] int32, by
+        nearest global medoid or, for an embedded fit, nearest centroid.
+        Routed through the serving bucket ladder, as the reference's is:
+        the result is frozen at f32 tiles whatever the fit's precision
+        (``serving.freeze``) and labelled by ``serving.assign.predict``, so
+        any row count runs on ``len(DEFAULT_BUCKETS)`` shapes. The freeze is
+        per call (a count sketch's artifact takes the fit map's tables and
+        gather programs); a long-lived service freezes once and holds an
+        ``AssignService``."""
+        if self.fmap is None and self.spec is None:
             raise ValueError(
                 "FitResult.spec is not set: exact-path prediction needs the "
                 "KernelSpec the model was fit with")
-        return predict(x, self.state.medoids, self.state.medoid_diag,
-                       spec=self.spec, device=self.state.medoids.device)
+        from repro_torch.serving.artifact import freeze
+        from repro_torch.serving.assign import predict as predict_frozen
+        return predict_frozen(freeze(self), x)
 
 
 def _generator(seq: np.random.SeedSequence) -> torch.Generator:
@@ -146,8 +150,8 @@ def map_generator(seed: int) -> torch.Generator:
 def draw_first(x: torch.Tensor, gen: torch.Generator, *,
                cfg: MiniBatchConfig, n_landmarks: int):
     """Batch 0's draws: (landmark indices, k-means++ seed indices)."""
-    l_idx = select_landmark_indices(gen, x.shape[0], n_landmarks,
-                                    cfg.selector).to(x.device)
+    l_idx = select_landmark_indices(gen, x, n_landmarks, cfg.kernel,
+                                    cfg.selector)
     seeds = kmeans_pp_indices(x, cfg.kernel.diag(x), gen,
                               n_clusters=cfg.n_clusters, spec=cfg.kernel)
     return l_idx, seeds
@@ -156,8 +160,8 @@ def draw_first(x: torch.Tensor, gen: torch.Generator, *,
 def draw_next(x: torch.Tensor, gen: torch.Generator, *,
               cfg: MiniBatchConfig, n_landmarks: int) -> torch.Tensor:
     """Batch i > 0's draw: landmark indices."""
-    return select_landmark_indices(gen, x.shape[0], n_landmarks,
-                                   cfg.selector).to(x.device)
+    return select_landmark_indices(gen, x, n_landmarks, cfg.kernel,
+                                   cfg.selector)
 
 
 def _inner(x, l_idx, diag_k, labels0, cfg: MiniBatchConfig) -> InnerResult:
@@ -293,7 +297,8 @@ def _fit_embedded(batches, cfg: MiniBatchConfig, *, state, checkpoint_cb,
         m = cfg.embed_dim or approx.default_embed_dim(cfg.n_clusters)
         fmap = approx.make_feature_map(cfg.method, map_generator(cfg.seed),
                                        first, m, cfg.kernel,
-                                       orthogonal=cfg.rff_orthogonal)
+                                       orthogonal=cfg.rff_orthogonal,
+                                       selector=cfg.selector)
         it = itertools.chain([first], it)
     est, history = approx.fit_embedded(
         it, fmap, n_clusters=cfg.n_clusters, max_iters=cfg.max_inner_iters,

@@ -1,8 +1,10 @@
 """Public wrappers of the kernels: ``kernel_matrix``, ``assign_fused`` and
-``gram_matvec`` (the port of ``repro/kernels/ops.py:98-192``), and
-``embed_assign`` / ``sketch_assign`` for the explicit feature maps (the port
-of ``repro/kernels/ops.py:195-333``), and ``flash_attention`` for the LM
-zoo's prefill (the port of ``repro/kernels/ops.py:390-417``).
+``gram_matvec`` (the port of ``repro/kernels/ops.py:98-192``),
+``embed_assign`` / ``sketch_assign`` for the explicit feature maps and
+``predict_assign`` for frozen serving artifacts, which share their launch
+code (the port of ``repro/kernels/ops.py:195-377``), and
+``flash_attention`` for the LM zoo's prefill (the port of
+``repro/kernels/ops.py:390-417``).
 
 Each wrapper casts the tile operands to the policy's tile dtype ONCE at
 entry, and the squared norms come FROM the cast values (the
@@ -227,6 +229,32 @@ def embed_panels(fmap, centroids: torch.Tensor,
                     f"{type(fmap).__name__}")
 
 
+def _launch_embed(x, w, b, v, csq, statics):
+    """embed_assign on the card, x and w in the tile dtype -> (labels,
+    score); no norm pass: the Mercer kinds' launch sums |x|^2 and |w|^2 of
+    the tile values itself, rff reads none; the f32 body masks a ragged
+    cluster count itself."""
+    xo, wo = _operand(x), _operand(w)
+    return _over_cluster_chunks(
+        v, csq, "embed_assign",
+        lambda vc, cc: embed_assign_cuda(xo, wo, b, vc, cc, **statics),
+        pad=x.dtype != torch.float32)
+
+
+def _launch_sketch(x, tables, v, csq):
+    """sketch_assign on the card, x in the tile dtype -> (labels, score);
+    ``tables`` = (order, offsets, sign, programs) of a map
+    (``CountSketchMap.buckets`` and ``.programs``): the kernel reads the
+    signs from its gather program, built once per map and dtype, so the f32
+    sign table serves both dtypes."""
+    order, offsets, sign, programs = tables
+    xo = _operand(x)
+    return _over_cluster_chunks(
+        v, csq, "sketch_assign",
+        lambda vc, cc: sketch_assign_cuda(xo, order, offsets, sign, vc, cc,
+                                          programs=programs))
+
+
 def embed_assign(x: torch.Tensor, fmap, centroids: torch.Tensor,
                  counts: torch.Tensor | None = None, *,
                  precision: str = "f32"):
@@ -242,23 +270,14 @@ def embed_assign(x: torch.Tensor, fmap, centroids: torch.Tensor,
         return sketch_assign(x, fmap, centroids, counts, precision=precision)
     if fmap.kind == "tensorsketch":
         c32, csq = _masked_csq(centroids, counts)
-        score = csq[None, :] - 2.0 * (fmap(x) @ c32.T)
-        return (torch.argmin(score, dim=1).to(torch.int32),
-                torch.amin(score, dim=1))
+        return score_assign(fmap(x), c32.T, csq)
     w, b, v, csq, statics = embed_panels(fmap, centroids, counts)
     p = resolve_precision(precision)
     x, w = p.cast_tiles(x), p.cast_tiles(w)
     if not x.is_cuda:
         return ref.embed_assign_ref(x, w, v, csq, b=b, precision=p.tile,
                                     **statics)
-    # no norm pass: the Mercer kinds' launch sums |x|^2 and |w|^2 of the
-    # tile values itself, rff reads none; the f32 body masks a ragged
-    # cluster count itself
-    xo, wo = _operand(x), _operand(w)
-    return _over_cluster_chunks(
-        v, csq, "embed_assign",
-        lambda vc, cc: embed_assign_cuda(xo, wo, b, vc, cc, **statics),
-        pad=x.dtype != torch.float32)
+    return _launch_embed(x, w, b, v, csq, statics)
 
 
 def sketch_assign(x: torch.Tensor, fmap, centroids: torch.Tensor,
@@ -273,14 +292,50 @@ def sketch_assign(x: torch.Tensor, fmap, centroids: torch.Tensor,
     if not x.is_cuda:
         return ref.sketch_assign_ref(x, fmap.h, fmap.sign.to(p.sign_dtype),
                                      c32.T, csq, precision=p.tile)
-    # sorted once per map; the kernel reads the signs from its gather
-    # program, built once per map and dtype, so the f32 table serves both
-    order, offsets, sign = fmap.buckets
-    xo = _operand(x)
-    return _over_cluster_chunks(
-        c32.T, csq, "sketch_assign",
-        lambda vc, cc: sketch_assign_cuda(xo, order, offsets, sign, vc, cc,
-                                          programs=fmap.programs))
+    return _launch_sketch(x, (*fmap.buckets, fmap.programs), c32.T, csq)
+
+
+def score_assign(z: torch.Tensor, v: torch.Tensor, csq: torch.Tensor):
+    """argmin_j csq_j - 2 z.v_j over rows already embedded (plain PyTorch,
+    for the maps with no fused kernel) -> (labels [n] int32, score [n])."""
+    score = csq[None, :] - 2.0 * (z @ v.to(torch.float32))
+    return (torch.argmin(score, dim=1).to(torch.int32),
+            torch.amin(score, dim=1))
+
+
+def predict_assign(x: torch.Tensor, w: torch.Tensor, aux: torch.Tensor,
+                   v: torch.Tensor, csq: torch.Tensor, *,
+                   map_kind: str = "rff", gamma: float = 1.0,
+                   coef0: float = 1.0, degree: int = 3, scale: float = 1.0,
+                   precision: str = "f32", tables=None):
+    """The serving hot path: embed + assign one query bucket from the
+    panels a frozen artifact (``serving.artifact``) built once -> (labels
+    [n] int32, score [n] f32), so a request derives nothing.
+
+    ``w``/``aux``: RFF frequencies and phases b ([m] or the artifact's
+    [m, 1] column), Nystrom landmarks and their squared norms (which the
+    launch and the plain version sum themselves from the tile values), or
+    for ``map_kind="sketch"`` the hash h and sign tables; ``v`` [m, C] the
+    value panel, ``csq`` [C] the masked centroid norms. ``w`` arrives in the
+    tile dtype; x is cast to it. The count sketch on the card also takes
+    ``tables``, the artifact's (order, offsets, sign, programs) with the
+    gather program of its dtype already built. A CPU tensor runs
+    ``ref.predict_assign_ref``; a CUDA one launches ``embed_assign`` or
+    ``sketch_assign``."""
+    p = resolve_precision(precision)
+    x = p.cast_tiles(x)
+    statics = dict(map_kind=map_kind, gamma=gamma, coef0=coef0,
+                   degree=degree, scale=scale)
+    if not x.is_cuda:
+        return ref.predict_assign_ref(x, w, aux, v, csq, precision=p.tile,
+                                      **statics)
+    if map_kind == "sketch":
+        if tables is None:
+            raise ValueError("predict_assign on the card needs the sketch "
+                             "artifact's gather tables")
+        return _launch_sketch(x, tables, v, csq)
+    b = aux.reshape(-1) if map_kind == "rff" else None
+    return _launch_embed(x, p.cast_tiles(w), b, v, csq, statics)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,8 @@ in f32, materializing the Gram block, the embedding or the score matrix
 wrapper casts them). The argmin takes the lowest index on ties.
 ``embed_score_ref`` and ``sketch_score_ref`` give the whole [n, C] score
 matrix that the two assignment versions reduce (for the near-tie checks);
-``CALLS`` does not count them.
+``CALLS`` does not count them. ``predict_assign_ref`` dispatches frozen
+serving panels to the two assignment versions, which count the call.
 
 The ``ops`` wrappers run these for tensors on the CPU. On the card they run
 only where ``chip_smoke.py`` holds a kernel against its plain version;
@@ -127,6 +128,24 @@ def sketch_assign_ref(x: torch.Tensor, h: torch.Tensor, sign: torch.Tensor,
     ``sketch_score_ref`` over j and its lowest argmin."""
     CALLS["sketch_assign_ref"] += 1
     return _reduce(sketch_score_ref(x, h, sign, v, csq, precision=precision))
+
+
+def predict_assign_ref(x: torch.Tensor, w: torch.Tensor, aux: torch.Tensor,
+                       v: torch.Tensor, csq: torch.Tensor, *,
+                       map_kind: str = "rff", gamma: float = 1.0,
+                       coef0: float = 1.0, degree: int = 3,
+                       scale: float = 1.0, precision: str = "f32"):
+    """The plain version of ``ops.predict_assign`` over frozen panels:
+    ``sketch_assign_ref`` for map_kind "sketch" (w = h, aux = sign), else
+    ``embed_assign_ref`` (w = RFF frequencies with aux the phases, [m] or
+    [m, 1], or Nystrom landmarks, whose norms ``aux`` holds and
+    ``kernel_matrix_ref`` sums again from the tile values)."""
+    if map_kind == "sketch":
+        return sketch_assign_ref(x, w, aux, v, csq, precision=precision)
+    b = aux.reshape(-1) if map_kind == "rff" else None
+    return embed_assign_ref(x, w, v, csq, map_kind=map_kind, gamma=gamma,
+                            coef0=coef0, degree=degree, scale=scale, b=b,
+                            precision=precision)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

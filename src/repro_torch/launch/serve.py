@@ -1,12 +1,19 @@
-"""LM serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
+"""Serving launcher: ``python -m repro_torch.launch.serve [...]``.
 
-Runs the continuous-batching engine (``repro_torch.serving``) on the
-reference launcher's synthetic request stream (``repro/launch/serve.py``:
-prompt lengths and tokens from ``np.random.default_rng(0)``, parameters
-from seed 0) and prints the same summary line. ``--device`` defaults to the
-GPU; ``--device cpu`` runs the plain PyTorch path. ``--assign`` (frozen
-clustering artifacts), ``--mesh`` and ``--obs`` wait for ROADMAP Queue 1
-items 7, 8 and 10.
+Two services share this entry point, as in ``repro/launch/serve.py``:
+
+* ``--arch <id>``: the LM continuous-batching engine
+  (``repro_torch.serving.engine``) on the reference launcher's synthetic
+  request stream (prompt lengths and tokens from
+  ``np.random.default_rng(0)``, parameters from seed 0);
+* ``--assign <artifact.npz | synth>``: the assignment service
+  (``repro_torch.serving.assign``): load a frozen artifact (or fit and
+  freeze a small synthetic RFF model), build one program per bucket (a
+  captured CUDA graph on the card), and drive a ragged request stream
+  through the queue, reporting p50/p99 latency and rows/s.
+
+``--device`` defaults to the GPU; ``--device cpu`` runs the plain PyTorch
+path. ``--mesh`` and ``--obs`` wait for ROADMAP Queue 1 items 8 and 10.
 """
 from __future__ import annotations
 
@@ -18,13 +25,57 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.models import get_model
-from repro_torch.serving import (ServeConfig, ServingEngine, greedy,
-                                 sample_top_p)
+from repro_torch.serving import (AssignServeConfig, AssignService,
+                                 ServeConfig, ServingEngine, artifact_nbytes,
+                                 freeze, greedy, load_artifact, sample_top_p)
+
+
+def synth_artifact(device, *, precision: str = "f32", full: bool = False):
+    """Fit a small rbf RFF model on blobs and freeze it, the reference's
+    smoke and benchmark model: 2048 x 16 with C = 8 (``full``: 20000 x 32
+    with C = 16), B = 4, m = 8 C, seed 0."""
+    from repro_torch.core import MiniBatchConfig, fit_dataset
+    from repro_torch.data.synthetic import make_blobs
+    n, d, c = (20000, 32, 16) if full else (2048, 16, 8)
+    x, _ = make_blobs(n, d, c, seed=0)
+    cfg = MiniBatchConfig(n_clusters=c, n_batches=4, method="rff",
+                          embed_dim=8 * c, seed=0)
+    return freeze(fit_dataset(x, cfg, device=device), precision=precision)
+
+
+def assign_main(args):
+    art = (synth_artifact(args.device, precision=args.precision)
+           if args.assign == "synth"
+           else load_artifact(args.assign, device=args.device))
+    buckets = tuple(int(b) for b in args.buckets.split(","))
+    svc = AssignService(art, AssignServeConfig(buckets=buckets))
+    rng = np.random.default_rng(0)
+    sizes = rng.integers(1, args.rows_max + 1, size=args.requests)
+    lat, rows = [], 0
+    t0 = time.perf_counter()
+    for n in sizes:
+        ts = time.perf_counter()
+        svc.predict(rng.normal(size=(int(n), art.in_dim)).astype(np.float32))
+        lat.append(time.perf_counter() - ts)
+        rows += int(n)
+    dt = time.perf_counter() - t0
+    p50, p99 = np.percentile(lat, [50, 99])
+    print(f"[serve.assign] kind={art.kind} precision={art.precision} "
+          f"device={art.device} programs={svc.compiled_programs} (warm "
+          f"{svc.warm_seconds:.2f}s) artifact {artifact_nbytes(art)} bytes | "
+          f"{len(sizes)} requests / {rows} rows in {dt:.2f}s "
+          f"({rows/dt:.0f} rows/s, p50 {p50*1e3:.2f}ms, p99 {p99*1e3:.2f}ms)")
+    return svc
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True, help="LM-zoo arch id")
+    ap.add_argument("--arch", default=None,
+                    help="LM-zoo arch id (LM serving)")
+    ap.add_argument("--assign", default=None, metavar="ARTIFACT",
+                    help="assignment serving: a frozen artifact .npz "
+                    "(serving.save_artifact, of either package) or 'synth' "
+                    "for a small fitted smoke model")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's small smoke config")
     ap.add_argument("--device", default=None,
@@ -36,7 +87,17 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--top-p", type=float, default=0.0,
                     help="0 -> greedy; else nucleus sampling")
+    ap.add_argument("--buckets", default="1,8,64,512",
+                    help="assignment shape-bucket ladder (row counts)")
+    ap.add_argument("--rows-max", type=int, default=64,
+                    help="assignment request sizes draw from [1, rows-max]")
+    ap.add_argument("--precision", choices=("f32", "bf16"), default="f32",
+                    help="tile dtype of the --assign synth artifact")
     args = ap.parse_args(argv)
+    if args.assign is not None:
+        return assign_main(args)
+    if args.arch is None:
+        ap.error("one of --arch (LM serving) or --assign is required")
 
     cfg = get_arch(args.arch, smoke=args.smoke)
     api = get_model(cfg, device=args.device)

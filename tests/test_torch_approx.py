@@ -24,6 +24,7 @@ import torch
 from conftest import four_blobs
 from repro import approx as japprox
 from repro.approx import embed_kmeans as j_embed
+from repro.approx.selectors import RLSSelector as JRLSSelector
 from repro.core import KernelSpec as JSpec
 from repro.core import MiniBatchConfig as JConfig
 from repro.core import fit_dataset as j_fit_dataset
@@ -36,6 +37,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import approx, convert
 from repro_torch.approx import embed_kmeans
+from repro_torch.approx.selectors import RLSSelector
 from repro_torch.core import (KernelSpec, MiniBatchConfig, clustering_accuracy,
                               fit, fit_dataset, nmi)
 from repro_torch.data import sampling, synthetic
@@ -567,9 +569,12 @@ def test_config_validation_matches_jax():
     # a precision-only engine is no engine choice, in both packages
     JConfig(n_clusters=2, method="rff", precision="bf16")
     MiniBatchConfig(n_clusters=2, method="rff", precision="bf16")
-    # the leverage-aware selectors come with a later slice
-    with pytest.raises(NotImplementedError, match="later"):
-        MiniBatchConfig(n_clusters=2, method="nystrom", selector="rls")
+    # the leverage-aware selectors apply to nystrom, as names or instances
+    for sel in ("rls", "kpp", RLSSelector(delta=1e-3)):
+        JConfig(n_clusters=2, method="nystrom",
+                selector=sel if isinstance(sel, str) else
+                JRLSSelector(delta=1e-3))
+        MiniBatchConfig(n_clusters=2, method="nystrom", selector=sel)
 
 
 def test_csr_batches_wait_for_the_ingestion_slice():

@@ -13,7 +13,8 @@ sums differs. rbf runs at gamma = 1/D, where its values spread over (0, 1).
 Embedded labels must equal the plain version's outside its near-ties.
 ``flash_attention``: 2e-5 at f32 (the JAX test's own limit) and 1e-2 at
 bf16, where the kernel rounds P to bf16 for the P.V product and both
-versions round the output to bf16.
+versions round the output to bf16. Assignment serving: a CUDA-graph replay
+must equal an eager launch of the same bucket bitwise.
 """
 import dataclasses
 
@@ -29,7 +30,11 @@ from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.embed_assign import f32_geometry
 from repro_torch.kernels.precision import resolve_precision
 from repro_torch.models import get_model
-from repro_torch.serving import ServeConfig, ServingEngine
+from repro_torch.approx import selectors
+from repro_torch.approx.sketch import make_tensor_sketch
+from repro_torch.serving import (AssignServeConfig, AssignService, ServeConfig,
+                                 ServingEngine, freeze, freeze_map)
+from repro_torch.serving.assign import run_bucket
 
 pytestmark = pytest.mark.gpu
 
@@ -1000,3 +1005,200 @@ def test_serving_engine_on_the_card_matches_the_cpu(cuda, arch):
     flash_layers = cfg.n_layers // (2 if cfg.local_global_period else 1)
     assert ops.LAUNCHES["flash_attention"] == before + 6 * flash_layers
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# assignment serving: bucket shapes, CUDA graphs, keyed draws, RLS
+# ---------------------------------------------------------------------------
+
+SERVE_KINDS = ["rff", "nystrom", "sketch", "tensorsketch", "exact"]
+
+
+def _serving_artifact(kind, prec, dev, *, d=40, m=48, c=5):
+    """A frozen artifact on ``dev``: blob-like rows, a map drawn from a
+    seeded generator and class-mean centroids (exact: a small fit)."""
+    rng = np.random.default_rng(3)
+    centers = rng.normal(size=(c, d)).astype(np.float32) * 3
+    y = rng.integers(0, c, size=600)
+    x = centers[y] + rng.normal(size=(600, d)).astype(np.float32)
+    xt = torch.from_numpy(x).to(dev)
+    if kind == "exact":
+        res = fit_dataset(x, MiniBatchConfig(
+            n_clusters=c, n_batches=2, kernel=KernelSpec("rbf", gamma=1 / d)),
+            device=dev)
+        return freeze(res, precision=prec), x
+    gen = torch.Generator().manual_seed(5)
+    fmap = {"rff": lambda: make_rff(gen, d, m, KernelSpec("rbf", gamma=1 / d),
+                                    device=dev),
+            "nystrom": lambda: make_nystrom(gen, xt, m, KernelSpec(
+                "rbf", gamma=1 / d)),
+            "sketch": lambda: make_count_sketch(gen, d, m, KernelSpec(
+                "linear"), device=dev),
+            "tensorsketch": lambda: make_tensor_sketch(gen, d, m, KernelSpec(
+                "polynomial", gamma=0.05, coef0=1.0, degree=2),
+                device=dev)}[kind]()
+    z = fmap(xt)
+    yt = torch.from_numpy(y).to(dev)
+    h = torch.nn.functional.one_hot(yt, c).float()
+    cents = (h.T @ z) / h.sum(0).clamp(min=1)[:, None]
+    return freeze_map(fmap, cents, h.sum(0), precision=prec), x
+
+
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("kind", SERVE_KINDS)
+def test_graph_replay_equals_eager_at_every_bucket(cuda, kind, prec):
+    """One captured graph per bucket; each replay's labels equal an eager
+    launch of the same bucket bitwise, and each replay counts the launches
+    its capture recorded."""
+    art, x = _serving_artifact(kind, prec, cuda)
+    svc = AssignService(art)
+    assert svc.compiled_programs == 4
+    rng = np.random.default_rng(1)
+    for b in svc.cfg.buckets:
+        xp = x[rng.integers(0, len(x), size=b)]
+        before = dict(ops.LAUNCHES)
+        got = svc._programs[b](xp)
+        replayed = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        assert replayed == svc._programs[b].launches
+        want = run_bucket(art, torch.from_numpy(xp).to(cuda)).cpu().numpy()
+        assert np.array_equal(got, want)
+
+
+def test_graph_replay_over_cluster_chunks(cuda):
+    """Past 256 clusters the wrapper launches once per chunk and merges
+    on the card: the captured merge equals the eager one."""
+    art, x = _serving_artifact("rff", "f32", cuda, c=300)
+    svc = AssignService(art, AssignServeConfig(buckets=(8, 64)))
+    assert svc._programs[64].launches["embed_assign"] == 2
+    for b in (8, 64):
+        want = run_bucket(art, torch.from_numpy(x[:b]).to(cuda))
+        assert np.array_equal(svc._programs[b](x[:b]), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("kind", SERVE_KINDS)
+def test_service_on_the_card_labels_as_offline_predict(cuda, kind):
+    """A ragged request mix through the graphs labels every row as the
+    offline bucketed predict does."""
+    art, x = _serving_artifact(kind, "f32", cuda)
+    svc = AssignService(art, AssignServeConfig(max_queue_rows=len(x)))
+    rng = np.random.default_rng(2)
+    uids, start = [], 0
+    while start < len(x):
+        n = int(rng.integers(1, 150))
+        uids.append((svc.submit(x[start:start + n]), start, n))
+        start += n
+    done = svc.drain()
+    want = predict_frozen_np(art, x)
+    for uid, a, n in uids:
+        assert np.array_equal(done[uid], want[a:a + n])
+
+
+def predict_frozen_np(art, x):
+    from repro_torch.serving import predict_frozen
+    return predict_frozen(art, x).cpu().numpy()
+
+
+@pytest.mark.parametrize("prec", PRECS)
+def test_sketch_artifact_reuses_the_maps_tables(cuda, prec):
+    """A count-sketch artifact frozen from its map takes the map's bucket
+    tables and gather programs; one loaded from its arrays builds its own,
+    and both label alike."""
+    from repro_torch.serving import predict_frozen
+    art, x = _serving_artifact("sketch", prec, cuda)
+    gen = torch.Generator().manual_seed(5)
+    fmap = make_count_sketch(gen, x.shape[1], 48, KernelSpec("linear"),
+                             device=cuda)
+    cents, counts = art.arrays["centroids"], art.arrays["counts"]
+    mine = freeze_map(fmap, cents, counts, precision=prec)
+    order, offsets, sign, programs = mine.runtime["tables"]
+    assert programs is fmap.programs and order is fmap.buckets[0]
+    theirs = dataclasses.replace(mine)
+    assert theirs.runtime["tables"][3] is not fmap.programs
+    assert np.array_equal(predict_frozen(mine, x).cpu().numpy(),
+                          predict_frozen(theirs, x).cpu().numpy())
+
+
+@pytest.mark.parametrize("bucket", [1, 8])
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("kind", ["rff", "nystrom", "sketch"])
+def test_predict_assign_at_bucket_shapes(cuda, kind, prec, bucket):
+    """ops.predict_assign at M = 1 and 8 rows of 784 features against its
+    plain version, with a garbage tail (rows of 1e6) that changes no real
+    label."""
+    d = 256 if kind == "sketch" else 784
+    art, _ = _serving_artifact(kind, prec, cuda, d=d, m=128 if kind ==
+                               "sketch" else 320, c=10)
+    a, st = art.arrays, art.statics
+    x = _rand((8, d), 31, cuda)
+    real = max(1, bucket - 2)
+    xp = x[:bucket].clone()
+    xp[real:] = 1e6
+    if kind == "sketch":
+        args = (a["h"], a["sign"], a["v"], a["csq"])
+        kw = dict(map_kind="sketch", precision=prec)
+        lab, score = ops.predict_assign(xp, *args, tables=art.runtime.get(
+            "tables"), **kw)
+    else:
+        args = (a["w"], art.runtime.get("b", a["aux"]), a["v"], a["csq"])
+        kw = dict(map_kind=st["map_kind"], gamma=st["gamma"],
+                  coef0=st["coef0"], degree=st["degree"], scale=st["scale"],
+                  precision=prec)
+        lab, score = ops.predict_assign(xp, *args, **kw)
+    p = resolve_precision(prec)
+    lab_p, score_p = ref.predict_assign_ref(p.cast_tiles(xp), *args, **kw)
+    torch.testing.assert_close(score[:real], score_p[:real], **_tol(1e-4))
+    assert torch.equal(lab[:real], lab_p[:real])
+    clean = x[:bucket].clone()
+    clean[real:] = 0.0
+    if kind == "sketch":
+        lab_c = ops.predict_assign(clean, *args, tables=art.runtime.get(
+            "tables"), **kw)[0]
+    else:
+        lab_c = ops.predict_assign(clean, *args, **kw)[0]
+    assert torch.equal(lab_c[:real], lab[:real])
+
+
+@pytest.mark.parametrize("bucket", [1, 8])
+def test_kernel_matrix_column_body_at_bucket_shapes(cuda, bucket):
+    x, y = _rand((bucket, 784), 32, cuda), _rand((10, 784), 33, cuda)
+    got = ops.kernel_matrix(x, y, kind="rbf", gamma=1 / 784)
+    want = ref.kernel_matrix_ref(x, y, kind="rbf", gamma=1 / 784)
+    torch.testing.assert_close(got, want, **_tol(1e-5))
+
+
+def test_keyed_draw_is_bitwise_equal_on_the_cpu_and_the_card(cuda):
+    gids = torch.arange(0, 200000, 7)
+    for key, tag in ((0, 0), (12345, 1), ((1 << 62) - 3, 2)):
+        cpu = selectors.keyed_uniform(key, tag, gids)
+        card = selectors.keyed_uniform(key, tag, gids.to(cuda)).cpu()
+        assert torch.equal(cpu, card)
+        assert torch.equal(selectors.keyed_gumbel(key, tag, gids),
+                           selectors.keyed_gumbel(key, tag,
+                                                  gids.to(cuda)).cpu())
+
+
+@pytest.mark.parametrize("n,m", [(3000, 64), (6000, 320)])
+def test_rls_selection_on_the_card_matches_plain(cuda, n, m):
+    """RLS from the hand kernel's K against the same selection from the
+    plain K (on the CPU), the draws keyed alike. Tie rule: the two index
+    sets may differ only in rows whose plain logit lies within 1e-3 *
+    max(1, |t|) of the plain m-th largest logit t."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(n, 64)).astype(np.float32)
+    spec = KernelSpec("rbf", gamma=1 / 64)
+    sel = selectors.RLSSelector()
+    gids = torch.arange(n)
+    pidx = sel.pilot_indices(selectors.keyed_uniform(7, 1, gids), m)
+    noise = selectors.keyed_gumbel(7, 2, gids)
+    xc = torch.from_numpy(x)
+    before = ops.LAUNCHES["kernel_matrix"]
+    s_card = sel.scores(xc.to(cuda), pidx.to(cuda), spec).cpu()
+    assert ops.LAUNCHES["kernel_matrix"] == before + 2
+    s_plain = sel.scores(xc, pidx, spec)
+    logit = torch.log(torch.clamp(s_plain, min=1e-30)) + noise
+    t = torch.sort(logit, descending=True).values[m - 1]
+    near = torch.abs(logit - t) <= 1e-3 * max(1.0, abs(float(t)))
+    got = set(sel.gumbel_top_m(s_card, noise, m).tolist())
+    want = set(sel.gumbel_top_m(s_plain, noise, m).tolist())
+    assert all(bool(near[i]) for i in got ^ want)
+    assert len(got ^ want) <= 2 * int(near.sum())

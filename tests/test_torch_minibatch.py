@@ -30,6 +30,7 @@ from repro.core.minibatch import predict as j_predict
 from repro.data import sampling as j_sampling
 from repro.data import synthetic as j_synthetic
 from repro_torch import convert
+from repro_torch.approx.selectors import KPPSelector
 from repro_torch.core import (KernelSpec, MiniBatchConfig, clustering_accuracy,
                               fit, fit_dataset, nmi)
 from repro_torch.core.kkmeans import medoid_indices
@@ -332,8 +333,9 @@ def test_config_rejects_what_this_slice_does_not_port():
         fit_dataset(torch.eye(4).to_sparse_csr(), cfg, device="cpu")
     with pytest.raises(ValueError):
         MiniBatchConfig(n_clusters=2, method="pca")
-    with pytest.raises(NotImplementedError, match="later|feature-map"):
-        MiniBatchConfig(n_clusters=2, selector="rls")
+    # the leverage-aware selectors are ported: names and instances pass
+    assert MiniBatchConfig(n_clusters=2, selector="rls").selector == "rls"
+    MiniBatchConfig(n_clusters=2, selector=KPPSelector())
     with pytest.raises(ValueError):
         MiniBatchConfig(n_clusters=2, selector="leverage")
     with pytest.raises(ValueError):
