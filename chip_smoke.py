@@ -83,7 +83,29 @@ Phases, in order; any failure exits non-zero without the final line:
      D-rff service (200 requests of 1 and of 64 rows at 100 and 500
      offered requests/s, the reference benchmark's rates; the eager
      offline predict in the same loop beside it), p50/p99 ms and rows/s
-     printed with the card's name and power limit; then LM
+     printed with the card's name and power limit; then sparse rows and
+     ingestion (phase 4c): E-csr, Tab.2's sparse grid at full size
+     (``make_rcv1_sparse`` of 188,000 + 5,844 documents over a 47,236-term
+     vocabulary, kept in CSR; count sketch m = 256, C = 50, linear, B = 4,
+     16 and 64 through ``fit_dataset`` on the CSR rows, test rows labelled
+     by ``FitResult.predict`` on CSR; B = 4 twice, bitwise equal), with
+     the O(nnz) sketch of 4,096 test rows against the dense map on the
+     densified rows (z within 1e-5 normwise) and the dense predict, which
+     launches sketch_assign, against the CSR labels outside near-ties (on
+     the corpus's columns: at the full vocabulary the kernel's gather
+     program does not fit in shared memory, which is checked); E-csr-
+     stream, the training rows as Tab.2's ragged chunk stream (3B cuts of
+     default_rng(7)) through ``BatchSource.from_stream(prefetch=2)`` with
+     the pinned stage, block sampling, B = 4, bitwise equal to the
+     offline block split, and resumed after batch 2 by ``skip(2)`` with
+     ``state=`` and ``fmap=``, bitwise equal again; H-stream, Tab.1's
+     training rows as a ragged dense chunk stream into the exact fused
+     fit (B = 4, s = 0.2, block), bitwise equal to ``fit_dataset``'s block
+     split, with the consumer's seconds waiting on the loader; G-E-csr,
+     E-csr's B = 4 fit frozen and served a ragged mix of 1-700-row CSR
+     requests (bitwise equal to ``predict_frozen``; garbage in padded rows
+     and slack slots changes no real label) and CSR requests to D-rff's
+     artifact (equal to the same rows sent dense); then LM
      serving of OLMo-1B at full width
      (16 layers, d_model 2048, vocab 50,304; bf16 weights from a
      torch.Generator of seed 0) through ``get_model`` and ``ServingEngine``
@@ -168,6 +190,14 @@ RCV1_TRAIN, RCV1_TEST, RCV1_C, SKETCH_DIM = 188000, 5844, 50, 128
 BUCKETS = (1, 8, 64, 512)
 G_REQUEST_MAX = 700
 BENCH_QPS, BENCH_REQUESTS = (100.0, 500.0), 200
+# Tab.2's sparse grid (benchmarks/tab2_rcv1.py:58-61, 99-122): RCV1 term
+# vectors kept in CSR over the full vocabulary, the count sketch at m = 256
+# for B = 4, 16, 64; its streaming grid (:124-161) cuts the training rows
+# at 3B points drawn from default_rng(7). The CSR sketch is held against
+# the dense map on CSR_CHECK_ROWS densified test rows (z within
+# CSR_Z_TOL normwise: both sum f32 values in another order)
+RCV1_VOCAB, CSR_DIM, CSR_BS, STREAM_SEED = 47236, 256, (4, 16, 64), 7
+CSR_CHECK_ROWS, CSR_Z_TOL = 4096, 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -1226,6 +1256,384 @@ def serve_bench_run(torch, mods, svc):
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: sparse rows and ingestion
+# ---------------------------------------------------------------------------
+
+
+class Interrupted(Exception):
+    """Raised by a checkpoint callback to stop a fit mid-stream."""
+
+
+def zero_counters(mods) -> None:
+    for k in mods["ops"].LAUNCHES:
+        mods["ops"].LAUNCHES[k] = 0
+    for k in mods["ref"].CALLS:
+        mods["ref"].CALLS[k] = 0
+
+
+def stream_cuts(np, n: int, b: int) -> list:
+    """Tab.2's streaming cut of n rows for B = b: 3b cut points drawn from
+    default_rng(STREAM_SEED) -> [(start, stop)] of the ragged chunks."""
+    rng = np.random.default_rng(STREAM_SEED)
+    cuts = np.unique(rng.integers(0, n, size=3 * b))
+    bounds = np.concatenate([[0], cuts, [n]])
+    return [(int(a), int(z)) for a, z in zip(bounds[:-1], bounds[1:])
+            if z > a]
+
+
+class WaitedSource:
+    """A batch source with the consumer's seconds waiting on it summed: the
+    host clock around each ``next`` of its iterator. Closing closes the
+    source."""
+
+    def __init__(self, src):
+        self.src, self.wait_s, self.batches = src, 0.0, 0
+
+    def __iter__(self):
+        it = iter(self.src)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            finally:
+                self.wait_s += time.perf_counter() - t0
+            self.batches += 1
+            yield batch
+
+    def close(self):
+        self.src.close()
+
+
+def run_sparse(torch, mods, name, cfg, fit_fn, x_te, y_te, n_train):
+    """One fit of the sparse-rows phase, as a user runs it: ``fit_fn()``
+    (fit_dataset or fit over a source), then the test rows labelled with
+    FitResult.predict. Prints the run line; returns (record, labels,
+    result)."""
+    ops, ref, core = mods["ops"], mods["ref"], mods["core"]
+    zero_counters(mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit_fn()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    labels = res.predict(x_te).cpu().numpy()
+    t2 = time.perf_counter()
+    launches, calls = dict(ops.LAUNCHES), dict(ref.CALLS)
+    state = res.state
+    cents = state.centroids if res.fmap is not None else state.medoids
+    check(bool(torch.isfinite(cents).all())
+          and cents.shape[0] == cfg.n_clusters,
+          f"run {name}: centroids not finite or of the wrong shape")
+    # the embedded merge counts rows (the exact one counts landmarks)
+    check(res.fmap is None or int(state.cardinalities.sum()) == n_train,
+          f"run {name}: the merge did not count every row once")
+    check(len(labels) == len(y_te) and labels.min() >= 0
+          and labels.max() < cfg.n_clusters, f"run {name}: bad labels")
+    rec = {"run": name, "method": cfg.method, "B": cfg.n_batches,
+           "sampling": cfg.sampling, "precision": cfg.precision,
+           "wall_s": t2 - t0, "fit_s": t1 - t0, "label_s": t2 - t1,
+           "inner_iters": [h.inner_iters for h in res.history],
+           "max_inner_iters": cfg.max_inner_iters,
+           "acc": core.clustering_accuracy(y_te, labels),
+           "nmi": core.nmi(y_te, labels), "launches": launches,
+           "plain_calls": calls}
+    return rec, labels, res
+
+
+def print_run(rec, **extra) -> None:
+    rec.update(extra)
+    print("run", json.dumps(rec))
+    check(all(v == 0 for v in rec["plain_calls"].values()),
+          f"run {rec['run']}: a plain version ran on the card: "
+          f"{rec['plain_calls']}")
+
+
+def same_fit(torch, a, b) -> bool:
+    """Bitwise equal states (every tensor field) and iterations."""
+    return ([h.inner_iters for h in a.history]
+            == [h.inner_iters for h in b.history]
+            and all(torch.equal(u, v) for u, v in zip(a.state[:-1],
+                                                      b.state[:-1])))
+
+
+def csr_sketch_checks(torch, np, mods, res, xs_tr, xs_te):
+    """On CSR_CHECK_ROWS test rows: the O(nnz) count sketch against the
+    dense CountSketchMap on the densified rows (z within CSR_Z_TOL), both
+    timed; then the dense predict_embedded, which launches sketch_assign,
+    against the CSR labels outside near-ties. sketch_assign keeps its
+    gather program (8 bytes a column) in shared memory, so at the full
+    vocabulary it cannot launch: that is checked, and the kernel runs on
+    the densified rows restricted to the columns the corpus uses (the other
+    columns are zero in every row and add nothing). This check's
+    sketch_assign launch is printed on its check line only: it is not a
+    launch of the main path. Returns the record."""
+    sparse, approx, ops = mods["sparse"], mods["approx"], mods["ops"]
+    fmap, state = res.fmap, res.state
+    rows = sparse.slice_rows(xs_te, 0, CSR_CHECK_ROWS).to("cuda")
+    dense = sparse.to_dense(rows)
+    z_csr = fmap(rows)
+    z_dense = fmap(dense)                      # x @ the signed one-hot
+    err, rel = normwise(torch, z_csr, z_dense)
+    check(rel <= CSR_Z_TOL, f"E-csr: the CSR sketch is {rel} from the dense "
+                            f"map (tol {CSR_Z_TOL})")
+    ms_csr = time_ms(torch, lambda: fmap(rows), 20)
+    ms_dense = time_ms(torch, lambda: fmap(dense), 20)
+    before = ops.LAUNCHES["sketch_assign"]
+    try:
+        approx.predict_embedded(dense, state, fmap)
+        full_width = "launched"
+    except ValueError as e:     # the kernel's documented shared-memory limit
+        full_width = f"ValueError: {e}"
+    check(ops.LAUNCHES["sketch_assign"] == before + (full_width == "launched"),
+          "E-csr: a refused sketch_assign launch was counted")
+    cols = torch.unique(torch.cat([xs_tr.indices, xs_te.indices]).to(
+        "cuda").long())
+    narrow = approx.CountSketchMap(h=fmap.h[cols], sign=fmap.sign[cols],
+                                   m=fmap.m)
+    before = ops.LAUNCHES["sketch_assign"]
+    lab_kernel = approx.predict_embedded(dense[:, cols].contiguous(), state,
+                                         narrow)
+    launched = ops.LAUNCHES["sketch_assign"] - before
+    lab_csr = approx.predict_embedded(rows, state, fmap)
+    c = state.centroids
+    d2 = (torch.sum(z_csr * z_csr, 1)[:, None] + torch.sum(c * c, 1)[None]
+          - 2.0 * z_csr @ c.T)
+    d2 = torch.where(state.cardinalities[None] > 0, d2,
+                     torch.full_like(d2, 1e30))
+    bad, near = label_mismatches(torch, lab_kernel, lab_csr, d2)
+    rec = {"check": "E-csr sketch", "rows": CSR_CHECK_ROWS,
+           "vocab": RCV1_VOCAB, "m": fmap.m, "z_max_abs_err": err,
+           "z_normwise": rel, "csr_sketch_ms": ms_csr,
+           "dense_map_ms": ms_dense, "sketch_assign_full_width": full_width,
+           "support_columns": int(cols.numel()),
+           "sketch_assign_launches": launched,
+           "label_mismatches": bad, "near_ties": near}
+    print("check", json.dumps(rec))
+    check(launched > 0, "E-csr: the dense predict launched no sketch_assign")
+    check(bad == 0, f"E-csr: the dense sketch_assign predict differs from "
+                    f"the CSR labels on {bad} rows outside near-ties")
+    return rec
+
+
+def garbage_csr(torch, mods, piece, bucket):
+    """The clean padded bucket of a CSR piece, and the same bucket with its
+    padded rows holding 1e6 values and its slack slots 1e6 values in the
+    last column."""
+    sparse = mods["sparse"]
+    clean = mods["assign"]._pad_csr(piece, bucket)
+    junk_rows = bucket - len(piece)
+    junk = torch.full((junk_rows, piece.shape[1]), 0.0)
+    junk[:, ::997] = 1e6
+    trapped = sparse.concat_csr([piece, sparse.csr_from_dense(junk)])
+    trapped = sparse.pad_csr_capacity([trapped],
+                                      nnz_multiple=max(clean.nnz, 1))[0]
+    k = sparse.stored(trapped)
+    trapped.data[k:] = 1e6
+    trapped.indices[k:] = piece.shape[1] - 1
+    return clean, trapped
+
+
+def run_g_csr(torch, np, mods, res_csr, res_rff, xs_te, x_te):
+    """Run G over CSR requests: E-csr's B = 4 fit frozen at f32 and served
+    by an AssignService a seeded ragged mix of 1-700-row CSR requests
+    (labels bitwise equal to predict_frozen on the same rows; padded rows
+    and slack slots holding garbage change no real label); then CSR
+    requests to D-rff's artifact (densified at ingestion) against the same
+    rows sent dense. The counters are zeroed just before each CSR service
+    and read just after it; no plain version may run in either. Returns
+    the launches of embed_assign (f32) by the D-rff CSR service."""
+    serving, sparse = mods["serving"], mods["sparse"]
+    ops, ref = mods["ops"], mods["ref"]
+    art = serving.freeze(res_csr)
+    requests = ragged_requests(np, len(xs_te), seed=11)
+    cfg = serving.AssignServeConfig(max_queue_rows=len(xs_te))
+    zero_counters(mods)
+    torch.cuda.synchronize()
+    svc = serving.AssignService(art, cfg)
+    got, wall = serve_requests(
+        svc, _SliceRows(sparse, xs_te), requests)
+    counts, calls = dict(ops.LAUNCHES), dict(ref.CALLS)
+    want = serving.predict_frozen(art, xs_te).cpu().numpy()
+    same = np.array_equal(np.concatenate(got), want)
+    trap_ok = True
+    for take in (1, 5, 8, 63, 300, 512):
+        piece = sparse.slice_rows(xs_te, 100, 100 + take)
+        clean, trapped = garbage_csr(
+            torch, mods, piece, serving.bucket_for(take, BUCKETS))
+        a = mods["assign"].run_csr_bucket(art, clean.to("cuda"))[:take]
+        b = mods["assign"].run_csr_bucket(art, trapped.to("cuda"))[:take]
+        trap_ok &= bool(torch.equal(a, b))
+    # the O(nnz) sketch program has no kernel, as in the reference
+    print_run({"run": "G-E-csr", "kind": art.kind,
+               "requests": len(requests), "rows": len(xs_te), "wall_s": wall,
+               "rows_per_s": len(xs_te) / wall,
+               "graphs": svc.compiled_programs,
+               "equal_to_predict_frozen": same,
+               "garbage_padding_inert": trap_ok, "launches": counts,
+               "plain_calls": calls})
+    check(same, "run G-E-csr: the service's CSR labels differ from "
+                "predict_frozen's")
+    check(trap_ok, "run G-E-csr: garbage in the padded rows or slack slots "
+                   "changed a real label")
+    art = serving.freeze(res_rff)
+    requests = ragged_requests(np, len(x_te), seed=12)
+    cfg = serving.AssignServeConfig(max_queue_rows=len(x_te))
+    dense, _ = serve_requests(serving.AssignService(art, cfg), x_te,
+                              requests)
+    csr_rows = _SliceRows(sparse, sparse.csr_from_dense(x_te))
+    svc = serving.AssignService(art, cfg)
+    zero_counters(mods)
+    torch.cuda.synchronize()
+    got, wall = serve_requests(svc, csr_rows, requests)
+    counts, calls = dict(ops.LAUNCHES), dict(ref.CALLS)
+    same = np.array_equal(np.concatenate(got), np.concatenate(dense))
+    print_run({"run": "G-D-rff-csr", "kind": art.kind,
+               "requests": len(requests), "rows": len(x_te), "wall_s": wall,
+               "equal_to_dense_requests": same, "launches": counts,
+               "plain_calls": calls})
+    check(same, "run G-D-rff-csr: CSR requests label unlike the same rows "
+                "sent dense")
+    check(counts["embed_assign"] > 0,
+          "run G-D-rff-csr: the CSR service launched no embed_assign")
+    return counts["embed_assign"]
+
+
+class _SliceRows:
+    """Row slices ``x[a:b]`` of a CSR batch, as ``serve_requests`` takes
+    them from a dense array."""
+
+    def __init__(self, sparse, batch):
+        self.sparse, self.batch = sparse, batch
+
+    def __len__(self):
+        return len(self.batch)
+
+    def __getitem__(self, s):
+        return self.sparse.slice_rows(self.batch, s.start, s.stop)
+
+
+def sparse_runs(torch, np, mods, x_tr, x_te, y_te, spec, res_rff):
+    """Phase 4c: E-csr (B = 4, 16, 64 and B = 4's repeat), E-csr-stream
+    and its resume, H-stream, G-E-csr. Returns (totals, bodies) of the
+    launches."""
+    core, sparse, synth = mods["core"], mods["sparse"], mods["synthetic"]
+    loader = mods["loader"]
+    t0 = time.perf_counter()
+    xs, ys = synth.make_rcv1_sparse(RCV1_TRAIN + RCV1_TEST,
+                                    vocab=RCV1_VOCAB, n_classes=RCV1_C,
+                                    seed=0)
+    xs_tr = sparse.slice_rows(xs, 0, RCV1_TRAIN)
+    xs_te = sparse.slice_rows(xs, RCV1_TRAIN, RCV1_TRAIN + RCV1_TEST)
+    ys_te = ys[RCV1_TRAIN:]
+    nnz_row = xs.nnz / len(xs)
+    print(f"data: rcv1 CSR {xs.shape}, {xs.nnz} stored, {nnz_row!r} a row "
+          f"(generator {time.perf_counter() - t0:.1f} s)")
+    totals = {"kernel_matrix": 0, "assign_fused": 0, "embed_assign": 0}
+    bodies = {("kernel_matrix", "column"): 0, ("assign_fused", "f32"): 0,
+              ("embed_assign", "f32"): 0}
+
+    def count(rec):
+        for k in totals:
+            totals[k] += rec["launches"][k]
+        bodies["kernel_matrix", "column"] += \
+            rec["launches"]["kernel_matrix_column"]
+        bodies["assign_fused", "f32"] += rec["launches"]["assign_fused"]
+
+    base = dict(n_clusters=RCV1_C, kernel=core.KernelSpec("linear"), seed=0,
+                method="sketch", embed_dim=CSR_DIM)
+    fits = {}
+    for b in CSR_BS + (4,):
+        name = f"E-csr-B{b}" + ("-repeat" if f"E-csr-B{b}" in fits else "")
+        cfg = core.MiniBatchConfig(n_batches=b, **base)
+        rec, labels, res = run_sparse(
+            torch, mods, name, cfg, lambda: core.fit_dataset(xs_tr, cfg),
+            xs_te, ys_te, RCV1_TRAIN)
+        print_run(rec, nnz_per_row=nnz_row)
+        count(rec)
+        fits[name] = (res, labels)
+    (r1, l1), (r2, l2) = fits["E-csr-B4"], fits["E-csr-B4-repeat"]
+    check(same_fit(torch, r1, r2) and np.array_equal(l1, l2),
+          "E-csr is not repeatable: two fits of one seed differ")
+    csr_sketch_checks(torch, np, mods, r1, xs_tr, xs_te)
+
+    # E-csr-stream: the training rows as Tab.2's ragged chunk stream
+    cfg = core.MiniBatchConfig(n_batches=4, sampling="block", **base)
+    cuts = stream_cuts(np, RCV1_TRAIN, 4)
+
+    def source():
+        return loader.BatchSource.from_stream(
+            (sparse.slice_rows(xs_tr, a, z) for a, z in cuts),
+            RCV1_TRAIN // 4, prefetch=2)
+
+    waited = WaitedSource(source())
+    rec, l_stream, r_stream = run_sparse(
+        torch, mods, "E-csr-stream", cfg, lambda: core.fit(waited, cfg),
+        xs_te, ys_te, RCV1_TRAIN)
+    count(rec)
+    r_off = core.fit_dataset(xs_tr, cfg)
+    l_off = r_off.predict(xs_te).cpu().numpy()
+    offline = same_fit(torch, r_stream, r_off) and np.array_equal(
+        l_stream, l_off)
+    saved = {}
+
+    def crash(state, i):
+        saved[i] = state
+        if i == 1:
+            raise Interrupted
+
+    try:
+        core.fit(source(), cfg, checkpoint_cb=crash)
+    except Interrupted:
+        pass
+    check(saved[1].batches_done == 2, "E-csr-stream: no state after batch 2")
+    resumed = core.fit(source().skip(2), cfg, state=saved[1],
+                       fmap=r_stream.fmap)
+    l_res = resumed.predict(xs_te).cpu().numpy()
+    resume_ok = ([h.inner_iters for h in resumed.history]
+                 == [h.inner_iters for h in r_stream.history][2:]
+                 and all(torch.equal(u, v) for u, v in
+                         zip(resumed.state[:-1], r_stream.state[:-1]))
+                 and np.array_equal(l_res, l_stream))
+    print_run(rec, chunks=len(cuts), nnz_per_row=nnz_row,
+              wait_s=waited.wait_s, batches=waited.batches,
+              equal_to_offline_block_split=offline,
+              resume_after_2_equal=resume_ok)
+    check(offline, "E-csr-stream: the streamed fit's labels differ from the "
+                   "offline block split's")
+    check(resume_ok, "E-csr-stream: the fit resumed by skip(2) differs from "
+                     "the uninterrupted one")
+
+    # H-stream: Tab.1's training rows as a ragged dense chunk stream into
+    # the exact fused fit
+    cfg = core.MiniBatchConfig(n_clusters=10, n_batches=4, s=0.2, kernel=spec,
+                               seed=0, engine="fused", sampling="block")
+    cuts_h = stream_cuts(np, len(x_tr), 4)
+    waited = WaitedSource(loader.BatchSource.from_stream(
+        (x_tr[a:z] for a, z in cuts_h), len(x_tr) // 4, prefetch=2))
+    rec, l_h, r_h = run_sparse(torch, mods, "H-stream", cfg,
+                               lambda: core.fit(waited, cfg), x_te, y_te,
+                               len(x_tr))
+    count(rec)
+    r_off = core.fit_dataset(x_tr, cfg)
+    l_off = r_off.predict(x_te).cpu().numpy()
+    same = same_fit(torch, r_h, r_off) and np.array_equal(l_h, l_off)
+    print_run(rec, chunks=len(cuts_h), wait_s=waited.wait_s,
+              batches=waited.batches, equal_to_offline_block_split=same)
+    check(same, "H-stream: the streamed exact fit differs from fit_dataset's "
+                "block split")
+    check(rec["launches"]["assign_fused"] > 0
+          and rec["launches"]["kernel_matrix_column"] > 0,
+          "H-stream: assign_fused or the column body never launched")
+
+    launched = run_g_csr(torch, np, mods, r1, res_rff, xs_te, x_te)
+    totals["embed_assign"] += launched
+    bodies["embed_assign", "f32"] += launched
+    return totals, bodies
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
@@ -1543,7 +1951,9 @@ def main(argv=None) -> int:
                 ("approx", "approx"), ("configs", "configs"),
                 ("models", "models"), ("serving", "serving"),
                 ("selectors", "approx.selectors"),
-                ("serve_bench", "launch.serve_bench")]}
+                ("serve_bench", "launch.serve_bench"),
+                ("sparse", "data.sparse"), ("loader", "data.loader"),
+                ("assign", "serving.assign")]}
     core = mods["core"]
 
     # -- phase 1: the card --------------------------------------------------
@@ -1733,6 +2143,14 @@ def main(argv=None) -> int:
         bodies[k, body] = bodies.get((k, body), 0) + n
     serve_bench_run(torch, mods, svc)
     print(f"run G and serve_bench: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sp_totals, sp_bodies = sparse_runs(torch, np, mods, x_tr, x_te, y_te,
+                                       spec, fits["D-rff"])
+    for k, n in sp_totals.items():
+        totals[k] += n
+    for key, n in sp_bodies.items():
+        bodies[key] = bodies.get(key, 0) + n
+    print(f"sparse rows and ingestion: {time.perf_counter() - t0:.1f} s")
     del fits, runs, svc
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

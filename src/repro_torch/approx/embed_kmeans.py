@@ -11,10 +11,14 @@ is computed exactly. An empty batch cluster (a = 0) keeps its global
 centroid, as on the exact path.
 
 Each batch is embedded once and stays resident for the inner loop, whose
-sweeps are plain PyTorch products. The reference's ``lax.while_loop`` is a
+sweeps are plain PyTorch products. A CSR batch is embedded by the sketch
+maps' O(nnz) path (``approx/sketch.py``). The reference's ``lax.while_loop`` is a
 Python loop here, as in ``core/kkmeans.py``: one host sync per iteration.
-Prediction goes through the fused ``embed_assign`` / ``sketch_assign``
-kernels (``kernels/ops.embed_assign``), where Z never reaches device memory.
+Prediction of dense rows goes through the fused ``embed_assign`` /
+``sketch_assign`` kernels (``kernels/ops.embed_assign``), where Z never
+reaches device memory; CSR rows are embedded by the map's O(nnz) path and
+assigned in plain PyTorch, as in the reference (the kernels take dense row
+tiles).
 
 Randomness: batch 0's k-means++ draw comes from the CPU generator of batch
 0 (``core.minibatch.batch_generator``) and is split out (``draw_first``),
@@ -29,6 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.init import kmeans_pp_indices
 from repro_torch.core.kernels import KernelSpec
+from repro_torch.data.loader import closing_source, to_device
+from repro_torch.data.sparse import is_sparse
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import BIG
@@ -133,10 +139,22 @@ def fit_embedded(batches: Iterable, fmap, *, n_clusters: int,
                  state: Optional[EmbedState] = None,
                  checkpoint_cb: Optional[Callable[[EmbedState, int], None]] = None,
                  precision: str = "f32", device=None):
-    """The embedded outer loop -> (EmbedState, [BatchStats]). Each batch is
-    embedded once and rounded ONCE to the tile dtype (``precision``), which
-    under bf16 halves the resident [n, m] batch; every sum stays f32.
-    ``checkpoint_cb(state, i)`` runs after every merged batch."""
+    """The embedded outer loop -> (EmbedState, [BatchStats]). Each batch
+    (dense rows, or a CSR batch for the sketch maps) is embedded once and
+    rounded ONCE to the tile dtype (``precision``), which under bf16 halves
+    the resident [n, m] batch; every sum stays f32. ``checkpoint_cb(state,
+    i)`` runs after every merged batch. Consumes ``batches``: a closable
+    source (``data.loader.BatchSource``) is closed on exit, success or
+    failure."""
+    with closing_source(batches):
+        return _fit_embedded_loop(batches, fmap, n_clusters=n_clusters,
+                                  max_iters=max_iters, seed=seed,
+                                  state=state, checkpoint_cb=checkpoint_cb,
+                                  precision=precision, device=device)
+
+
+def _fit_embedded_loop(batches, fmap, *, n_clusters, max_iters, seed, state,
+                       checkpoint_cb, precision, device):
     from repro_torch.core.minibatch import BatchStats, batch_generator
 
     dev = resolve_device(device)
@@ -147,9 +165,8 @@ def fit_embedded(batches: Iterable, fmap, *, n_clusters: int,
     history: list = []
     start = state.batches_done if state is not None else 0
     for i, xb in enumerate(batches, start=start):
-        check_dense(xb)
-        xb = torch.as_tensor(xb, dtype=torch.float32).to(dev)
-        z = prec.cast_tiles(fmap(xb))
+        check_dense(fmap.kind, xb)
+        z = prec.cast_tiles(fmap(to_device(xb, dev)))
         if state is None:
             seeds = draw_first(z, batch_generator(seed, i),
                                n_clusters=n_clusters)
@@ -175,15 +192,21 @@ def predict_embedded(x, state: EmbedState, fmap, *,
                      precision: str = "f32", device=None) -> torch.Tensor:
     """Label rows by nearest centroid in embedded space -> [n] int32.
 
-    By default this is the fused path (``kernels/ops.embed_assign``: the
+    A CSR batch (sketch maps only) takes ``assign_embedded(fmap(x), ...)``
+    with the map's O(nnz) embedding, as in the reference. For dense rows
+    the default is the fused path (``kernels/ops.embed_assign``: the
     ``embed_assign`` or ``sketch_assign`` kernel on the card), where the
     embedded rows never reach device memory; it raises ``ValueError`` for
     a Nystrom map over a kind without an in-tile epilogue (laplacian), as
     the reference's fused path does. ``use_fused=False`` is the explicit
     materialized path ``assign_embedded(fmap(x), ...)``."""
-    check_dense(x)
+    check_dense(fmap.kind, x)
     dev = resolve_device(device)
-    x = torch.as_tensor(x, dtype=torch.float32).to(dev)
+    x = to_device(x, dev)
+    if is_sparse(x):
+        labels, _ = assign_embedded(fmap(x), state.centroids,
+                                    state.cardinalities, precision=precision)
+        return labels
     if use_fused is not False:
         labels, _ = ops.embed_assign(x, fmap, state.centroids,
                                      state.cardinalities, precision=precision)

@@ -46,6 +46,8 @@ from typing import NamedTuple, Union
 
 import torch
 
+from repro_torch.data.loader import closing_source
+from repro_torch.data.sparse import is_sparse
 from repro_torch.device import resolve_device
 
 NAMES = ("uniform", "rls", "kpp")
@@ -153,8 +155,7 @@ def pilot_whitening(pilot: torch.Tensor, spec, *,
 
 
 def _check_dense(xb) -> None:
-    from .sketch import is_csr
-    if is_csr(xb):
+    if is_sparse(xb):
         raise ValueError(
             "landmark selection needs dense rows (Nystrom gathers landmark "
             "coordinates); densify the selection sample or use a sketch "
@@ -333,21 +334,24 @@ def name_of(selector: SelectorLike) -> str:
 def select_streaming(selector: SelectorLike, key: int, batches, m: int,
                      spec, *, state: SelectorState | None = None,
                      checkpoint_cb=None, device=None):
-    """Fold an iterable of dense row blocks and select m landmarks, in one
-    pass over at most ``selector.pool`` rows. ``state`` resumes an earlier
-    fold (the iterable then yields only the batches after its ``folds``);
-    ``checkpoint_cb(state, i)`` runs after every fold. A CSR block raises
-    (``BatchSource`` and CSR ingestion wait for ROADMAP Queue 1 item 6).
-    Returns ``(landmarks [m, d], final_state)``."""
+    """Fold an iterable of dense row blocks or a ``data.loader.BatchSource``
+    and select m landmarks, in one pass over at most ``selector.pool``
+    rows. A closable source is closed on exit, success or failure.
+    ``state`` resumes an earlier fold (skip the committed prefix first with
+    ``source.skip(int(state.folds))``); ``checkpoint_cb(state, i)`` runs
+    after every fold. A CSR block raises the needs-dense-rows
+    ``ValueError``, as in the reference. Returns ``(landmarks [m, d],
+    final_state)``."""
     sel = resolve(selector)
     start = int(state.folds) if state is not None else 0
-    for i, xb in enumerate(batches, start=start):
-        _check_dense(xb)
-        if state is None:
-            state = sel.init(key, xb.shape[1], device=device)
-        state = sel.fold(state, xb)
-        if checkpoint_cb is not None:
-            checkpoint_cb(state, i)
+    with closing_source(batches):
+        for i, xb in enumerate(batches, start=start):
+            _check_dense(xb)
+            if state is None:
+                state = sel.init(key, xb.shape[1], device=device)
+            state = sel.fold(state, xb)
+            if checkpoint_cb is not None:
+                checkpoint_cb(state, i)
     if state is None:
         raise ValueError("empty batch iterable")
     return sel.finalize(state, m, spec), state

@@ -1,5 +1,5 @@
 """Data-oblivious sketch feature maps: count-sketch and TensorSketch, the
-port of ``repro/approx/sketch.py`` for dense rows.
+port of ``repro/approx/sketch.py``.
 
 Count-sketch (feature hashing) for the **linear** kernel: with a bucket hash
 ``h: [d] -> [m]`` and Rademacher signs ``s``,
@@ -12,8 +12,15 @@ p independent hash pairs and multiply in Fourier space,
 
     z(x) = IFFT( prod_k FFT(CS_k(x')) )         E[z(x).z(y)] = (x'.y')^p.
 
-The O(nnz) application to CSR batches arrives with the ingestion slice
-(ROADMAP Queue 1 item 6); a CSR batch raises ``NotImplementedError`` here.
+Both maps take dense rows or a CSR batch (``data/sparse.py``). On a CSR
+batch the application touches only the stored values, O(nnz) and free of
+d (``*_features_csr``); the reference computes that scatter in plain jnp,
+outside any Pallas kernel, and so does the port, in PyTorch ops on the
+batch's device. A scatter-add (``index_add_``) on the card sums through
+atomics in no fixed order, which would make a seeded fit unrepeatable, so
+the route here is a **stable sort of the target slots followed by a
+segment sum** (``_scatter_sum``): each output slot sums its values in the
+order the batch stores them, on the CPU and on the card, run after run.
 """
 from __future__ import annotations
 
@@ -22,25 +29,23 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.data.sparse import as_csr, is_sparse, row_ids
 from repro_torch.device import resolve_device
 from repro_torch.kernels.sketch_assign import bucket_tables, sign_matrix
 
-_CSR_LATER = ("CSR batches are not ported yet: the O(nnz) sketch path "
-              "arrives with the ingestion slice (ROADMAP Queue 1 item 6); "
-              "pass dense rows")
+#: the maps that embed a CSR batch in O(nnz); the others need dense rows
+SKETCH_KINDS = ("sketch", "tensorsketch")
 
 
-def is_csr(x) -> bool:
-    """A sparse-row batch: a torch CSR tensor, or anything with an
-    ``indptr`` (the reference's ``CSRBatch``, a scipy CSR matrix)."""
-    return getattr(x, "layout", None) == torch.sparse_csr or hasattr(
-        x, "indptr")
-
-
-def check_dense(x) -> None:
-    if is_csr(x):
-        raise NotImplementedError(_CSR_LATER)
+def check_dense(method: str, x) -> None:
+    """The reference's refusal of a CSR batch ``x`` for the maps that need
+    dense rows (RFF and Nystrom), raised as the reference raises it."""
+    if is_sparse(x) and method not in SKETCH_KINDS:
+        raise ValueError(
+            f"method {method!r} needs dense samples; only the sketch maps "
+            "('sketch' | 'tensorsketch') accept CSR batches")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -81,7 +86,9 @@ class CountSketchMap:
         return {}
 
     def __call__(self, x) -> torch.Tensor:
-        check_dense(x)
+        if is_sparse(x):
+            return count_sketch_features_csr(as_csr(x).to(self.h.device),
+                                             self)
         return count_sketch_features(x, self)
 
 
@@ -116,7 +123,9 @@ class TensorSketchMap:
                             for h, s in zip(self.hs, self.signs)])
 
     def __call__(self, x) -> torch.Tensor:
-        check_dense(x)
+        if is_sparse(x):
+            return tensor_sketch_features_csr(
+                as_csr(x).to(self.hs.device), self)
         return tensor_sketch_features(x, self)
 
 
@@ -183,5 +192,53 @@ def tensor_sketch_features(x: torch.Tensor, fmap: TensorSketchMap):
     prod = None
     for s in fmap.matrices:
         f = torch.fft.fft(x_aug @ s, dim=1)
+        prod = f if prod is None else prod * f
+    return torch.fft.ifft(prod, dim=1).real.to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# application to CSR batches, O(nnz)
+# ---------------------------------------------------------------------------
+
+
+def _scatter_sum(batch, h: torch.Tensor, vals: torch.Tensor,
+                 m: int) -> torch.Tensor:
+    """[n, m] f32: slot (r, j) is the sum of ``vals`` over row r's stored
+    values whose column hashes to j, in the batch's stored order. The
+    slots' keys ``r*m + h[col]`` are sorted stably and summed segment by
+    segment (``torch.segment_reduce``); no atomics, so the result is
+    bitwise repeatable on the card. Slack slots (row id n) key past every
+    segment and add nothing."""
+    n, dev = batch.shape[0], vals.device
+    key = row_ids(batch) * m + h[batch.indices.long()].long()
+    key, order = torch.sort(key, stable=True)
+    offsets = torch.searchsorted(
+        key, torch.arange(n * m + 1, dtype=torch.int64, device=dev))
+    z = torch.segment_reduce(vals[order][:, None], "sum", offsets=offsets,
+                             axis=0)
+    return z.reshape(n, m)
+
+
+def count_sketch_features_csr(batch, fmap: CountSketchMap) -> torch.Tensor:
+    """z(X) -> [n, m] f32 touching only the stored values: each lands in
+    slot (row, h[col]) with its sign; nothing scales with d."""
+    cols = batch.indices.long()
+    vals = batch.data.to(torch.float32) * fmap.sign[cols]
+    return _scatter_sum(batch, fmap.h, vals, fmap.m)
+
+
+def tensor_sketch_features_csr(batch, fmap: TensorSketchMap) -> torch.Tensor:
+    """z(X) -> [n, m] f32 in O(p (nnz + n m log m)), free of d. The
+    constant sqrt(coef0) coordinate of the augmented input is dense in
+    every row: it is added as a one-hot after the sparse scatter."""
+    m, d = fmap.m, fmap.in_dim
+    cols = batch.indices.long()
+    scaled = batch.data.to(torch.float32) * math.sqrt(fmap.gamma)
+    prod = None
+    for h, s in zip(fmap.hs, fmap.signs):
+        cs = _scatter_sum(batch, h, scaled * s[cols], m)
+        const = s[d] * math.sqrt(fmap.coef0) * F.one_hot(
+            h[d].long(), m).to(torch.float32)
+        f = torch.fft.fft(cs + const[None, :], dim=1)
         prod = f if prod is None else prod * f
     return torch.fft.ifft(prod, dim=1).real.to(torch.float32)

@@ -8,8 +8,9 @@ other way. ``embed_state_from_numpy`` / ``embed_state_to_numpy`` do the same
 for the embedded methods' ``EmbedState``, and ``feature_map_from_numpy``
 rebuilds a sampled feature map from its tables, so a map drawn by the JAX
 package can be used here: randomness does not cross the port.
-``lm_params_from_numpy`` turns the LM zoo's ``init_lm`` tree into the
-port's parameters.
+``csr_from_numpy`` / ``csr_to_numpy`` carry a CSR batch (the reference's
+``CSRBatch`` fields) across. ``lm_params_from_numpy`` turns the LM zoo's
+``init_lm`` tree into the port's parameters.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from repro_torch.approx import (CountSketchMap, EmbedState, NystromMap,
                                 RFFMap, TensorSketchMap)
 from repro_torch.core.kernels import KernelSpec
 from repro_torch.core.minibatch import GlobalState
+from repro_torch.data.sparse import CSRBatch
 
 
 def global_state_from_numpy(medoids, medoid_diag, cardinalities,
@@ -75,6 +77,24 @@ def feature_map_from_numpy(kind: str, arrays: dict, statics: dict, device):
                                gamma=float(statics["gamma"]),
                                coef0=float(statics["coef0"]))
     raise ValueError(f"unknown feature-map kind {kind!r}")
+
+
+def csr_from_numpy(data, indices, indptr, shape, device) -> CSRBatch:
+    """A CSR batch's numpy fields -> the port's ``CSRBatch`` on ``device``
+    (data f32, indices int32, indptr int64)."""
+    return CSRBatch(_f32(data, device), _i32(indices, device),
+                    torch.tensor(np.asarray(indptr, dtype=np.int64),
+                                 device=device),
+                    (int(shape[0]), int(shape[1])))
+
+
+def csr_to_numpy(batch: CSRBatch) -> dict:
+    """A ``CSRBatch`` -> {data, indices, indptr, shape}, numpy arrays in the
+    reference's dtypes (f32, int32, int32) and the shape tuple."""
+    return {"data": batch.data.cpu().numpy(),
+            "indices": batch.indices.cpu().numpy().astype(np.int32),
+            "indptr": batch.indptr.cpu().numpy().astype(np.int32),
+            "shape": tuple(batch.shape)}
 
 
 def embed_state_from_numpy(centroids, cardinalities, batches_done,

@@ -26,7 +26,18 @@ map is drawn from the first batch with a CPU generator of ``seed`` alone
 (``map_generator``), every batch is embedded once, the inner loop is plain
 Lloyd, and ``FitResult.predict`` labels through the serving bucket ladder
 (``serving.assign.predict``) and the fused ``embed_assign`` /
-``sketch_assign`` kernels.
+``sketch_assign`` kernels. The sketch methods also take CSR mini-batches
+(``data/sparse.py``), embedded in O(nnz); the exact method refuses them.
+
+Ingestion: ``fit`` consumes any iterable of batches or a
+``data.loader.BatchSource`` (closed on exit, success or failure), and
+``fit_dataset`` splits a resident dataset, dense or CSR, into a source
+that stages in the consumer with the plain copy (``to_device``): on the
+card a producer thread made these fits no faster
+(``launch/ingest_bench.py``). A stream takes ``prefetch=``, and its
+producer thread stages through pinned memory on a copy stream. A
+resumed fit skips the committed batches host-side (``BatchSource.skip``)
+and passes ``state=`` (and ``fmap=``).
 """
 from __future__ import annotations
 
@@ -37,7 +48,8 @@ from typing import Callable, Iterable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.data.sampling import split_batches
+from repro_torch.data.loader import BatchSource, closing_source, to_device
+from repro_torch.data.sparse import is_sparse
 from repro_torch.device import resolve_device
 
 from .engine import GramEngine, resolve_engine
@@ -238,15 +250,25 @@ def fit(batches: Iterable, cfg: MiniBatchConfig, *,
         state: Optional[GlobalState] = None,
         checkpoint_cb: Optional[Callable[[GlobalState, int], None]] = None,
         fmap=None, device=None) -> FitResult:
-    """Run the outer loop over an iterable of mini-batches (numpy arrays or
-    tensors). Passing a previous ``state`` resumes after a restart: the
-    iterable then yields only the remaining batches. ``checkpoint_cb(state,
-    i)`` is called after every merged batch. An embedded fit
-    (``cfg.method != "exact"``) resumes only with its original ``fmap``."""
-    if cfg.method != "exact":
-        return _fit_embedded(batches, cfg, state=state,
-                             checkpoint_cb=checkpoint_cb, fmap=fmap,
-                             device=device)
+    """Run the outer loop over an iterable of mini-batches (numpy arrays,
+    tensors or, for the sketch methods, CSR batches) or a ``BatchSource``,
+    which is closed on exit. A tensor already on the device in f32 is used
+    as it is. Passing a previous ``state`` resumes after a restart: the
+    iterable then yields only the remaining batches (``BatchSource.skip``).
+    ``checkpoint_cb(state, i)`` is called after every merged batch. An
+    embedded fit (``cfg.method != "exact"``) resumes only with its original
+    ``fmap``."""
+    with closing_source(batches):
+        if cfg.method != "exact":
+            return _fit_embedded(batches, cfg, state=state,
+                                 checkpoint_cb=checkpoint_cb, fmap=fmap,
+                                 device=device)
+        return _fit_exact(batches, cfg, state=state,
+                          checkpoint_cb=checkpoint_cb, device=device)
+
+
+def _fit_exact(batches, cfg: MiniBatchConfig, *, state, checkpoint_cb,
+               device) -> FitResult:
     dev = resolve_device(device)
     if state is not None:
         state = GlobalState(state.medoids.to(dev), state.medoid_diag.to(dev),
@@ -254,7 +276,13 @@ def fit(batches: Iterable, cfg: MiniBatchConfig, *,
     history: list[BatchStats] = []
     start = state.batches_done if state is not None else 0
     for i, xb in enumerate(batches, start=start):
-        xb = torch.as_tensor(xb, dtype=torch.float32).to(dev)
+        if is_sparse(xb):
+            raise ValueError(
+                "method='exact' evaluates kernel blocks on dense rows and "
+                "cannot take CSRBatch mini-batches; use a sketch method "
+                "(method='sketch'|'tensorsketch') to stay O(nnz), or "
+                "densify explicitly with repro_torch.data.sparse.to_dense")
+        xb = to_device(xb, dev)
         n_l = num_landmarks(xb.shape[0], cfg.s, n_clusters=cfg.n_clusters)
         gen = batch_generator(cfg.seed, i)
         if state is None:
@@ -279,7 +307,6 @@ def _fit_embedded(batches, cfg: MiniBatchConfig, *, state, checkpoint_cb,
     """The embedded-space target of ``fit``: draw the map from the first
     batch (unless one is given), then the embedded outer loop."""
     from repro_torch import approx
-    from repro_torch.approx.sketch import check_dense
 
     it = iter(batches)
     if fmap is None:
@@ -291,9 +318,7 @@ def _fit_embedded(batches, cfg: MiniBatchConfig, *, state, checkpoint_cb,
             first = next(it)
         except StopIteration:
             raise ValueError("empty batch iterable") from None
-        check_dense(first)
-        first = torch.as_tensor(first, dtype=torch.float32).to(
-            resolve_device(device))
+        first = to_device(first, resolve_device(device))
         m = cfg.embed_dim or approx.default_embed_dim(cfg.n_clusters)
         fmap = approx.make_feature_map(cfg.method, map_generator(cfg.seed),
                                        first, m, cfg.kernel,
@@ -308,10 +333,9 @@ def _fit_embedded(batches, cfg: MiniBatchConfig, *, state, checkpoint_cb,
 
 
 def fit_dataset(x, cfg: MiniBatchConfig, *, device=None, **kw) -> FitResult:
-    """Stride/block-split a resident dataset [n, d] into B batches, then
-    ``fit``. Sparse (CSR) datasets arrive with the ingestion slice."""
-    from repro_torch.approx.sketch import check_dense
-    check_dense(x)
-    return fit(split_batches(np.asarray(x, dtype=np.float32), cfg.n_batches,
-                             strategy=cfg.sampling),
-               cfg, device=device, **kw)
+    """Stride/block-split a resident dataset (dense [n, d] or a CSR batch)
+    into a ``BatchSource`` of B batches, then ``fit``."""
+    dev = resolve_device(device)
+    return fit(BatchSource.from_dataset(x, cfg.n_batches,
+                                        strategy=cfg.sampling, device=dev),
+               cfg, device=dev, **kw)

@@ -1,6 +1,7 @@
 """Synthetic datasets matched to the paper's §4 data, numpy copies of
 ``repro/data/synthetic.py`` (same seeds, same arrays). Every generator
-returns (X float32 [n, d], y int32 [n])."""
+returns (X float32 [n, d], y int32 [n]); ``make_rcv1_sparse`` returns X as
+a ``CSRBatch`` of CPU tensors."""
 from __future__ import annotations
 
 import numpy as np
@@ -71,3 +72,48 @@ def make_rcv1_like(n: int = 188000, d: int = 256, n_classes: int = 50,
         x[idx] = (docs / np.maximum(norms, 1e-9)) @ proj
     perm = rng.permutation(n)
     return x[perm], y[perm]
+
+
+def make_rcv1_sparse(n: int = 188000, vocab: int = 20000,
+                     n_classes: int = 50, *, words_per_topic: float = 48.0,
+                     seed: int = 0):
+    """RCV1 before the paper's dense 256-d projection: log TF-IDF documents
+    kept sparse over a ``vocab``-dimensional term space (tens of nonzeros a
+    document, heavy-tailed class sizes) -> (CSRBatch [n, vocab], y int32
+    [n]), the reference's arrays bit for bit."""
+    import torch
+
+    from .sparse import CSRBatch
+
+    rng = np.random.default_rng(seed)
+    sizes = (1.0 / np.arange(1, n_classes + 1)) ** 1.1
+    sizes = np.maximum((sizes / sizes.sum() * n).astype(np.int64), 1)
+    sizes[0] += n - sizes.sum()
+    y = np.repeat(np.arange(n_classes), sizes).astype(np.int32)
+
+    datas, cols, lens = [], [], []
+    for j in range(n_classes):
+        n_j = int(sizes[j])
+        topic = np.where(rng.random(vocab) < (words_per_topic / vocab))[0]
+        if len(topic) == 0:
+            topic = rng.integers(0, vocab, size=8)
+        base = rng.exponential(1.0, size=len(topic))
+        counts = rng.poisson(lam=base, size=(n_j, len(topic)))
+        counts = counts * (rng.random((n_j, len(topic))) < 0.5)
+        vals = np.log1p(counts.astype(np.float32))
+        norms = np.sqrt((vals ** 2).sum(axis=1, keepdims=True))
+        vals = vals / np.maximum(norms, 1e-9)
+        for r in range(n_j):
+            nz = np.nonzero(vals[r])[0]
+            datas.append(vals[r, nz])
+            cols.append(topic[nz])
+            lens.append(len(nz))
+
+    perm = rng.permutation(n)
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.asarray(lens)[perm], out=indptr[1:])
+    data = np.concatenate([datas[i] for i in perm]).astype(np.float32)
+    indices = np.concatenate([cols[i] for i in perm]).astype(np.int32)
+    batch = CSRBatch(torch.from_numpy(data), torch.from_numpy(indices),
+                     torch.from_numpy(indptr.astype(np.int32)), (n, vocab))
+    return batch, y[perm]

@@ -84,14 +84,9 @@ def smem_bytes(e: int, nch: int, m: int, cp: int, mb: int) -> int:
             + 8 * _up(e, 2) + 4 * _up(nch * mpos(m), 4) + 8 * ROWS * NG)
 
 
-@functools.lru_cache(maxsize=256)
-def geometry(d: int, m: int, cp: int, itemsize: int) -> tuple[int, int]:
-    """(mb, ctas per SM): the buckets of a chunk and the CTAs an SM holds,
-    for rows of d features of ``itemsize`` bytes (a program of at most d
-    entries). All m buckets in one chunk (X read once, V loaded once per
-    CTA) at two CTAs per SM where they fit, else at one; else the widest
-    chunk that fits one CTA (each chunk re-reads X). Raises where not even
-    8 buckets fit beside the program."""
+def _fit(d: int, m: int, cp: int, itemsize: int):
+    """``geometry``'s answer, or None where not even 8 buckets fit beside
+    the program."""
     nch = -(-d // chunk_features(itemsize))
 
     def need(mb):
@@ -103,12 +98,32 @@ def geometry(d: int, m: int, cp: int, itemsize: int) -> tuple[int, int]:
         return mb, 1
     per = (need(8) - need(0)) // 8
     mb = (SMEM_BLOCK - need(0)) // per // 8 * 8
-    if mb < 8:
+    return (mb, 1) if mb >= 8 else None
+
+
+@functools.lru_cache(maxsize=256)
+def geometry(d: int, m: int, cp: int, itemsize: int) -> tuple[int, int]:
+    """(mb, ctas per SM): the buckets of a chunk and the CTAs an SM holds,
+    for rows of d features of ``itemsize`` bytes (a program of at most d
+    entries). All m buckets in one chunk (X read once, V loaded once per
+    CTA) at two CTAs per SM where they fit, else at one; else the widest
+    chunk that fits one CTA (each chunk re-reads X). Raises where not even
+    8 buckets fit beside the program (``takes``)."""
+    fit = _fit(d, m, cp, itemsize)
+    if fit is None:
         raise ValueError(f"sketch_assign: the gather program of D={d} "
                          f"columns and {m} buckets leaves no room for a "
                          f"bucket chunk in {SMEM_BLOCK} bytes of shared "
                          f"memory")
-    return mb, 1
+    return fit
+
+
+def takes(d: int, m: int, c: int, itemsize: int) -> bool:
+    """Whether the kernel launches for dense rows of d features of
+    ``itemsize`` bytes, m buckets and c clusters: its gather program holds
+    8 bytes a column in shared memory, so past about 10,900 columns at m =
+    256 (f32 rows) even one bucket chunk does not fit."""
+    return _fit(d, m, min(_up(c, CP_MULTIPLE), MAX_CP), itemsize) is not None
 
 
 def gather_program(order: torch.Tensor, offsets: torch.Tensor,

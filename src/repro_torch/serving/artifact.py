@@ -119,9 +119,12 @@ class FrozenArtifact:
 def _runtime(art: FrozenArtifact, source=None) -> dict:
     """What a request would otherwise derive: RFF's [m] phases, the exact
     kind's KernelSpec, TensorSketch's map with its sketch matrices built;
-    for the count sketch on the card its kernel tables and the gather
-    program of the artifact's tile dtype, the ``source`` map's where the
-    artifact was frozen from one (the fit built them already)."""
+    for the count sketch its map (the CSR requests' O(nnz) embedding) and,
+    on the card, its kernel tables and the gather program of the
+    artifact's tile dtype, the ``source`` map's where the artifact was
+    frozen from one (the fit built them already). Where ``sketch_assign``
+    cannot take dense rows of the artifact's width (``dense`` False), the
+    artifact serves CSR rows only."""
     a = art.arrays
     if art.kind == "rff":
         return {"b": a["aux"].reshape(-1).contiguous()}
@@ -131,16 +134,21 @@ def _runtime(art: FrozenArtifact, source=None) -> dict:
         fmap = art.feature_map()
         fmap.matrices                    # built once, here
         return {"fmap": fmap}
-    if art.kind == "sketch" and a["h"].is_cuda:
-        from repro_torch.kernels.sketch_assign import (chunk_features,
-                                                       gather_program)
+    if art.kind == "sketch":
         fmap = art.feature_map() if source is None else source
+        if not a["h"].is_cuda:
+            return {"fmap": fmap}
+        from repro_torch.kernels.sketch_assign import (chunk_features,
+                                                       gather_program, takes)
+        itemsize = resolve_precision(art.precision).tile_itemsize
+        if not takes(art.in_dim, fmap.m, art.n_clusters, itemsize):
+            return {"fmap": fmap, "dense": False}
         order, offsets, sign = fmap.buckets
-        kd = chunk_features(resolve_precision(art.precision).tile_itemsize)
+        kd = chunk_features(itemsize)
         if kd not in fmap.programs:
             fmap.programs[kd] = gather_program(order, offsets, sign, fmap.m,
                                                kd)
-        return {"tables": (order, offsets, sign, fmap.programs)}
+        return {"fmap": fmap, "tables": (order, offsets, sign, fmap.programs)}
     return {}
 
 

@@ -17,13 +17,30 @@ Padding safety: padded rows are zeros, and each row's argmin depends on
 that row alone, so padding never changes a real row's label (a test fills
 the padding with garbage to show it); real labels are sliced back.
 
-Dense rows of the fused kinds run ``ops.predict_assign`` (the
-``embed_assign`` / ``sketch_assign`` kernels); the exact kind runs
-``core.minibatch.predict`` (``kernel_matrix``'s column body and an
-argmin) and TensorSketch its plain FFT path, as in the reference. CSR
-requests wait for sparse rows (ROADMAP Queue 1 item 6). The reference's
-flight-recorder hooks wait for item 10: each completed request keeps its
-queue, compute and total seconds in ``AssignService.records`` instead.
+Ingestion:
+
+* dense rows of the fused kinds run ``ops.predict_assign`` (the
+  ``embed_assign`` / ``sketch_assign`` kernels); the exact kind runs
+  ``core.minibatch.predict`` (``kernel_matrix``'s column body and an
+  argmin) and TensorSketch its plain FFT path, as in the reference;
+* CSR rows to the sketch kinds run the O(nnz) program (``run_csr_bucket``:
+  the map's sort-and-segment-sum embedding, ``approx/sketch.py``, then the
+  plain score and argmin): rows pad to the bucket and stored slots to a
+  power-of-two rung (``_pad_csr``, slack slots holding zeros that scatter
+  nothing); under bf16 the stored values are rounded to bf16 and summed in
+  f32. A CSR tick runs **eagerly, on the card too: no CUDA graph**, since
+  its shapes follow the nnz rung; ``compiled_programs`` counts the dense
+  buckets' programs only. A tick packs consecutive FIFO heads of one kind
+  (dense or CSR), so queued CSR requests fill the buckets the offline
+  predict's chunks fill;
+* CSR rows to rff, Nystrom and exact artifacts have no O(nnz) embedding:
+  they are densified at ingestion (row by row, exactly) and take the dense
+  bucket path, on the card the ``embed_assign`` / ``kernel_matrix``
+  kernels.
+
+The reference's flight-recorder hooks wait for ROADMAP Queue 1 item 10:
+each completed request keeps its queue, compute and total seconds in
+``AssignService.records`` instead.
 """
 from __future__ import annotations
 
@@ -35,9 +52,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.approx.sketch import is_csr
+from repro_torch.approx.sketch import SKETCH_KINDS
 from repro_torch.core.minibatch import predict as exact_predict
+from repro_torch.data.sparse import (CSRBatch, as_csr, concat_csr,
+                                     is_sparse, pad_csr_capacity, slice_rows,
+                                     stored, to_dense)
 from repro_torch.kernels import ops
+from repro_torch.kernels.precision import resolve_precision
 
 from .artifact import FrozenArtifact
 
@@ -46,10 +67,6 @@ from .artifact import FrozenArtifact
 DEFAULT_BUCKETS = (1, 8, 64, 512)
 #: completed request records a service keeps (the oldest drop first)
 MAX_RECORDS = 1 << 16
-
-_CSR_LATER = ("CSR requests are not ported yet: the CSR request path "
-              "arrives with sparse rows and ingestion (ROADMAP Queue 1 item "
-              "6); pass dense rows")
 
 
 class QueueFull(RuntimeError):
@@ -85,6 +102,34 @@ def run_bucket(art: FrozenArtifact, xp: torch.Tensor) -> torch.Tensor:
         precision=art.precision)[0]
 
 
+def run_csr_bucket(art: FrozenArtifact, piece: CSRBatch) -> torch.Tensor:
+    """One padded CSR bucket of a sketch kind on the artifact's device ->
+    labels [b] int32 there: the map's O(nnz) embedding of the stored
+    values (rounded to the tile dtype first, summed in f32), then the
+    plain score and argmin."""
+    p = resolve_precision(art.precision)
+    if p.tile != "f32":
+        piece = CSRBatch(p.cast_tiles(piece.data).to(torch.float32),
+                         piece.indices, piece.indptr, piece.shape)
+    a = art.arrays
+    return ops.score_assign(art.runtime["fmap"](piece), a["v"],
+                            a["csq"])[0]
+
+
+def _pad_csr(piece: CSRBatch, rows: int) -> CSRBatch:
+    """Pad a CSR piece to ``rows`` bucket rows and a power-of-two stored-
+    slot capacity (the nnz rung)."""
+    k = stored(piece)
+    cap = 1 << max(0, (max(k, 1) - 1).bit_length())
+    return pad_csr_capacity([piece], rows=rows, nnz_multiple=cap)[0]
+
+
+def _check_width(art: FrozenArtifact, shape) -> None:
+    if len(shape) != 2 or shape[1] != art.in_dim:
+        raise ValueError(f"queries must be [n, {art.in_dim}], got "
+                         f"{tuple(shape)}")
+
+
 def _ladder(buckets) -> tuple[int, ...]:
     return tuple(sorted({int(b) for b in buckets}))
 
@@ -94,14 +139,17 @@ def predict(art: FrozenArtifact, x, *,
     """Offline bucket-routed prediction (the ``FitResult.predict`` path):
     chunk ``x`` by the largest bucket, zero-pad the rest to the smallest
     bucket that fits, run each bucket eagerly and slice the real labels
-    back -> [n] int32 on the artifact's device."""
-    if is_csr(x):
-        raise NotImplementedError(_CSR_LATER)
+    back -> [n] int32 on the artifact's device. A CSR batch runs the O(nnz)
+    program for the sketch kinds and is densified for the others."""
     buckets = _ladder(buckets)
+    if is_sparse(x):
+        x = as_csr(x)
+        _check_width(art, x.shape)
+        if art.kind in SKETCH_KINDS:
+            return _predict_csr(art, x, buckets)
+        x = to_dense(x)
     x = torch.as_tensor(x, dtype=torch.float32).to(art.device)
-    if x.ndim != 2 or x.shape[1] != art.in_dim:
-        raise ValueError(f"queries must be [n, {art.in_dim}], got "
-                         f"{tuple(x.shape)}")
+    _check_width(art, x.shape)
     n = x.shape[0]
     out = torch.empty((n,), dtype=torch.int32, device=art.device)
     start = 0
@@ -110,6 +158,21 @@ def predict(art: FrozenArtifact, x, *,
         b = bucket_for(take, buckets)
         xp = F.pad(x[start:start + take], (0, 0, 0, b - take))
         out[start:start + take] = run_bucket(art, xp)[:take]
+        start += take
+    return out
+
+
+def _predict_csr(art: FrozenArtifact, x: CSRBatch,
+                 buckets: tuple[int, ...]) -> torch.Tensor:
+    n = x.shape[0]
+    out = torch.empty((n,), dtype=torch.int32, device=art.device)
+    start = 0
+    while start < n:
+        take = min(buckets[-1], n - start)
+        piece = _pad_csr(slice_rows(x, start, start + take),
+                         bucket_for(take, buckets))
+        out[start:start + take] = run_csr_bucket(
+            art, piece.to(art.device))[:take]
         start += take
     return out
 
@@ -180,7 +243,7 @@ class AssignServeConfig:
 @dataclasses.dataclass
 class _Request:
     uid: int
-    x: np.ndarray | None  # [n, d] f32 until the request completes
+    x: np.ndarray | CSRBatch | None  # [n, d] rows until it completes
     n: int
     t_submit: float
     labels: np.ndarray   # [n] int32, filled as ticks complete rows
@@ -214,6 +277,8 @@ class AssignService:
         self._programs: dict = {}
         self._pool = (torch.cuda.graph_pool_handle()
                       if artifact.device.type == "cuda" else None)
+        # False where sketch_assign cannot take dense rows this wide
+        self._dense = artifact.runtime.get("dense", True)
         if cfg.warm:
             self.warm()
 
@@ -226,10 +291,12 @@ class AssignService:
 
     def warm(self) -> None:
         """Build one program per bucket (on the card: run it once, then
-        capture it), so the first request pays no build."""
+        capture it), so the first request pays no build. An artifact that
+        serves CSR rows only has no dense programs to build."""
         t0 = time.perf_counter()
-        for b in self.cfg.buckets:
-            self._program(b)
+        if self._dense:
+            for b in self.cfg.buckets:
+                self._program(b)
         self.warm_seconds = time.perf_counter() - t0
 
     def _program(self, bucket: int):
@@ -242,16 +309,25 @@ class AssignService:
     # -- queue --------------------------------------------------------------
 
     def submit(self, x) -> int:
-        """Enqueue one request of dense rows [n, d]; returns its uid.
-        Raises ``QueueFull`` when admission would exceed
-        ``max_queue_rows`` pending rows."""
-        if is_csr(x):
-            raise NotImplementedError(_CSR_LATER)
-        x = (x.detach().to("cpu", torch.float32).numpy()
-             if torch.is_tensor(x) else np.asarray(x, np.float32))
-        if x.ndim != 2 or x.shape[1] != self.artifact.in_dim:
-            raise ValueError(f"queries must be [n, {self.artifact.in_dim}], "
-                             f"got {x.shape}")
+        """Enqueue one request of rows [n, d], dense or CSR; returns its
+        uid. CSR rows stay sparse for the sketch kinds and are densified
+        here for the others. Raises ``QueueFull`` when admission would
+        exceed ``max_queue_rows`` pending rows."""
+        if is_sparse(x):
+            x = as_csr(x).to("cpu")
+            _check_width(self.artifact, x.shape)
+            if self.artifact.kind not in SKETCH_KINDS:
+                x = to_dense(x).numpy()
+        else:
+            x = (x.detach().to("cpu", torch.float32).numpy()
+                 if torch.is_tensor(x) else np.asarray(x, np.float32))
+            _check_width(self.artifact, x.shape)
+            if not self._dense:
+                raise ValueError(
+                    f"this artifact serves CSR rows only: sketch_assign "
+                    f"cannot take dense rows of {self.artifact.in_dim} "
+                    f"columns (its gather program does not fit in shared "
+                    f"memory)")
         n = x.shape[0]
         if n == 0:
             raise ValueError("empty request")
@@ -270,21 +346,30 @@ class AssignService:
         if not self._queue:
             return {}
         bmax = self.cfg.buckets[-1]
+        sparse = isinstance(self._queue[0].x, CSRBatch)
         items, total = [], 0
-        for req in self._queue:            # FIFO heads, partial allowed
-            if total >= bmax:
+        for req in self._queue:    # FIFO heads of one kind, partial allowed
+            if total >= bmax or isinstance(req.x, CSRBatch) != sparse:
                 break
             take = min(req.n - req.filled, bmax - total)
             items.append((req, req.filled, take))
             total += take
         bucket = bucket_for(total, self.cfg.buckets)
-        xp = np.zeros((bucket, self.artifact.in_dim), np.float32)
-        ofs = 0
-        for req, s, t in items:
-            xp[ofs:ofs + t] = req.x[s:s + t]
-            ofs += t
-        t0 = time.perf_counter()
-        labels = self._program(bucket)(xp)[:total]
+        if sparse:
+            piece = _pad_csr(concat_csr([slice_rows(req.x, s, s + t)
+                                         for req, s, t in items]), bucket)
+            t0 = time.perf_counter()
+            labels = run_csr_bucket(
+                self.artifact, piece.to(self.artifact.device))
+            labels = labels.cpu().numpy()[:total]
+        else:
+            xp = np.zeros((bucket, self.artifact.in_dim), np.float32)
+            ofs = 0
+            for req, s, t in items:
+                xp[ofs:ofs + t] = req.x[s:s + t]
+                ofs += t
+            t0 = time.perf_counter()
+            labels = self._program(bucket)(xp)[:total]
         compute_s = time.perf_counter() - t0
         ofs = 0
         for req, s, t in items:

@@ -578,18 +578,25 @@ def test_config_validation_matches_jax():
 
 
 def test_csr_batches_wait_for_the_ingestion_slice():
+    """CSR batches no longer wait: they raised until sparse rows and
+    ingestion were ported, and now the reference's CSR batch and a torch
+    ``sparse_csr`` tensor go through the map, ``fit_dataset`` and ``fit``,
+    and embed and label as their dense rows do."""
     x, _ = _inputs(30, 12, 1, 1)
     x[x < 0.5] = 0.0
     csr = csr_from_dense(x)
     fmap = _port_map(_jax_map("sketch", x, 8))
     cfg = MiniBatchConfig(n_clusters=2, kernel=KernelSpec("linear"),
                           method="sketch")
-    for call in (lambda: fit_dataset(csr, cfg, device="cpu"),
-                 lambda: fit([csr], cfg, device="cpu"),
-                 lambda: fmap(csr),
-                 lambda: fmap(torch.from_numpy(x).to_sparse_csr())):
-        with pytest.raises(NotImplementedError, match="ingestion"):
-            call()
+    tcsr = torch.from_numpy(x).to_sparse_csr()
+    for batch in (csr, tcsr):
+        torch.testing.assert_close(fmap(batch), fmap(_t(x)), rtol=1e-5,
+                                   atol=1e-5)
+    a = fit_dataset(csr, cfg, device="cpu", fmap=fmap)
+    b = fit([tcsr], cfg, device="cpu", fmap=fmap)
+    assert torch.equal(a.state.centroids, b.state.centroids)
+    assert torch.equal(a.predict(csr), b.predict(tcsr))
+    assert torch.equal(a.predict(csr), a.predict(x))
 
 
 def test_make_rcv1_like_matches_jax():

@@ -14,7 +14,12 @@ Embedded labels must equal the plain version's outside its near-ties.
 ``flash_attention``: 2e-5 at f32 (the JAX test's own limit) and 1e-2 at
 bf16, where the kernel rounds P to bf16 for the P.V product and both
 versions round the output to bf16. Assignment serving: a CUDA-graph replay
-must equal an eager launch of the same bucket bitwise.
+must equal an eager launch of the same bucket bitwise. Sparse rows: the
+O(nnz) sketch (a stable sort and a segment sum, no atomics) must repeat
+bitwise on the card, also under ``torch.use_deterministic_algorithms``, and
+agree with the CPU's within 1e-6 normwise; batches staged through pinned
+memory and the copy stream must equal their host rows after kernels ran on
+them.
 """
 import dataclasses
 
@@ -25,7 +30,9 @@ import torch
 from repro_torch.approx import make_count_sketch, make_nystrom, make_rff
 from repro_torch.configs import get_arch
 from repro_torch.core import KernelSpec, MiniBatchConfig, fit_dataset
-from repro_torch.data.synthetic import toy2d
+from repro_torch.data import sparse as tsp
+from repro_torch.data.loader import BatchSource
+from repro_torch.data.synthetic import make_rcv1_sparse, toy2d
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.embed_assign import f32_geometry
 from repro_torch.kernels.precision import resolve_precision
@@ -1202,3 +1209,64 @@ def test_rls_selection_on_the_card_matches_plain(cuda, n, m):
     want = set(sel.gumbel_top_m(s_plain, noise, m).tolist())
     assert all(bool(near[i]) for i in got ^ want)
     assert len(got ^ want) <= 2 * int(near.sum())
+
+
+@pytest.mark.parametrize("kind", ["sketch", "tensorsketch"])
+def test_csr_sketch_is_bitwise_repeatable_on_the_card(cuda, kind):
+    """Tab.2's vocabulary: two runs bitwise equal, a third under
+    torch.use_deterministic_algorithms(True) (which refuses nondeterministic
+    ops) equal too; within 1e-6 normwise of the CPU's."""
+    xs, _ = make_rcv1_sparse(6000, vocab=47236, n_classes=50, seed=0)
+    gen = torch.Generator().manual_seed(3)
+    if kind == "sketch":
+        fmap = make_count_sketch(gen, 47236, 256, KernelSpec("linear"),
+                                 device=cuda)
+    else:
+        fmap = make_tensor_sketch(gen, 47236, 64, KernelSpec(
+            "polynomial", gamma=1.0, coef0=0.5, degree=2), device=cuda)
+    b = xs.to(cuda)
+    one, two = fmap(b), fmap(b)
+    assert torch.equal(one, two)
+    torch.use_deterministic_algorithms(True)
+    try:
+        three = fmap(b)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(one, three)
+    cpu_map = dataclasses.replace(
+        fmap, **{f.name: getattr(fmap, f.name).cpu()
+                 for f in dataclasses.fields(fmap)
+                 if torch.is_tensor(getattr(fmap, f.name))})
+    want = cpu_map(xs)
+    err = float((one.cpu() - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+    assert err <= 1e-6
+
+
+@pytest.mark.parametrize("kind", ["dense", "csr"])
+def test_pinned_streamed_batches_equal_the_host_rows(cuda, kind):
+    """A streamed BatchSource on the card (pinned copies on the copy
+    stream, prefetch 2): each batch, cloned on the consumer's stream the
+    moment it arrives and again after kernels ran on it, equals its host
+    rows bitwise."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(48000, 784)).astype(np.float32)
+    x[rng.random(x.shape) < 0.9] = 0.0
+    cuts = [0, 1000, 13000, 13001, 30000, 48000]
+    chunks = [x[a:b] if kind == "dense" else tsp.csr_from_dense(x[a:b])
+              for a, b in zip(cuts[:-1], cuts[1:])]
+    src = BatchSource.from_stream(chunks, 12000, prefetch=2)
+    seen = []
+    with src:
+        for batch in src:
+            dense = batch if kind == "dense" else tsp.to_dense(batch)
+            first = dense.clone()               # reads right after arrival
+            ops.kernel_matrix(dense, dense[:4], kind="rbf", gamma=1 / 784)
+            seen.append((first, dense.clone()))
+    torch.cuda.synchronize()
+    assert len(seen) == 4
+    for i, (first, after) in enumerate(seen):
+        want = torch.from_numpy(x[i * 12000:(i + 1) * 12000])
+        assert first.is_cuda and first.dtype == torch.float32
+        assert torch.equal(first.cpu(), want) and torch.equal(after.cpu(),
+                                                              want)

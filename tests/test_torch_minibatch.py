@@ -326,11 +326,13 @@ def test_predict_labels_by_nearest_medoid():
 
 
 def test_config_rejects_what_this_slice_does_not_port():
-    # the embedded methods are ported; CSR batches come with ingestion
+    # CSR batches: the sketch methods take them, the exact method refuses
     cfg = MiniBatchConfig(n_clusters=2, method="sketch",
                           kernel=KernelSpec("linear"))
-    with pytest.raises(NotImplementedError, match="ingestion"):
-        fit_dataset(torch.eye(4).to_sparse_csr(), cfg, device="cpu")
+    eye = torch.eye(4).to_sparse_csr()
+    assert fit_dataset(eye, cfg, device="cpu").state.batches_done == 1
+    with pytest.raises(ValueError, match="exact.*CSRBatch"):
+        fit_dataset(eye, MiniBatchConfig(n_clusters=2), device="cpu")
     with pytest.raises(ValueError):
         MiniBatchConfig(n_clusters=2, method="pca")
     # the leverage-aware selectors are ported: names and instances pass

@@ -7,8 +7,8 @@ written by either package loads in the other with bitwise equal arrays
 ``freeze_map`` of a converted map equals the reference's arrays (tables
 bitwise, f32 panels within 1e-5 relative). ``bucket_for`` equals the
 reference's; padding with garbage changes no real label; the service packs
-FIFO, admits up to its limit, rejects CSR and bad widths, and holds one
-program per bucket.
+FIFO, admits up to its limit, rejects bad widths (dense or CSR), and holds
+one program per bucket. CSR requests are held in ``test_torch_sparse.py``.
 """
 import numpy as np
 import pytest
@@ -365,9 +365,16 @@ def test_service_rejects_bad_width_empty_and_csr():
         svc.submit(np.zeros((3, art.in_dim + 1), np.float32))
     with pytest.raises(ValueError, match="empty"):
         svc.submit(np.zeros((0, art.in_dim), np.float32))
+    # CSR requests are ported: the right width labels as the dense rows,
+    # a wrong width raises as it does for dense rows
     csr = torch.from_numpy(x[:4]).to_sparse_csr()
-    for call in (lambda: svc.submit(csr), lambda: predict_frozen(art, csr)):
-        with pytest.raises(NotImplementedError, match="item 6"):
+    want = predict_frozen(art, x[:4])
+    assert torch.equal(predict_frozen(art, csr), want)
+    assert torch.equal(svc.predict(csr), want)
+    narrow = torch.from_numpy(x[:4, :3]).to_sparse_csr()
+    for call in (lambda: svc.submit(narrow),
+                 lambda: predict_frozen(art, narrow)):
+        with pytest.raises(ValueError, match="queries must be"):
             call()
     with pytest.raises(ValueError, match="queries must be"):
         predict_frozen(art, x[:, :3])
