@@ -91,10 +91,9 @@ Phases, in order; any failure exits non-zero without the final line:
      by ``FitResult.predict`` on CSR; B = 4 twice, bitwise equal), with
      the O(nnz) sketch of 4,096 test rows against the dense map on the
      densified rows (z within 1e-5 normwise) and the dense predict, which
-     launches sketch_assign, against the CSR labels outside near-ties (on
-     the corpus's columns: at the full vocabulary the kernel's gather
-     program does not fit in shared memory, which is checked); E-csr-
-     stream, the training rows as Tab.2's ragged chunk stream (3B cuts of
+     launches sketch_assign at the full vocabulary, against the CSR
+     labels outside near-ties; E-csr-stream, the training rows as Tab.2's
+     ragged chunk stream (3B cuts of
      default_rng(7)) through ``BatchSource.from_stream(prefetch=2)`` with
      the pinned stage, block sampling, B = 4, bitwise equal to the
      offline block split, and resumed after batch 2 by ``skip(2)`` with
@@ -105,7 +104,27 @@ Phases, in order; any failure exits non-zero without the final line:
      E-csr's B = 4 fit frozen and served a ragged mix of 1-700-row CSR
      requests (bitwise equal to ``predict_frozen``; garbage in padded rows
      and slack slots changes no real label) and CSR requests to D-rff's
-     artifact (equal to the same rows sent dense); then LM
+     artifact (equal to the same rows sent dense); then the mesh (phase
+     4d), a world of one over NCCL (``init_process_group`` on a FileStore,
+     a (1, 1) (data, model) DeviceMesh; its collectives counted by a
+     wrapper around ``torch.distributed.all_gather_into_tensor`` and
+     ``all_reduce``): M-B (run B-fused through
+     ``DistributedMiniBatchKMeans``: test accuracy and NMI within 0.02 of
+     B-fused's, one all_gather and one all_reduce a sync), M-inner (batch
+     0's ``distributed_kkmeans_fit`` against the single-host
+     ``kkmeans_fit``, labels equal outside near-ties), M-B-sstep
+     (``s_step = 2``: M-B's labels outside near-ties, at most half of M-B's
+     syncs + 2 a batch), M-D-rff (``DistributedEmbedKMeans`` with D-rff's
+     map: test labels agree on >= 99.5%, one all_reduce a Lloyd sweep),
+     M-E-csr-stream (E-csr-stream's rows and map through
+     ``DistributedEmbedKMeans.source``: its labels outside near-ties; the
+     dense predict of the test rows at the full 47,236 columns launches
+     sketch_assign and labels as the CSR rows; sketch_assign held against
+     its plain version and timed at that width, f32 and bf16), M-E-serve
+     (that fit frozen, dense requests served by one graph a bucket) and
+     M-elastic (M-B failed after batch 2, resumed by
+     ``ElasticClusteringRunner`` from ``CheckpointManager``: bitwise M-B's
+     state); then LM
      serving of OLMo-1B at full width
      (16 layers, d_model 2048, vocab 50,304; bf16 weights from a
      torch.Generator of seed 0) through ``get_model`` and ``ServingEngine``
@@ -198,6 +217,12 @@ BENCH_QPS, BENCH_REQUESTS = (100.0, 500.0), 200
 # CSR_Z_TOL normwise: both sum f32 values in another order)
 RCV1_VOCAB, CSR_DIM, CSR_BS, STREAM_SEED = 47236, 256, (4, 16, 64), 7
 CSR_CHECK_ROWS, CSR_Z_TOL = 4096, 1e-5
+# the mesh phase's artifact serves this many dense test rows at the full
+# vocabulary, as ragged requests
+MESH_SERVE_ROWS = 1024
+
+
+T_START = 0.0          # the script's start (main), for its wall time
 
 
 class SmokeFailure(RuntimeError):
@@ -1361,14 +1386,10 @@ def same_fit(torch, a, b) -> bool:
 def csr_sketch_checks(torch, np, mods, res, xs_tr, xs_te):
     """On CSR_CHECK_ROWS test rows: the O(nnz) count sketch against the
     dense CountSketchMap on the densified rows (z within CSR_Z_TOL), both
-    timed; then the dense predict_embedded, which launches sketch_assign,
-    against the CSR labels outside near-ties. sketch_assign keeps its
-    gather program (8 bytes a column) in shared memory, so at the full
-    vocabulary it cannot launch: that is checked, and the kernel runs on
-    the densified rows restricted to the columns the corpus uses (the other
-    columns are zero in every row and add nothing). This check's
-    sketch_assign launch is printed on its check line only: it is not a
-    launch of the main path. Returns the record."""
+    timed; then the dense predict_embedded at the full vocabulary, which
+    launches sketch_assign, against the CSR labels outside near-ties. This
+    check's sketch_assign launches are printed on its check line only:
+    they are not launches of the main path. Returns the record."""
     sparse, approx, ops = mods["sparse"], mods["approx"], mods["ops"]
     fmap, state = res.fmap, res.state
     rows = sparse.slice_rows(xs_te, 0, CSR_CHECK_ROWS).to("cuda")
@@ -1381,40 +1402,31 @@ def csr_sketch_checks(torch, np, mods, res, xs_tr, xs_te):
     ms_csr = time_ms(torch, lambda: fmap(rows), 20)
     ms_dense = time_ms(torch, lambda: fmap(dense), 20)
     before = ops.LAUNCHES["sketch_assign"]
-    try:
-        approx.predict_embedded(dense, state, fmap)
-        full_width = "launched"
-    except ValueError as e:     # the kernel's documented shared-memory limit
-        full_width = f"ValueError: {e}"
-    check(ops.LAUNCHES["sketch_assign"] == before + (full_width == "launched"),
-          "E-csr: a refused sketch_assign launch was counted")
-    cols = torch.unique(torch.cat([xs_tr.indices, xs_te.indices]).to(
-        "cuda").long())
-    narrow = approx.CountSketchMap(h=fmap.h[cols], sign=fmap.sign[cols],
-                                   m=fmap.m)
-    before = ops.LAUNCHES["sketch_assign"]
-    lab_kernel = approx.predict_embedded(dense[:, cols].contiguous(), state,
-                                         narrow)
+    lab_kernel = approx.predict_embedded(dense, state, fmap)
     launched = ops.LAUNCHES["sketch_assign"] - before
     lab_csr = approx.predict_embedded(rows, state, fmap)
-    c = state.centroids
-    d2 = (torch.sum(z_csr * z_csr, 1)[:, None] + torch.sum(c * c, 1)[None]
-          - 2.0 * z_csr @ c.T)
-    d2 = torch.where(state.cardinalities[None] > 0, d2,
-                     torch.full_like(d2, 1e30))
-    bad, near = label_mismatches(torch, lab_kernel, lab_csr, d2)
+    bad, near = label_mismatches(torch, lab_kernel, lab_csr,
+                                 embedded_d2(torch, z_csr, state))
     rec = {"check": "E-csr sketch", "rows": CSR_CHECK_ROWS,
            "vocab": RCV1_VOCAB, "m": fmap.m, "z_max_abs_err": err,
            "z_normwise": rel, "csr_sketch_ms": ms_csr,
-           "dense_map_ms": ms_dense, "sketch_assign_full_width": full_width,
-           "support_columns": int(cols.numel()),
-           "sketch_assign_launches": launched,
+           "dense_map_ms": ms_dense, "sketch_assign_launches": launched,
            "label_mismatches": bad, "near_ties": near}
     print("check", json.dumps(rec))
     check(launched > 0, "E-csr: the dense predict launched no sketch_assign")
     check(bad == 0, f"E-csr: the dense sketch_assign predict differs from "
                     f"the CSR labels on {bad} rows outside near-ties")
     return rec
+
+
+def embedded_d2(torch, z, state):
+    """The plain squared distances [n, C] of embedded rows to a state's
+    centroids, +1e30 on empty clusters (the near-tie reference)."""
+    c = state.centroids
+    d2 = (torch.sum(z * z, 1)[:, None] + torch.sum(c * c, 1)[None]
+          - 2.0 * z @ c.T)
+    return torch.where(state.cardinalities[None] > 0, d2,
+                       torch.full_like(d2, 1e30))
 
 
 def garbage_csr(torch, mods, piece, bucket):
@@ -1517,7 +1529,8 @@ class _SliceRows:
 def sparse_runs(torch, np, mods, x_tr, x_te, y_te, spec, res_rff):
     """Phase 4c: E-csr (B = 4, 16, 64 and B = 4's repeat), E-csr-stream
     and its resume, H-stream, G-E-csr. Returns (totals, bodies) of the
-    launches."""
+    launches and E-csr-stream's fit, data and config (the mesh phase's
+    reference)."""
     core, sparse, synth = mods["core"], mods["sparse"], mods["synthetic"]
     loader = mods["loader"]
     t0 = time.perf_counter()
@@ -1602,6 +1615,8 @@ def sparse_runs(torch, np, mods, x_tr, x_te, y_te, spec, res_rff):
               resume_after_2_equal=resume_ok)
     check(offline, "E-csr-stream: the streamed fit's labels differ from the "
                    "offline block split's")
+    stream = {"cfg": cfg, "cuts": cuts, "res": r_stream, "labels": l_stream,
+              "xs_tr": xs_tr, "xs_te": xs_te, "ys_te": ys_te}
     check(resume_ok, "E-csr-stream: the fit resumed by skip(2) differs from "
                      "the uninterrupted one")
 
@@ -1630,7 +1645,318 @@ def sparse_runs(torch, np, mods, x_tr, x_te, y_te, spec, res_rff):
     launched = run_g_csr(torch, np, mods, r1, res_rff, xs_te, x_te)
     totals["embed_assign"] += launched
     bodies["embed_assign", "f32"] += launched
-    return totals, bodies
+    return totals, bodies, stream
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the mesh (a world of one over NCCL)
+# ---------------------------------------------------------------------------
+
+
+class CollectiveCount:
+    """Counts the mesh's collectives: a wrapper around
+    ``torch.distributed.all_gather_into_tensor`` and ``all_reduce``, the two
+    calls the runtime makes (``distributed/mesh.py``)."""
+
+    def __init__(self, dist):
+        self.dist = dist
+        self.real = (dist.all_gather_into_tensor, dist.all_reduce)
+        self.reset()
+
+        def ag(*a, **k):
+            self.n["all_gather"] += 1
+            return self.real[0](*a, **k)
+
+        def ar(*a, **k):
+            self.n["all_reduce"] += 1
+            return self.real[1](*a, **k)
+        dist.all_gather_into_tensor, dist.all_reduce = ag, ar
+
+    def reset(self):
+        self.n = {"all_gather": 0, "all_reduce": 0}
+
+    def close(self):
+        self.dist.all_gather_into_tensor, self.dist.all_reduce = self.real
+
+
+def run_mesh(torch, mods, count, name, fit_fn, x_te, y_te):
+    """One fit of the mesh phase: the counters and the collective count set
+    to 0 just before ``fit_fn()``, the test rows labelled by
+    FitResult.predict, both read just after. -> (record, labels, result)."""
+    ops, ref, core = mods["ops"], mods["ref"], mods["core"]
+    zero_counters(mods)
+    count.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit_fn()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    labels = res.predict(x_te).cpu().numpy()
+    t2 = time.perf_counter()
+    rec = {"run": name, "world": 1, "mesh": {"data": 1, "model": 1},
+           "wall_s": t2 - t0, "fit_s": t1 - t0, "label_s": t2 - t1,
+           "inner_iters": [h.inner_iters for h in res.history],
+           "acc": core.clustering_accuracy(y_te, labels),
+           "nmi": core.nmi(y_te, labels), "collectives": dict(count.n),
+           "launches": dict(ops.LAUNCHES), "plain_calls": dict(ref.CALLS)}
+    return rec, labels, res
+
+
+def mesh_phase(torch, np, mods, x_tr, x_te, y_te, spec, runs, fits, stream):
+    """Phase 4d: the mesh on the card's world of one over NCCL, a (1, 1)
+    (data, model) DeviceMesh: M-B (as run B-fused, through
+    DistributedMiniBatchKMeans), M-inner (batch 0 of M-B: the distributed
+    inner loop against the single-host one), M-B-sstep (s_step = 2),
+    M-D-rff (DistributedEmbedKMeans with D-rff's map), M-E-csr-stream
+    (E-csr-stream's rows and map through DistributedEmbedKMeans.source;
+    the dense predict at the full vocabulary; the frozen artifact serving
+    dense requests through its graphs) and M-elastic (M-B failed after
+    batch 2 and resumed by ElasticClusteringRunner from its checkpoint).
+    Returns (totals, bodies, records) of the launches and checks."""
+    import datetime
+    import os
+    import tempfile
+    dist = torch.distributed
+    core, dm, ft, sparse = mods["core"], mods["dmesh"], mods["ft"], \
+        mods["sparse"]
+    approx, serving, ops = mods["approx"], mods["serving"], mods["ops"]
+    totals = {"kernel_matrix": 0, "assign_fused": 0, "embed_assign": 0,
+              "sketch_assign": 0}
+    bodies = {("kernel_matrix", "column"): 0, ("assign_fused", "f32"): 0,
+              ("embed_assign", "f32"): 0, ("sketch_assign", "f32"): 0}
+    recs = []
+
+    def count_launches(rec, body_of=None):
+        for k in totals:
+            totals[k] += rec["launches"][k]
+        bodies["kernel_matrix", "column"] += \
+            rec["launches"]["kernel_matrix_column"]
+        bodies["assign_fused", "f32"] += rec["launches"]["assign_fused"]
+        bodies["embed_assign", "f32"] += rec["launches"]["embed_assign"]
+        bodies["sketch_assign", "f32"] += rec["launches"]["sketch_assign"]
+
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1, device_id=torch.device("cuda", 0),
+        timeout=datetime.timedelta(seconds=120))
+    count = CollectiveCount(dist)
+    mesh = dm.make_test_mesh({"data": 1, "model": 1})
+    print(f"mesh: {mesh} over {dist.get_backend()}")
+
+    # M-B: Tab.1 as run B-fused, on the mesh
+    cfg_b = core.MiniBatchConfig(n_clusters=10, n_batches=4, s=0.2,
+                                 kernel=spec, seed=0, engine="fused")
+    batches = mods["sampling"].split_batches(x_tr, 4, strategy="stride")
+    rec, lab_b, res_b = run_mesh(
+        torch, mods, count, "M-B",
+        lambda: dm.DistributedMiniBatchKMeans(mesh, cfg_b).fit(batches),
+        x_te, y_te)
+    iters = rec["inner_iters"]
+    b = len(iters)
+    # a sync a loop body plus the prologue's; the argmins' gathers
+    want = {"all_gather": sum(iters) + b + 1 + 2 * (b - 1),
+            "all_reduce": sum(iters) + b}
+    ref_b = runs["B-fused"][0]
+    print_run(rec, syncs=[i + 1 for i in iters], want_collectives=want,
+              b_fused_acc=ref_b["acc"], b_fused_nmi=ref_b["nmi"])
+    count_launches(rec)
+    check(rec["collectives"] == want, f"M-B: collectives {rec['collectives']}"
+                                      f", want {want}")
+    check(abs(rec["acc"] - ref_b["acc"]) <= 0.02
+          and abs(rec["nmi"] - ref_b["nmi"]) <= 0.02,
+          f"M-B: acc {rec['acc']} / NMI {rec['nmi']} not within 0.02 of "
+          f"B-fused's {ref_b['acc']} / {ref_b['nmi']}")
+    check(rec["launches"]["assign_fused"] > 0
+          and rec["launches"]["kernel_matrix"] > 0,
+          "M-B: assign_fused or kernel_matrix never launched")
+
+    # M-inner: batch 0 of M-B, its landmarks and u0, the distributed inner
+    # loop against the single-host kkmeans_fit
+    init = mods["init"]
+    km = dm.DistributedMiniBatchKMeans(mesh, cfg_b)
+    x0_host = torch.as_tensor(batches[0])
+    x0 = x0_host.cuda()
+    gen = mods["minibatch"].batch_generator(cfg_b.seed, 0)
+    l_idx, _ = km._choose_landmarks(gen, x0_host, 0)
+    l_idx = l_idx.cuda()
+    lm, diag = x0[l_idx], spec.diag(x0)
+    seeds = init.kmeans_pp_indices(lm, spec.diag(lm), gen, n_clusters=10,
+                                   spec=spec)
+    u0, _ = init.assign_to_medoids(x0, diag, lm[seeds], spec.diag(lm[seeds]),
+                                   spec=spec)
+    zero_counters(mods)
+    count.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = dm.distributed_kkmeans_fit(mesh, x0, lm, l_idx, diag, u0,
+                                     cfg=km.inner_cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rec = {"run": "M-inner", "world": 1, "rows": len(x0),
+           "landmarks": len(l_idx), "fit_s": t1 - t0,
+           "collectives": dict(count.n), "launches": dict(ops.LAUNCHES),
+           "plain_calls": dict(mods["ref"].CALLS)}
+    host = mods["kkmeans"].kkmeans_fit(
+        x0, l_idx, diag, u0, spec=spec, n_clusters=10, max_iters=100,
+        engine=core.GramEngine("fused"))
+    torch.cuda.synchronize()
+    d = torch.where(host.counts[None] > 0, host.g[None] - 2.0 * host.f,
+                    torch.full_like(host.f, 1e30))
+    bad, near = label_mismatches(torch, got.labels, host.labels, d)
+    print_run(rec, syncs=got.n_iter + 1, iters=got.n_iter,
+              host_iters=host.n_iter, host_s=time.perf_counter() - t1,
+              label_mismatches=bad, near_ties=near,
+              g_max_abs_err=float((got.g - host.g).abs().max()))
+    count_launches(rec)
+    check(bad == 0, f"M-inner: {bad} labels differ from the single-host "
+                    f"inner loop outside near-ties")
+    check(rec["collectives"] == {"all_gather": got.n_iter + 1,
+                                 "all_reduce": got.n_iter + 1},
+          f"M-inner: {rec['collectives']} for {got.n_iter} syncs")
+
+    # M-B-sstep: two Lloyd steps a sync (at world 1 a refinement is global)
+    cfg_s = dataclasses.replace(cfg_b, s_step=2)
+    rec, lab_s, res_s = run_mesh(
+        torch, mods, count, "M-B-sstep",
+        lambda: dm.DistributedMiniBatchKMeans(mesh, cfg_s).fit(batches),
+        x_te, y_te)
+    st = res_b.state
+    xt = torch.as_tensor(x_te, device="cuda")
+    d2 = (spec.diag(xt)[:, None] + st.medoid_diag[None]
+          - 2.0 * spec(xt, st.medoids).float())
+    bad, near = label_mismatches(torch, torch.as_tensor(lab_s),
+                                 torch.as_tensor(lab_b), d2.cpu())
+    syncs_ok = all(s_ <= -(-i // 2) + 2 for s_, i in
+                   zip(rec["inner_iters"], iters))
+    print_run(rec, s_step=2, m_b_iters=iters, label_mismatches=bad,
+              near_ties=near)
+    count_launches(rec)
+    check(bad == 0, f"M-B-sstep: {bad} test labels differ from M-B's "
+                    f"outside near-ties")
+    check(syncs_ok, f"M-B-sstep: syncs {rec['inner_iters']} exceed half of "
+                    f"M-B's {iters} + 2")
+
+    # M-D-rff: Fig.5 through DistributedEmbedKMeans with D-rff's map
+    res_d = fits["D-rff"]
+    cfg_d = core.MiniBatchConfig(n_clusters=10, n_batches=1, kernel=spec,
+                                 seed=0, embed_dim=EMBED_DIM, method="rff")
+    rec, lab_d, _ = run_mesh(
+        torch, mods, count, "M-D-rff",
+        lambda: dm.DistributedEmbedKMeans(mesh, cfg_d,
+                                          fmap=res_d.fmap).fit([x_tr]),
+        x_te, y_te)
+    agree = float((lab_d == runs["D-rff"][1]).mean())
+    iters_d = rec["inner_iters"]
+    want = {"all_gather": 1, "all_reduce": sum(iters_d) + len(iters_d)}
+    print_run(rec, agreement_with_d_rff=agree, want_collectives=want,
+              all_reduce_per_sweep=(rec["collectives"]["all_reduce"]
+                                    - len(iters_d)) / max(sum(iters_d), 1))
+    count_launches(rec)
+    check(agree >= 0.995, f"M-D-rff: test labels agree with D-rff's on "
+                          f"{agree} < 0.995")
+    check(rec["collectives"] == want,
+          f"M-D-rff: collectives {rec['collectives']}, want {want} (one "
+          f"all_reduce a Lloyd sweep)")
+
+    # M-E-csr-stream: Tab.2's sparse stream on the mesh, with E-csr-stream's
+    # map; the dense predict at the full vocabulary; the frozen artifact
+    res_e, cfg_e = stream["res"], stream["cfg"]
+    xs_tr, xs_te, ys_te = stream["xs_tr"], stream["xs_te"], stream["ys_te"]
+    km_e = dm.DistributedEmbedKMeans(mesh, cfg_e, fmap=res_e.fmap)
+
+    def fit_stream():
+        chunks = (sparse.slice_rows(xs_tr, a, z) for a, z in stream["cuts"])
+        return km_e.fit(km_e.source(mods["sampling"].stream_blocks(
+            chunks, RCV1_TRAIN // 4), depth=2))
+    rec, lab_e, res_m = run_mesh(torch, mods, count, "M-E-csr-stream",
+                                 fit_stream, xs_te, ys_te)
+    rows_te = xs_te.to("cuda")
+    z_te = res_e.fmap(rows_te)
+    bad_s, near_s = label_mismatches(
+        torch, torch.as_tensor(lab_e), torch.as_tensor(stream["labels"]),
+        embedded_d2(torch, z_te, res_e.state).cpu())
+    dense_te = sparse.to_dense(rows_te)
+    # the dense predict of the test rows at the full vocabulary: a path of
+    # its own, its counters set to 0 just before it and read just after
+    zero_counters(mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lab_dense = approx.predict_embedded(dense_te, res_m.state, res_m.fmap)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    launched = ops.LAUNCHES["sketch_assign"]
+    rec["launches"]["sketch_assign"] += launched
+    for k, v in mods["ref"].CALLS.items():
+        rec["plain_calls"][k] += v
+    lab_csr = approx.predict_embedded(rows_te, res_m.state, res_m.fmap)
+    bad_d, near_d = label_mismatches(torch, lab_dense, lab_csr,
+                                     embedded_d2(torch, z_te, res_m.state))
+    print_run(rec, vocab=RCV1_VOCAB, m=res_m.fmap.m,
+              label_mismatches_vs_e_csr_stream=bad_s, near_ties=near_s,
+              dense_predict_s=dense_s, dense_sketch_assign_launches=launched,
+              dense_vs_csr_mismatches=bad_d, dense_near_ties=near_d)
+    count_launches(rec)
+    check(bad_s == 0, f"M-E-csr-stream: {bad_s} test labels differ from "
+                      f"E-csr-stream's outside near-ties")
+    check(launched > 0, "M-E-csr-stream: the dense predict at the full "
+                        "vocabulary launched no sketch_assign")
+    check(bad_d == 0, f"M-E-csr-stream: the dense predict differs from the "
+                      f"CSR labels on {bad_d} rows outside near-ties")
+    check(rec["collectives"]["all_gather"] == 1,
+          f"M-E-csr-stream: {rec['collectives']}")
+    # sketch_assign at the full vocabulary against its plain version
+    for prec in ("f32", "bf16"):
+        recs.append(check_embedded(
+            torch, mods, dense_te, res_m.fmap, res_m.state.centroids,
+            res_m.state.cardinalities, prec, timed=True, tag="full-width"))
+    # the frozen artifact serves dense requests through its graphs
+    art = serving.freeze(res_m)
+    dense_np = dense_te[:MESH_SERVE_ROWS].cpu().numpy()
+    svc = serving.AssignService(art, serving.AssignServeConfig(
+        max_queue_rows=MESH_SERVE_ROWS))
+    zero_counters(mods)
+    got, wall = serve_requests(svc, dense_np,
+                               ragged_requests(np, MESH_SERVE_ROWS, seed=13))
+    served = dict(ops.LAUNCHES)
+    got = np.concatenate(got)
+    want = serving.predict_frozen(art, dense_te[:MESH_SERVE_ROWS]).cpu()
+    print_run({"run": "M-E-serve", "kind": art.kind, "in_dim": art.in_dim,
+               "graphs": svc.compiled_programs, "rows": MESH_SERVE_ROWS,
+               "wall_s": wall, "equal_to_predict_frozen":
+               bool(np.array_equal(got, want.numpy())),
+               "equal_to_csr_labels": bool(np.array_equal(
+                   got, lab_csr[:MESH_SERVE_ROWS].cpu().numpy())),
+               "launches": served, "plain_calls": dict(mods["ref"].CALLS)})
+    totals["sketch_assign"] += served["sketch_assign"]
+    bodies["sketch_assign", "f32"] += served["sketch_assign"]
+    check(svc.compiled_programs == len(BUCKETS),
+          f"M-E-serve: {svc.compiled_programs} graphs, not {len(BUCKETS)}")
+    check(np.array_equal(got, want.numpy()),
+          "M-E-serve: the graphs' labels differ from predict_frozen's")
+    check(served["sketch_assign"] > 0, "M-E-serve: no sketch_assign replay")
+    del dense_te, dense_np, svc, art
+
+    # M-elastic: M-B failed after batch 2, resumed from its checkpoint
+    ckpt = ft.CheckpointManager(os.path.join(tmp, "ckpt"))
+    runner = ft.ElasticClusteringRunner(cfg_b, ckpt)
+    failed = False
+    try:
+        runner.run(mesh, batches, fail_after=2)
+    except ft.SimulatedFailure:
+        failed = True
+    rec, _, res_r = run_mesh(torch, mods, count, "M-elastic",
+                             lambda: runner.run(mesh, batches), x_te, y_te)
+    same = all(torch.equal(u, v) for u, v in zip(res_r.state[:3],
+                                                 res_b.state[:3]))
+    print_run(rec, failed_after=2, committed_step=ckpt.latest_step(),
+              bitwise_equal_to_m_b=same)
+    count_launches(rec)
+    check(failed and same and res_r.state.batches_done == 4,
+          "M-elastic: the resumed fit differs from M-B")
+    count.close()
+    dist.destroy_process_group()
+    return totals, bodies, recs
 
 
 # ---------------------------------------------------------------------------
@@ -1930,6 +2256,8 @@ def serving_runs(torch, np, mods):
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
+    global T_START
+    T_START = time.perf_counter()
 
     import numpy as np
     import torch
@@ -1953,7 +2281,10 @@ def main(argv=None) -> int:
                 ("selectors", "approx.selectors"),
                 ("serve_bench", "launch.serve_bench"),
                 ("sparse", "data.sparse"), ("loader", "data.loader"),
-                ("assign", "serving.assign")]}
+                ("assign", "serving.assign"), ("sampling", "data.sampling"),
+                ("init", "core.init"), ("kkmeans", "core.kkmeans"),
+                ("minibatch", "core.minibatch"),
+                ("dmesh", "distributed"), ("ft", "ft")]}
     core = mods["core"]
 
     # -- phase 1: the card --------------------------------------------------
@@ -2144,13 +2475,23 @@ def main(argv=None) -> int:
     serve_bench_run(torch, mods, svc)
     print(f"run G and serve_bench: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    sp_totals, sp_bodies = sparse_runs(torch, np, mods, x_tr, x_te, y_te,
-                                       spec, fits["D-rff"])
+    sp_totals, sp_bodies, stream = sparse_runs(torch, np, mods, x_tr, x_te,
+                                               y_te, spec, fits["D-rff"])
     for k, n in sp_totals.items():
         totals[k] += n
     for key, n in sp_bodies.items():
         bodies[key] = bodies.get(key, 0) + n
     print(f"sparse rows and ingestion: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    m_totals, m_bodies, m_recs = mesh_phase(torch, np, mods, x_tr, x_te, y_te,
+                                            spec, runs, fits, stream)
+    for k, n in m_totals.items():
+        totals[k] += n
+    for key, n in m_bodies.items():
+        bodies[key] = bodies.get(key, 0) + n
+    recs += m_recs
+    del stream
+    print(f"mesh: {time.perf_counter() - t0:.1f} s")
     del fits, runs, svc
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2207,7 +2548,8 @@ def main(argv=None) -> int:
             "library_ms": first["library_ms"]})
         if "kernel_ms" in first:   # the time on pre-cast rows
             kernels[-1]["kernel_ms"] = first["kernel_ms"]
-    print(f"total inner iterations {iters}; card: {card_line()}")
+    print(f"total inner iterations {iters}; card: {card_line()}; wall "
+          f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,7 +33,11 @@ no counterpart. Kinds without an in-tile epilogue (laplacian) recompute the
 block with ``KernelSpec`` and contract it, in fused as in tiled mode.
 
 Every mode runs the same stats code and the same argmin, lowest cluster
-index on ties, so the mode never changes labels.
+index on ties, but the modes sum in different orders (fused contracts
+against H / counts, materialize divides K @ H by the counts, tiled sums per
+row panel). So the final labels agree where the margins are clear; at
+near-ties a rounding difference can move a label, and with it the
+trajectory and the iteration count of the inner loop.
 """
 from __future__ import annotations
 

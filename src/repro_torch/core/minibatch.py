@@ -69,6 +69,7 @@ class MiniBatchConfig:
     sampling: str = "stride"             # "stride" | "block"
     seed: int = 0
     restrict_medoids_to_members: bool = False  # Eq.7 is unrestricted
+    landmark_multiple_of: int = 1        # |L| alignment of the mesh
     # "exact" | "rff" | "nystrom" | "sketch" | "tensorsketch"
     method: str = "exact"
     embed_dim: int = 0                   # m; 0 -> approx.default_embed_dim(C)
@@ -81,10 +82,16 @@ class MiniBatchConfig:
     # or a GramEngine (core/engine.py)
     engine: object = "materialize"
     precision: str = "f32"               # tile dtype: "f32" | "bf16"
+    # Lloyd refinements per global sync of the mesh's exact inner loop
+    # (distributed.inner.DistributedInnerConfig.s_step); a single-host fit
+    # ignores it
+    s_step: int = 1
 
     _METHODS = ("exact", "rff", "nystrom", "sketch", "tensorsketch")
 
     def __post_init__(self):
+        if self.s_step < 1:
+            raise ValueError(f"s_step must be >= 1, got {self.s_step}")
         if self.method not in self._METHODS:
             raise ValueError(
                 f"method must be one of {self._METHODS}, got {self.method!r}")
@@ -283,7 +290,8 @@ def _fit_exact(batches, cfg: MiniBatchConfig, *, state, checkpoint_cb,
                 "(method='sketch'|'tensorsketch') to stay O(nnz), or "
                 "densify explicitly with repro_torch.data.sparse.to_dense")
         xb = to_device(xb, dev)
-        n_l = num_landmarks(xb.shape[0], cfg.s, n_clusters=cfg.n_clusters)
+        n_l = num_landmarks(xb.shape[0], cfg.s, n_clusters=cfg.n_clusters,
+                            multiple_of=cfg.landmark_multiple_of)
         gen = batch_generator(cfg.seed, i)
         if state is None:
             l_idx, seeds = draw_first(xb, gen, cfg=cfg, n_landmarks=n_l)

@@ -1,0 +1,139 @@
+"""Mesh utilities of the distributed clustering runtime, the port of
+``repro/distributed/mesh.py``.
+
+The reference runs SPMD inside one process through ``shard_map``; the port
+runs SPMD across processes. Every rank of an initialised
+``torch.distributed`` world runs the same host loop, and a mesh is a
+``torch.distributed.device_mesh.DeviceMesh`` with dim names ``("data",
+"model")`` or ``("pod", "data", "model")``. Its device type follows the
+tensors: ``cuda`` over NCCL on the card, ``cpu`` over gloo (the tests'
+spawned worlds). The production meshes live in ``launch/mesh.py``.
+
+The collectives go through ``all_gather`` and ``all_reduce`` here, which
+call ``torch.distributed.all_gather_into_tensor`` / ``all_reduce`` on the
+group of one or more mesh axes (``axis_group``), so a wrapper around those
+two functions of ``torch.distributed`` counts every collective of the
+runtime.
+"""
+from __future__ import annotations
+
+import math
+import warnings
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import resolve_device
+
+
+def make_test_mesh(axes: dict[str, int] | None = None, device=None):
+    """A DeviceMesh over the initialised world; the default splits it into
+    (data, model) with the largest power-of-two model axis <= sqrt(n).
+    ``device`` names the mesh's device type (``None``: the card)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_test_mesh needs an initialised torch.distributed world "
+            "(init_process_group with its rank and world size)")
+    n = dist.get_world_size()
+    if axes is None:
+        model = 1
+        while model * 2 <= int(math.isqrt(n)) and n % (model * 2) == 0:
+            model *= 2
+        axes = {"data": n // model, "model": model}
+    shape = tuple(int(v) for v in axes.values())
+    if math.prod(shape) != n:
+        raise ValueError(f"mesh {axes} needs {math.prod(shape)} devices, "
+                         f"have {n}")
+    dev = resolve_device(device)
+    return init_device_mesh(dev.type, shape, mesh_dim_names=tuple(axes))
+
+
+def mesh_shape(mesh) -> dict[str, int]:
+    """{axis name: size} of a DeviceMesh, in mesh order."""
+    return {name: int(mesh.size(i))
+            for i, name in enumerate(mesh.mesh_dim_names)}
+
+
+def axis_size(mesh, names: tuple[str, ...] | str) -> int:
+    if isinstance(names, str):
+        names = (names,)
+    shape = mesh_shape(mesh)
+    out = 1
+    for n in names:
+        out *= shape[n]
+    return out
+
+
+def row_axes_of(mesh) -> tuple[str, ...]:
+    """Row (data-parallel) axes: every mesh axis except 'model'."""
+    return tuple(n for n in mesh.mesh_dim_names if n != "model")
+
+
+def ghost_row_ids(n: int, multiple: int) -> np.ndarray:
+    """Source row ids for the ghost rows that pad an n-row batch up to a
+    ``multiple`` of the mesh row count: head rows repeated modulo n, so a
+    tail batch SMALLER than the mesh (a stream's last yield) pads correctly
+    instead of indexing past the batch. Shared by the dense, CSR and exact
+    staging paths."""
+    if n < 1:
+        raise ValueError("cannot stage an empty batch onto the mesh")
+    return np.arange((-n) % multiple) % n
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device this rank's tensors live on for ``mesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def axis_group(mesh, axes: tuple[str, ...] | str):
+    """The process group of this rank over the mesh axes ``axes`` (in mesh
+    order): one axis is the mesh's own group; several are built once per
+    mesh, by every rank in the same order. Group rank i is the i-th of
+    those ranks in row-major order over ``axes``, which is the order
+    ``all_gather`` concatenates."""
+    if isinstance(axes, str):
+        axes = (axes,)
+    names = tuple(mesh.mesh_dim_names)
+    if list(axes) != [a for a in names if a in axes]:
+        raise ValueError(f"axes {axes} are not in mesh order {names}")
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    cache = mesh.__dict__.setdefault("_axis_groups", {})
+    if axes not in cache:
+        keep = [names.index(a) for a in axes]
+        rest = [i for i in range(len(names)) if i not in keep]
+        ranks = mesh.mesh.permute(*rest, *keep).reshape(
+            -1, math.prod(mesh.mesh.shape[i] for i in keep))
+        cache[axes], _ = dist.new_subgroups_by_enumeration(ranks.tolist())
+    return cache[axes]
+
+
+def axis_rank(mesh, axes: tuple[str, ...] | str) -> int:
+    """This rank's position along ``axes`` (row-major over them)."""
+    return dist.get_rank(axis_group(mesh, axes))
+
+
+def all_gather(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Concatenate ``t`` of every rank along ``axes`` on dim 0: ONE
+    ``all_gather_into_tensor`` (torch 2.13 names it deprecated; it is the
+    call both 2.11 and 2.13 have)."""
+    group = axis_group(mesh, axes)
+    t = t.contiguous()
+    out = torch.empty((dist.get_world_size(group) * t.shape[0],
+                       *t.shape[1:]), dtype=t.dtype, device=t.device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, t, group=group)
+    return out
+
+
+def all_reduce(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Sum ``t`` over the ranks along ``axes``: ONE ``all_reduce`` (in
+    place on a contiguous copy; returns it)."""
+    t = t.contiguous().clone()
+    dist.all_reduce(t, group=axis_group(mesh, axes))
+    return t

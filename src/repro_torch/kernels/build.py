@@ -48,8 +48,8 @@ SIGNATURES = {
                                                         _P],
     "rt_embed_assign_bf16": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _F, _P],
     "rt_embed_bf16_ctas_per_sm": [_I, _I, _P],
-    "rt_sketch_assign_f32": [_P] * 7 + [_I] * 7 + [_P],
-    "rt_sketch_assign_bf16": [_P] * 7 + [_I] * 7 + [_P],
+    "rt_sketch_assign_f32": [_P] * 7 + [_I] * 8 + [_P],
+    "rt_sketch_assign_bf16": [_P] * 7 + [_I] * 8 + [_P],
     "rt_flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _F]
     + [_L] * 12 + [_P],
     "rt_flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F, _F]

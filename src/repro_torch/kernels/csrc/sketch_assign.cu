@@ -31,8 +31,18 @@
 //   - a persistent grid, the SMs times the CTAs one holds (two where the
 //     shared memory allows; kernels/sketch_assign.py geometry), each CTA
 //     walking a contiguous range of row blocks of R = 32 rows. It loads
-//     the program, pos and V [MB, Cp] f32 (a row pitch of 8 mod 32 floats:
-//     conflict-free fragment reads) once;
+//     V [MB, Cp] f32 (a row pitch of 8 mod 32 floats: conflict-free
+//     fragment reads) once;
+//   - the program lies where it costs nothing: a narrow one (the Tab.2
+//     dense view's 256 columns: 2 KB) is copied to shared memory once per
+//     CTA, beside the ring, when it leaves the bucket chunk and the CTAs an
+//     SM holds as they are without it; any other is read in place from
+//     global memory (L2) chunk by chunk, each warp's run with warp-uniform
+//     __ldg broadcasts, so shared memory does not grow with D and the
+//     kernel takes rows of any width (Tab.2's 47,236-term vocabulary).
+//     Read in place, the narrow program cost Tab.2's dense view 5% on an
+//     H100 SXM at 700 W (0.199 against 0.189 ms at f32,
+//     launch/kernel_ab.py), so it stays staged where it fits;
 //   - X is staged in order through a cp.async ring of NSTAGE = 3 stages,
 //     16-byte copies, each stage a column chunk of the row block: 512
 //     bytes a row (KD = 128 f32 or 256 bf16 features), so the next chunks'
@@ -101,14 +111,16 @@ __host__ __device__ __forceinline__ int mpos(int m) {
 
 // Shared memory for a program of E entries over nch column chunks, M
 // buckets, Cp clusters and bucket chunks of mb (kernels/sketch_assign.py
-// smem_bytes mirrors it): the ring, zT [mb][ZP], V [mb][vpitch], the
-// program [E] int2, pos [nch][mpos(M)], and the argmin's [R][NG] best and
-// index
-inline size_t smem_bytes(int e, int nch, int m, int cp, int mb) {
+// smem_bytes mirrors it): the ring, zT [mb][ZP], V [mb][vpitch], where
+// the program is staged its [E] int2 and pos [nch][mpos(M)], and the
+// argmin's [R][NG] best and index
+inline size_t smem_bytes(int e, int nch, int m, int cp, int mb, bool staged) {
   return (size_t)NSTAGE * STAGE +
          4 * ((size_t)mb * ZP + (size_t)mb * vpitch(cp)) +
-         8 * (((size_t)e + 1) / 2 * 2) +
-         4 * (((size_t)nch * mpos(m) + 3) / 4 * 4) + 8 * R * NG;
+         (staged ? 8 * (((size_t)e + 1) / 2 * 2) +
+                       4 * (((size_t)nch * mpos(m) + 3) / 4 * 4)
+                 : 0) +
+         8 * R * NG;
 }
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -153,8 +165,9 @@ __device__ __forceinline__ bool beats(float ob, int oa, float best, int arg) {
 
 // X [n, Dp] rows (Dp: the row stride), the program of E entries, V [M, Cp],
 // bucket chunks of MB (a multiple of 8); NTW >= the n-tiles a warp holds,
-// ceil(Cp / 8 / NG), so that F takes only the registers it needs
-template <class T, int NTW>
+// ceil(Cp / 8 / NG), so that F takes only the registers it needs; STAGED:
+// the program and pos are copied to shared memory, else read from global
+template <class T, int NTW, bool STAGED>
 __global__ void __launch_bounds__(NT, 2)
 sketch_kernel(const T* __restrict__ X, const int2* __restrict__ program,
               const int* __restrict__ positions,
@@ -165,8 +178,9 @@ sketch_kernel(const T* __restrict__ X, const int2* __restrict__ program,
   const int VP = vpitch(Cp), MP = mpos(M);
   float* zt = reinterpret_cast<float*>(sm + NSTAGE * STAGE);   // [MB][ZP]
   float* vs = zt + MB * ZP;                                    // [MB][VP]
-  int2* prog = reinterpret_cast<int2*>(vs + MB * VP);          // [E]
-  int* pos = reinterpret_cast<int*>(prog + (E + 1) / 2 * 2);   // [nch][MP]
+  // where the program is staged: [E] int2 and pos [nch][MP] after V
+  int2* sprog = reinterpret_cast<int2*>(vs + MB * VP);
+  int* spos = reinterpret_cast<int*>(sprog + (E + 1) / 2 * 2);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -174,15 +188,21 @@ sketch_kernel(const T* __restrict__ X, const int2* __restrict__ program,
   constexpr int W = 16 / (int)sizeof(T);           // features per copy
   const int nch = (Dp + KD - 1) / KD;
   const int nb = (M + MB - 1) / MB;
-  float* rbest = reinterpret_cast<float*>(pos + (nch * MP + 3) / 4 * 4);
+  const int2* prog = STAGED ? sprog : program;
+  const int* pos = STAGED ? spos : positions;
+  float* rbest = STAGED ? reinterpret_cast<float*>(
+                              spos + (nch * MP + 3) / 4 * 4)
+                        : reinterpret_cast<float*>(sprog);     // [R][NG]
   int* rarg = reinterpret_cast<int*>(rbest + R * NG);          // [R][NG]
   const int blocks = (n + R - 1) / R;
   const int rb0 = (int)((long long)blockIdx.x * blocks / gridDim.x);
   const int rb1 = (int)((long long)(blockIdx.x + 1) * blocks / gridDim.x);
 
   // the program and its positions, once
-  for (int k = tid; k < E; k += NT) prog[k] = __ldg(program + k);
-  for (int i = tid; i < nch * MP; i += NT) pos[i] = __ldg(positions + i);
+  if constexpr (STAGED) {
+    for (int k = tid; k < E; k += NT) sprog[k] = __ldg(program + k);
+    for (int i = tid; i < nch * MP; i += NT) spos[i] = __ldg(positions + i);
+  }
   // V rows [jb, jb + MB) of bucket chunk b, zero past M
   auto load_v = [&](int jb) {
     for (int i = tid; i < MB * Cp; i += NT) {
@@ -347,7 +367,7 @@ sketch_kernel(const T* __restrict__ X, const int2* __restrict__ program,
   }
 }
 
-template <class T, int NTW>
+template <class T, int NTW, bool STAGED>
 static int launch_ntw(const void* x, const void* program,
                       const void* positions, const void* v, const void* csq,
                       void* labels, void* score, int n, int E, int Dp, int M,
@@ -357,13 +377,14 @@ static int launch_ntw(const void* x, const void* program,
       M <= 0 || Cp <= 0 || Cp > MAX_CP || Cp % 8 != 0 || MB <= 0 ||
       MB % 8 != 0 || ctas < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = smem_bytes(E, (Dp + KD - 1) / KD, M, Cp, MB);
+  const size_t bytes =
+      smem_bytes(E, (Dp + KD - 1) / KD, M, Cp, MB, STAGED);
   constexpr size_t SMEM_BLOCK = 232448;   // the most a block may use
   if (bytes > SMEM_BLOCK) return (int)cudaErrorInvalidValue;
   const cudaError_t err =
-      smem_once<sketch_kernel<T, NTW>>(SMEM_BLOCK, true);
+      smem_once<sketch_kernel<T, NTW, STAGED>>(SMEM_BLOCK, true);
   if (err != cudaSuccess) return (int)err;
-  sketch_kernel<T, NTW><<<ctas, NT, bytes, (cudaStream_t)stream>>>(
+  sketch_kernel<T, NTW, STAGED><<<ctas, NT, bytes, (cudaStream_t)stream>>>(
       static_cast<const T*>(x), static_cast<const int2*>(program),
       static_cast<const int*>(positions), static_cast<const float*>(v),
       static_cast<const float*>(csq), static_cast<int*>(labels),
@@ -371,17 +392,22 @@ static int launch_ntw(const void* x, const void* program,
   return (int)cudaGetLastError();
 }
 
-// the instantiation of the fewest n-tiles a warp >= ceil(Cp / 8 / NG)
+// the instantiation of the fewest n-tiles a warp >= ceil(Cp / 8 / NG),
+// with the program staged or read in place
 template <class T>
 static int launch(const void* x, const void* program, const void* positions,
                   const void* v, const void* csq, void* labels, void* score,
                   int n, int E, int Dp, int M, int Cp, int MB, int ctas,
-                  void* stream) {
+                  int staged, void* stream) {
   const int ntw = (Cp / 8 + NG - 1) / NG;
   auto go = [&](auto tag) {
-    return launch_ntw<T, decltype(tag)::value>(
-        x, program, positions, v, csq, labels, score, n, E, Dp, M, Cp, MB,
-        ctas, stream);
+    constexpr int K = decltype(tag)::value;
+    return staged ? launch_ntw<T, K, true>(x, program, positions, v, csq,
+                                           labels, score, n, E, Dp, M, Cp,
+                                           MB, ctas, stream)
+                  : launch_ntw<T, K, false>(x, program, positions, v, csq,
+                                            labels, score, n, E, Dp, M, Cp,
+                                            MB, ctas, stream);
   };
   if (ntw <= 1) return go(std::integral_constant<int, 1>());
   if (ntw <= 2) return go(std::integral_constant<int, 2>());
@@ -394,15 +420,17 @@ static int launch(const void* x, const void* program, const void* positions,
 
 // x [n, Dp] (Dp: D padded to the 16-byte vector); program [E] int2 and
 // positions [nch][mpos(M)] from kernels/sketch_assign.py gather_program
-// for this dtype's chunk width; MB: buckets a chunk holds, ctas: the grid
-// (kernels/sketch_assign.py geometry)
+// for this dtype's chunk width; MB: buckets a chunk holds, ctas: the grid,
+// staged: the program copied to shared memory (kernels/sketch_assign.py
+// geometry)
 extern "C" int rt_sketch_assign_f32(const void* x, const void* program,
                                     const void* positions, const void* v,
                                     const void* csq, void* labels,
                                     void* score, int n, int E, int Dp, int M,
-                                    int Cp, int MB, int ctas, void* stream) {
+                                    int Cp, int MB, int ctas, int staged,
+                                    void* stream) {
   return rt::sk::launch<float>(x, program, positions, v, csq, labels, score,
-                               n, E, Dp, M, Cp, MB, ctas, stream);
+                               n, E, Dp, M, Cp, MB, ctas, staged, stream);
 }
 
 extern "C" int rt_sketch_assign_bf16(const void* x, const void* program,
@@ -410,8 +438,8 @@ extern "C" int rt_sketch_assign_bf16(const void* x, const void* program,
                                      const void* csq, void* labels,
                                      void* score, int n, int E, int Dp,
                                      int M, int Cp, int MB, int ctas,
-                                     void* stream) {
+                                     int staged, void* stream) {
   return rt::sk::launch<__nv_bfloat16>(x, program, positions, v, csq,
                                        labels, score, n, E, Dp, M, Cp, MB,
-                                       ctas, stream);
+                                       ctas, staged, stream);
 }

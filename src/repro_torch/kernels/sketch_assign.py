@@ -8,7 +8,9 @@ CUDA kernel gathers each bucket's columns instead, from the bucket-sorted
 tables of ``bucket_tables`` (built once per map), in a fixed order, so two
 launches agree bitwise, and contracts on the tensor cores in 3xTF32.
 ``geometry`` sizes its bucket chunk and its persistent grid from the
-shared memory a CTA needs (the source's header says how it is laid out).
+shared memory a CTA needs, and says whether the gather program is staged
+in shared memory or read in place (the source's header says how it is
+laid out); rows of any width launch.
 ``ops.sketch_assign`` is the wrapper callers use; this module builds the
 tables, checks operands, sizes the launch and launches.
 """
@@ -74,23 +76,26 @@ def mpos(m: int) -> int:
     return _up(m, WARPS) + WARPS
 
 
-def smem_bytes(e: int, nch: int, m: int, cp: int, mb: int) -> int:
+def smem_bytes(e: int, nch: int, m: int, cp: int, mb: int, *,
+               staged: bool = True) -> int:
     """Shared memory of the kernel (``sk::smem_bytes``) for a program of e
     entries over nch column chunks, m buckets, Cp clusters and bucket
-    chunks of mb: the ring, zT [mb][ZP], V [mb][pitch 8 mod 32], the
-    program, its positions and the argmin slots."""
+    chunks of mb: the ring, zT [mb][ZP], V [mb][pitch 8 mod 32], where the
+    program is ``staged`` the program and its positions, and the argmin
+    slots."""
     vp = _up(cp, 32) + 8
+    program = 8 * _up(e, 2) + 4 * _up(nch * mpos(m), 4) if staged else 0
     return (NSTAGE * ROWS * (ROW_BYTES + 16) + 4 * (mb * ZP + mb * vp)
-            + 8 * _up(e, 2) + 4 * _up(nch * mpos(m), 4) + 8 * ROWS * NG)
+            + program + 8 * ROWS * NG)
 
 
-def _fit(d: int, m: int, cp: int, itemsize: int):
-    """``geometry``'s answer, or None where not even 8 buckets fit beside
-    the program."""
+def _fit(d: int, m: int, cp: int, itemsize: int, staged: bool):
+    """(mb, ctas per SM) for a program of d entries, staged or read in
+    place, or None where not even 8 buckets fit beside a staged one."""
     nch = -(-d // chunk_features(itemsize))
 
     def need(mb):
-        return smem_bytes(d, nch, m, cp, mb)
+        return smem_bytes(d, nch, m, cp, mb, staged=staged)
     mb = _up(m, 8)
     if 2 * (need(mb) + 1024) <= SMEM_SM:
         return mb, 2
@@ -102,28 +107,24 @@ def _fit(d: int, m: int, cp: int, itemsize: int):
 
 
 @functools.lru_cache(maxsize=256)
-def geometry(d: int, m: int, cp: int, itemsize: int) -> tuple[int, int]:
-    """(mb, ctas per SM): the buckets of a chunk and the CTAs an SM holds,
-    for rows of d features of ``itemsize`` bytes (a program of at most d
-    entries). All m buckets in one chunk (X read once, V loaded once per
-    CTA) at two CTAs per SM where they fit, else at one; else the widest
-    chunk that fits one CTA (each chunk re-reads X). Raises where not even
-    8 buckets fit beside the program (``takes``)."""
-    fit = _fit(d, m, cp, itemsize)
-    if fit is None:
-        raise ValueError(f"sketch_assign: the gather program of D={d} "
-                         f"columns and {m} buckets leaves no room for a "
+def geometry(d: int, m: int, cp: int, itemsize: int) -> tuple[int, int,
+                                                               bool]:
+    """(mb, ctas per SM, staged): the buckets of a chunk, the CTAs an SM
+    holds and where the gather program lies, for rows of d features of
+    ``itemsize`` bytes (a program of at most d entries). All m buckets in
+    one chunk (X read once, V loaded once per CTA) at two CTAs per SM where
+    they fit, else at one; else the widest chunk that fits one CTA (each
+    chunk re-reads X). The program is read in place from global memory, so
+    every width launches; it is staged in shared memory only where that
+    leaves the chunk and the CTAs an SM holds as they are (a narrow
+    program: Tab.2's dense view, which read in place ran 5% slower)."""
+    in_place = _fit(d, m, cp, itemsize, staged=False)
+    if in_place is None:
+        raise ValueError(f"sketch_assign: Cp={cp} leaves no room for a "
                          f"bucket chunk in {SMEM_BLOCK} bytes of shared "
                          f"memory")
-    return fit
-
-
-def takes(d: int, m: int, c: int, itemsize: int) -> bool:
-    """Whether the kernel launches for dense rows of d features of
-    ``itemsize`` bytes, m buckets and c clusters: its gather program holds
-    8 bytes a column in shared memory, so past about 10,900 columns at m =
-    256 (f32 rows) even one bucket chunk does not fit."""
-    return _fit(d, m, min(_up(c, CP_MULTIPLE), MAX_CP), itemsize) is not None
+    staged = _fit(d, m, cp, itemsize, staged=True)
+    return (*in_place, staged == in_place)
 
 
 def gather_program(order: torch.Tensor, offsets: torch.Tensor,
@@ -214,7 +215,7 @@ def sketch_assign_cuda(x: torch.Tensor, order: torch.Tensor,
     build.check_operand(csq, "csq", dtype=torch.float32, shape=(cp,), device=dev)
     labels = torch.empty((n,), dtype=torch.int32, device=dev)
     score = torch.empty((n,), dtype=torch.float32, device=dev)
-    mb, per_sm = geometry(d, m, cp, x.element_size())
+    mb, per_sm, staged = geometry(d, m, cp, x.element_size())
     kd = chunk_features(x.element_size())
     if kd not in programs:
         programs[kd] = gather_program(order, offsets, sign, m, kd)
@@ -222,5 +223,6 @@ def sketch_assign_cuda(x: torch.Tensor, order: torch.Tensor,
     build.launch(entry, x.data_ptr(), program.data_ptr(),
                  positions.data_ptr(), v.data_ptr(), csq.data_ptr(),
                  labels.data_ptr(), score.data_ptr(), n, program.shape[0],
-                 dp, m, cp, mb, grid(n, _sm_count(dev.index), per_sm))
+                 dp, m, cp, mb, grid(n, _sm_count(dev.index), per_sm),
+                 int(staged))
     return labels, score

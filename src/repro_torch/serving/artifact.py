@@ -122,9 +122,7 @@ def _runtime(art: FrozenArtifact, source=None) -> dict:
     for the count sketch its map (the CSR requests' O(nnz) embedding) and,
     on the card, its kernel tables and the gather program of the
     artifact's tile dtype, the ``source`` map's where the artifact was
-    frozen from one (the fit built them already). Where ``sketch_assign``
-    cannot take dense rows of the artifact's width (``dense`` False), the
-    artifact serves CSR rows only."""
+    frozen from one (the fit built them already)."""
     a = art.arrays
     if art.kind == "rff":
         return {"b": a["aux"].reshape(-1).contiguous()}
@@ -139,10 +137,8 @@ def _runtime(art: FrozenArtifact, source=None) -> dict:
         if not a["h"].is_cuda:
             return {"fmap": fmap}
         from repro_torch.kernels.sketch_assign import (chunk_features,
-                                                       gather_program, takes)
+                                                       gather_program)
         itemsize = resolve_precision(art.precision).tile_itemsize
-        if not takes(art.in_dim, fmap.m, art.n_clusters, itemsize):
-            return {"fmap": fmap, "dense": False}
         order, offsets, sign = fmap.buckets
         kd = chunk_features(itemsize)
         if kd not in fmap.programs:

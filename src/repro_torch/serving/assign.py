@@ -277,8 +277,6 @@ class AssignService:
         self._programs: dict = {}
         self._pool = (torch.cuda.graph_pool_handle()
                       if artifact.device.type == "cuda" else None)
-        # False where sketch_assign cannot take dense rows this wide
-        self._dense = artifact.runtime.get("dense", True)
         if cfg.warm:
             self.warm()
 
@@ -291,12 +289,10 @@ class AssignService:
 
     def warm(self) -> None:
         """Build one program per bucket (on the card: run it once, then
-        capture it), so the first request pays no build. An artifact that
-        serves CSR rows only has no dense programs to build."""
+        capture it), so the first request pays no build."""
         t0 = time.perf_counter()
-        if self._dense:
-            for b in self.cfg.buckets:
-                self._program(b)
+        for b in self.cfg.buckets:
+            self._program(b)
         self.warm_seconds = time.perf_counter() - t0
 
     def _program(self, bucket: int):
@@ -322,12 +318,6 @@ class AssignService:
             x = (x.detach().to("cpu", torch.float32).numpy()
                  if torch.is_tensor(x) else np.asarray(x, np.float32))
             _check_width(self.artifact, x.shape)
-            if not self._dense:
-                raise ValueError(
-                    f"this artifact serves CSR rows only: sketch_assign "
-                    f"cannot take dense rows of {self.artifact.in_dim} "
-                    f"columns (its gather program does not fit in shared "
-                    f"memory)")
         n = x.shape[0]
         if n == 0:
             raise ValueError("empty request")

@@ -563,13 +563,21 @@ def _plain_scores(x, fmap, centroids, counts, prec):
     return ref.embed_score_ref(*args, **kw), ref.embed_assign_ref(*args, **kw)
 
 
-def _check_assignment(x, fmap, centroids, counts, prec, name):
+def _check_assignment(x, fmap, centroids, counts, prec, name,
+                      normwise=False):
+    """The kernel against its plain version: scores within 1e-4 (normwise:
+    max |error| <= 1e-4 max(1, max |score|), for scores whose size grows
+    with the row width), labels equal outside near-ties."""
     before = ops.LAUNCHES[name]
     lab, score = ops.embed_assign(x, fmap, centroids, counts, precision=prec)
     assert ops.LAUNCHES[name] == before + -(-centroids.shape[0] // 256)
     full, (want_lab, want_score) = _plain_scores(x, fmap, centroids, counts,
                                                  prec)
-    torch.testing.assert_close(score, want_score, **_tol(1e-4))
+    if normwise:
+        err = float((score - want_score).abs().max())
+        assert err <= 1e-4 * max(1.0, float(want_score.abs().max()))
+    else:
+        torch.testing.assert_close(score, want_score, **_tol(1e-4))
     # labels equal outside near-ties of the plain version
     top2 = torch.topk(full, 2, dim=1, largest=False).values
     near = top2[:, 1] - top2[:, 0] <= 1e-4 * torch.clamp(top2[:, 0].abs(),
@@ -807,6 +815,49 @@ def test_sketch_assign_at_ragged_edges(cuda, shape, prec):
     fmap = _sketch_map_dropping_columns(d, m, 67, cuda)
     _check_assignment(x, fmap, centroids, torch.ones(c, device=cuda), prec,
                       "sketch_assign")
+
+
+# (n, D, m): rows wider than a staged gather program fits beside the ring
+# (10,881 columns at m = 256) and Tab.2's 47,236-term vocabulary, at both
+# of its sketch widths; C = 50
+SKETCH_WIDE_SHAPES = [(1001, 10881, 128), (1001, 10881, 256),
+                      (1001, 47236, 128), (1001, 47236, 256)]
+
+
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("shape", SKETCH_WIDE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in SKETCH_WIDE_SHAPES])
+def test_sketch_assign_takes_wide_rows(cuda, shape, prec):
+    """The gather program is read in place past what shared memory holds,
+    so any width launches and agrees with the plain version. A bucket sums
+    about D / m of the normal rows' columns (the two versions in another
+    order), so the score grows with D and is held normwise."""
+    from repro_torch.kernels import sketch_assign as sk
+    n, d, m = shape
+    item = 2 if prec == "bf16" else 4
+    assert not sk.geometry(d, m, 64, item)[2]
+    x, centroids = _rand((n, d), 71, cuda), _rand((50, m), 72, cuda)
+    fmap = _sketch_map_dropping_columns(d, m, 73, cuda)
+    _check_assignment(x, fmap, centroids, torch.ones(50, device=cuda), prec,
+                      "sketch_assign", normwise=True)
+
+
+@pytest.mark.parametrize("prec", PRECS)
+def test_sketch_program_in_place_equals_staged(cuda, prec, monkeypatch):
+    """At Tab.2's dense width the program is staged; read in place instead
+    (the wide rows' route), the kernel gives the same bits."""
+    from repro_torch.kernels import sketch_assign as sk
+    x, centroids = _rand((5000, 256), 74, cuda), _rand((50, 128), 75, cuda)
+    fmap = _sketch_map_dropping_columns(256, 128, 76, cuda)
+    item = 2 if prec == "bf16" else 4
+    assert sk.geometry(256, 128, 64, item)[2]
+    staged = ops.sketch_assign(x, fmap, centroids, precision=prec)
+    real = sk.geometry
+    monkeypatch.setattr(sk, "geometry",
+                        lambda *a: (*real(*a)[:2], False))
+    in_place = ops.sketch_assign(x, fmap, centroids, precision=prec)
+    assert torch.equal(staged[0], in_place[0])
+    assert torch.equal(staged[1], in_place[1])
 
 
 @pytest.mark.parametrize("prec", PRECS)

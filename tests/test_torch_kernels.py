@@ -783,8 +783,8 @@ def test_sketch_geometry_at_the_main_shape():
     in one chunk, so X is read once, and two CTAs an SM at either dtype."""
     from repro_torch.kernels import sketch_assign as sk
     for itemsize in (4, 2):
-        mb, per_sm = sk.geometry(256, 128, 64, itemsize)
-        assert (mb, per_sm) == (128, 2)
+        mb, per_sm, staged = sk.geometry(256, 128, 64, itemsize)
+        assert (mb, per_sm, staged) == (128, 2, True)
         nch = -(-256 // sk.chunk_features(itemsize))
         assert 2 * (sk.smem_bytes(256, nch, 128, 64, mb) + 1024) <= sk.SMEM_SM
     assert sk.chunk_features(4) == 128 and sk.chunk_features(2) == 256
@@ -799,26 +799,33 @@ def test_sketch_geometry_at_the_main_shape():
 def test_sketch_geometry_fits_the_block(d, m, cp, itemsize):
     """The bucket chunk is a multiple of 8 and at most m rounded up to 8,
     its shared memory fits a block (two CTAs an SM where it says so), and a
-    chunk below all m buckets takes the widest that fits one CTA."""
+    chunk below all m buckets takes the widest that fits one CTA. A staged
+    program leaves the chunk and the CTAs an SM as the in-place one has."""
     from repro_torch.kernels import sketch_assign as sk
-    mb, per_sm = sk.geometry(d, m, cp, itemsize)
+    mb, per_sm, staged = sk.geometry(d, m, cp, itemsize)
     nch = -(-d // sk.chunk_features(itemsize))
     assert mb % 8 == 0 and 8 <= mb <= -(-m // 8) * 8
-    bytes_ = sk.smem_bytes(d, nch, m, cp, mb)
+    bytes_ = sk.smem_bytes(d, nch, m, cp, mb, staged=staged)
     assert bytes_ <= sk.SMEM_BLOCK
     assert per_sm in (1, 2)
     assert (2 * (bytes_ + 1024) <= sk.SMEM_SM) == (per_sm == 2)
     if mb < m:
-        assert sk.smem_bytes(d, nch, m, cp, mb + 8) > sk.SMEM_BLOCK
+        assert sk.smem_bytes(d, nch, m, cp, mb + 8,
+                             staged=staged) > sk.SMEM_BLOCK
+    if staged:
+        in_place = sk.smem_bytes(d, nch, m, cp, mb, staged=False)
+        assert (2 * (in_place + 1024) <= sk.SMEM_SM) == (per_sm == 2)
 
 
 def test_sketch_geometry_smem_counts_each_buffer():
     """smem_bytes mirrors sk::smem_bytes of csrc/sketch_assign.cu: the
     3-stage ring of 32 rows of 528 bytes, zT [mb][40], V [mb][Cp rounded to
     32, + 8], the program (8 bytes an entry), its positions [nch][m rounded
-    to 8, + 8] and the argmin's slots."""
+    to 8, + 8] where it is staged, and the argmin's slots."""
     from repro_torch.kernels import sketch_assign as sk
     ring = 3 * 32 * 528
+    assert sk.smem_bytes(47236, 370, 256, 64, 256, staged=False) == (
+        ring + 4 * (256 * 40 + 256 * 72) + 8 * 32 * 4)
     assert sk.mpos(128) == 136 and sk.mpos(77) == 88
     assert sk.smem_bytes(256, 2, 128, 64, 128) == (
         ring + 4 * (128 * 40 + 128 * 72) + 8 * 256 + 4 * 272 + 8 * 32 * 4)
@@ -827,9 +834,13 @@ def test_sketch_geometry_smem_counts_each_buffer():
 
 
 def test_sketch_geometry_raises_when_the_program_fills_the_block():
+    """A program that would fill the block is read in place, not staged:
+    the launch keeps every bucket in one chunk and two CTAs an SM, and
+    nothing raises."""
     from repro_torch.kernels import sketch_assign as sk
-    with pytest.raises(ValueError, match="no room"):
-        sk.geometry(30000, 128, 64, 4)
+    nch = -(-30000 // sk.chunk_features(4))
+    assert sk.smem_bytes(30000, nch, 128, 64, 8) > sk.SMEM_BLOCK
+    assert sk.geometry(30000, 128, 64, 4) == (128, 2, False)
 
 
 @pytest.mark.parametrize("n,sms,per_sm,want", [
@@ -929,10 +940,11 @@ def test_sketch_launch_passes_padded_rows_and_geometry(monkeypatch, prec, d):
     dt = "bf16" if prec == "bf16" else "f32"
     item = 2 if prec == "bf16" else 4
     dp = -(-d // (16 // item)) * (16 // item)
-    mb, per_sm = sk.geometry(d, 77, 16, item)
+    mb, per_sm, staged = sk.geometry(d, 77, 16, item)
     assert entry == f"rt_sketch_assign_{dt}"
     assert built == [sk.chunk_features(item)]
-    assert args[7:14] == (300, d, dp, 77, 16, mb, sk.grid(300, 132, per_sm))
+    assert args[7:15] == (300, d, dp, 77, 16, mb, sk.grid(300, 132, per_sm),
+                          int(staged))
 
 
 # ---------------------------------------------------------------------------

@@ -516,36 +516,74 @@ def test_csr_garbage_padding_never_perturbs_real_rows(tmp_path, precision):
         got.numpy(), np.asarray(j_predict(jart_, jsp.csr_from_dense(x[:5]))))
 
 
-@pytest.mark.parametrize("d,m,c,itemsize,want", [
-    (10880, 256, 50, 4, True), (10881, 256, 50, 4, False),
+@pytest.mark.parametrize("d,m,c,itemsize,staged", [
+    (10880, 256, 50, 4, False), (10881, 256, 50, 4, False),
     (47236, 256, 50, 4, False), (47236, 256, 50, 2, False),
-    (4096, 128, 300, 4, True)])
-def test_sketch_assign_takes_exactly_what_its_geometry_takes(d, m, c,
-                                                             itemsize, want):
-    """``takes`` answers what ``geometry`` would: the gather program holds
-    8 bytes a column in shared memory, so Tab.2's 47,236-term vocabulary
-    cannot launch dense (its CSR rows take the O(nnz) path)."""
+    (47236, 128, 50, 4, False), (47236, 128, 50, 2, False),
+    (4096, 128, 300, 4, False), (256, 128, 50, 4, True)])
+def test_sketch_assign_geometry_answers_every_width(monkeypatch, d, m, c,
+                                                    itemsize, staged):
+    """``geometry`` answers for every D and the wrapper launches at every
+    width: the gather program is read in place wherever staging it would
+    cost the bucket chunk or a CTA an SM, so Tab.2's 47,236-term
+    vocabulary launches dense with every bucket in one chunk (C = 300
+    takes a 256-cluster launch and a 48-cluster one)."""
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels import sketch_assign as sk
-    cp = min(-(-c // sk.CP_MULTIPLE) * sk.CP_MULTIPLE, sk.MAX_CP)
-    assert sk.takes(d, m, c, itemsize) == want
-    if want:
-        sk.geometry(d, m, cp, itemsize)
-    else:
-        with pytest.raises(ValueError, match="no room"):
-            sk.geometry(d, m, cp, itemsize)
+    seen = []
+    fmap = approx.make_count_sketch(torch.Generator().manual_seed(0), d, m,
+                                    KernelSpec("linear"), device="cpu")
+    monkeypatch.setattr(build, "launch", lambda entry, *a: seen.append(a))
+    monkeypatch.setattr(sk, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    ops.sketch_assign(torch.randn(3, d), fmap, torch.randn(c, m),
+                      precision="bf16" if itemsize == 2 else "f32")
+    monkeypatch.undo()
+    cps = [min(c - lo, sk.MAX_CP) for lo in range(0, c, sk.MAX_CP)]
+    cps = [-(-cp // sk.CP_MULTIPLE) * sk.CP_MULTIPLE for cp in cps]
+    assert [a[11] for a in seen] == cps
+    nch = -(-d // sk.chunk_features(itemsize))
+    for args, cp in zip(seen, cps):
+        mb, per_sm, got = sk.geometry(d, m, cp, itemsize)
+        assert got == staged
+        assert mb == -(-m // 8) * 8
+        assert args[12:15] == (mb, sk.grid(3, 132, per_sm), int(staged))
+        assert sk.smem_bytes(d, nch, m, cp, mb, staged=got) <= sk.SMEM_BLOCK
 
 
-def test_csr_only_artifact_serves_csr_and_refuses_dense_rows(tmp_path):
-    """An artifact whose dense kernel cannot take its width (on the card,
-    ``runtime["dense"]`` False) builds no dense programs and still serves
-    CSR requests as predict_frozen labels them."""
-    _, art, x = _artifacts("sketch", "f32", tmp_path)
-    art.runtime["dense"] = False
-    svc = AssignService(art)
-    assert svc.compiled_programs == 0
-    uid = svc.submit(tsp.csr_from_dense(x[:30]))
-    np.testing.assert_array_equal(
-        svc.drain()[uid],
-        predict_frozen(art, tsp.csr_from_dense(x[:30])).numpy())
-    with pytest.raises(ValueError, match="CSR rows only"):
-        svc.submit(x[:3])
+def _wide_sketch_artifact(precision, tmp_path):
+    """A reference count-sketch artifact over Tab.2's 47,236-term
+    vocabulary (centroids: class means of the sketched rows), and the
+    port's load of its npz file, with the CSR rows."""
+    xs, y = j_synthetic.make_rcv1_sparse(240, vocab=47236, n_classes=4,
+                                         seed=3)
+    fmap = _jax_map("sketch", jax.random.PRNGKey(4), 47236, 64)
+    z = np.asarray(fmap(xs), np.float64)
+    y = np.asarray(y)
+    cents = np.stack([z[y == j].mean(0) for j in range(4)]).astype(
+        np.float32)
+    counts = np.bincount(y, minlength=4).astype(np.float32)
+    art = jart.freeze_map(fmap, jnp.asarray(cents), jnp.asarray(counts),
+                          precision=precision)
+    path = str(tmp_path / "wide.npz")
+    jart.save_artifact(art, path)
+    return art, load_artifact(path, device="cpu"), xs
+
+
+@pytest.mark.parametrize("precision", PRECS)
+def test_wide_sketch_artifact_serves_dense_and_csr_rows(tmp_path, precision):
+    """A sketch artifact at 47,236 columns builds a program per bucket and
+    serves dense and CSR requests alike: the dense rows label as their CSR
+    rows and as the reference's predict on the same rows."""
+    jart_, art, xs = _wide_sketch_artifact(precision, tmp_path)
+    rows = jsp.slice_rows(xs, 0, 70)
+    want = np.asarray(j_predict(jart_, rows))
+    dense = np.asarray(jsp.to_dense(rows))
+    svc = AssignService(art, AssignServeConfig(buckets=(1, 8, 64)))
+    assert svc.compiled_programs == 3
+    u_dense = svc.submit(dense)
+    u_csr = svc.submit(_port(rows))
+    done = svc.drain()
+    np.testing.assert_array_equal(done[u_dense], want)
+    np.testing.assert_array_equal(done[u_csr], want)
+    np.testing.assert_array_equal(predict_frozen(art, dense).numpy(), want)
