@@ -124,7 +124,20 @@ Phases, in order; any failure exits non-zero without the final line:
      (that fit frozen, dense requests served by one graph a bucket) and
      M-elastic (M-B failed after batch 2, resumed by
      ``ElasticClusteringRunner`` from ``CheckpointManager``: bitwise M-B's
-     state); then LM
+     state); then the flight recorder (phase 4e, ``repro_torch.obs``, in
+     the same world): B-fused with a ``JsonlRecorder`` off, on, on, off
+     (labels, medoids and launches equal; the fit wall's overhead), the
+     hooks of one batch and of one request timed alone, a span's cost,
+     D-rff (labels equal run D-rff's), M-B (each batch's recorded
+     ``collectives/*`` equal the wrapper's count of its inner fit),
+     E-csr-stream and H-stream with ``prefetch=2`` (equal to the
+     unrecorded fits; summed stage and starve seconds), serve_bench on
+     D-rff's artifact with and without a recorder (the same graphs; p50s
+     and the queue / compute split) and ``launch.cluster`` at Tab.1's
+     size (60,000 x 784 blobs, C = 10, B = 4, s = 0.2, fused) with
+     ``--obs`` and ``--profile`` (the trace must name
+     ``obs:engine_stats[fused]`` and the assign kernel); each fit prints
+     its watermarks against the planner's bytes; then LM
      serving of OLMo-1B at full width
      (16 layers, d_model 2048, vocab 50,304; bf16 weights from a
      torch.Generator of seed 0) through ``get_model`` and ``ServingEngine``
@@ -1955,8 +1968,342 @@ def mesh_phase(torch, np, mods, x_tr, x_te, y_te, spec, runs, fits, stream):
     check(failed and same and res_r.state.batches_done == 4,
           "M-elastic: the resumed fit differs from M-B")
     count.close()
-    dist.destroy_process_group()
+    # the world stays up for phase 4e's mesh runs; main destroys it
     return totals, bodies, recs
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: the flight recorder (repro_torch.obs)
+# ---------------------------------------------------------------------------
+
+
+def fresh_peak(torch) -> int:
+    """Reset the allocator's peak; -> the bytes allocated now, the
+    baseline a fit's watermarks are read against."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def watermark_lines(export, path: str, name: str, base: int) -> list:
+    """Print each batch's allocator bytes (now and the peak since the
+    fit's start) beside the planner's predicted bytes from a recorder's
+    log, and both less ``base``, what was allocated before the fit; ->
+    the records."""
+    marks = [e for e in export.read_events(path)
+             if e.get("name") == "hbm_watermark"]
+    for m in marks:
+        print(f"obs {name} batch {m['batch']}: measured_bytes "
+              f"{m['measured_bytes']} peak_bytes {m['peak_bytes']} "
+              f"predicted_bytes {m['predicted_bytes']!r} ({m['source']}); "
+              f"less the {base} bytes held before the fit: "
+              f"{m['measured_bytes'] - base} now, "
+              f"{m['peak_bytes'] - base} peak")
+    check(len(marks) > 0 and all(m["source"] == "device" for m in marks),
+          f"obs {name}: no watermark read the card's allocator")
+    return marks
+
+
+def obs_phase(torch, np, mods, x_tr, y_tr, x_te, y_te, spec, runs, fits,
+              stream):
+    """Phase 4e: the main path with the flight recorder on. B-fused off,
+    on, on, off (labels, medoids and launches equal; the wall overhead)
+    and a batch's hooks timed alone;
+    D-rff on (labels equal run D-rff's); M-B on in the world phase 4d left
+    up (each batch's collectives/* counters equal the wrapper's count of
+    that batch's inner fit); E-csr-stream and H-stream on with prefetch=2
+    (equal to the unrecorded fits; the summed stage and starve seconds);
+    serve_bench on G-D-rff's artifact with and without a recorder (the
+    same graphs; p50s and the queue / compute split); launch.cluster at
+    Tab.1's size with --obs and --profile (the trace names
+    obs:engine_stats[fused] and the assign kernel). Every fit prints its
+    batches' allocator bytes beside the planner's. Returns (totals,
+    bodies) of the launches."""
+    import os
+    import tempfile
+    obs, core, loader, sparse = mods["obs"], mods["core"], mods["loader"], \
+        mods["sparse"]
+    dm, serving, ops, export = mods["dmesh"], mods["serving"], mods["ops"], \
+        mods["obs"].export
+    totals = {"kernel_matrix": 0, "assign_fused": 0, "embed_assign": 0}
+    bodies = {("kernel_matrix", "column"): 0, ("assign_fused", "f32"): 0,
+              ("embed_assign", "f32"): 0}
+
+    def count(launches):
+        for k in totals:
+            totals[k] += launches[k]
+        bodies["kernel_matrix", "column"] += launches["kernel_matrix_column"]
+        bodies["assign_fused", "f32"] += launches["assign_fused"]
+        bodies["embed_assign", "f32"] += launches["embed_assign"]
+
+    tmp = tempfile.mkdtemp()
+
+    def recorder(name):
+        path = os.path.join(tmp, f"{name}.jsonl")
+        return obs.JsonlRecorder(path, header=export.run_header(
+            device="cuda", entry="chip_smoke", run=name)), path
+
+    # what a span costs with no profiler running
+    n_spans = 20000
+    t0 = time.perf_counter()
+    for _ in range(n_spans):
+        with obs.span("obs:cost_probe"):
+            pass
+    span_us = (time.perf_counter() - t0) / n_spans * 1e6
+    print(f"obs span cost: {span_us!r} us a span, no profiler "
+          f"({n_spans} spans)")
+
+    # B-fused with the recorder off and on, twice
+    cfg_b = core.MiniBatchConfig(n_clusters=10, n_batches=4, s=0.2,
+                                 kernel=spec, seed=0, engine="fused")
+    got = []
+    for k, on in enumerate((False, True, True, False)):
+        name = f"O-B-fused-{'on' if on else 'off'}"
+        rec, path = recorder(f"{name}-{k}") if on else (None, None)
+        base = fresh_peak(torch)
+        r, labels, res = run_fit(torch, mods, name, cfg_b, x_tr, x_te, y_te,
+                                 recorder=rec)
+        count(r["launches"])
+        if rec is not None:
+            rec.close()
+            watermark_lines(export, path, name, base)
+            costs = [e["value"] for e in export.read_events(path)
+                     if e.get("name") == "inner/cost"]
+            check(costs == [h.cost for h in res.history],
+                  f"{name}: drained costs {costs} differ from the history")
+        got.append((r, labels, res))
+    (r0, l0, f0), (r1, l1, f1) = got[0], got[1]
+    same = (all(np.array_equal(l0, g[1]) for g in got)
+            and all(torch.equal(f0.state.medoids, g[2].state.medoids)
+                    for g in got)
+            and all(g[0]["launches"] == r0["launches"] for g in got))
+    fits_off = [got[0][0]["fit_s"], got[3][0]["fit_s"]]
+    fits_on = [got[1][0]["fit_s"], got[2][0]["fit_s"]]
+    iters = sum(r0["inner_iters"])
+    print(f"obs B-fused fit s off {fits_off!r} on {fits_on!r} (order off, "
+          f"on, on, off): overhead {(sum(fits_on) - sum(fits_off)) / sum(fits_off)!r} "
+          f"({iters} inner iterations; {card_line()})")
+    check(same, "O-B-fused: the recorder changed the labels, the medoids "
+                "or the launches")
+
+    # the hooks of one exact batch alone, on a cost already on the card
+    rec, path = recorder("O-hooks")
+    cost = torch.ones((), device="cuda")
+    n_hooks = 200
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_hooks):
+        rec.series("inner/cost", cost, batch=i)
+        rec.series("inner/iters", 11, batch=i)
+        rec.series("batch/wall_seconds", 0.06, batch=i, rows=15000)
+        rec.gauge("clusters/empty", 0, batch=i)
+        rec.gauge("medoids/mean_displacement", 0.01, batch=i)
+        obs.memory.watermark(rec, batch=i, device="cuda", engine="fused",
+                             predicted_bytes=1.0)
+        rec.batch_boundary(i)
+    hooks_ms = (time.perf_counter() - t0) / n_hooks * 1e3
+    rec.close()
+    t0 = time.perf_counter()
+    for _ in range(n_hooks):
+        obs.memory.device_memory_stats("cuda")
+    stats_ms = (time.perf_counter() - t0) / n_hooks * 1e3
+    print(f"obs hook cost: {hooks_ms!r} ms a batch's hooks (the exact "
+          f"loop's: 3 series, 2 gauges, a watermark, the boundary's drain "
+          f"and write), of which memory_stats {stats_ms!r} ms "
+          f"({n_hooks} batches; {card_line()})")
+    # the hooks of one served request alone (submit's and completion's)
+    rec, path = recorder("O-request-hooks")
+    n_req = 5000
+    t0 = time.perf_counter()
+    for uid in range(n_req):
+        rec.counter("serve/submitted", rows=1)
+        rec.gauge("serve/queue_rows", 1)
+        rec.series("serve/queue_seconds", 1e-5, uid=uid)
+        rec.series("serve/compute_seconds", 2e-4, uid=uid)
+        rec.event("serve/request", uid=uid, rows=1, bucket=1,
+                  queue_seconds=1e-5, compute_seconds=2e-4,
+                  total_seconds=3e-4)
+        rec.gauge("serve/queue_rows", 0)
+    req_us = (time.perf_counter() - t0) / n_req * 1e6
+    rec.close()
+    print(f"obs request hook cost: {req_us!r} us a request's hooks "
+          f"({n_req} requests, written at close; {card_line()})")
+
+    # D-rff with the recorder on
+    rec, path = recorder("O-D-rff")
+    cfg_d = core.MiniBatchConfig(n_clusters=10, n_batches=1, kernel=spec,
+                                 seed=0, embed_dim=EMBED_DIM, method="rff")
+    base = fresh_peak(torch)
+    r, labels, res = run_embedded(torch, mods, "O-D-rff", cfg_d, x_tr, y_tr,
+                                  x_te, y_te, recorder=rec)
+    rec.close()
+    count(r["launches"])
+    watermark_lines(export, path, "O-D-rff", base)
+    check(np.array_equal(labels, runs["D-rff"][1]),
+          "O-D-rff: the recorded fit labels differ from run D-rff's")
+
+    # M-B with the recorder on, in the world of one phase 4d left up
+    dist = torch.distributed
+    outer = mods["outer"]
+    count_c = CollectiveCount(dist)
+    mesh = dm.make_test_mesh({"data": 1, "model": 1})
+    per_batch = []
+    real = outer._inner_local
+
+    def counted(*a, **k):
+        before = dict(count_c.n)
+        out = real(*a, **k)
+        per_batch.append({c: count_c.n[c] - before[c] for c in before})
+        return out
+    rec, path = recorder("O-M-B")
+    base = fresh_peak(torch)
+    outer._inner_local = counted
+    try:
+        batches = mods["sampling"].split_batches(x_tr, 4, strategy="stride")
+        km = dm.DistributedMiniBatchKMeans(mesh, cfg_b, recorder=rec)
+        r, _, res = run_mesh(torch, mods, count_c, "O-M-B",
+                             lambda: km.fit(batches), x_te, y_te)
+    finally:
+        outer._inner_local = real
+        count_c.close()
+        rec.close()
+    ev = export.read_events(path)
+    bill = {n: [e["inc"] for e in ev if e.get("name") == n]
+            for n in ("collectives/psum", "collectives/allgather",
+                      "collectives/psum_bytes")}
+    rows = [len(b) for b in batches]
+    want_bytes = [mods["inner"].collectives_per_iteration(
+        km.inner_cfg, n)["psum_bytes"] * (t + 1)
+        for n, t in zip(rows, r["inner_iters"])]
+    print_run(r, recorded=bill, wrapper_inner_fit=per_batch,
+              want_psum_bytes=want_bytes)
+    count(r["launches"])
+    watermark_lines(export, path, "O-M-B", base)
+    check(bill["collectives/psum"] == [c["all_reduce"] for c in per_batch]
+          and bill["collectives/allgather"]
+          == [c["all_gather"] for c in per_batch]
+          and bill["collectives/psum_bytes"] == want_bytes,
+          f"O-M-B: recorded collectives {bill} differ from the wrapper's "
+          f"inner-fit counts {per_batch}")
+
+    # E-csr-stream and H-stream, prefetch=2, with the recorder on
+    cfg_e, cuts = stream["cfg"], stream["cuts"]
+    xs_tr, xs_te, ys_te = stream["xs_tr"], stream["xs_te"], stream["ys_te"]
+    cfg_h = core.MiniBatchConfig(n_clusters=10, n_batches=4, s=0.2,
+                                 kernel=spec, seed=0, engine="fused",
+                                 sampling="block")
+    cuts_h = stream_cuts(np, len(x_tr), 4)
+    r_h_off = None
+    for name, cfg, chunks, n_rows, xt, yt in (
+            ("O-E-csr-stream", cfg_e,
+             lambda: (sparse.slice_rows(xs_tr, a, z) for a, z in cuts),
+             RCV1_TRAIN, xs_te, ys_te),
+            ("O-H-stream-off", cfg_h,
+             lambda: (x_tr[a:z] for a, z in cuts_h), len(x_tr), x_te, y_te),
+            ("O-H-stream", cfg_h,
+             lambda: (x_tr[a:z] for a, z in cuts_h), len(x_tr), x_te,
+             y_te)):
+        on = not name.endswith("-off")
+        rec, path = recorder(name) if on else (None, None)
+        src = loader.BatchSource.from_stream(chunks(), n_rows // 4,
+                                             prefetch=2, recorder=rec)
+        base = fresh_peak(torch)
+        r, labels, res = run_sparse(
+            torch, mods, name, cfg,
+            lambda: core.fit(src, cfg, recorder=rec), xt, yt, n_rows)
+        count(r["launches"])
+        if not on:
+            r_h_off = (res, labels)
+            print_run(r)
+            continue
+        rec.close()
+        st = export.summarize(path)["stats"]
+        ref_res, ref_lab = ((stream["res"], stream["labels"])
+                            if name == "O-E-csr-stream" else r_h_off)
+        same = same_fit(torch, res, ref_res) and np.array_equal(labels,
+                                                                ref_lab)
+        print_run(r, stage_seconds_sum=st["prefetch/stage_seconds"]["total"],
+                  starve_seconds_sum=st["prefetch/starve_seconds"]["total"],
+                  stage_seconds_max=st["prefetch/stage_seconds"]["max"],
+                  queue_depth_mean=st["prefetch/queue_depth"]["mean"],
+                  batch_wall_s=st["batch/wall_seconds"]["total"],
+                  equal_unrecorded=same)
+        watermark_lines(export, path, name, base)
+        check(same, f"{name}: the recorded stream differs from the "
+                    f"unrecorded fit")
+        check(st["prefetch/stage_seconds"]["count"] == 4
+              and st["prefetch/starve_seconds"]["count"] == 4,
+              f"{name}: not one stage and one starve time a batch")
+
+    # serve_bench on G-D-rff's artifact, without and with a recorder
+    art = serving.freeze(fits["D-rff"])
+    bench = mods["serve_bench"].bench
+    rec, path = recorder("O-serve")
+    zero_counters(mods)
+    svc_off = serving.AssignService(art)
+    svc_on = serving.AssignService(art, recorder=rec)
+    # off, on, on, off: each side runs once first and once after the other
+    got = [bench(svc, qps_levels=BENCH_QPS, row_sizes=(1, 64),
+                 n_req=BENCH_REQUESTS)
+           for svc in (svc_off, svc_on, svc_on, svc_off)]
+    rec.close()
+    served = dict(ops.LAUNCHES)
+    count(served)
+    card = card_line()
+    for cell in got[0]["cells"]:
+        c = [g["cells"][cell] for g in got]
+        print(f"obs serve_bench {cell}: p50 ms off {c[0]['p50_ms']!r}, "
+              f"{c[3]['p50_ms']!r} on {c[1]['p50_ms']!r}, "
+              f"{c[2]['p50_ms']!r}; p99 ms off {c[0]['p99_ms']!r}, "
+              f"{c[3]['p99_ms']!r} on {c[1]['p99_ms']!r}, "
+              f"{c[2]['p99_ms']!r}; queue p50 ms {c[1]['queue_p50_ms']!r}, "
+              f"{c[2]['queue_p50_ms']!r}; compute p50 ms "
+              f"{c[1]['compute_p50_ms']!r}, {c[2]['compute_p50_ms']!r} "
+              f"({card})")
+    n_req = sum(e.get("name") == "serve/request"
+                for e in export.read_events(path))
+    want_req = 2 * len(got[1]["cells"]) * BENCH_REQUESTS
+    check(svc_on.compiled_programs == svc_off.compiled_programs
+          == len(BUCKETS), f"obs serve: {svc_on.compiled_programs} graphs "
+                           f"with the recorder, {svc_off.compiled_programs} "
+                           f"without")
+    check(n_req == want_req,
+          f"obs serve: {n_req} serve/request records, not {want_req}")
+    check(served["embed_assign"] > 0
+          and all(v == 0 for v in mods["ref"].CALLS.values()),
+          "obs serve: no embed_assign replay, or a plain version ran")
+
+    # launch.cluster at Tab.1's size, --obs and --profile
+    path, prof = os.path.join(tmp, "cluster.jsonl"), os.path.join(tmp, "p")
+    zero_counters(mods)
+    base = fresh_peak(torch)
+    t0 = time.perf_counter()
+    acc = mods["cluster"].main([
+        "--n", str(N_TRAIN), "--d", "784", "--clusters", "10", "--b", "4",
+        "--s", "0.2", "--mode", "fused", "--obs", path, "--profile", prof])
+    wall = time.perf_counter() - t0
+    launches, calls = dict(ops.LAUNCHES), dict(mods["ref"].CALLS)
+    count(launches)
+    with open(os.path.join(prof, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    spans = sorted(n for n in names if n.startswith("obs:"))
+    kernel_events = [e for e in events if e.get("cat") == "kernel"]
+    assign_dev = [e for e in kernel_events
+                  if "assign_f32_kernel" in e.get("name", "")]
+    print("run", json.dumps({
+        "run": "O-cluster", "wall_s": wall, "acc": acc, "spans": spans,
+        "trace_events": len(events), "kernel_events": len(kernel_events),
+        "assign_f32_kernel_events": len(assign_dev),
+        "assign_f32_kernel_us": sum(e.get("dur", 0) for e in assign_dev),
+        "launches": launches, "plain_calls": calls}))
+    watermark_lines(export, path, "O-cluster", base)
+    check("obs:engine_stats[fused]" in names and len(assign_dev) > 0,
+          f"O-cluster: the trace lacks obs:engine_stats[fused] or the "
+          f"assign kernel (spans {spans})")
+    check(acc >= 0.9 and all(v == 0 for v in calls.values()),
+          f"O-cluster: accuracy {acc} < 0.9 or a plain version ran")
+    return totals, bodies
 
 
 # ---------------------------------------------------------------------------
@@ -1964,7 +2311,7 @@ def mesh_phase(torch, np, mods, x_tr, x_te, y_te, spec, runs, fits, stream):
 # ---------------------------------------------------------------------------
 
 
-def run_fit(torch, mods, name, cfg, x_tr, x_te, y_te):
+def run_fit(torch, mods, name, cfg, x_tr, x_te, y_te, recorder=None):
     ops, ref, core = mods["ops"], mods["ref"], mods["core"]
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
@@ -1972,7 +2319,7 @@ def run_fit(torch, mods, name, cfg, x_tr, x_te, y_te):
         ref.CALLS[k] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = core.fit_dataset(x_tr, cfg)
+    res = core.fit_dataset(x_tr, cfg, recorder=recorder)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     labels = res.predict(x_te).cpu().numpy()
@@ -2007,7 +2354,8 @@ def run_fit(torch, mods, name, cfg, x_tr, x_te, y_te):
     return rec, labels, res
 
 
-def run_embedded(torch, mods, name, cfg, x_tr, y_tr, x_te, y_te):
+def run_embedded(torch, mods, name, cfg, x_tr, y_tr, x_te, y_te,
+                 recorder=None):
     """An embedded fit as a user runs it: fit_dataset, label the test rows
     with FitResult.predict and the training rows with predict_embedded."""
     ops, ref, core = mods["ops"], mods["ref"], mods["core"]
@@ -2017,7 +2365,7 @@ def run_embedded(torch, mods, name, cfg, x_tr, y_tr, x_te, y_te):
         ref.CALLS[k] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = core.fit_dataset(x_tr, cfg)
+    res = core.fit_dataset(x_tr, cfg, recorder=recorder)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     labels = res.predict(x_te).cpu().numpy()     # at f32 tiles, always
@@ -2284,7 +2632,9 @@ def main(argv=None) -> int:
                 ("assign", "serving.assign"), ("sampling", "data.sampling"),
                 ("init", "core.init"), ("kkmeans", "core.kkmeans"),
                 ("minibatch", "core.minibatch"),
-                ("dmesh", "distributed"), ("ft", "ft")]}
+                ("dmesh", "distributed"), ("ft", "ft"), ("obs", "obs"),
+                ("outer", "distributed.outer"), ("inner", "distributed.inner"),
+                ("cluster", "launch.cluster")]}
     core = mods["core"]
 
     # -- phase 1: the card --------------------------------------------------
@@ -2490,8 +2840,17 @@ def main(argv=None) -> int:
     for key, n in m_bodies.items():
         bodies[key] = bodies.get(key, 0) + n
     recs += m_recs
-    del stream
     print(f"mesh: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    o_totals, o_bodies = obs_phase(torch, np, mods, x_tr, y_tr, x_te, y_te,
+                                   spec, runs, fits, stream)
+    torch.distributed.destroy_process_group()
+    for k, n in o_totals.items():
+        totals[k] += n
+    for key, n in o_bodies.items():
+        bodies[key] = bodies.get(key, 0) + n
+    del stream
+    print(f"obs: {time.perf_counter() - t0:.1f} s")
     del fits, runs, svc
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

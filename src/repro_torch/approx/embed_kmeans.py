@@ -23,9 +23,15 @@ tiles).
 Randomness: batch 0's k-means++ draw comes from the CPU generator of batch
 0 (``core.minibatch.batch_generator``) and is split out (``draw_first``),
 so tests can inject the reference's seeds into ``_first_batch_step``.
+
+``recorder=`` (``repro_torch.obs``) logs per batch the Lloyd cost (the
+tensor, drained at the boundary) and iterations, the wall seconds, the
+empty clusters and an allocator watermark beside the predicted bytes, all
+on the host between batches.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Iterable, NamedTuple, Optional
 
 import torch
@@ -138,25 +144,29 @@ def fit_embedded(batches: Iterable, fmap, *, n_clusters: int,
                  max_iters: int = 100, seed: int = 0,
                  state: Optional[EmbedState] = None,
                  checkpoint_cb: Optional[Callable[[EmbedState, int], None]] = None,
-                 precision: str = "f32", device=None):
+                 recorder=None, precision: str = "f32", device=None):
     """The embedded outer loop -> (EmbedState, [BatchStats]). Each batch
     (dense rows, or a CSR batch for the sketch maps) is embedded once and
     rounded ONCE to the tile dtype (``precision``), which under bf16 halves
     the resident [n, m] batch; every sum stays f32. ``checkpoint_cb(state,
     i)`` runs after every merged batch. Consumes ``batches``: a closable
     source (``data.loader.BatchSource``) is closed on exit, success or
-    failure."""
+    failure. ``recorder``: see the module docstring."""
     with closing_source(batches):
         return _fit_embedded_loop(batches, fmap, n_clusters=n_clusters,
                                   max_iters=max_iters, seed=seed,
                                   state=state, checkpoint_cb=checkpoint_cb,
-                                  precision=precision, device=device)
+                                  recorder=recorder, precision=precision,
+                                  device=device)
 
 
 def _fit_embedded_loop(batches, fmap, *, n_clusters, max_iters, seed, state,
-                       checkpoint_cb, precision, device):
+                       checkpoint_cb, recorder, precision, device):
     from repro_torch.core.minibatch import BatchStats, batch_generator
+    from repro_torch.obs import memory as obs_memory
+    from repro_torch.obs import resolve as resolve_recorder
 
+    rec = resolve_recorder(recorder)
     dev = resolve_device(device)
     prec = resolve_precision(precision)
     if state is not None:
@@ -165,8 +175,11 @@ def _fit_embedded_loop(batches, fmap, *, n_clusters, max_iters, seed, state,
     history: list = []
     start = state.batches_done if state is not None else 0
     for i, xb in enumerate(batches, start=start):
+        t_batch = time.perf_counter()
         check_dense(fmap.kind, xb)
-        z = prec.cast_tiles(fmap(to_device(xb, dev)))
+        xb = to_device(xb, dev)
+        sparse = is_sparse(xb)
+        z = prec.cast_tiles(fmap(xb))
         if state is None:
             seeds = draw_first(z, batch_generator(seed, i),
                                n_clusters=n_clusters)
@@ -177,11 +190,26 @@ def _fit_embedded_loop(batches, fmap, *, n_clusters, max_iters, seed, state,
             state, res, disp = _next_batch_step(z, state,
                                                 n_clusters=n_clusters,
                                                 max_iters=max_iters)
+        rec.series("inner/cost", res.cost, batch=i)     # drained later
+        rec.series("inner/iters", res.n_iter, batch=i)
         history.append(BatchStats(
             inner_iters=res.n_iter, cost=float(res.cost),
             displacement=disp.cpu().numpy(), counts=res.counts.cpu().numpy()))
         if checkpoint_cb is not None:
             checkpoint_cb(state, i)
+        if rec.enabled:
+            n_rows, d = xb.shape
+            rec.series("batch/wall_seconds", time.perf_counter() - t_batch,
+                       batch=i, rows=n_rows)
+            rec.gauge("clusters/empty",
+                      int((history[-1].counts == 0).sum()), batch=i)
+            density = (xb.nnz / max(n_rows * d, 1)) if sparse else 1.0
+            obs_memory.watermark(
+                rec, batch=i, device=dev, predicted_bytes=(
+                    obs_memory.predicted_embed_footprint(
+                        n_rows, n_clusters, fmap, sparse=sparse,
+                        density=density)))
+            rec.batch_boundary(i)
     if state is None:
         raise ValueError("empty batch iterable")
     return state, history

@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import BIG
 from repro_torch.kernels.precision import PRECISIONS, resolve_precision
+from repro_torch.obs.trace import span
 
 from .kernels import KERNEL_KINDS
 
@@ -110,7 +111,9 @@ class GramEngine:
         p = resolve_precision(self.precision)
         x, y = p.cast_tiles(x), p.cast_tiles(y)
         if self.mode == "materialize":
-            return GramOp(x=x, y=y, k=spec(x, y).to(p.tile_dtype))
+            # named profiler span: the once-a-batch Gram panel build
+            with span("obs:gram_panel_build"):
+                return GramOp(x=x, y=y, k=spec(x, y).to(p.tile_dtype))
         return GramOp(x=x, y=y, k=None)
 
     @staticmethod
@@ -133,13 +136,19 @@ class GramEngine:
                                    degree=spec.degree,
                                    precision=self.precision)
         if self.mode == "tiled":
-            return torch.cat([spec(xt, op.y).to(torch.float32) @ h
+            return torch.cat([_tiled_panel(spec, xt, op.y) @ h
                               for xt in torch.split(op.x, self.tile_rows)])
         return spec(op.x, op.y).to(torch.float32) @ h
 
     def wants_fused_assign(self, spec, op: GramOp) -> bool:
         """True when the one-pass f + argmin kernel applies."""
         return self.mode == "fused" and op.k is None and self._has_kernel(spec)
+
+
+def _tiled_panel(spec, xt: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """One [tile_rows, |L|] panel of the tiled mode, f32."""
+    with span("obs:gram_tiled_panel"):
+        return spec(xt, y).to(torch.float32)
 
 
 def resolve_engine(engine, precision: Optional[str] = None) -> GramEngine:
@@ -165,13 +174,14 @@ def engine_stats_raw(engine: GramEngine, spec, op_xl: GramOp, op_ll: GramOp,
                      n_clusters: int):
     """Raw (un-normalized) partials: (counts [C], f_raw = K_xl @ H [rows, C],
     g_raw = diag(H^T K_ll H) [C])."""
-    h_cols = _one_hot(labels_l_cols, n_clusters)
-    counts = torch.sum(h_cols, dim=0)
-    f_raw = engine.matvec(spec, op_xl, h_cols)
-    h_rows = _one_hot(labels_l_rows, n_clusters)
-    t = engine.matvec(spec, op_ll, h_cols)
-    g_raw = torch.sum(h_rows * t, dim=0)
-    return counts, f_raw, g_raw
+    with span(f"obs:engine_stats[{engine.mode}]"):
+        h_cols = _one_hot(labels_l_cols, n_clusters)
+        counts = torch.sum(h_cols, dim=0)
+        f_raw = engine.matvec(spec, op_xl, h_cols)
+        h_rows = _one_hot(labels_l_rows, n_clusters)
+        t = engine.matvec(spec, op_ll, h_cols)
+        g_raw = torch.sum(h_rows * t, dim=0)
+        return counts, f_raw, g_raw
 
 
 def finalize_stats(counts, f_raw, g_raw):

@@ -39,3 +39,10 @@ def nmi(labels_true, labels_pred) -> float:
     hy = -np.sum((pj[pj > 0] / n) * np.log(pj[pj > 0] / n))
     denom = np.sqrt(hu * hy)
     return float(mi / denom) if denom > 0 else 0.0
+
+
+def mean_displacement(history) -> np.ndarray:
+    """Mean medoid displacement of each outer iteration (the Fig.4b
+    observable): small and flat when the sampling represents the data,
+    spikes under drift (block sampling over a drifting stream)."""
+    return np.asarray([float(np.mean(h.displacement)) for h in history])

@@ -38,11 +38,19 @@ card a producer thread made these fits no faster
 producer thread stages through pinned memory on a copy stream. A
 resumed fit skips the committed batches host-side (``BatchSource.skip``)
 and passes ``state=`` (and ``fmap=``).
+
+``recorder=`` (``repro_torch.obs``) is the flight recorder: per batch the
+inner cost (the tensor, drained at the boundary) and iterations, the wall
+seconds, the empty clusters, the mean medoid displacement and an
+allocator watermark beside the planner's predicted bytes. Every hook runs
+on the host between batches, outside the inner loop, and reads no tensor
+before the batch boundary.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import time
 from typing import Callable, Iterable, NamedTuple, Optional
 
 import numpy as np
@@ -51,6 +59,8 @@ import torch
 from repro_torch.data.loader import BatchSource, closing_source, to_device
 from repro_torch.data.sparse import is_sparse
 from repro_torch.device import resolve_device
+from repro_torch.obs import memory as obs_memory
+from repro_torch.obs import resolve as resolve_recorder
 
 from .engine import GramEngine, resolve_engine
 from .init import assign_to_medoids, kmeans_pp_indices
@@ -256,7 +266,7 @@ def predict(x, medoids: torch.Tensor, medoid_diag: torch.Tensor, *,
 def fit(batches: Iterable, cfg: MiniBatchConfig, *,
         state: Optional[GlobalState] = None,
         checkpoint_cb: Optional[Callable[[GlobalState, int], None]] = None,
-        fmap=None, device=None) -> FitResult:
+        fmap=None, device=None, recorder=None) -> FitResult:
     """Run the outer loop over an iterable of mini-batches (numpy arrays,
     tensors or, for the sketch methods, CSR batches) or a ``BatchSource``,
     which is closed on exit. A tensor already on the device in f32 is used
@@ -264,18 +274,21 @@ def fit(batches: Iterable, cfg: MiniBatchConfig, *,
     iterable then yields only the remaining batches (``BatchSource.skip``).
     ``checkpoint_cb(state, i)`` is called after every merged batch. An
     embedded fit (``cfg.method != "exact"``) resumes only with its original
-    ``fmap``."""
+    ``fmap``. ``recorder`` is a ``repro_torch.obs`` flight recorder (see
+    the module docstring)."""
+    rec = resolve_recorder(recorder)
     with closing_source(batches):
         if cfg.method != "exact":
             return _fit_embedded(batches, cfg, state=state,
                                  checkpoint_cb=checkpoint_cb, fmap=fmap,
-                                 device=device)
+                                 device=device, recorder=rec)
         return _fit_exact(batches, cfg, state=state,
-                          checkpoint_cb=checkpoint_cb, device=device)
+                          checkpoint_cb=checkpoint_cb, device=device,
+                          rec=rec)
 
 
 def _fit_exact(batches, cfg: MiniBatchConfig, *, state, checkpoint_cb,
-               device) -> FitResult:
+               device, rec) -> FitResult:
     dev = resolve_device(device)
     if state is not None:
         state = GlobalState(state.medoids.to(dev), state.medoid_diag.to(dev),
@@ -283,6 +296,7 @@ def _fit_exact(batches, cfg: MiniBatchConfig, *, state, checkpoint_cb,
     history: list[BatchStats] = []
     start = state.batches_done if state is not None else 0
     for i, xb in enumerate(batches, start=start):
+        t_batch = time.perf_counter()
         if is_sparse(xb):
             raise ValueError(
                 "method='exact' evaluates kernel blocks on dense rows and "
@@ -300,18 +314,35 @@ def _fit_exact(batches, cfg: MiniBatchConfig, *, state, checkpoint_cb,
         else:
             l_idx = draw_next(xb, gen, cfg=cfg, n_landmarks=n_l)
             state, res, disp = _next_batch_step(xb, l_idx, state, cfg=cfg)
+        # the cost tensor waits for the boundary's one read
+        rec.series("inner/cost", res.cost, batch=i)
+        rec.series("inner/iters", res.n_iter, batch=i)
         history.append(BatchStats(
             inner_iters=res.n_iter, cost=float(res.cost),
             displacement=disp.cpu().numpy(), counts=res.counts.cpu().numpy()))
         if checkpoint_cb is not None:
             checkpoint_cb(state, i)
+        if rec.enabled:
+            h = history[-1]
+            n = xb.shape[0]
+            rec.series("batch/wall_seconds", time.perf_counter() - t_batch,
+                       batch=i, rows=n)
+            rec.gauge("clusters/empty", int((h.counts == 0).sum()), batch=i)
+            rec.gauge("medoids/mean_displacement",
+                      float(np.mean(h.displacement)), batch=i)
+            obs_memory.watermark(
+                rec, batch=i, device=dev,
+                engine=resolve_engine(cfg.engine, cfg.precision).mode,
+                predicted_bytes=obs_memory.predicted_batch_footprint(
+                    cfg, n, int(xb.shape[1])))
+            rec.batch_boundary(i)
     if state is None:
         raise ValueError("empty batch iterable")
     return FitResult(state, history, spec=cfg.kernel)
 
 
 def _fit_embedded(batches, cfg: MiniBatchConfig, *, state, checkpoint_cb,
-                  fmap, device) -> FitResult:
+                  fmap, device, recorder) -> FitResult:
     """The embedded-space target of ``fit``: draw the map from the first
     batch (unless one is given), then the embedded outer loop."""
     from repro_torch import approx
@@ -336,7 +367,7 @@ def _fit_embedded(batches, cfg: MiniBatchConfig, *, state, checkpoint_cb,
     est, history = approx.fit_embedded(
         it, fmap, n_clusters=cfg.n_clusters, max_iters=cfg.max_inner_iters,
         seed=cfg.seed, state=state, checkpoint_cb=checkpoint_cb,
-        precision=cfg.precision, device=device)
+        recorder=recorder, precision=cfg.precision, device=device)
     return FitResult(est, history, fmap=fmap, spec=cfg.kernel)
 
 

@@ -24,9 +24,19 @@ re-raised in the consumer.
 ``BatchSource`` is the one handle the fit loops consume: any iterable of
 dense blocks or CSR mini-batches (a list, a generator, a ragged chunk
 stream through ``from_stream``), with a host-side ``skip`` for resume
-(skipped batches are never staged) and optional prefetch. The reference's
-``prefetch/*`` recorder series wait for the recorder (ROADMAP Queue 1
-item 10).
+(skipped batches are never staged) and optional prefetch.
+
+``recorder=`` (``repro_torch.obs``) watches the pipeline from both sides:
+the producer times each stage call (``prefetch/stage_seconds``, by batch
+``index``) and gauges the queue depth after every put
+(``prefetch/queue_depth``); the consumer records how long it waited for
+each batch (``prefetch/starve_seconds``). A shallow queue and a waiting
+consumer mean ingestion, not the fit, is the bottleneck. Without a
+producer thread the stage is timed in the consumer (``sync=True``).
+``stage_seconds`` is host time around the stage call: on the card's
+pinned ``DeviceStage`` that is the copy into pinned memory and the
+enqueue of the asynchronous copy, not the copy itself, which the
+consumer's stream waits for in ``arrive``.
 """
 from __future__ import annotations
 
@@ -41,6 +51,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.obs import resolve as resolve_recorder
+from repro_torch.obs.trace import annotate
 
 from .sparse import CSRBatch, as_csr, is_sparse
 
@@ -139,9 +151,11 @@ class PrefetchLoader:
     _SENTINEL = object()
 
     def __init__(self, batches: Iterable, *, depth: int = 2, device=None,
-                 dtype=torch.float32, stage: Optional[Callable] = None):
+                 dtype=torch.float32, stage: Optional[Callable] = None,
+                 recorder=None):
         self._stage = stage if stage is not None else DeviceStage(device,
                                                                   dtype)
+        self._rec = resolve_recorder(recorder)
         self._src = iter(batches)
         self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._err: Optional[BaseException] = None
@@ -163,19 +177,33 @@ class PrefetchLoader:
         return False
 
     def _produce(self) -> None:
+        rec = self._rec
         try:
-            for batch in self._src:
+            for k, batch in enumerate(self._src):
                 if self._stop.is_set():
                     return
-                if not self._put(self._stage(batch)):
+                t0 = time.perf_counter()
+                with annotate("obs:stage"):
+                    staged = self._stage(batch)
+                if rec.enabled:
+                    rec.series("prefetch/stage_seconds",
+                               time.perf_counter() - t0, index=k)
+                if not self._put(staged):
                     return
+                if rec.enabled:
+                    rec.gauge("prefetch/queue_depth", self._q.qsize(),
+                              index=k)
         except Exception as e:  # re-raised on the consumer's side
             self._err = e
         finally:
             self._put(self._SENTINEL)
 
     def __iter__(self) -> Iterator:
+        rec = self._rec
+        t_wait = None   # set when the consumer starts waiting for a batch
         while True:
+            if rec.enabled and t_wait is None:
+                t_wait = time.perf_counter()
             try:
                 item = self._q.get(timeout=0.05)
             except queue.Empty:
@@ -195,6 +223,10 @@ class PrefetchLoader:
                 if self._err is not None:
                     raise self._err
                 return
+            if rec.enabled:
+                rec.series("prefetch/starve_seconds",
+                           time.perf_counter() - t_wait)
+                t_wait = None
             yield arrive(item)
 
     def close(self, timeout: float = 10.0) -> None:
@@ -230,6 +262,7 @@ class BatchSource:
       onto ``device``, ``None`` meaning the card); with 0 the stage runs in
       the consumer (default: ``to_device``, the plain copy, since nothing
       could overlap a pinned one there);
+    * ``recorder=``: the ``prefetch/*`` series (see the module docstring);
     * ``close()`` / the context manager: releases the producer thread. The
       fit loops close the source when they finish or fail, so a source is
       single-use; iterating it again closes the earlier producer first.
@@ -241,8 +274,9 @@ class BatchSource:
 
     def __init__(self, batches: Iterable, *, device=None,
                  dtype=torch.float32, stage: Optional[Callable] = None,
-                 prefetch: int = 0, skip: int = 0):
+                 prefetch: int = 0, skip: int = 0, recorder=None):
         self._batches = batches
+        self._rec = resolve_recorder(recorder)
         self._prefetch = int(prefetch)
         if stage is None:
             dev = resolve_device(device)
@@ -290,11 +324,18 @@ class BatchSource:
         if self._prefetch > 0:
             self.close()   # iterating again must not orphan a producer
             self._loader = PrefetchLoader(it, depth=self._prefetch,
-                                          stage=self._stage)
+                                          stage=self._stage,
+                                          recorder=self._rec)
             yield from self._loader
         else:
-            for b in it:
-                yield arrive(self._stage(b))
+            for k, b in enumerate(it):
+                t0 = time.perf_counter()
+                staged = self._stage(b)
+                if self._rec.enabled:
+                    self._rec.series("prefetch/stage_seconds",
+                                     time.perf_counter() - t0, index=k,
+                                     sync=True)
+                yield arrive(staged)
 
     def close(self) -> None:
         if self._loader is not None:

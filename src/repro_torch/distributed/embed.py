@@ -26,10 +26,20 @@ drawn over the unpadded embedded rows of the whole batch (one all_gather
 of the [rows, m] blocks, first batch only), with the single-host draw
 ``approx.embed_kmeans.draw_first``, so a mesh fit seeds as the single-host
 fit does.
+
+``recorder=`` (``repro_torch.obs``) gets the reference's records: the
+``stage/seconds`` timer of every staged batch (from the producer thread
+under ``source``, which is why the recorder takes a lock) and, per batch,
+the ``collectives/psum`` and ``collectives/psum_bytes`` counters of the
+Lloyd loop (measured by ``mesh.tally()`` around it: the sweeps and the
+prologue, not batch 0's seeding gather; see ``distributed/outer.py`` on
+why there is no static audit), the wall seconds, the cost and iterations
+and an allocator watermark.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Iterable, Optional
 
 import torch
@@ -44,9 +54,12 @@ from repro_torch.data.sparse import (CSRBatch, as_csr, concat_csr, is_sparse,
                                      shard_csr, shard_row_mask, stored,
                                      take_rows)
 from repro_torch.kernels.precision import resolve_precision
+from repro_torch.obs import memory as obs_memory
+from repro_torch.obs import resolve as resolve_recorder
+from repro_torch.obs.trace import annotate, span
 
 from .mesh import (all_gather, all_reduce, axis_rank, axis_size,
-                   ghost_row_ids, mesh_device, row_axes_of)
+                   ghost_row_ids, mesh_device, row_axes_of, tally)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +104,8 @@ class DistributedEmbedKMeans:
     with ``core.minibatch.map_generator(cfg.seed)``, as the single-host fit
     draws it."""
 
-    def __init__(self, mesh, cfg: MiniBatchConfig, *, fmap=None):
+    def __init__(self, mesh, cfg: MiniBatchConfig, *, fmap=None,
+                 recorder=None):
         if cfg.method == "exact":
             raise ValueError("DistributedEmbedKMeans needs an embedded "
                              "cfg.method ('rff', 'nystrom', 'sketch', "
@@ -100,6 +114,7 @@ class DistributedEmbedKMeans:
         self.mesh = mesh
         self.cfg = cfg
         self.fmap = fmap
+        self.rec = resolve_recorder(recorder)
         self.device = mesh_device(mesh)
         self.row_axes = row_axes_of(mesh)
         self.d_size = axis_size(mesh, self.row_axes)
@@ -178,10 +193,11 @@ class DistributedEmbedKMeans:
         in ``fit``."""
         if isinstance(xb, StagedBatch):
             return xb
-        if is_sparse(xb):
-            return self._stage_csr(as_csr(xb).to("cpu"))
-        return self._stage_dense(torch.as_tensor(xb, dtype=torch.float32)
-                                 .cpu())
+        with self.rec.timer("stage/seconds"), annotate("obs:stage"):
+            if is_sparse(xb):
+                return self._stage_csr(as_csr(xb).to("cpu"))
+            return self._stage_dense(torch.as_tensor(xb, dtype=torch.float32)
+                                     .cpu())
 
     def _wgt(self, n: int) -> torch.Tensor:
         """This rank's row weights: 1 on real rows, 0 on ghost rows."""
@@ -220,7 +236,7 @@ class DistributedEmbedKMeans:
         """Wrap raw batches in a ``BatchSource`` whose producer thread
         stages each one onto this mesh (§3.3)."""
         return BatchSource(batches, stage=self.stage, prefetch=depth,
-                           skip=skip)
+                           skip=skip, recorder=self.rec)
 
     # -- the shard-local steps ---------------------------------------------
 
@@ -228,7 +244,8 @@ class DistributedEmbedKMeans:
         """z = phi_m(rows) of this rank's block, CSR shards by the O(nnz)
         sketch, rounded once to the tile dtype."""
         prec = resolve_precision(self.cfg.precision)
-        z = self.fmap(st.csr if st.sparse else st.x)
+        with annotate("obs:embed_phi"):
+            z = self.fmap(st.csr if st.sparse else st.x)
         return prec.cast_tiles(z.to(torch.float32))
 
     def _sync(self, z, wgt, labels, changed_f, cost_loc):
@@ -239,13 +256,15 @@ class DistributedEmbedKMeans:
         state does not depend on how many ranks split the rows, and a fit
         resumed on another world size is bitwise the uninterrupted one."""
         c, m = self.cfg.n_clusters, z.shape[1]
-        h = torch.nn.functional.one_hot(labels.long(), c).to(torch.float64)
-        h = h * wgt.to(torch.float64)[:, None]        # ghost rows -> 0
-        sums = h.T @ z.to(torch.float64)
-        flat = all_reduce(torch.cat([
-            sums.reshape(-1), torch.sum(h, dim=0),
-            torch.stack([changed_f, cost_loc]).to(torch.float64)]),
-            self.mesh, self.row_axes)                 # [C*(m+1) + 2]
+        with span("obs:psum_fused"):
+            h = torch.nn.functional.one_hot(labels.long(), c).to(
+                torch.float64)
+            h = h * wgt.to(torch.float64)[:, None]    # ghost rows -> 0
+            sums = h.T @ z.to(torch.float64)
+            flat = all_reduce(torch.cat([
+                sums.reshape(-1), torch.sum(h, dim=0),
+                torch.stack([changed_f, cost_loc]).to(torch.float64)]),
+                self.mesh, self.row_axes)             # [C*(m+1) + 2]
         counts = flat[c * m:-2]
         cents = flat[:c * m].reshape(c, m) / torch.clamp(counts, min=1.0)[
             :, None]
@@ -293,9 +312,11 @@ class DistributedEmbedKMeans:
             state = EmbedState(state.centroids.to(dev),
                                state.cardinalities.to(dev),
                                int(state.batches_done))
+        rec = self.rec
         history: list[BatchStats] = []
         start = state.batches_done if state is not None else 0
         for i, xb in enumerate(batches, start=start):
+            t_batch = time.perf_counter()
             st = self.stage(xb)
             self._ensure_fmap(st)
             z = self._embed(st)
@@ -312,7 +333,9 @@ class DistributedEmbedKMeans:
                 labels0, _ = assign_embedded(z, state.centroids,
                                              state.cardinalities)
                 cards = state.cardinalities
-            _, cents, counts, t, cost = self._shard_lloyd(z, st.wgt, labels0)
+            with tally() as bill:
+                _, cents, counts, t, cost = self._shard_lloyd(z, st.wgt,
+                                                              labels0)
             if state is None:
                 new_centroids, done = cents, 1
                 disp = torch.zeros(c)
@@ -332,6 +355,22 @@ class DistributedEmbedKMeans:
                 counts=counts.cpu().numpy()))
             if checkpoint_cb is not None:
                 checkpoint_cb(state, i)
+            if rec.enabled:
+                rec.counter("collectives/psum", bill.psum, batch=i)
+                rec.counter("collectives/psum_bytes", bill.psum_bytes,
+                            batch=i)
+                rec.series("batch/wall_seconds",
+                           time.perf_counter() - t_batch, batch=i, rows=st.n)
+                rec.series("inner/cost", history[-1].cost, batch=i)
+                rec.series("inner/iters", t, batch=i)
+                density = (stored(as_csr(st.host)) / max(st.n * st.d, 1)
+                           if st.sparse else 1.0)
+                obs_memory.watermark(
+                    rec, batch=i, device=dev, predicted_bytes=(
+                        obs_memory.predicted_embed_footprint(
+                            st.n, c, self.fmap, sparse=st.sparse,
+                            density=density, n_devices=self.d_size)))
+                rec.batch_boundary(i)
         if state is None:
             raise ValueError("empty batch iterable")
         return FitResult(state, history, fmap=self.fmap, spec=cfg.kernel)

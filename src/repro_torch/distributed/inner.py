@@ -72,6 +72,7 @@ from repro_torch.core.engine import (ReducePlan, assign_from_stats,
                                      engine_stats_raw, finalize_stats,
                                      resolve_engine)
 from repro_torch.core.kernels import KernelSpec
+from repro_torch.obs.trace import span
 
 from .mesh import all_gather, all_reduce, axis_rank, axis_size
 
@@ -168,8 +169,9 @@ def _inner_local(mesh, x_local: torch.Tensor, landmarks: torch.Tensor,
 
     if two_d:
         def _fused_reduce(counts_p, f_p, g_p):
-            flat = all_reduce(torch.cat([f_p, counts_p[None], g_p[None]]),
-                              mesh, (col_axis,))
+            with span("obs:psum_fused"):
+                flat = all_reduce(torch.cat([f_p, counts_p[None],
+                                             g_p[None]]), mesh, (col_axis,))
             return flat[-2], flat[:-2], flat[-1]
         reduce_plan = ReducePlan(_fused_reduce)
 
@@ -177,25 +179,28 @@ def _inner_local(mesh, x_local: torch.Tensor, landmarks: torch.Tensor,
         """THE sync: 1 all_gather + 1 all_reduce. -> (u_loc, u_full,
         totals, locals, cost, changed)."""
         if not two_d:
-            u_full = all_gather(u_local, mesh, row_axes)
+            with span("obs:allgather_u"):
+                u_full = all_gather(u_local, mesh, row_axes)
             locs = local_stats(u_full)
-            flat = all_reduce(torch.cat([
-                locs[2], torch.stack([cost_loc.to(torch.float32),
-                                      changed_loc.to(torch.float32)])]),
-                mesh, row_axes)
+            with span("obs:psum_fused"):
+                flat = all_reduce(torch.cat([
+                    locs[2], torch.stack([cost_loc.to(torch.float32),
+                                          changed_loc.to(torch.float32)])]),
+                    mesh, row_axes)
             totals = (locs[0], locs[1], flat[:-2])
             return (u_local, u_full, totals, locs, flat[-2],
                     flat[-1].to(torch.int32))
         packed = torch.cat([u_local, _bits(cost_loc),
                             changed_loc.to(torch.int32).reshape(1)])
-        if s > 1:
-            # replicas arrive with different refinements: gather over the
-            # model axis too and take model shard 0's as canonical
-            buf = all_gather(packed, mesh, row_axes + (col_axis,))
-            buf = buf.reshape(d_size, m_size, rows + 2)[:, 0]
-        else:
-            buf = all_gather(packed, mesh, row_axes).reshape(d_size,
-                                                             rows + 2)
+        with span("obs:allgather_u"):
+            if s > 1:
+                # replicas arrive with different refinements: gather over
+                # the model axis too and take model shard 0's as canonical
+                buf = all_gather(packed, mesh, row_axes + (col_axis,))
+                buf = buf.reshape(d_size, m_size, rows + 2)[:, 0]
+            else:
+                buf = all_gather(packed, mesh, row_axes).reshape(d_size,
+                                                                 rows + 2)
         u_full = buf[:, :rows].reshape(-1)
         cost = buf[:, rows].contiguous().view(torch.float32).sum()
         changed = buf[:, rows + 1].sum()

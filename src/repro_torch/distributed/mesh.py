@@ -13,10 +13,13 @@ The collectives go through ``all_gather`` and ``all_reduce`` here, which
 call ``torch.distributed.all_gather_into_tensor`` / ``all_reduce`` on the
 group of one or more mesh axes (``axis_group``), so a wrapper around those
 two functions of ``torch.distributed`` counts every collective of the
-runtime.
+runtime. ``tally()`` counts them from inside: while it is open, every call
+of the two, and the bytes each ``all_reduce`` sums, add to its
+``CollectiveTally`` (the flight recorder's measured collective bill).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import warnings
 
@@ -117,6 +120,32 @@ def axis_rank(mesh, axes: tuple[str, ...] | str) -> int:
     return dist.get_rank(axis_group(mesh, axes))
 
 
+class CollectiveTally:
+    """Collectives through ``all_gather`` / ``all_reduce`` while a
+    ``tally()`` is open, under the reference's names: ``psum`` (the
+    all_reduce calls), ``allgather`` and ``psum_bytes`` (the bytes the
+    all_reduce calls summed, per rank)."""
+
+    def __init__(self):
+        self.psum = 0
+        self.allgather = 0
+        self.psum_bytes = 0
+
+
+_TALLIES: list[CollectiveTally] = []
+
+
+@contextlib.contextmanager
+def tally():
+    """Count this rank's collectives while the block runs."""
+    t = CollectiveTally()
+    _TALLIES.append(t)
+    try:
+        yield t
+    finally:
+        _TALLIES.remove(t)
+
+
 def all_gather(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     """Concatenate ``t`` of every rank along ``axes`` on dim 0: ONE
     ``all_gather_into_tensor`` (torch 2.13 names it deprecated; it is the
@@ -128,6 +157,8 @@ def all_gather(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
         dist.all_gather_into_tensor(out, t, group=group)
+    for c in _TALLIES:
+        c.allgather += 1
     return out
 
 
@@ -136,4 +167,7 @@ def all_reduce(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     place on a contiguous copy; returns it)."""
     t = t.contiguous().clone()
     dist.all_reduce(t, group=axis_group(mesh, axes))
+    for c in _TALLIES:
+        c.psum += 1
+        c.psum_bytes += t.numel() * t.element_size()
     return t

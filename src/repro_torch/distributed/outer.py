@@ -25,16 +25,30 @@ replicated ghost rows, weight-masked: they are never landmark candidates
 medoid or merge argmin and never count in the cost, so a P∤(N/B) fit
 gives the single-host cardinalities and Eq.12 alphas exactly.
 
-The reference's flight-recorder hooks and its statically audited bill wait
-for the recorder (ROADMAP Queue 1 items 10 and 11); ``inner.
-collectives_per_iteration`` is the analytic bill.
+``recorder=`` (``repro_torch.obs``) gets the reference's per-batch
+records: the ``collectives/psum``, ``collectives/allgather`` and
+``collectives/psum_bytes`` counters of the inner fit, the wall seconds,
+the inner cost and iterations, an allocator watermark and a
+``StragglerMonitor`` timing (this rank's). The collective bill is
+MEASURED: ``mesh.tally()`` counts the calls and bytes that pass through
+``mesh.all_gather`` / ``all_reduce`` while the inner fit runs, which
+leaves out the Eq.7 / Eq.12 argmin gathers, as the reference's bill does.
+The reference bills from a static audit of the traced program and falls
+back to the analytic bill with an ``audit_error`` event when tracing
+fails; the port has no traced program to audit and nothing that can fail
+to trace, so it has no ``audit_error``. ``inner.
+collectives_per_iteration`` stays the analytic bill the tally must meet:
+per sync x (iterations + 1, the prologue).
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.approx.selectors import name_of
 from repro_torch.core.engine import resolve_engine
@@ -46,10 +60,12 @@ from repro_torch.core.minibatch import (BatchStats, FitResult, GlobalState,
 from repro_torch.data.loader import closing_source
 from repro_torch.data.sparse import is_sparse
 from repro_torch.kernels.ops import BIG
+from repro_torch.obs import memory as obs_memory
+from repro_torch.obs import resolve as resolve_recorder
 
 from .inner import DistributedInnerConfig, _inner_local, split_rows
 from .mesh import (all_gather, axis_rank, axis_size, ghost_row_ids,
-                   mesh_device, row_axes_of)
+                   mesh_device, row_axes_of, tally)
 
 
 def _dist_argmin_rows(mesh, row_axes, score_local: torch.Tensor):
@@ -73,16 +89,19 @@ class DistributedMiniBatchKMeans:
     point). Runs on the mesh's device: ``cuda`` over NCCL, ``cpu`` over
     gloo."""
 
-    def __init__(self, mesh, cfg: MiniBatchConfig, *, mode: object = None):
+    def __init__(self, mesh, cfg: MiniBatchConfig, *, mode: object = None,
+                 recorder=None):
         """``mode`` names the GramEngine of the inner loop ("materialize" |
         "fused" | "tiled" or a ``core.engine.GramEngine``); default
-        ``cfg.engine``."""
+        ``cfg.engine``. ``recorder`` is a ``repro_torch.obs`` flight
+        recorder (see the module docstring)."""
         if cfg.method != "exact":
             raise ValueError("DistributedMiniBatchKMeans runs method="
                              "'exact'; use DistributedEmbedKMeans for "
                              f"{cfg.method!r}")
         self.mesh = mesh
         self.cfg = cfg
+        self.rec = resolve_recorder(recorder)
         self.device = mesh_device(mesh)
         self.row_axes = row_axes_of(mesh)
         self.col_axis = "model" if "model" in mesh.mesh_dim_names else None
@@ -94,6 +113,10 @@ class DistributedMiniBatchKMeans:
             engine=resolve_engine(cfg.engine if mode is None else mode),
             precision=cfg.precision, row_axes=self.row_axes,
             col_axis=self.col_axis, s_step=cfg.s_step)
+        # the watermark prices the residency the inner loop runs (``mode``
+        # may override cfg.engine; the reference prices cfg.engine's)
+        self._priced_cfg = dataclasses.replace(cfg,
+                                               engine=self.inner_cfg.engine)
 
     # -- helpers -----------------------------------------------------------
 
@@ -181,9 +204,15 @@ class DistributedMiniBatchKMeans:
                                 state.medoid_diag.to(dev),
                                 state.cardinalities.to(dev),
                                 int(state.batches_done))
+        rec = self.rec
+        monitor = None
+        if rec.enabled:
+            from repro_torch.ft.straggler import StragglerMonitor
+            monitor = StragglerMonitor(rec)
         history: list[BatchStats] = []
         start = state.batches_done if state is not None else 0
         for i, xb in enumerate(batches, start=start):
+            t_batch = time.perf_counter()
             if is_sparse(xb):
                 raise ValueError(
                     "method='exact' evaluates kernel blocks on dense rows "
@@ -223,8 +252,9 @@ class DistributedMiniBatchKMeans:
                 u0, k_tilde = assign_to_medoids(x, diag, state.medoids,
                                                 state.medoid_diag, spec=spec)
                 state_in = state
-            res = _inner_local(self.mesh, x, landmarks, l_idx.to(dev), diag,
-                               u0, wgt, cfg=self.inner_cfg)
+            with tally() as bill:
+                res = _inner_local(self.mesh, x, landmarks, l_idx.to(dev),
+                                   diag, u0, wgt, cfg=self.inner_cfg)
             state, disp = self._medoid_merge(xb, x, diag, res, k_tilde,
                                              state_in, first, wgt)
             history.append(BatchStats(
@@ -233,6 +263,27 @@ class DistributedMiniBatchKMeans:
                 counts=res.counts.cpu().numpy()))
             if checkpoint_cb is not None:
                 checkpoint_cb(state, i)
+            if rec.enabled:
+                dt = time.perf_counter() - t_batch
+                # the measured bill of the inner fit: its syncs (the
+                # prologue's included), not the argmins' gathers
+                rec.counter("collectives/psum", bill.psum, batch=i)
+                rec.counter("collectives/allgather", bill.allgather, batch=i)
+                rec.counter("collectives/psum_bytes", bill.psum_bytes,
+                            batch=i)
+                rec.series("batch/wall_seconds", dt, batch=i, rows=n)
+                rec.series("inner/cost", history[-1].cost, batch=i)
+                rec.series("inner/iters", res.n_iter, batch=i)
+                obs_memory.watermark(
+                    rec, batch=i, device=dev,
+                    engine=self.inner_cfg.engine.mode,
+                    predicted_bytes=obs_memory.predicted_batch_footprint(
+                        self._priced_cfg, len(xb), xb.shape[1],
+                        n_devices=self.d_size))
+                # one process a device: the timing unit is this rank
+                rank = dist.get_rank() if dist.is_initialized() else 0
+                monitor.observe(i, {rank: dt}, n_rows=len(xb))
+                rec.batch_boundary(i)
         if state is None:
             raise ValueError("empty batch iterable")
         return FitResult(state, history, spec=cfg.kernel)

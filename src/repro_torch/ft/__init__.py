@@ -1,8 +1,8 @@
-"""Fault tolerance: checkpoints and elastic resume (the port of
-``repro/ft``; the straggler monitor waits for the recorder, ROADMAP Queue 1
-item 10)."""
+"""Fault tolerance: checkpoints, elastic resume and the straggler monitor
+(the port of ``repro/ft``)."""
 from .checkpoint import CheckpointManager
 from .elastic import ElasticClusteringRunner, SimulatedFailure
+from .straggler import WorkerStatus, replan_rows
 
 __all__ = ["CheckpointManager", "ElasticClusteringRunner",
-           "SimulatedFailure"]
+           "SimulatedFailure", "WorkerStatus", "replan_rows"]

@@ -24,6 +24,11 @@ rank sees. A streaming
 selection pre-pass
 (``approx.selectors.select_streaming``) checkpoints its ``SelectorState``
 through the same ``CheckpointManager``.
+
+``recorder=`` (``repro_torch.obs``) is handed to the mesh runner, and the
+runner adds an ``elastic/resume`` event at the start of ``run`` and an
+``elastic/checkpoint`` event at every commit, next to the per-batch
+records.
 """
 from __future__ import annotations
 
@@ -38,20 +43,25 @@ from repro_torch.core.minibatch import FitResult, GlobalState, MiniBatchConfig
 from repro_torch.data.loader import BatchSource, closing_source
 from repro_torch.data.sparse import as_csr, is_sparse
 from repro_torch.distributed.embed import DistributedEmbedKMeans
-from repro_torch.distributed.mesh import axis_size, mesh_device, row_axes_of
+from repro_torch.distributed.mesh import (axis_size, mesh_device, mesh_shape,
+                                          row_axes_of)
 from repro_torch.distributed.outer import DistributedMiniBatchKMeans
+from repro_torch.obs import resolve as resolve_recorder
 
 from .checkpoint import CheckpointManager
 
 
 class ElasticClusteringRunner:
     def __init__(self, cfg: MiniBatchConfig, ckpt: CheckpointManager, *,
-                 mode: object = None, prefetch: int = 0, machine=None):
+                 mode: object = None, prefetch: int = 0, machine=None,
+                 recorder=None):
         """``mode`` overrides the exact inner loop's GramEngine (default
         ``cfg.engine``: a restart never demotes the configured residency).
         ``prefetch`` stages batches on a producer thread. ``machine`` is
         the ``core.memory.MachineSpec`` of one rank that a re-plan prices
-        against (default: one H100)."""
+        against (default: one H100). ``recorder``: see the module
+        docstring."""
+        self.rec = resolve_recorder(recorder)
         self.cfg = cfg
         self.ckpt = ckpt
         self.mode = mode
@@ -134,6 +144,10 @@ class ElasticClusteringRunner:
         state, fmap, extra = self._restore(dev)
         start = int(state.batches_done) if state is not None else 0
         self._replan(extra, shards)
+        rec = self.rec
+        rec.event("elastic/resume", start_batch=start,
+                  resumed=state is not None, method=cfg.method,
+                  mesh_shape=mesh_shape(mesh))
 
         def meta(i: int) -> dict:
             rows, d = self._shape
@@ -152,14 +166,17 @@ class ElasticClusteringRunner:
                 self.ckpt.save(i, tree, extra=extra)
             if dist.is_initialized():
                 dist.barrier()
+            rec.event("elastic/checkpoint", batch=i)
 
         if cfg.method == "exact":
-            runner = DistributedMiniBatchKMeans(mesh, cfg, mode=self.mode)
+            runner = DistributedMiniBatchKMeans(mesh, cfg, mode=self.mode,
+                                                recorder=rec)
 
             def cb(s, i: int):
                 commit(i, s, meta(i))
         else:
-            runner = DistributedEmbedKMeans(mesh, cfg, fmap=fmap)
+            runner = DistributedEmbedKMeans(mesh, cfg, fmap=fmap,
+                                            recorder=rec)
 
             def cb(s, i: int):
                 from repro_torch.approx.selectors import name_of

@@ -12,8 +12,11 @@ Two services share this entry point, as in ``repro/launch/serve.py``:
   captured CUDA graph on the card), and drive a ragged request stream
   through the queue, reporting p50/p99 latency and rows/s.
 
-``--device`` defaults to the GPU; ``--device cpu`` runs the plain PyTorch
-path. ``--mesh`` and ``--obs`` wait for ROADMAP Queue 1 items 8 and 10.
+Both report into the same ``--obs PATH`` flight-recorder JSONL
+(``repro_torch.obs``): a run header, the service's records and a
+``serve/summary`` event. ``--device`` defaults to the GPU; ``--device
+cpu`` runs the plain PyTorch path. ``--mesh`` waits for ROADMAP Queue 1
+item 13b.
 """
 from __future__ import annotations
 
@@ -43,12 +46,25 @@ def synth_artifact(device, *, precision: str = "f32", full: bool = False):
     return freeze(fit_dataset(x, cfg, device=device), precision=precision)
 
 
+def _make_recorder(args, device, **extra):
+    if not args.obs:
+        return None
+    from repro_torch.obs import JsonlRecorder, export
+    return JsonlRecorder(args.obs, header=export.run_header(
+        device=device, entry="launch.serve", **extra))
+
+
 def assign_main(args):
     art = (synth_artifact(args.device, precision=args.precision)
            if args.assign == "synth"
            else load_artifact(args.assign, device=args.device))
     buckets = tuple(int(b) for b in args.buckets.split(","))
-    svc = AssignService(art, AssignServeConfig(buckets=buckets))
+    # the artifact's kind under its own key: ``kind`` is the header's
+    rec = _make_recorder(args, art.device, mode="assign",
+                         artifact_kind=art.kind, precision=art.precision,
+                         buckets=list(buckets))
+    svc = AssignService(art, AssignServeConfig(buckets=buckets),
+                        recorder=rec)
     rng = np.random.default_rng(0)
     sizes = rng.integers(1, args.rows_max + 1, size=args.requests)
     lat, rows = [], 0
@@ -60,6 +76,13 @@ def assign_main(args):
         rows += int(n)
     dt = time.perf_counter() - t0
     p50, p99 = np.percentile(lat, [50, 99])
+    if rec is not None:
+        rec.event("serve/summary", requests=len(sizes), rows=rows,
+                  seconds=dt, p50_seconds=float(p50),
+                  p99_seconds=float(p99), warm_seconds=svc.warm_seconds,
+                  programs=svc.compiled_programs,
+                  artifact_bytes=artifact_nbytes(art))
+        rec.close()
     print(f"[serve.assign] kind={art.kind} precision={art.precision} "
           f"device={art.device} programs={svc.compiled_programs} (warm "
           f"{svc.warm_seconds:.2f}s) artifact {artifact_nbytes(art)} bytes | "
@@ -93,6 +116,8 @@ def main(argv=None):
                     help="assignment request sizes draw from [1, rows-max]")
     ap.add_argument("--precision", choices=("f32", "bf16"), default="f32",
                     help="tile dtype of the --assign synth artifact")
+    ap.add_argument("--obs", default=None, metavar="PATH",
+                    help="write a repro_torch.obs flight-recorder JSONL here")
     args = ap.parse_args(argv)
     if args.assign is not None:
         return assign_main(args)
@@ -115,11 +140,20 @@ def main(argv=None):
     for n in lens:
         eng.submit(rng.integers(1, cfg.vocab_size, size=int(n)))
 
+    rec = _make_recorder(args, api.device, arch=args.arch)
+    results = {}
     t0 = time.time()
-    results = eng.run()
-    if api.device.type == "cuda":
-        torch.cuda.synchronize()
-    dt = time.time() - t0
+    try:
+        results = eng.run()
+        if api.device.type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        dt = time.time() - t0
+        if rec is not None:
+            rec.event("serve/summary", requests=len(lens),
+                      tokens=sum(len(v) for v in results.values()),
+                      seconds=dt, ticks=eng.ticks)
+            rec.close()
     n_tokens = sum(len(v) for v in results.values())
     print(f"[serve] {args.arch}: {len(results)} requests, "
           f"{n_tokens} tokens in {dt:.2f}s "

@@ -3,6 +3,7 @@
 
     python -m repro_torch.launch.serve_bench [--full] [--device cpu]
                                              [--out results.json]
+                                             [--obs log.jsonl]
 
 Fits a small RFF model on blobs and freezes it (``launch.serve``'s
 ``synth_artifact``, the reference benchmark's model), builds an
@@ -10,8 +11,11 @@ Fits a small RFF model on blobs and freezes it (``launch.serve``'s
 drives an open loop: request i arrives at i / qps whatever the service is
 doing, so queueing delay counts. The grid is two offered rates x requests
 of 1 and 64 rows (two buckets); each cell reports p50/p99 latency (arrival
-to labels on the host), the p50 of the service's compute seconds a tick,
-and rows/s. The record also holds the programs (graphs), the warm seconds,
+to labels on the host) and rows/s, and, where the service has a
+``JsonlRecorder``, the p50 of its requests' queue and compute seconds,
+read back from the recorder's ``serve/request`` events (the reference
+benchmark folds the same log). The record also holds the programs
+(graphs), the warm seconds,
 ``artifact_nbytes`` and the planner's ``serve_footprint_bytes`` at the
 largest bucket, and the device it ran on. ``bench(..., eager=True)`` runs
 the same loop with each request labelled on arrival by the offline
@@ -23,6 +27,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -31,6 +37,7 @@ import torch
 from repro_torch.core.memory import serve_footprint_bytes
 from repro_torch.kernels.precision import resolve_precision
 from repro_torch.launch.serve import synth_artifact
+from repro_torch.obs import JsonlRecorder, export
 from repro_torch.serving import AssignService, artifact_nbytes, predict_frozen
 
 #: the open loop sleeps to within this many seconds of an arrival, then
@@ -40,10 +47,10 @@ SPIN_S = 2e-3
 
 def open_loop(svc: AssignService, xs: list, qps: float):
     """Request i arrives at i / qps; the service ticks whenever requests
-    wait. Returns (latencies [s], compute seconds of each request's last
-    tick, elapsed wall seconds)."""
+    wait. Returns (latencies [s], the uids in the same order, elapsed wall
+    seconds)."""
     arrive = [i / qps for i in range(len(xs))]
-    uid2arr, lat, compute = {}, [], []
+    uid2arr, lat, uids = {}, [], []
     t0 = time.perf_counter()
     submitted = 0
     while len(lat) < len(xs):
@@ -54,10 +61,20 @@ def open_loop(svc: AssignService, xs: list, qps: float):
         if submitted > len(lat):
             for uid in svc.step():
                 lat.append((time.perf_counter() - t0) - uid2arr[uid])
-                compute.append(svc.records[-1].compute_seconds)
+                uids.append(uid)
         elif submitted < len(xs):
             _sleep_until(t0 + arrive[submitted])
-    return lat, compute, time.perf_counter() - t0
+    return lat, uids, time.perf_counter() - t0
+
+
+def request_split(path: str, uids) -> tuple[list, list]:
+    """(queue seconds, compute seconds) of the requests ``uids`` from the
+    ``serve/request`` events of a recorder's log."""
+    want = set(uids)
+    got = [e for e in export.read_events(path)
+           if e.get("name") == "serve/request" and e.get("uid") in want]
+    return ([e["queue_seconds"] for e in got],
+            [e["compute_seconds"] for e in got])
 
 
 def _sleep_until(t: float) -> None:
@@ -93,23 +110,37 @@ def bench(svc: AssignService, *, qps_levels=(100.0, 500.0),
           row_sizes=(1, 64), n_req: int = 200, seed: int = 0,
           eager: bool = False) -> dict:
     """The open-loop grid over one service -> the benchmark record;
-    ``eager`` runs ``eager_loop`` on its artifact instead."""
+    ``eager`` runs ``eager_loop`` on its artifact instead. The queue /
+    compute split of the service's requests comes from its recorder's log
+    (flushed at the end of every cell) where it has one, else is None."""
     art = svc.artifact
     d, c, m = art.in_dim, art.n_clusters, art.dim
+    log = getattr(svc.rec, "path", None)
     rng = np.random.default_rng(seed)
     cells = {}
+
+    def p50_ms(v):
+        return float(np.percentile(v, 50) * 1e3) if v else None
+
     for rows in row_sizes:
         xs = [rng.normal(size=(rows, d)).astype(np.float32)
               for _ in range(n_req)]
         for qps in qps_levels:
-            lat, compute, elapsed = (eager_loop(art, xs, qps) if eager
-                                     else open_loop(svc, xs, qps))
+            queue, compute = [], []
+            if eager:
+                lat, compute, elapsed = eager_loop(art, xs, qps)
+            else:
+                lat, uids, elapsed = open_loop(svc, xs, qps)
+                if log is not None:
+                    svc.rec.batch_boundary(len(cells))
+                    queue, compute = request_split(log, uids)
             p50, p99 = np.percentile(lat, [50, 99])
             cells[f"qps{qps:g}_rows{rows}"] = {
                 "offered_qps": qps, "rows_per_request": rows,
                 "requests": n_req, "p50_ms": float(p50 * 1e3),
                 "p99_ms": float(p99 * 1e3),
-                "compute_p50_ms": float(np.percentile(compute, 50) * 1e3),
+                "queue_p50_ms": p50_ms(queue),
+                "compute_p50_ms": p50_ms(compute),
                 "rows_per_s": float(rows * n_req / elapsed)}
     dev = art.device
     return {
@@ -136,13 +167,25 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, raising without one)")
     ap.add_argument("--out", default=None, help="write the record here")
+    ap.add_argument("--obs", default=None, metavar="PATH",
+                    help="keep the service's flight-recorder JSONL here "
+                    "(default: a temporary file)")
     args = ap.parse_args(argv)
-    svc = AssignService(synth_artifact(args.device, full=args.full))
-    rec = bench(svc, qps_levels=(100.0, 500.0) if args.full else (50.0, 200.0),
-                n_req=200 if args.full else 40)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = args.obs or os.path.join(tmp, "serve_bench.jsonl")
+        art = synth_artifact(args.device, full=args.full)
+        obs = JsonlRecorder(path, header=export.run_header(
+            device=art.device, entry="launch.serve_bench", full=args.full))
+        with obs:
+            svc = AssignService(art, recorder=obs)
+            rec = bench(svc, qps_levels=(100.0, 500.0) if args.full
+                        else (50.0, 200.0), n_req=200 if args.full else 40)
+        rec["obs"] = export.summarize(path)
     for name, cell in rec["cells"].items():
         print(f"[serve_bench] {name}: p50 {cell['p50_ms']:.3f} ms, p99 "
-              f"{cell['p99_ms']:.3f} ms, {cell['rows_per_s']:.0f} rows/s")
+              f"{cell['p99_ms']:.3f} ms, {cell['rows_per_s']:.0f} rows/s "
+              f"(queue p50 {cell['queue_p50_ms']:.3f} ms, compute p50 "
+              f"{cell['compute_p50_ms']:.3f} ms)")
     print(json.dumps(rec))
     if args.out:
         with open(args.out, "w") as fh:

@@ -38,9 +38,15 @@ Ingestion:
   bucket path, on the card the ``embed_assign`` / ``kernel_matrix``
   kernels.
 
-The reference's flight-recorder hooks wait for ROADMAP Queue 1 item 10:
-each completed request keeps its queue, compute and total seconds in
-``AssignService.records`` instead.
+The flight recorder (``recorder=``, ``repro_torch.obs``) gets the
+reference's records: ``serve/warm`` (the programs' build seconds),
+``serve/submitted`` and ``serve/rejected`` counters, the ``serve/queue_rows``
+gauge, and per completed request its ``serve/queue_seconds`` and
+``serve/compute_seconds`` series and a ``serve/request`` event (rows,
+bucket, queue / compute / total seconds). Every hook runs on the host
+around a program's call, never inside a graph's capture (a hook recorded
+there would run once at capture and never at a replay), so the graph
+count is the same with the recorder on or off.
 """
 from __future__ import annotations
 
@@ -59,14 +65,13 @@ from repro_torch.data.sparse import (CSRBatch, as_csr, concat_csr,
                                      stored, to_dense)
 from repro_torch.kernels import ops
 from repro_torch.kernels.precision import resolve_precision
+from repro_torch.obs import resolve as resolve_recorder
 
 from .artifact import FrozenArtifact
 
 #: the shape ladder: requests pad to the smallest bucket that fits; larger
 #: requests chunk by the largest
 DEFAULT_BUCKETS = (1, 8, 64, 512)
-#: completed request records a service keeps (the oldest drop first)
-MAX_RECORDS = 1 << 16
 
 
 class QueueFull(RuntimeError):
@@ -243,16 +248,11 @@ class AssignServeConfig:
 @dataclasses.dataclass
 class _Request:
     uid: int
-    x: np.ndarray | CSRBatch | None  # [n, d] rows until it completes
+    x: np.ndarray | CSRBatch  # [n, d] rows
     n: int
     t_submit: float
     labels: np.ndarray   # [n] int32, filled as ticks complete rows
     filled: int = 0
-    # set when the request completes (host clock, seconds)
-    bucket: int = 0
-    queue_seconds: float = 0.0
-    compute_seconds: float = 0.0
-    total_seconds: float = 0.0
 
 
 class AssignService:
@@ -265,11 +265,11 @@ class AssignService:
     device."""
 
     def __init__(self, artifact: FrozenArtifact,
-                 cfg: AssignServeConfig = AssignServeConfig()):
+                 cfg: AssignServeConfig = AssignServeConfig(), *,
+                 recorder=None):
         self.artifact = artifact
         self.cfg = cfg
-        self.records: collections.deque[_Request] = collections.deque(
-            maxlen=MAX_RECORDS)
+        self.rec = resolve_recorder(recorder)
         self.warm_seconds = 0.0
         self._queue: collections.deque[_Request] = collections.deque()
         self._pending_rows = 0
@@ -294,6 +294,8 @@ class AssignService:
         for b in self.cfg.buckets:
             self._program(b)
         self.warm_seconds = time.perf_counter() - t0
+        self.rec.event("serve/warm", seconds=self.warm_seconds,
+                       programs=len(self._programs))
 
     def _program(self, bucket: int):
         if bucket not in self._programs:
@@ -322,12 +324,15 @@ class AssignService:
         if n == 0:
             raise ValueError("empty request")
         if self._pending_rows + n > self.cfg.max_queue_rows:
+            self.rec.counter("serve/rejected", rows=n)
             raise QueueFull(f"{self._pending_rows} rows pending + {n} > "
                             f"max_queue_rows={self.cfg.max_queue_rows}")
         self._uid += 1
         self._queue.append(_Request(self._uid, x, n, time.perf_counter(),
                                     np.empty((n,), np.int32)))
         self._pending_rows += n
+        self.rec.counter("serve/submitted", rows=n)
+        self.rec.gauge("serve/queue_rows", self._pending_rows)
         return self._uid
 
     def step(self) -> dict[int, np.ndarray]:
@@ -371,12 +376,15 @@ class AssignService:
         now = time.perf_counter()
         while self._queue and self._queue[0].filled == self._queue[0].n:
             req = self._queue.popleft()
-            req.bucket, req.compute_seconds = bucket, compute_s
-            req.queue_seconds = t0 - req.t_submit
-            req.total_seconds = now - req.t_submit
-            req.x = None                   # the record keeps no rows
-            self.records.append(req)
             done[req.uid] = req.labels
+            queue_s = t0 - req.t_submit
+            self.rec.series("serve/queue_seconds", queue_s, uid=req.uid)
+            self.rec.series("serve/compute_seconds", compute_s, uid=req.uid)
+            self.rec.event("serve/request", uid=req.uid, rows=req.n,
+                           bucket=bucket, queue_seconds=queue_s,
+                           compute_seconds=compute_s,
+                           total_seconds=now - req.t_submit)
+        self.rec.gauge("serve/queue_rows", self._pending_rows)
         return done
 
     def drain(self) -> dict[int, np.ndarray]:

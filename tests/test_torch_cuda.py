@@ -1321,3 +1321,112 @@ def test_pinned_streamed_batches_equal_the_host_rows(cuda, kind):
         assert first.is_cuda and first.dtype == torch.float32
         assert torch.equal(first.cpu(), want) and torch.equal(after.cpu(),
                                                               want)
+
+
+# ---------------------------------------------------------------------------
+# the flight recorder on the card (repro_torch.obs)
+# ---------------------------------------------------------------------------
+
+
+def _obs_fit(method, dev, recorder=None):
+    from repro_torch.data.synthetic import make_blobs
+    x, _ = make_blobs(2000, 32, 5, seed=0)
+    cfg = MiniBatchConfig(n_clusters=5, n_batches=2, s=0.5, seed=0,
+                          kernel=KernelSpec("rbf", gamma=1 / 32),
+                          engine="fused" if method == "exact" else
+                          "materialize", method=method,
+                          embed_dim=0 if method == "exact" else 40)
+    return fit_dataset(x, cfg, device=dev, recorder=recorder)
+
+
+@pytest.mark.parametrize("method", ["exact", "rff"])
+def test_recorder_on_equals_off_on_the_card(cuda, tmp_path, method):
+    """The recorder changes no bit and no launch; its watermarks read the
+    card's allocator."""
+    from repro_torch.obs import JsonlRecorder, export
+    counts = []
+    states = []
+    for rec in (None, JsonlRecorder(str(tmp_path / "on.jsonl"))):
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        for k in ref.CALLS:
+            ref.CALLS[k] = 0
+        states.append(_obs_fit(method, cuda, rec))
+        torch.cuda.synchronize()
+        counts.append((dict(ops.LAUNCHES), dict(ref.CALLS)))
+        if rec is not None:
+            rec.close()
+    assert all(torch.equal(a, b) for a, b in zip(states[0].state[:-1],
+                                                 states[1].state[:-1]))
+    assert counts[0] == counts[1]
+    assert all(v == 0 for v in counts[1][1].values())
+    kernel = "assign_fused" if method == "exact" else "kernel_matrix"
+    assert counts[1][0][kernel] > 0
+    ev = export.read_events(str(tmp_path / "on.jsonl"))
+    marks = [e for e in ev if e.get("name") == "hbm_watermark"]
+    assert len(marks) == 2
+    for m in marks:
+        assert m["source"] == "device"
+        assert m["peak_bytes"] >= m["measured_bytes"] > 0
+        assert m["devices"][0]["device"] == f"cuda:{torch.cuda.current_device()}"
+    costs = [e["value"] for e in ev if e.get("name") == "inner/cost"]
+    assert costs == pytest.approx([h.cost for h in states[1].history])
+
+
+def test_watermark_reads_the_allocator(cuda):
+    from repro_torch.obs.memory import device_memory_stats
+    keep = torch.empty(1 << 22, device=cuda)          # 16 MiB
+    (st,) = device_memory_stats(cuda)
+    assert st["bytes_in_use"] >= keep.numel() * 4
+    assert st["peak_bytes_in_use"] >= st["bytes_in_use"]
+    assert device_memory_stats("cpu") == []
+
+
+def test_graphs_and_replays_unchanged_with_the_recorder(cuda, tmp_path):
+    """The hooks sit around replay(): the same graphs, the same launches
+    a replay, the same labels, with the recorder on."""
+    from repro_torch.obs import JsonlRecorder, export
+    art, x = _serving_artifact("rff", "f32", cuda)
+    path = str(tmp_path / "svc.jsonl")
+    rec = JsonlRecorder(path)
+    got = []
+    for svc in (AssignService(art), AssignService(art, recorder=rec)):
+        assert svc.compiled_programs == 4
+        before = dict(ops.LAUNCHES)
+        uids = [svc.submit(x[a:a + n]) for a, n in ((0, 1), (1, 7),
+                                                     (8, 300))]
+        done = svc.drain()
+        got.append(([done[u] for u in uids],
+                    {k: ops.LAUNCHES[k] - before[k] for k in before},
+                    {b: p.launches for b, p in svc._programs.items()}))
+    rec.close()
+    (lab0, l0, p0), (lab1, l1, p1) = got
+    assert all(np.array_equal(a, b) for a, b in zip(lab0, lab1))
+    assert l0 == l1 and p0 == p1 and l1["embed_assign"] > 0
+    reqs = [e for e in export.read_events(path)
+            if e.get("name") == "serve/request"]
+    assert len(reqs) == 3 and all(e["compute_seconds"] > 0 for e in reqs)
+
+
+def test_profiler_trace_names_spans_and_kernels(cuda, tmp_path):
+    """torch.profiler over the card: the trace holds the obs spans and the
+    hand kernels launched inside them."""
+    import json
+    from repro_torch.obs import start_profile, stop_profile
+    start_profile(str(tmp_path))
+    try:
+        _obs_fit("exact", cuda)
+        from repro_torch.data.synthetic import make_blobs
+        x, _ = make_blobs(1000, 32, 5, seed=1)
+        fit_dataset(x, MiniBatchConfig(
+            n_clusters=5, n_batches=1, s=0.5, seed=0, engine="materialize",
+            kernel=KernelSpec("rbf", gamma=1 / 32)), device=cuda)
+        torch.cuda.synchronize()
+    finally:
+        stop_profile()
+    with open(tmp_path / "trace.json") as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    assert "obs:gram_panel_build" in names
+    assert "obs:engine_stats[materialize]" in names
+    assert any("assign_f32_kernel" in n for n in names)
+    assert any("kernel_matrix_col_kernel" in n for n in names)

@@ -36,6 +36,7 @@ from repro_torch.core.memory import serve_footprint_bytes
 from repro_torch.data.synthetic import make_blobs
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve, serve_bench
+from repro_torch.obs import JsonlRecorder, export
 from repro_torch.serving import (DEFAULT_BUCKETS, AssignServeConfig,
                                  AssignService, QueueFull, artifact_nbytes,
                                  bucket_for, freeze, freeze_map,
@@ -325,13 +326,17 @@ def test_service_holds_one_program_per_bucket(kind, ladder):
     assert lazy.compiled_programs == 1
 
 
-def test_service_packs_fifo_and_completes_all():
+def test_service_packs_fifo_and_completes_all(tmp_path):
     """Small requests ride one bucket, a large one drains across ticks;
-    each gets its own rows' labels back, with its timings recorded."""
+    each gets its own rows' labels back, with its timings recorded in the
+    flight recorder's ``serve/request`` events."""
     art, x = _port_artifact("rff")
     want = predict_frozen(art, x).numpy()
+    path = str(tmp_path / "serve.jsonl")
+    rec = JsonlRecorder(path)
     svc = AssignService(art, AssignServeConfig(buckets=(1, 8, 64),
-                                               max_queue_rows=4096))
+                                               max_queue_rows=4096),
+                        recorder=rec)
     slices = [(0, 2), (2, 5), (5, 6), (6, 40), (40, 200)]
     uids = {svc.submit(x[a:b]): (a, b) for a, b in slices}
     first = svc.step()                     # 2 + 3 + 1 + 34 + 24 = 64 rows
@@ -340,12 +345,15 @@ def test_service_packs_fifo_and_completes_all():
     assert sorted(done) == sorted(uids)
     for uid, (a, b) in uids.items():
         np.testing.assert_array_equal(done[uid], want[a:b])
-    recs = {r.uid: r for r in svc.records}
+    rec.close()
+    recs = {r["uid"]: r for r in export.read_events(path)
+            if r.get("name") == "serve/request"}
     assert sorted(recs) == sorted(uids)
     for r in recs.values():
-        assert r.x is None and r.bucket in (1, 8, 64)
-        assert 0.0 <= r.queue_seconds <= r.total_seconds
-        assert 0.0 < r.compute_seconds <= r.total_seconds
+        assert r["bucket"] in (1, 8, 64)
+        assert r["rows"] == uids[r["uid"]][1] - uids[r["uid"]][0]
+        assert 0.0 <= r["queue_seconds"] <= r["total_seconds"]
+        assert 0.0 < r["compute_seconds"] <= r["total_seconds"]
 
 
 def test_service_admission_control():

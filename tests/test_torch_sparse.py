@@ -37,6 +37,7 @@ from repro_torch.core import (KernelSpec, MiniBatchConfig, fit, fit_dataset,
 from repro_torch.data import sparse as tsp
 from repro_torch.data import synthetic
 from repro_torch.kernels.precision import BF16
+from repro_torch.obs import JsonlRecorder, export
 from repro_torch.serving import (AssignServeConfig, AssignService,
                                  load_artifact, predict_frozen)
 from repro_torch.serving.assign import _pad_csr, run_csr_bucket
@@ -467,8 +468,11 @@ def test_service_csr_requests_label_as_predict_frozen(tmp_path, precision):
     up to the largest bucket."""
     _, art, x = _artifacts("sketch", precision, tmp_path)
     want = predict_frozen(art, x).numpy()
+    path = str(tmp_path / "serve.jsonl")
+    rec = JsonlRecorder(path)
     svc = AssignService(art, AssignServeConfig(buckets=(1, 8, 64),
-                                               max_queue_rows=4096))
+                                               max_queue_rows=4096),
+                        recorder=rec)
     cuts = [(0, 3), (3, 10), (10, 11), (11, 80), (80, 150), (150, 300)]
     kinds = ["csr", "csr", "dense", "csr", "csr", "dense"]
     uids = {}
@@ -480,7 +484,10 @@ def test_service_csr_requests_label_as_predict_frozen(tmp_path, precision):
     for uid, (a, b) in uids.items():
         np.testing.assert_array_equal(done[uid], want[a:b])
     assert svc.compiled_programs == 3
-    assert [r.bucket for r in svc.records][:3] == [64, 64, 1]
+    rec.close()
+    buckets = [r["bucket"] for r in export.read_events(path)
+               if r.get("name") == "serve/request"]
+    assert buckets[:3] == [64, 64, 1]
 
 
 @pytest.mark.parametrize("kind", ["rff", "exact"])
