@@ -137,7 +137,13 @@ Phases, in order; any failure exits non-zero without the final line:
      size (60,000 x 784 blobs, C = 10, B = 4, s = 0.2, fused) with
      ``--obs`` and ``--profile`` (the trace must name
      ``obs:engine_stats[fused]`` and the assign kernel); each fit prints
-     its watermarks against the planner's bytes; then LM
+     its watermarks against the planner's bytes; then the program audit
+     (phase 4f, ``launch.audit`` in the same world): its 26 reports at
+     the reference's defaults, the five kernels' f32-accumulation probes
+     at both tile dtypes among them, and the engine modes at Tab.1's batch
+     width (15,000 x 784, |L| = 3,000, C = 10) beside
+     ``engine_footprint_bytes``, fused and tiled below the [rows, |L|]
+     Gram block in allocator peak and largest intermediate; then LM
      serving of OLMo-1B at full width
      (16 layers, d_model 2048, vocab 50,304; bf16 weights from a
      torch.Generator of seed 0) through ``get_model`` and ``ServingEngine``
@@ -280,6 +286,12 @@ def bound_ms(flops: list, nbytes: float):
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def work_bound(mods, kind: str, **shapes):
+    """``bound_ms`` of one launch's work as ``launch.hlocost.KERNEL_WORK``
+    counts it (the one count of each kernel's flops and bytes)."""
+    return bound_ms(*mods["hlocost"].KERNEL_WORK[kind](**shapes))
 
 
 def normwise(torch, got, want) -> tuple[float, float]:
@@ -479,9 +491,8 @@ def check_kernel_matrix(torch, mods, x, y, kind, gamma, prec, *, timed):
         rec["ms"] = time_ms(torch, kernel, 10)
         rec["plain_ms"] = time_ms(torch, plain, 10)
         rec["library_ms"] = time_ms(torch, library, 10)
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            [(prec, 2.0 * m * n * d)],
-            (m + n) * d * p.tile_itemsize + m * n * 4)
+        rec["bound_ms"], rec["bound_by"] = work_bound(
+            mods, "kernel_matrix", m=m, n=n, d=d, prec=prec)
     print("check", json.dumps(rec))
     check(rel <= tol, f"kernel_matrix {kind} {prec} {[m, n, d]}: "
                       f"rel err {rel:.3g} > {tol}")
@@ -531,12 +542,8 @@ def check_assign(torch, mods, x, lm, labels_l, g, n_clusters, kind, gamma,
         rec["ms"] = time_ms(torch, kernel, 5)
         rec["plain_ms"] = time_ms(torch, plain, 5)
         rec["library_ms"] = time_ms(torch, library, 5)
-        c = n_clusters
-        # the Gram tiles in the tile dtype, the contraction with H in f32
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            [(prec, 2.0 * m * nl * d), ("f32", 2.0 * m * nl * c)],
-            (m + nl) * d * p.tile_itemsize + (m + nl) * 4 + nl * c * 4
-            + c * 4 + m * (8 + 4 * c))
+        rec["bound_ms"], rec["bound_by"] = work_bound(
+            mods, "assign_fused", m=m, l=nl, d=d, c=n_clusters, prec=prec)
     print("check", json.dumps(rec))
     check(rel_f <= tol and rel_m <= tol,
           f"assign_fused {kind} {prec} {[m, nl, d]} C={n_clusters}: rel err "
@@ -575,15 +582,14 @@ def check_gram_matvec(torch, mods, lm, labels_l, n_clusters, gamma, prec, *,
     if timed:
         lf = lm.float()
         nl, d = lm.shape
-        c = n_clusters
         rec["ms"] = time_ms(torch, kernel, 10)
         rec["plain_ms"] = time_ms(torch, plain, 10)
         rec["library_ms"] = time_ms(
             torch, lambda: torch.exp(torch.cdist(lf, lf).square_()
                                      .mul_(-gamma)) @ h, 10)
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            [(prec, 2.0 * nl * nl * d), ("f32", 2.0 * nl * nl * c)],
-            nl * d * p.tile_itemsize + nl * 4 + 2 * nl * c * 4)
+        rec["bound_ms"], rec["bound_by"] = work_bound(
+            mods, "gram_matvec", m=nl, l=nl, d=d, c=n_clusters, prec=prec,
+            shared=True)
     print("check", json.dumps(rec))
     check(rel <= tol, f"gram_matvec {prec} {rec['shape']}: rel err "
                       f"{rel:.3g} > {tol}")
@@ -776,9 +782,6 @@ def check_embedded(torch, mods, x, fmap, centroids, counts, prec, *, timed,
                     1, h, xf * sgn[None])
                 sc = csq[None] - 2.0 * (z @ c32.T)
                 return torch.argmin(sc, dim=1), torch.amin(sc, dim=1)
-            flops = [("f32", 2.0 * n * m * c + n * d)]
-            nbytes = (n * d * p.tile_itemsize + d * (4 + p.sign_dtype.itemsize)
-                      + (m + 1) * 4 + (m + 1) * c * 4 + n * 8)
         else:
             wf = w.float()
             wsq = torch.sum(wf * wf, dim=1)
@@ -793,16 +796,14 @@ def check_embedded(torch, mods, x, fmap, centroids, counts, prec, *, timed,
                     e = torch.exp(-st["gamma"] * d2.clamp_(min=0.0))
                 sc = csq[None] - 2.0 * (e @ v)
                 return torch.argmin(sc, dim=1), torch.amin(sc, dim=1)
-            flops = [(prec, 2.0 * n * m * d), ("f32", 2.0 * n * m * c)]
-            nbytes = ((n + m) * d * p.tile_itemsize + (n + m) * 4
-                      + (m + 1) * c * 4 + n * 8)
         rec["ms"] = time_ms(torch, kernel, 10)
         if sketch or prec == "bf16":
             # on rows already in the tile dtype: no wrapper cast
             rec["kernel_ms"] = time_ms(torch, lambda: kernel(xc), 10)
         rec["plain_ms"] = time_ms(torch, plain, 10)
         rec["library_ms"] = time_ms(torch, library, 10)
-        rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes)
+        rec["bound_ms"], rec["bound_by"] = work_bound(
+            mods, name, n=n, d=d, m=m, c=c, prec=prec)
     print("check", json.dumps(rec))
     check(rel <= tol, f"{name} {rec['map']} {prec} {[n, d, m]} C={c}: rel "
                       f"err {rel:.3g} > {tol}")
@@ -912,14 +913,6 @@ def embedded_checks(torch, mods, x_tr, y_tr, gamma, x_rcv, y_rcv):
     return recs
 
 
-def attention_pairs(sq: int, sk: int, causal: bool) -> int:
-    """(query, key) pairs the mask keeps (top-left causal)."""
-    if not causal:
-        return sq * sk
-    m = min(sq, sk)
-    return m * (m + 1) // 2 + (sq - m) * sk
-
-
 def check_flash(torch, mods, b, h, kh, sq, sk, dh, causal, cap, prec, *,
                 timed, tag="", q_std=1.0, seed=0):
     """ops.flash_attention (the wrapper attention_block calls) against
@@ -972,10 +965,9 @@ def check_flash(torch, mods, b, h, kh, sq, sk, dh, causal, cap, prec, *,
         rec["ms"] = time_ms(torch, kernel, 10)
         rec["plain_ms"] = time_ms(torch, plain, 3)
         rec["library_ms"] = time_ms(torch, library, 10)
-        pairs = attention_pairs(sq, sk, causal)
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            [(prec, 4.0 * b * h * dh * pairs)],
-            (2 * b * h * sq * dh + 2 * b * kh * sk * dh) * p.tile_itemsize)
+        rec["bound_ms"], rec["bound_by"] = work_bound(
+            mods, "flash_attention", b=b, h=h, kh=kh, sq=sq, sk=sk, dh=dh,
+            causal=causal, prec=prec)
     print("check", json.dumps(rec))
     check(rel <= tol, f"flash_attention {tag} {prec} {rec['shape']}: rel err "
                       f"{rel:.3g} > {tol}")
@@ -1094,9 +1086,6 @@ def check_bucket(torch, mods, art, x, bucket):
                 1, h, xf * sgn[None])
             sc = csq[None] - 2.0 * (z @ v)
             return torch.argmin(sc, dim=1), torch.amin(sc, dim=1)
-        flops = [("f32", 2.0 * n * m * c + n * d)]
-        nbytes = (n * d * p.tile_itemsize + d * (4 + p.sign_dtype.itemsize)
-                  + (m + 1) * 4 + (m + 1) * c * 4 + n * 8)
     else:
         wf = a["w"].float()
         wsq = torch.sum(wf * wf, dim=1)
@@ -1111,9 +1100,6 @@ def check_bucket(torch, mods, art, x, bucket):
                 e = torch.exp(-st["gamma"] * d2.clamp_(min=0.0))
             sc = csq[None] - 2.0 * (e @ v)
             return torch.argmin(sc, dim=1), torch.amin(sc, dim=1)
-        flops = [(p.tile, 2.0 * n * m * d), ("f32", 2.0 * n * m * c)]
-        nbytes = ((n + m) * d * p.tile_itemsize + (n + m) * 4
-                  + (m + 1) * c * 4 + n * 8)
     rec = {"kernel": name, "map": art.kind if sketch or st["map_kind"] ==
            "rff" else f"nystrom-{st['map_kind']}", "shape": [n, d, m],
            "C": c, "prec": art.precision, "tag": f"bucket-{bucket}",
@@ -1124,7 +1110,8 @@ def check_bucket(torch, mods, art, x, bucket):
            "plain_ms": time_ms(torch, lambda: bucket_call(mods, art, xp,
                                                           plain=True), 20),
            "library_ms": time_ms(torch, library, 20)}
-    rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes)
+    rec["bound_ms"], rec["bound_by"] = work_bound(
+        mods, name, n=n, d=d, m=m, c=c, prec=p.tile)
     print("check", json.dumps(rec))
     what = f"{name} {rec['map']} {art.precision} bucket {bucket}"
     check(rel <= TOL[name], f"{what}: rel err {rel:.3g} > {TOL[name]}")
@@ -2307,6 +2294,104 @@ def obs_phase(torch, np, mods, x_tr, y_tr, x_te, y_te, spec, runs, fits,
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: the program audit
+# ---------------------------------------------------------------------------
+
+
+def audit_phase(torch, mods, x_tr, gamma):
+    """Phase 4f: ``launch.audit`` on the card, in the world of one phase 4d
+    left up: the 26 reports at the reference's defaults (engine modes, the
+    five kernel wrappers with their f32-accumulation probes at both tile
+    dtypes, the mesh and embedded programs, predict, the serving buckets),
+    one ``audit`` line each; then the engine modes again at Tab.1's batch
+    width (15,000 x 784 rows of batch 0, |L| = 3,000, C = 10, rbf, the
+    path's gamma), one ``audit-tab1`` line each beside
+    ``engine_footprint_bytes`` and the [rows, |L|] f32 Gram block: fused and
+    tiled must stay below the block in allocator peak and largest
+    intermediate, fused launches assign_fused as often in every iteration
+    and the others never, at most one host read an iteration. Any
+    violation fails. Returns (totals, bodies) of the launches of the
+    audited main-path programs (the wrapper audits and probes, which check
+    kernels, are left out)."""
+    audit, core = mods["audit"], mods["core"]
+    totals: dict = {}
+    bodies: dict = {}
+
+    def count(report):
+        prec = "bf16" if "bf16" in report.name else "f32"
+        for k, n in report.kernel_launches.items():
+            if k == "kernel_matrix_column":
+                bodies["kernel_matrix", "column"] = \
+                    bodies.get(("kernel_matrix", "column"), 0) + n
+                continue
+            totals[k] = totals.get(k, 0) + n
+            if k != "kernel_matrix":
+                bodies[k, prec] = bodies.get((k, prec), 0) + n
+
+    wrappers = tuple(audit.KERNEL_WRAPPERS)
+    bad = []
+    results = audit.run_audits(n=512, d=16, n_landmarks=256, c=8, m=32,
+                               tile_rows=64, device="cuda")
+    check(len(results) == 26, f"{len(results)} audit reports, not 26")
+    for report, violations in results:
+        line = audit.summary(report, violations)
+        if report.probe is not None:
+            line["probe"] = report.probe
+        else:
+            count(report)
+        print("audit", json.dumps(line))
+        check(not report.name.startswith(wrappers) or report.probe["ok"],
+              f"{report.name}: f32-accumulation probe {report.probe}")
+        bad += violations
+
+    card = card_line()
+    x_b = torch.as_tensor(x_tr[0::4], device="cuda")   # batch 0 under B=4
+    n, d = x_b.shape
+    n_l, c, tile_rows = 3000, 10, 256
+    gram = 4 * n * n_l
+    for report, violations in audit.audit_engine_modes(
+            n=n, d=d, n_landmarks=n_l, c=c, tile_rows=tile_rows,
+            device="cuda", x=x_b, gamma=gamma):
+        mode, prec = report.name[len("kkmeans_fit["):-1].split(",")
+        count(report)
+        line = audit.summary(report, violations)
+        line.update(
+            engine_footprint_bytes=core.engine_footprint_bytes(
+                n, 1, c, 1, s=n_l / n, d=d, mode=mode, tile_rows=tile_rows,
+                q_tile=2 if prec == "bf16" else None),
+            gram_block_bytes=gram, card=card)
+        print("audit-tab1", json.dumps(line))
+        bad += violations
+        per_iter = [loop.kernel_launches.get("assign_fused", 0)
+                    for loop in report.loops]
+        if mode == "fused":
+            check(per_iter and per_iter[0] > 0,
+                  f"{report.name}: assign_fused launches per iteration "
+                  f"{per_iter}")
+        else:
+            check("assign_fused" not in report.kernel_launches,
+                  f"{report.name}: launched assign_fused")
+            if mode == "tiled":
+                check(report.allocator_peak_bytes < gram
+                      and report.largest_intermediate_bytes < gram,
+                      f"{report.name}: peak {report.allocator_peak_bytes} "
+                      f"or intermediate {report.largest_intermediate_bytes}"
+                      f" reaches the Gram block {gram}")
+        if mode == "fused":
+            check(report.allocator_peak_bytes < gram
+                  and report.largest_intermediate_bytes < gram,
+                  f"{report.name}: peak {report.allocator_peak_bytes} or "
+                  f"intermediate {report.largest_intermediate_bytes} "
+                  f"reaches the Gram block {gram}")
+        check(report.host_reads_per_iteration <= 1
+              and all(loop.sync_warnings <= 1 for loop in report.loops),
+              f"{report.name}: more than one host read an iteration")
+    del x_b
+    check(not bad, "audit violations:\n  " + "\n  ".join(bad))
+    return totals, bodies
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
@@ -2634,7 +2719,8 @@ def main(argv=None) -> int:
                 ("minibatch", "core.minibatch"),
                 ("dmesh", "distributed"), ("ft", "ft"), ("obs", "obs"),
                 ("outer", "distributed.outer"), ("inner", "distributed.inner"),
-                ("cluster", "launch.cluster")]}
+                ("cluster", "launch.cluster"), ("hlocost", "launch.hlocost"),
+                ("audit", "launch.audit")]}
     core = mods["core"]
 
     # -- phase 1: the card --------------------------------------------------
@@ -2844,13 +2930,21 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     o_totals, o_bodies = obs_phase(torch, np, mods, x_tr, y_tr, x_te, y_te,
                                    spec, runs, fits, stream)
-    torch.distributed.destroy_process_group()
     for k, n in o_totals.items():
         totals[k] += n
     for key, n in o_bodies.items():
         bodies[key] = bodies.get(key, 0) + n
     del stream
     print(f"obs: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    zero_counters(mods)
+    a_totals, a_bodies = audit_phase(torch, mods, x_tr, gamma)
+    torch.distributed.destroy_process_group()
+    for k, n in a_totals.items():
+        totals[k] = totals.get(k, 0) + n
+    for key, n in a_bodies.items():
+        bodies[key] = bodies.get(key, 0) + n
+    print(f"audit: {time.perf_counter() - t0:.1f} s")
     del fits, runs, svc
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -37,6 +37,7 @@ from typing import Callable, Iterable, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.dispatch import iteration, loop
 from repro_torch.core.init import kmeans_pp_indices
 from repro_torch.core.kernels import KernelSpec
 from repro_torch.data.loader import closing_source, to_device
@@ -97,11 +98,13 @@ def lloyd_fit(z: torch.Tensor, labels0: torch.Tensor, *, n_clusters: int,
     labels = labels0.to(torch.int32)
     changed, t = True, 0
     cost = torch.tensor(float("inf"), device=z.device)
-    while changed and t < max_iters:
-        cents, counts = _means(z, labels, n_clusters)
-        new_labels, mind = assign_embedded(z, cents, counts)
-        changed = bool(torch.any(new_labels != labels))   # host sync
-        labels, t, cost = new_labels, t + 1, torch.sum(mind)
+    with loop("lloyd"):
+        while changed and t < max_iters:
+            iteration()
+            cents, counts = _means(z, labels, n_clusters)
+            new_labels, mind = assign_embedded(z, cents, counts)
+            changed = bool(torch.any(new_labels != labels))   # host sync
+            labels, t, cost = new_labels, t + 1, torch.sum(mind)
     cents, counts = _means(z, labels, n_clusters)
     return EmbedInnerResult(labels, cents, counts, t, cost)
 

@@ -8,12 +8,17 @@ Eq.14-17), the port of ``repro/core/kkmeans.py``.
 The reference's ``lax.while_loop`` is a Python loop here. Its condition
 reads one ``changed`` flag from the device per iteration: one host sync per
 iteration, which stalls the launch queue while the flag is copied back.
+The loop runs in ``analysis.dispatch.loop()`` and ticks
+``iteration()`` at the top of each pass, so a program audit can tell its
+iterations from the stats pass after it (a no-op outside an audit).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.analysis.dispatch import iteration, loop
 
 from .engine import BIG, GramEngine, engine_step, resolve_engine
 
@@ -43,11 +48,14 @@ def _run_inner(engine: GramEngine, spec, op_xl, op_ll, l_idx, diag_k,
                labels0, *, n_clusters: int, max_iters: int) -> InnerResult:
     state = InnerState(labels0.to(torch.int32), True, 0,
                        torch.tensor(float("inf"), device=diag_k.device))
-    while state.changed and state.t < max_iters:
-        _, _, _, labels, mind = engine_step(
-            engine, spec, op_xl, op_ll, state.labels[l_idx], n_clusters)
-        changed = bool(torch.any(labels != state.labels))   # host sync
-        state = InnerState(labels, changed, state.t + 1, _cost(diag_k, mind))
+    with loop("kkmeans"):
+        while state.changed and state.t < max_iters:
+            iteration()
+            _, _, _, labels, mind = engine_step(
+                engine, spec, op_xl, op_ll, state.labels[l_idx], n_clusters)
+            changed = bool(torch.any(labels != state.labels))   # host sync
+            state = InnerState(labels, changed, state.t + 1,
+                               _cost(diag_k, mind))
     # one more stats pass at the fixpoint so f/g match the final labels
     f, g, counts, _, _ = engine_step(
         engine, spec, op_xl, op_ll, state.labels[l_idx], n_clusters)

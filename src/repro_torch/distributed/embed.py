@@ -44,6 +44,7 @@ from typing import Iterable, Optional
 
 import torch
 
+from repro_torch.analysis.dispatch import iteration, loop
 from repro_torch.approx.embed_kmeans import (EmbedState, assign_embedded,
                                              draw_first)
 from repro_torch.core.minibatch import (BatchStats, FitResult,
@@ -283,13 +284,16 @@ class DistributedEmbedKMeans:
         cents, counts, _, _ = self._sync(z, wgt, labels0, zero, zero)
         labels, t, changed = labels0, 0, True
         cost = torch.tensor(float("inf"), device=dev)
-        while changed and t < self.cfg.max_inner_iters:
-            new, mind = assign_embedded(z, cents, counts)
-            changed_f = torch.sum((new != labels).to(torch.float32) * wgt)
-            cents, counts, changed_t, cost = self._sync(
-                z, wgt, new, changed_f, torch.sum(mind * wgt))
-            labels, t = new, t + 1
-            changed = float(changed_t) > 0          # the one host read
+        with loop("embed_lloyd"):
+            while changed and t < self.cfg.max_inner_iters:
+                iteration()
+                new, mind = assign_embedded(z, cents, counts)
+                changed_f = torch.sum((new != labels).to(torch.float32)
+                                      * wgt)
+                cents, counts, changed_t, cost = self._sync(
+                    z, wgt, new, changed_f, torch.sum(mind * wgt))
+                labels, t = new, t + 1
+                changed = float(changed_t) > 0          # the one host read
         return labels, cents, counts, t, cost
 
     # -- the fit loop -------------------------------------------------------

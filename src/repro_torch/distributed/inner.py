@@ -68,6 +68,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.analysis.dispatch import iteration, loop
 from repro_torch.core.engine import (ReducePlan, assign_from_stats,
                                      engine_stats_raw, finalize_stats,
                                      resolve_engine)
@@ -222,26 +223,29 @@ def _inner_local(mesh, x_local: torch.Tensor, landmarks: torch.Tensor,
         torch.zeros((), dtype=torch.int32, device=dev))
     rem = remote(totals, locs) if s > 1 else None
     t, cost, changed = 0, torch.tensor(float("inf"), device=dev), True
-    while changed and t < cfg.max_iters:
-        f, g, counts = finalize_stats(*totals)
-        u_new, mind = assign_from_stats(f, g, counts)
-        for _ in range(s - 1):
-            # a local refinement: scatter the fresh labels into the carried
-            # global estimate, stats = frozen remote + fresh local partials
-            u_full = u_full.clone()
-            u_full[row_off:row_off + rows] = u_new
-            est = tuple(a + b for a, b in zip(rem, local_stats(u_full)))
-            u_new, mind = assign_from_stats(*finalize_stats(*est))
-        changed_loc = torch.sum((u_new != u).to(torch.int32))
-        # ghost rows (weight 0) follow their source row but add no cost
-        cost_loc = torch.sum(wgt_local * (diag_local.to(torch.float32)
-                                          + mind))
-        u, u_full, totals, locs, cost, changed_t = sync(u_new, cost_loc,
-                                                        changed_loc)
-        if s > 1:
-            rem = remote(totals, locs)
-        t += 1
-        changed = int(changed_t) > 0        # the one host read a sync
+    with loop("distributed_inner"):
+        while changed and t < cfg.max_iters:
+            iteration()
+            f, g, counts = finalize_stats(*totals)
+            u_new, mind = assign_from_stats(f, g, counts)
+            for _ in range(s - 1):
+                # a local refinement: scatter the fresh labels into the
+                # carried global estimate, stats = frozen remote + fresh
+                # local partials
+                u_full = u_full.clone()
+                u_full[row_off:row_off + rows] = u_new
+                est = tuple(a + b for a, b in zip(rem, local_stats(u_full)))
+                u_new, mind = assign_from_stats(*finalize_stats(*est))
+            changed_loc = torch.sum((u_new != u).to(torch.int32))
+            # ghost rows (weight 0) follow their source row but add no cost
+            cost_loc = torch.sum(wgt_local * (diag_local.to(torch.float32)
+                                              + mind))
+            u, u_full, totals, locs, cost, changed_t = sync(
+                u_new, cost_loc, changed_loc)
+            if s > 1:
+                rem = remote(totals, locs)
+            t += 1
+            changed = int(changed_t) > 0        # the one host read a sync
     f, g, counts = finalize_stats(*totals)
     return DistInnerResult(u_full, f, g, counts, t, cost)
 

@@ -123,13 +123,15 @@ def axis_rank(mesh, axes: tuple[str, ...] | str) -> int:
 class CollectiveTally:
     """Collectives through ``all_gather`` / ``all_reduce`` while a
     ``tally()`` is open, under the reference's names: ``psum`` (the
-    all_reduce calls), ``allgather`` and ``psum_bytes`` (the bytes the
-    all_reduce calls summed, per rank)."""
+    all_reduce calls), ``allgather``, ``psum_bytes`` (the bytes the
+    all_reduce calls summed, per rank) and ``allgather_bytes`` (the bytes
+    the all_gather calls returned, per rank)."""
 
     def __init__(self):
         self.psum = 0
         self.allgather = 0
         self.psum_bytes = 0
+        self.allgather_bytes = 0
 
 
 _TALLIES: list[CollectiveTally] = []
@@ -159,6 +161,7 @@ def all_gather(t: torch.Tensor, mesh, axes) -> torch.Tensor:
         dist.all_gather_into_tensor(out, t, group=group)
     for c in _TALLIES:
         c.allgather += 1
+        c.allgather_bytes += out.numel() * out.element_size()
     return out
 
 

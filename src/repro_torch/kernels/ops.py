@@ -29,7 +29,10 @@ shared memory and registers — nothing here is a TPU tiling.
 
 ``LAUNCHES`` counts kernel launches per kernel (plain integers, reset by the
 caller), so a run on the card can show that its main path went through the
-kernels.
+kernels. ``WORK_OBSERVERS`` hears of each launch's work, its kind and shapes
+(``launch.hlocost.KERNEL_WORK`` prices them), and of each plain call that
+stands in for a launch on the CPU; when the list is empty, which it is
+outside an audit, that costs one check a call.
 """
 from __future__ import annotations
 
@@ -51,6 +54,13 @@ LAUNCHES = {"kernel_matrix": 0, "assign_fused": 0, "embed_assign": 0,
             "sketch_assign": 0, "flash_attention": 0,
             # of the kernel_matrix launches, those of the column body
             "kernel_matrix_column": 0}
+#: callables ``obs(work, shapes)`` told of every launch and plain stand-in
+WORK_OBSERVERS: list = []
+
+
+def _work(work: str, **shapes) -> None:
+    for obs in WORK_OBSERVERS:
+        obs(work, shapes)
 
 
 def _round_up(v: int, m: int) -> int:
@@ -78,6 +88,9 @@ def kernel_matrix(x: torch.Tensor, y: torch.Tensor, *, kind: str = "rbf",
     """K(X, Y) -> [m, n] f32."""
     p = resolve_precision(precision)
     x, y = p.cast_tiles(x), p.cast_tiles(y)
+    if WORK_OBSERVERS:
+        _work("kernel_matrix", m=x.shape[0], n=y.shape[0], d=x.shape[1],
+              prec=p.tile)
     if not x.is_cuda:
         return ref.kernel_matrix_ref(x, y, kind=kind, gamma=gamma,
                                      coef0=coef0, degree=degree,
@@ -94,7 +107,7 @@ def kernel_matrix(x: torch.Tensor, y: torch.Tensor, *, kind: str = "rbf",
 
 
 def _over_cluster_chunks(panel: torch.Tensor, g: torch.Tensor, name: str,
-                         launch, *, pad: bool = True):
+                         launch, *, pad: bool = True, work=None):
     """Launch once per chunk of at most ``MAX_CP`` clusters (a kernel's
     on-chip accumulator), each padded to the kernel's multiple (zero panel
     columns, +1e30 in g) unless ``pad`` is False (a kernel that masks a
@@ -105,7 +118,9 @@ def _over_cluster_chunks(panel: torch.Tensor, g: torch.Tensor, name: str,
     Cp]). Each column comes out the same whatever the chunking. The merge
     takes a later chunk only where it is strictly smaller, so the lowest
     cluster index still wins ties. Past 256 clusters every chunk redoes the
-    chunk-independent work (the Gram tiles, the embedding)."""
+    chunk-independent work (the Gram tiles, the embedding). ``work`` =
+    (kind, shapes but the cluster count) of each launch, for
+    ``WORK_OBSERVERS``."""
     labels = best = None
     outs = []
     for c0 in range(0, panel.shape[1], MAX_CP):
@@ -116,6 +131,7 @@ def _over_cluster_chunks(panel: torch.Tensor, g: torch.Tensor, name: str,
             pc, gc = F.pad(pc, (0, cp - c)), F.pad(gc, (0, cp - c), value=BIG)
         lab, mn, *rest = launch(pc.contiguous(), gc.contiguous())
         LAUNCHES[name] += 1
+        _chunk_work(work, c)
         outs.append([r[:, :c] for r in rest])
         if labels is None:
             labels, best = lab, mn
@@ -127,7 +143,8 @@ def _over_cluster_chunks(panel: torch.Tensor, g: torch.Tensor, name: str,
                             for o in zip(*outs)))
 
 
-def _launch_assign(x, landmarks, h, g, *, kind, gamma, coef0, degree):
+def _launch_assign(x, landmarks, h, g, *, kind, gamma, coef0, degree,
+                   work=None):
     """assign_fused on the card -> (labels, mind, f [n, C]); the launch
     computes the row norms (once when the g stats pass the landmark panel as
     both operands)."""
@@ -137,7 +154,12 @@ def _launch_assign(x, landmarks, h, g, *, kind, gamma, coef0, degree):
         h, g, "assign_fused",
         lambda hc, gc: assign_fused_cuda(xo, lo, hc, gc, kind=kind,
                                          gamma=gamma, coef0=coef0,
-                                         degree=degree))
+                                         degree=degree), work=work)
+
+
+def _assign_work(work: str, x, landmarks, precision: str, **extra):
+    return work, dict(m=x.shape[0], l=landmarks.shape[0], d=x.shape[1],
+                      prec=precision, **extra)
 
 
 def assign_panels(labels_l: torch.Tensor, counts: torch.Tensor,
@@ -164,12 +186,14 @@ def assign_fused(x: torch.Tensor, landmarks: torch.Tensor,
     p = resolve_precision(precision)
     x, landmarks = p.cast_tiles(x), p.cast_tiles(landmarks)
     h, gm = assign_panels(labels_l, counts, g, n_clusters)
+    work = _assign_work("assign_fused", x, landmarks, p.tile)
     if not x.is_cuda:
+        _chunk_work(work, n_clusters)
         return ref.assign_fused_ref(x, landmarks, h, gm, kind=kind,
                                     gamma=gamma, coef0=coef0, degree=degree,
                                     precision=p.tile)
     return _launch_assign(x, landmarks, h, gm, kind=kind, gamma=gamma,
-                          coef0=coef0, degree=degree)
+                          coef0=coef0, degree=degree, work=work)
 
 
 def gram_matvec(x: torch.Tensor, landmarks: torch.Tensor, h: torch.Tensor, *,
@@ -184,13 +208,22 @@ def gram_matvec(x: torch.Tensor, landmarks: torch.Tensor, h: torch.Tensor, *,
     x = p.cast_tiles(x)
     landmarks = x if same else p.cast_tiles(landmarks)
     h = h.to(torch.float32)
+    work = _assign_work("gram_matvec", x, landmarks, p.tile, shared=same)
     if not x.is_cuda:
-        return ref.kernel_matrix_ref(x, landmarks, kind=kind, gamma=gamma,
-                                     coef0=coef0, degree=degree,
-                                     precision=p.tile) @ h
+        _chunk_work(work, h.shape[1])
+        return _gram_matvec_plain(x, landmarks, h, kind=kind, gamma=gamma,
+                                  coef0=coef0, degree=degree,
+                                  precision=p.tile)
     zeros = torch.zeros(h.shape[1], dtype=torch.float32, device=h.device)
     return _launch_assign(x, landmarks, h, zeros, kind=kind, gamma=gamma,
-                          coef0=coef0, degree=degree)[2]
+                          coef0=coef0, degree=degree, work=work)[2]
+
+
+@ref.kernel_scope
+def _gram_matvec_plain(x, landmarks, h, **kw) -> torch.Tensor:
+    """The plain version of ``gram_matvec``: the block and its product, in
+    kernel scope as a whole, as the kernel never stores the block."""
+    return ref.kernel_matrix_ref(x, landmarks, **kw) @ h
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +271,28 @@ def _launch_embed(x, w, b, v, csq, statics):
     return _over_cluster_chunks(
         v, csq, "embed_assign",
         lambda vc, cc: embed_assign_cuda(xo, wo, b, vc, cc, **statics),
-        pad=x.dtype != torch.float32)
+        pad=x.dtype != torch.float32, work=_embed_work(x, w))
+
+
+def _embed_work(x, w):
+    return "embed_assign", dict(n=x.shape[0], d=x.shape[1], m=w.shape[0],
+                                prec=_tile_name(x))
+
+
+def _sketch_work(x, v):
+    return "sketch_assign", dict(n=x.shape[0], d=x.shape[1], m=v.shape[0],
+                                 prec=_tile_name(x))
+
+
+def _tile_name(t: torch.Tensor) -> str:
+    return "bf16" if t.dtype == torch.bfloat16 else "f32"
+
+
+def _chunk_work(work, c: int) -> None:
+    """Tell WORK_OBSERVERS of a launch of ``work`` = (kind, shapes) over c
+    clusters, or of the plain call standing in for it."""
+    if WORK_OBSERVERS and work is not None:
+        _work(work[0], c=c, **work[1])
 
 
 def _launch_sketch(x, tables, v, csq):
@@ -252,7 +306,8 @@ def _launch_sketch(x, tables, v, csq):
     return _over_cluster_chunks(
         v, csq, "sketch_assign",
         lambda vc, cc: sketch_assign_cuda(xo, order, offsets, sign, vc, cc,
-                                          programs=programs))
+                                          programs=programs),
+        work=_sketch_work(x, v))
 
 
 def embed_assign(x: torch.Tensor, fmap, centroids: torch.Tensor,
@@ -275,6 +330,7 @@ def embed_assign(x: torch.Tensor, fmap, centroids: torch.Tensor,
     p = resolve_precision(precision)
     x, w = p.cast_tiles(x), p.cast_tiles(w)
     if not x.is_cuda:
+        _chunk_work(_embed_work(x, w), v.shape[1])
         return ref.embed_assign_ref(x, w, v, csq, b=b, precision=p.tile,
                                     **statics)
     return _launch_embed(x, w, b, v, csq, statics)
@@ -290,6 +346,7 @@ def sketch_assign(x: torch.Tensor, fmap, centroids: torch.Tensor,
     c32, csq = _masked_csq(centroids, counts)
     x = p.cast_tiles(x)
     if not x.is_cuda:
+        _chunk_work(_sketch_work(x, c32.T), c32.shape[0])
         return ref.sketch_assign_ref(x, fmap.h, fmap.sign.to(p.sign_dtype),
                                      c32.T, csq, precision=p.tile)
     return _launch_sketch(x, (*fmap.buckets, fmap.programs), c32.T, csq)
@@ -327,6 +384,8 @@ def predict_assign(x: torch.Tensor, w: torch.Tensor, aux: torch.Tensor,
     statics = dict(map_kind=map_kind, gamma=gamma, coef0=coef0,
                    degree=degree, scale=scale)
     if not x.is_cuda:
+        _chunk_work(_sketch_work(x, v) if map_kind == "sketch"
+                    else _embed_work(x, w), v.shape[1])
         return ref.predict_assign_ref(x, w, aux, v, csq, precision=p.tile,
                                       **statics)
     if map_kind == "sketch":
@@ -364,6 +423,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q, k, v = p.cast_tiles(q), p.cast_tiles(k), p.cast_tiles(v)
     if not causal and k.shape[2] % 128:
         raise ValueError("non-causal flash_attention requires Sk % 128 == 0")
+    if WORK_OBSERVERS:
+        (b, h, sq, dh), kh, sk = q.shape, k.shape[1], k.shape[2]
+        _work("flash_attention", b=b, h=h, kh=kh, sq=sq, sk=sk, dh=dh,
+              causal=causal, prec=_tile_name(q))
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap)
     out = flash_attention_cuda(q, k, v, causal=causal, softcap=softcap)

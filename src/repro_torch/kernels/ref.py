@@ -15,9 +15,14 @@ serving panels to the two assignment versions, which count the call.
 The ``ops`` wrappers run these for tensors on the CPU. On the card they run
 only where ``chip_smoke.py`` holds a kernel against its plain version;
 ``CALLS`` counts their calls so a run on the card can show they stayed
-unused on the main path.
+unused on the main path. ``DEPTH`` is the number of the five calls in
+progress: the program audit (``analysis.dispatch``) treats what a plain
+version allocates as a kernel's on-chip tiles, never as device-memory
+residency, as the reference's audit never descends into a ``pallas_call``.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -27,6 +32,21 @@ from .sketch_assign import sign_matrix
 CALLS = {"kernel_matrix_ref": 0, "assign_fused_ref": 0,
          "embed_assign_ref": 0, "sketch_assign_ref": 0,
          "flash_attention_ref": 0}
+#: plain-version calls in progress (nested calls count each)
+DEPTH = 0
+
+
+def kernel_scope(fn):
+    """Run ``fn`` with ``DEPTH`` raised: a plain version of a kernel."""
+    @functools.wraps(fn)
+    def scoped(*args, **kwargs):
+        global DEPTH
+        DEPTH += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            DEPTH -= 1
+    return scoped
 
 
 def _tile(a: torch.Tensor, precision: str) -> torch.Tensor:
@@ -36,6 +56,7 @@ def _tile(a: torch.Tensor, precision: str) -> torch.Tensor:
     return a.to(torch.float32)
 
 
+@kernel_scope
 def kernel_matrix_ref(x: torch.Tensor, y: torch.Tensor, *, kind: str = "rbf",
                       gamma: float = 1.0, coef0: float = 1.0, degree: int = 3,
                       precision: str = "f32") -> torch.Tensor:
@@ -59,6 +80,7 @@ def kernel_matrix_ref(x: torch.Tensor, y: torch.Tensor, *, kind: str = "rbf",
     raise ValueError(f"unknown kernel kind {kind!r}")
 
 
+@kernel_scope
 def assign_fused_ref(x: torch.Tensor, landmarks: torch.Tensor,
                      h_norm: torch.Tensor, g: torch.Tensor, *,
                      kind: str = "rbf", gamma: float = 1.0,
@@ -99,6 +121,7 @@ def embed_score_ref(x: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
     return csq[None, :].to(torch.float32) - 2.0 * (e @ v.to(torch.float32))
 
 
+@kernel_scope
 def embed_assign_ref(x: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
                      csq: torch.Tensor, **kw):
     """x: [n, d]; w: [M, d] RFF frequencies (map_kind "rff", phases ``b``
@@ -119,6 +142,7 @@ def sketch_score_ref(x: torch.Tensor, h: torch.Tensor, sign: torch.Tensor,
     return csq[None, :].to(torch.float32) - 2.0 * (z @ v.to(torch.float32))
 
 
+@kernel_scope
 def sketch_assign_ref(x: torch.Tensor, h: torch.Tensor, sign: torch.Tensor,
                       v: torch.Tensor, csq: torch.Tensor, *,
                       precision: str = "f32"):
@@ -148,6 +172,7 @@ def predict_assign_ref(x: torch.Tensor, w: torch.Tensor, aux: torch.Tensor,
                             precision=precision)
 
 
+@kernel_scope
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True,
                         softcap: float | None = None) -> torch.Tensor:

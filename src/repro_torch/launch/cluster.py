@@ -25,8 +25,8 @@ on the card); a world a caller already started is used as it is.
 under torchrun). ``--obs PATH`` writes the recorder's JSONL (rank r > 0
 writes ``PATH.rank<r>``); ``--profile DIR`` writes rank 0's profiler trace
 of the fit to ``DIR/trace.json``. The reference's ``--platform`` is
-``--device`` here, and its ``launch/env.py`` (XLA flags) has no
-counterpart.
+``--device`` here; ``main`` first stages the NCCL and CUDA process
+variables (``launch.env.configure``), the counterpart of its XLA flags.
 """
 from __future__ import annotations
 
@@ -46,25 +46,17 @@ from repro_torch.core.metrics import mean_displacement
 from repro_torch.core.minibatch import predict
 from repro_torch.data.sampling import split_batches
 from repro_torch.data.synthetic import make_blobs
-from repro_torch.device import resolve_device
 from repro_torch.distributed.mesh import make_test_mesh, mesh_shape
 from repro_torch.distributed.outer import DistributedMiniBatchKMeans
 from repro_torch.ft.checkpoint import CheckpointManager
 
-
-def _device(arg):
-    if arg is None and "LOCAL_RANK" in os.environ:
-        arg = f"cuda:{int(os.environ['LOCAL_RANK'])}"
-    dev = resolve_device(arg)
-    if dev.type == "cuda":
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        torch.cuda.set_device(dev)
-    return dev
+from . import env
 
 
-def _join_world(dev: torch.device, tmp: str) -> bool:
-    """Join or start the world; True when this call started it."""
+def join_world(dev: torch.device, tmp: str) -> bool:
+    """Join the world torchrun describes, or start a world of one on a
+    FileStore in ``tmp`` (gloo on the CPU, NCCL on the card); a world
+    already up is used as it is. True when this call started one."""
     if dist.is_initialized():
         return False
     backend = "nccl" if dev.type == "cuda" else "gloo"
@@ -91,6 +83,7 @@ def _mesh(spec: str, dev: torch.device):
 
 
 def main(argv=None):
+    env.configure()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=20000)
     ap.add_argument("--d", type=int, default=32)
@@ -126,9 +119,9 @@ def main(argv=None):
                     help="write a profiler trace of the fit to DIR/trace.json")
     args = ap.parse_args(argv)
 
-    dev = _device(args.device)
+    dev = env.set_device(args.device)
     with tempfile.TemporaryDirectory() as tmp:
-        started = _join_world(dev, tmp)
+        started = join_world(dev, tmp)
         try:
             return _run(args, dev)
         finally:

@@ -15,7 +15,8 @@ Two services share this entry point, as in ``repro/launch/serve.py``:
 Both report into the same ``--obs PATH`` flight-recorder JSONL
 (``repro_torch.obs``): a run header, the service's records and a
 ``serve/summary`` event. ``--device`` defaults to the GPU; ``--device
-cpu`` runs the plain PyTorch path. ``--mesh`` waits for ROADMAP Queue 1
+cpu`` runs the plain PyTorch path. ``main`` first stages the process
+variables (``launch.env.configure``). ``--mesh`` waits for ROADMAP Queue 1
 item 13b.
 """
 from __future__ import annotations
@@ -31,6 +32,8 @@ from repro_torch.models import get_model
 from repro_torch.serving import (AssignServeConfig, AssignService,
                                  ServeConfig, ServingEngine, artifact_nbytes,
                                  freeze, greedy, load_artifact, sample_top_p)
+
+from . import env
 
 
 def synth_artifact(device, *, precision: str = "f32", full: bool = False):
@@ -92,6 +95,7 @@ def assign_main(args):
 
 
 def main(argv=None):
+    env.configure()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=None,
                     help="LM-zoo arch id (LM serving)")

@@ -1430,3 +1430,122 @@ def test_profiler_trace_names_spans_and_kernels(cuda, tmp_path):
     assert "obs:engine_stats[materialize]" in names
     assert any("assign_f32_kernel" in n for n in names)
     assert any("kernel_matrix_col_kernel" in n for n in names)
+
+
+# ---------------------------------------------------------------------------
+# the program audit on the card (launch.audit, analysis.dispatch)
+
+
+@pytest.fixture
+def card_world(cuda, tmp_path):
+    """A NCCL world of one on a FileStore (none other is up here)."""
+    import torch.distributed as dist
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield cuda
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def test_the_26_audits_are_clean_on_the_card(card_world):
+    from repro_torch.launch import audit as launch_audit
+    results = launch_audit.run_audits(n=512, d=16, n_landmarks=256, c=8,
+                                      m=32, tile_rows=64, device="cuda")
+    assert len(results) == 26
+    for report, violations in results:
+        assert violations == [], (report.name, violations)
+        assert report.device == "cuda"
+        assert report.allocator_peak_bytes is not None
+    by_name = {r.name: r for r, _ in results}
+    fused = by_name["kkmeans_fit[fused,f32]"]
+    assert fused.kernel_launches_per_iteration["assign_fused"] >= 1
+    assert "assign_fused" not in by_name["kkmeans_fit[tiled,f32]"]. \
+        kernel_launches
+    assert by_name["serve_bucket[64]"].kernel_launches["embed_assign"] >= 1
+
+
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("kernel", ["kernel_matrix", "assign_fused",
+                                    "embed_assign", "sketch_assign",
+                                    "flash_attention"])
+def test_f32_accumulation_probe_on_the_card(cuda, kernel, prec):
+    from repro_torch.launch import audit as launch_audit
+    before = ops.LAUNCHES[kernel]
+    probe = launch_audit.accumulation_probe(kernel, prec, cuda)
+    assert probe["ok"], probe
+    assert ops.LAUNCHES[kernel] > before      # the kernel, not the plain one
+
+
+def test_tab1_audit_stays_below_the_gram_block(cuda):
+    """Fused and tiled at Tab.1's batch width (15,000 x 784, |L| = 3,000,
+    C = 10): allocator peak and largest intermediate below the [rows, |L|]
+    f32 block, one host read an iteration; materialize holds the block."""
+    from repro_torch.launch import audit as launch_audit
+    n, d, n_l = 15000, 784, 3000
+    x = _rand((n, d), 0, cuda)
+    gram = 4 * n * n_l
+    for report, violations in launch_audit.audit_engine_modes(
+            n=n, d=d, n_landmarks=n_l, c=10, tile_rows=256, device="cuda",
+            x=x, gamma=1.0 / d, max_iters=3):
+        assert violations == [], (report.name, violations)
+        assert report.host_reads_per_iteration <= 1
+        if "materialize" in report.name:
+            assert report.largest_intermediate_bytes >= gram
+        else:
+            assert report.allocator_peak_bytes < gram, report.name
+            assert report.largest_intermediate_bytes < gram, report.name
+
+
+def test_fit_labels_and_launches_unchanged_under_an_audit(cuda):
+    """The audited fit (in card mode: sync debug mode on, the allocator's
+    peak read) gives the labels and launches of the same fit run bare,
+    and leaves the sync debug mode as it found it."""
+    from repro_torch.analysis import audit
+    x = _rand((3000, 24), 5, cuda).cpu().numpy()
+    cfg = MiniBatchConfig(n_clusters=5, n_batches=2, s=0.3, seed=0,
+                          engine="fused")
+
+    def fit():
+        before = dict(ops.LAUNCHES)
+        labels = fit_dataset(x, cfg, device=cuda).predict(x)
+        return labels.cpu(), {k: ops.LAUNCHES[k] - before[k] for k in before}
+
+    plain_labels, plain_launches = fit()
+    report = audit(fit, on_device=cuda)
+    audited_labels, audited_launches = report.output
+    assert report.device == "cuda"
+    assert report.allocator_peak_bytes is not None
+    assert torch.equal(plain_labels, audited_labels)
+    assert plain_launches == audited_launches
+    assert plain_launches["assign_fused"] > 0
+    assert {k: v for k, v in report.kernel_launches.items() if v} == \
+        {k: v for k, v in plain_launches.items() if v}
+    assert report.sync_warnings > 0        # the mode was on while it ran
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_smoke_mp_runs_its_ranks_on_the_card(cuda, tmp_path):
+    """``dryrun_cluster --smoke-mp P`` with no ``--device``: one NCCL rank
+    a visible card, the s-step mesh fit through the kernels."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = torch.cuda.device_count()
+    log = tmp_path / "smoke.jsonl"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun_cluster",
+         "--smoke-mp", str(p), "--obs", str(log)],
+        env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")),
+        cwd=root, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert f"[ok] multi-process smoke: {p} processes clean on cuda" \
+        in proc.stdout
+    import json
+    header = json.loads(log.read_text().splitlines()[0])
+    assert header["backend"] == "cuda" and header["n_processes"] == p
