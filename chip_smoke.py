@@ -42,7 +42,8 @@ Phases, in order; any failure exits non-zero without the final line:
      ``ops.flash_attention`` against ``ref.flash_attention_ref`` at bf16 and
      f32 at the attention shapes of OLMo-1B's prefill (B 1, H = KH = 16,
      S 2048, dh 128, causal), gemma2-2b's global layers (H 8, KH 4, dh 256,
-     softcap 50) and qwen3-32b (H 64, KH 8, dh 128), timed, with
+     softcap 50), qwen3-32b (H 64, KH 8, dh 128) and qwen3-moe-235b-a22b
+     (H 64, KH 4, dh 128; run F-moe's prefill), timed, with
      ``scaled_dot_product_attention`` as ``library_ms`` (a composite of
      matmul, tanh, masked softmax and matmul for the softcap shape), and at
      ragged and small shapes (S 1, 100, 1000; dh 16 and 64; non-causal
@@ -153,6 +154,26 @@ Phases, in order; any failure exits non-zero without the final line:
      call), run F-chunked (the same weights and prompts in plain PyTorch;
      first tokens must agree outside near-ties) and run F-f32 (one 2048-token
      prompt, f32 weights and tiles, flash against chunked prefill logits);
+     then LM training and the MoE family (phase 4g): T-olmo
+     (``launch.train`` on OLMo-1B as published, bf16, batch 8 x 2048,
+     remat, 6 steps: every loss and grad norm finite, every parameter
+     leaf moved from its seed-0 draw, step times and the allocator peak;
+     then microbatches 4 against 1 from the same state and batch, first
+     losses within 2e-3 relative), T-olmo-cpu (OLMo-1B at full width cut
+     to 2 layers, f32, 256 tokens: ``lm_loss`` and every grad on the card
+     against the same call on the host CPU, loss 1e-5 relative, each grad
+     leaf 1e-4 normwise), T-moe (``launch.train`` on qwen3-moe-235b-a22b
+     at full width cut to 1 layer, 3.73e9 parameters, batch 2 x 2048, 3
+     steps, dense dispatch; then ``moe_ep_groups=4`` against dense
+     dispatch on 256 tokens at f32 with capacity_factor 100, 1e-5
+     normwise), F-moe (the same config cut to 4 layers, bf16, served with
+     flash and with chunked attention to 4 requests of 256-2048 prompt
+     tokens: 4 x 4 flash launches, first tokens equal outside near-ties,
+     last-token prefill logits within SERVE_LOGIT_TOL for the requests
+     whose last token took the same experts in every layer in both runs;
+     the routing flips printed) and F-moe-f32 (one 2048-token prompt, f32
+     weights and tiles, flash against chunked prefill logits within
+     1e-4);
   5. print the per-kernel JSON line (one entry per kernel; assign_fused,
      embed_assign, sketch_assign and flash_attention one per tile dtype,
      since both bodies run on the main path, and kernel_matrix one for its
@@ -171,8 +192,10 @@ bf16).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -195,13 +218,14 @@ TOL = {"kernel_matrix": 1e-5, "assign_fused": 1e-4, "embed_assign": 1e-4,
        "sketch_assign": 1e-4}
 NEAR_TIE = 1e-4
 FLASH_TOL = {"f32": 2e-5, "bf16": 1e-2}
-# (config, B, H, KH, S, dh, softcap): the attention of three configs the
+# (config, B, H, KH, S, dh, softcap): the attention of four configs the
 # repo holds (src/repro/configs): OLMo-1B's prefill, gemma2-2b's global
-# layers, qwen3-32b; q is drawn with std 3 so the softmax is far from
+# layers, qwen3-32b, qwen3-moe-235b-a22b (run F-moe's prefill); q is drawn with std 3 so the softmax is far from
 # uniform (scores of std 3)
 FLASH_MAIN = [("olmo-1b", 1, 16, 16, 2048, 128, None),
               ("gemma2-2b", 1, 8, 4, 2048, 256, 50.0),
-              ("qwen3-32b", 1, 64, 8, 2048, 128, None)]
+              ("qwen3-32b", 1, 64, 8, 2048, 128, None),
+              ("qwen3-moe-235b-a22b", 1, 64, 4, 2048, 128, None)]
 # run F (OLMo-1B serving): ServeConfig and request stream
 SERVE = dict(max_batch=8, max_len=4096, eos_token=-1, max_new_tokens=32)
 N_REQUESTS, PROMPT_MIN, PROMPT_MAX = 16, 256, 2048
@@ -214,6 +238,16 @@ N_REQUESTS, PROMPT_MIN, PROMPT_MAX = 16, 256, 2048
 # the logits by O(1).
 SERVE_NEAR_TIE = 0.1
 SERVE_LOGIT_TOL = 0.05
+# phase 4g (LM training and the MoE family). T-olmo: launch.train on
+# OLMo-1B as published, batch 8 x 2048 with remat; the first step's loss at
+# microbatches 4 within MB_REL of microbatches 1 (the reference's own
+# limit, tests/test_data_training.py:329). T-moe: qwen3-moe-235b-a22b at
+# full width cut to 1 layer, batch 2 x 2048. F-moe: the same config cut to
+# 4 layers, served to 4 requests with flash and with chunked attention
+T_OLMO = dict(steps=6, batch=8, seq=2048)
+MB_REL = 2e-3
+T_MOE = dict(layers=1, steps=3, batch=2, seq=2048)
+F_MOE = dict(layers=4, requests=4)
 KINDS = ("rbf", "linear", "polynomial", "cosine")
 N_TRAIN, N_TEST = 60000, 10000   # paper Tab.1 (benchmarks/tab1_mnist.py)
 EMBED_DIM = 320                  # Fig.5's largest m (fig5_approx_sweep.py)
@@ -2607,6 +2641,40 @@ def run_serving(torch, mods, name, api, params, prompts):
     return rec, results, firsts
 
 
+def flash_vs_chunked(torch, np, name, out_f, first_f, out_c, first_c,
+                     held=None):
+    """Run ``name`` (flash) against its chunked twin on the same weights
+    and prompts: first tokens equal wherever the flash run's top-2 logit
+    gap is at least SERVE_NEAR_TIE, last-token prefill logits within
+    SERVE_LOGIT_TOL normwise for the requests ``held`` marks (default:
+    all)."""
+    near, bad, diff, agree = 0, [], 0.0, []
+    for i, (lf, lc) in enumerate(zip(first_f, first_c)):
+        _, rel = normwise(torch, lf, lc)
+        if held is None or held[i]:
+            diff = max(diff, rel)
+        tied = top2_gap(torch, lf) < SERVE_NEAR_TIE
+        near += tied
+        if out_f[i + 1][0] != out_c[i + 1][0] and not tied:
+            bad.append(i + 1)
+        a, b = out_f[i + 1], out_c[i + 1]
+        same = next((j for j in range(len(a)) if a[j] != b[j]), len(a))
+        agree.append(same / len(a))
+    firsts_equal = sum(out_f[u][0] == out_c[u][0] for u in out_f)
+    n_held = len(out_f) if held is None else sum(held)
+    print(f"{name} vs {name}-chunked: first tokens equal {firsts_equal}/"
+          f"{len(out_f)} (near-ties, top-2 gap < {SERVE_NEAR_TIE}: {near}); "
+          f"last-token prefill logits normwise diff {diff!r} over "
+          f"{n_held} requests (limit "
+          f"{SERVE_LOGIT_TOL}); share of tokens equal up to the first "
+          f"divergence {float(np.mean(agree))!r}")
+    check(not bad, f"{name} vs {name}-chunked: first tokens differ outside "
+                   f"near-ties for requests {bad}")
+    check(diff <= SERVE_LOGIT_TOL, f"{name} vs {name}-chunked: prefill "
+                                   f"logits differ by {diff} > "
+                                   f"{SERVE_LOGIT_TOL}")
+
+
 def serving_runs(torch, np, mods):
     """Runs F (bf16, flash), F-chunked and F-f32 on OLMo-1B at full width;
     returns the flash launches of run F (bf16) and of F-f32 (f32)."""
@@ -2636,28 +2704,7 @@ def serving_runs(torch, np, mods):
           "run F-chunked launched the flash kernel")
     del params
 
-    # first tokens: equal outside run F's near-ties
-    near, bad, diff, agree = 0, [], 0.0, []
-    for i, (lf, lc) in enumerate(zip(first_f, first_c)):
-        _, rel = normwise(torch, lf, lc)
-        diff = max(diff, rel)
-        tied = top2_gap(torch, lf) < SERVE_NEAR_TIE
-        near += tied
-        if out_f[i + 1][0] != out_c[i + 1][0] and not tied:
-            bad.append(i + 1)
-        a, b = out_f[i + 1], out_c[i + 1]
-        same = next((j for j in range(len(a)) if a[j] != b[j]), len(a))
-        agree.append(same / len(a))
-    firsts_equal = sum(out_f[u][0] == out_c[u][0] for u in out_f)
-    print(f"F vs F-chunked: first tokens equal {firsts_equal}/{N_REQUESTS} "
-          f"(near-ties, top-2 gap < {SERVE_NEAR_TIE}: {near}); last-token "
-          f"prefill logits normwise diff {diff!r} (limit {SERVE_LOGIT_TOL}); "
-          f"share of tokens equal up to the first divergence "
-          f"{float(np.mean(agree))!r}")
-    check(not bad, f"F vs F-chunked: first tokens differ outside near-ties "
-                   f"for requests {bad}")
-    check(diff <= SERVE_LOGIT_TOL, f"F vs F-chunked: prefill logits differ "
-                                   f"by {diff} > {SERVE_LOGIT_TOL}")
+    flash_vs_chunked(torch, np, "F", out_f, first_f, out_c, first_c)
 
     # F-f32: one 2048-token prompt, f32 weights and tiles
     params = api_f.init(0, torch.float32)
@@ -2684,6 +2731,317 @@ def serving_runs(torch, np, mods):
     check(rel <= 1e-4, f"run F-f32: flash and chunked prefill logits differ "
                        f"by {rel} > 1e-4")
     return rec_f["launches"]["flash_attention"], launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4g: LM training and the MoE family
+# ---------------------------------------------------------------------------
+
+
+def leaves_of(mods, tree) -> list:
+    return mods["training"].optim.tree_leaves(tree)
+
+
+def leaf_rel(torch, got, want) -> float:
+    """||got - want|| / ||want|| in f64 (0 when both are 0)."""
+    g, w = got.double(), want.double()
+    den = float(torch.linalg.vector_norm(w))
+    num = float(torch.linalg.vector_norm(g - w))
+    return num / den if den else num
+
+
+def params_moved(torch, mods, api, params) -> tuple[int, int, float]:
+    """(leaves that moved, leaves, smallest relative move) of ``params``
+    against the seed-0 parameters ``api`` draws again."""
+    fresh = api.init(0)
+    moves = [leaf_rel(torch, p.detach(), q)
+             for p, q in zip(leaves_of(mods, params), leaves_of(mods, fresh))]
+    del fresh
+    return sum(m > 0 for m in moves), len(moves), min(moves)
+
+
+def train_run(torch, mods, name, argv, *, cfg=None):
+    """``launch.train.run(argv)`` on the card as a user runs it, with the
+    allocator peak from a reset just before; prints its run line."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(mods)
+    t0 = time.perf_counter()
+    out = mods["train"].run(argv, cfg=cfg)
+    wall = time.perf_counter() - t0
+    secs = out.seconds
+    rec = {"run": name, "argv": argv, "wall_s": wall, "losses": out.losses,
+           "grad_norms": out.grad_norms, "step_s": secs,
+           "median_step_s": (sorted(secs[1:])[len(secs[1:]) // 2]
+                             if len(secs) > 1 else None),
+           "peak_alloc_bytes": torch.cuda.max_memory_allocated(),
+           "launches": dict(mods["ops"].LAUNCHES),
+           "plain_calls": dict(mods["ref"].CALLS)}
+    check(all(math.isfinite(v) for v in out.losses + out.grad_norms),
+          f"run {name}: a loss or grad norm is not finite: {rec}")
+    check(all(v == 0 for v in rec["plain_calls"].values()),
+          f"run {name}: a plain kernel version ran on the card")
+    return out, rec
+
+
+def microbatch_parity(torch, mods, api, batch, n_micro):
+    """First-step loss of ``make_train_step`` at microbatches 1 and
+    ``n_micro`` from the same seed-0 state and batch."""
+    tr = mods["training"]
+    losses = []
+    for n in (1, n_micro):
+        tcfg = mods["configs"].TrainConfig(remat=True, microbatches=n)
+        params = api.init(0)
+        opt = tr.adamw_init(params, tcfg)
+        _, _, m = tr.make_train_step(api, tcfg)(params, opt, batch)
+        losses.append(float(m["loss"]))
+        del params, opt
+    return losses
+
+
+def run_t_olmo(torch, np, mods):
+    """T-olmo: launch.train on OLMo-1B, the full config; microbatches 4
+    against 1 on the first batch."""
+    base = mods["configs"].get_arch("olmo-1b")
+    argv = ["--arch", "olmo-1b", "--steps", str(T_OLMO["steps"]), "--batch",
+            str(T_OLMO["batch"]), "--seq", str(T_OLMO["seq"]),
+            "--log-every", "1"]
+    out, rec = train_run(torch, mods, "T-olmo", argv)
+    api = mods["models"].get_model(base)
+    moved, n, least = params_moved(torch, mods, api, out.params)
+    rec.update(leaves_moved=moved, leaves=n, least_rel_move=least)
+    del out
+    torch.cuda.empty_cache()
+    first = next(mods["train"].synthetic_batches(
+        base.vocab_size, T_OLMO["batch"], T_OLMO["seq"], 1, seed=0))
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device="cuda")
+             for k, v in first.items()}
+    l1, l4 = microbatch_parity(torch, mods, api, batch, 4)
+    rec.update(first_loss_mb1=l1, first_loss_mb4=l4,
+               mb_rel=abs(l4 - l1) / abs(l1), mb_tol=MB_REL)
+    print("run", json.dumps(rec))
+    check(moved == n, f"run T-olmo: {n - moved} of {n} leaves did not move")
+    check(rec["mb_rel"] <= MB_REL, f"run T-olmo: microbatches 4 vs 1 first "
+                                   f"loss rel {rec['mb_rel']} > {MB_REL}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_t_olmo_cpu(torch, np, mods):
+    """T-olmo-cpu: OLMo-1B at full width, 2 layers, f32: lm_loss and every
+    grad on the card against the same call on the host CPU."""
+    cfg = dataclasses.replace(mods["configs"].get_arch("olmo-1b"),
+                              n_layers=2)
+    params_cpu = mods["models"].get_model(cfg, device="cpu").init(
+        0, torch.float32)
+    rng = np.random.default_rng(3)
+    tok = rng.integers(1, cfg.vocab_size, size=(1, 256))
+    batch = {"tokens": torch.as_tensor(tok, dtype=torch.long),
+             "labels": torch.as_tensor(np.roll(tok, -1, 1), dtype=torch.long)}
+    res = {}
+    for dev in ("cuda", "cpu"):
+        api = mods["models"].get_model(cfg, device=dev)
+        params = mods["training"].optim.tree_map(
+            lambda t: t.to(dev, copy=True).requires_grad_(True), params_cpu)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        loss = api.loss(params, b, remat=True)
+        grads = torch.autograd.grad(loss, leaves_of(mods, params))
+        res[dev] = (float(loss.detach()), [g.cpu() for g in grads],
+                    time.perf_counter() - t0)
+    rel_loss = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    rels = [leaf_rel(torch, a, b) for a, b in zip(res["cuda"][1],
+                                                  res["cpu"][1])]
+    rec = {"run": "T-olmo-cpu", "layers": 2, "dtype": "float32",
+           "tokens": 256, "loss_cuda": res["cuda"][0],
+           "loss_cpu": res["cpu"][0], "loss_rel": rel_loss,
+           "grad_rel_max": max(rels), "leaves": len(rels),
+           "cuda_s": res["cuda"][2], "cpu_s": res["cpu"][2],
+           "tol": {"loss": 1e-5, "grad": 1e-4}}
+    print("run", json.dumps(rec))
+    check(rel_loss <= 1e-5, f"run T-olmo-cpu: loss rel {rel_loss} > 1e-5")
+    check(max(rels) <= 1e-4, f"run T-olmo-cpu: a grad differs by "
+                             f"{max(rels)} > 1e-4 (normwise)")
+    return rec
+
+
+def ep_check(torch, mods, cfg):
+    """moe_ep_groups=4 against dense dispatch on 256 tokens at f32 with
+    capacity_factor 100 (nothing drops), one MoE layer at full width."""
+    mlp, common = mods["mlp"], mods["common"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b = common.ParamBuilder(gen, torch.float32, torch.device("cuda"))
+    dense = dataclasses.replace(cfg, capacity_factor=100.0, moe_ep_groups=0)
+    mlp.init_moe(b, dense)
+    x = torch.randn((1, 256, cfg.d_model), generator=gen, device="cuda")
+    with torch.no_grad():
+        want = mlp.moe_block(b.params, x, dense)
+        got = mlp.moe_block(b.params, x, dataclasses.replace(
+            dense, moe_ep_groups=4))
+    torch.cuda.synchronize()
+    err, rel = normwise(torch, got, want)
+    rec = {"check": "moe_ep", "tokens": 256, "groups": 4,
+           "capacity_factor": 100.0, "max_abs_err": err, "rel_err": rel,
+           "tol": 1e-5}
+    print("check", json.dumps(rec))
+    check(rel <= 1e-5, f"moe_ep_groups=4 vs dense dispatch: {rel} > 1e-5")
+    return rec
+
+
+def run_t_moe(torch, mods):
+    """T-moe: launch.train on qwen3-moe-235b-a22b at full width, 1 layer;
+    then the EP check."""
+    full = mods["configs"].get_arch("qwen3-moe-235b-a22b")
+    cfg = dataclasses.replace(full, n_layers=T_MOE["layers"])
+    print(f"T-moe: {full.name} cut to n_layers={cfg.n_layers} (of "
+          f"{full.n_layers}); every width as published")
+    argv = ["--arch", full.name, "--steps", str(T_MOE["steps"]), "--batch",
+            str(T_MOE["batch"]), "--seq", str(T_MOE["seq"]), "--log-every",
+            "1"]
+    out, rec = train_run(torch, mods, "T-moe", argv, cfg=cfg)
+    rec["params"] = sum(t.numel() for t in leaves_of(mods, out.params))
+    rec["opt_state_dtype"] = str(out.opt.m["embed"].dtype)
+    out.opt = None
+    api = mods["models"].get_model(cfg)
+    moved, n, least = params_moved(torch, mods, api, out.params)
+    rec.update(leaves_moved=moved, leaves=n, least_rel_move=least)
+    print("run", json.dumps(rec))
+    check(moved == n, f"run T-moe: {n - moved} of {n} leaves did not move")
+    del out
+    torch.cuda.empty_cache()
+    ep = ep_check(torch, mods, cfg)
+    torch.cuda.empty_cache()
+    return rec, ep
+
+
+@contextlib.contextmanager
+def recorded_routes(mods, log: list, min_rows: int):
+    """While open, ``models.mlp.route`` also appends, for each call on more
+    than ``min_rows`` tokens (a prefill's), each token's experts sorted
+    ([T, k], on the host) to ``log``; it changes no result."""
+    mlp, orig = mods["mlp"], mods["mlp"].route
+
+    def route(x, router, k):
+        w, e = orig(x, router, k)
+        if x.shape[0] > min_rows:
+            log.append(e.sort(dim=-1).values.cpu())
+        return w, e
+
+    mlp.route = route
+    try:
+        yield
+    finally:
+        mlp.route = orig
+
+
+def route_flips(log_f, log_c, n_layers):
+    """Per request: tokens whose experts differ between the two runs, per
+    layer, and whether the last token's differ in any layer."""
+    out = []
+    for i in range(0, len(log_f), n_layers):
+        d = [(a != b).any(-1) for a, b in zip(log_f[i:i + n_layers],
+                                              log_c[i:i + n_layers])]
+        out.append(([int(x.sum()) for x in d], any(bool(x[-1]) for x in d)))
+    return out
+
+
+def run_f_moe(torch, np, mods):
+    """F-moe: qwen3-moe-235b-a22b at full width, 4 layers, served with
+    flash and with chunked attention (bf16), then F-moe-f32 (one 2048-token
+    prompt, f32 weights and tiles); returns the flash launches of each.
+
+    Routing is discrete: where the two attention paths' bf16 roundings move
+    a token's router logits across the gap between its k-th and (k+1)-th
+    expert, the token takes another expert. The prefill logits are held to
+    SERVE_LOGIT_TOL on the requests whose last token took the same experts
+    in every layer in both runs (the router's near-ties, as the first
+    tokens' are), and the flips are printed."""
+    full = mods["configs"].get_arch("qwen3-moe-235b-a22b")
+    cfg = dataclasses.replace(full, n_layers=F_MOE["layers"])
+    print(f"F-moe: {full.name} cut to n_layers={cfg.n_layers} (of "
+          f"{full.n_layers}); every width as published")
+    api_f = mods["models"].get_model(dataclasses.replace(cfg,
+                                                         attn_impl="flash"))
+    api_c = mods["models"].get_model(dataclasses.replace(cfg,
+                                                         attn_impl="chunked"))
+    t0 = time.perf_counter()
+    params = api_f.init(0, torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves_of(mods, params))
+    print(f"F-moe: {n_params} parameters, bf16, drawn on the card from seed "
+          f"0 in {time.perf_counter() - t0:.2f} s")
+    prompts = olmo_prompts(np, cfg.vocab_size, F_MOE["requests"], PROMPT_MIN,
+                           PROMPT_MAX, seed=0)
+    log_f, log_c = [], []
+    with recorded_routes(mods, log_f, SERVE["max_batch"]):
+        rec_f, out_f, first_f = run_serving(torch, mods, "F-moe", api_f,
+                                            params, prompts)
+    want = F_MOE["requests"] * cfg.n_layers
+    check(rec_f["launches"]["flash_attention"] == want,
+          f"run F-moe: {rec_f['launches']['flash_attention']} flash "
+          f"launches, expected {want} (requests x layers)")
+    with recorded_routes(mods, log_c, SERVE["max_batch"]):
+        rec_c, out_c, first_c = run_serving(torch, mods, "F-moe-chunked",
+                                            api_c, params, prompts)
+    check(rec_c["launches"]["flash_attention"] == 0,
+          "run F-moe-chunked launched the flash kernel")
+    del params
+    torch.cuda.empty_cache()
+    flips = route_flips(log_f, log_c, cfg.n_layers)
+    held = [not last for _, last in flips]
+    print("F-moe routing, flash vs chunked", json.dumps(
+        [{"request": i + 1, "prompt": len(p), "tokens_flipped_per_layer": f,
+          "last_token_flipped": last}
+         for i, (p, (f, last)) in enumerate(zip(prompts, flips))]))
+    check(any(held), "F-moe: every request's last token changed experts; "
+                     "no prefill logits to hold")
+    flash_vs_chunked(torch, np, "F-moe", out_f, first_f, out_c, first_c,
+                     held=held)
+
+    # F-moe-f32: f32 weights and tiles, one 2048-token prompt
+    params = api_f.init(0, torch.float32)
+    prompt = olmo_prompts(np, cfg.vocab_size, 1, PROMPT_MAX, PROMPT_MAX,
+                          seed=1)[0]
+    tokens = torch.as_tensor(prompt[None], dtype=torch.long, device="cuda")
+    mods["ops"].LAUNCHES["flash_attention"] = 0
+    logits, logs = {}, {"flash": [], "chunked": []}
+    for api in (api_f, api_c):
+        with recorded_routes(mods, logs[api.cfg.attn_impl], 0):
+            _, logits[api.cfg.attn_impl] = api.prefill(
+                params, {"tokens": tokens}, max_len=PROMPT_MAX)
+    launches = mods["ops"].LAUNCHES["flash_attention"]
+    _, rel = normwise(torch, logits["flash"], logits["chunked"])
+    flipped = route_flips(logs["flash"], logs["chunked"], cfg.n_layers)[0][0]
+    rec = {"run": "F-moe-f32", "prompt": PROMPT_MAX,
+           "flash_launches": launches, "logits_rel_diff": rel, "tol": 1e-4,
+           "tokens_flipped_per_layer": flipped}
+    print("run", json.dumps(rec))
+    del params
+    torch.cuda.empty_cache()
+    check(launches == cfg.n_layers, f"run F-moe-f32: {launches} flash "
+                                    f"launches")
+    check(rel <= 1e-4, f"run F-moe-f32: flash and chunked prefill logits "
+                       f"differ by {rel} > 1e-4")
+    return rec_f["launches"]["flash_attention"], launches
+
+
+def train_phase(torch, np, mods):
+    """Phase 4g: T-olmo, T-olmo-cpu, T-moe (with the EP check), F-moe and
+    F-moe-f32; returns the flash launches of F-moe (bf16) and F-moe-f32
+    (f32)."""
+    t0 = time.perf_counter()
+    run_t_olmo(torch, np, mods)
+    print(f"T-olmo: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_t_olmo_cpu(torch, np, mods)
+    print(f"T-olmo-cpu: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_t_moe(torch, mods)
+    print(f"T-moe: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = run_f_moe(torch, np, mods)
+    print(f"F-moe: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -2720,7 +3078,9 @@ def main(argv=None) -> int:
                 ("dmesh", "distributed"), ("ft", "ft"), ("obs", "obs"),
                 ("outer", "distributed.outer"), ("inner", "distributed.inner"),
                 ("cluster", "launch.cluster"), ("hlocost", "launch.hlocost"),
-                ("audit", "launch.audit")]}
+                ("audit", "launch.audit"), ("train", "launch.train"),
+                ("training", "training"), ("mlp", "models.mlp"),
+                ("common", "models.common")]}
     core = mods["core"]
 
     # -- phase 1: the card --------------------------------------------------
@@ -2949,10 +3309,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     flash_bf16, flash_f32 = serving_runs(torch, np, mods)
-    totals["flash_attention"] = flash_bf16 + flash_f32
-    bodies["flash_attention", "bf16"] = flash_bf16
-    bodies["flash_attention", "f32"] = flash_f32
     print(f"serving runs: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe_bf16, moe_f32 = train_phase(torch, np, mods)
+    print(f"training and MoE runs: {time.perf_counter() - t0:.1f} s")
+    totals["flash_attention"] = flash_bf16 + flash_f32 + moe_bf16 + moe_f32
+    bodies["flash_attention", "bf16"] = flash_bf16 + moe_bf16
+    bodies["flash_attention", "f32"] = flash_f32 + moe_f32
     check(all(v > 0 for v in totals.values()),
           f"a kernel never launched on the main path: {totals}")
 

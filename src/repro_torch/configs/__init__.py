@@ -3,7 +3,7 @@
 from . import (chameleon_34b, gemma2_2b, grok1_314b, internlm2_20b, olmo_1b,
                qwen3_32b, qwen3_moe_235b, rwkv6_7b, seamless_m4t_medium,
                zamba2_2p7b)
-from .base import ModelConfig, ShapeConfig
+from .base import ModelConfig, ShapeConfig, TrainConfig
 
 ARCHS = {
     "qwen3-32b": qwen3_32b,
@@ -26,4 +26,4 @@ def get_arch(name: str, *, smoke: bool = False) -> ModelConfig:
     return mod.SMOKE if smoke else mod.FULL
 
 
-__all__ = ["ARCHS", "ModelConfig", "ShapeConfig", "get_arch"]
+__all__ = ["ARCHS", "ModelConfig", "ShapeConfig", "TrainConfig", "get_arch"]

@@ -1,10 +1,10 @@
 """Config schema: model architecture and input shapes.
 
-A copy of ``repro/configs/base.py`` as data (``ModelConfig`` and
-``ShapeConfig``); the training and mesh settings wait for the training and
-mesh slices. ``attn_impl="flash"`` selects the hand-written CUDA kernel
-(``kernels/csrc/flash_attention.cu``) on the card and its plain PyTorch
-version on the CPU.
+A copy of ``repro/configs/base.py`` as data (``ModelConfig``,
+``ShapeConfig`` and ``TrainConfig``). ``attn_impl="flash"`` selects the
+hand-written CUDA kernel (``kernels/csrc/flash_attention.cu``) on the card
+and its plain PyTorch version on the CPU; like the reference's kernel it
+has no gradient, so training runs ``attn_impl="chunked"``.
 """
 from __future__ import annotations
 
@@ -68,3 +68,18 @@ class ShapeConfig:
     kind: str            # "train" | "prefill" | "decode"
     seq_len: int
     global_batch: int
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    opt_state_dtype: str = "float32"   # "bfloat16" for the 314B config
+    remat: bool = True
+    microbatches: int = 1

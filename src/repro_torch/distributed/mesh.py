@@ -13,9 +13,11 @@ The collectives go through ``all_gather`` and ``all_reduce`` here, which
 call ``torch.distributed.all_gather_into_tensor`` / ``all_reduce`` on the
 group of one or more mesh axes (``axis_group``), so a wrapper around those
 two functions of ``torch.distributed`` counts every collective of the
-runtime. ``tally()`` counts them from inside: while it is open, every call
-of the two, and the bytes each ``all_reduce`` sums, add to its
-``CollectiveTally`` (the flight recorder's measured collective bill).
+clustering runtime. The expert-parallel MoE exchanges tokens through
+``all_to_all`` (one ``all_to_all_single``, differentiable). ``tally()``
+counts them from inside: while it is open, every call of the three, and
+the bytes each ``all_reduce`` sums, add to its ``CollectiveTally`` (the
+flight recorder's measured collective bill).
 """
 from __future__ import annotations
 
@@ -125,13 +127,15 @@ class CollectiveTally:
     ``tally()`` is open, under the reference's names: ``psum`` (the
     all_reduce calls), ``allgather``, ``psum_bytes`` (the bytes the
     all_reduce calls summed, per rank) and ``allgather_bytes`` (the bytes
-    the all_gather calls returned, per rank)."""
+    the all_gather calls returned, per rank) and ``alltoall`` (the
+    all_to_all calls)."""
 
     def __init__(self):
         self.psum = 0
         self.allgather = 0
         self.psum_bytes = 0
         self.allgather_bytes = 0
+        self.alltoall = 0
 
 
 _TALLIES: list[CollectiveTally] = []
@@ -174,3 +178,22 @@ def all_reduce(t: torch.Tensor, mesh, axes) -> torch.Tensor:
         c.psum += 1
         c.psum_bytes += t.numel() * t.element_size()
     return t
+
+
+def all_to_all(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Split ``t`` on dim 0 into one equal block per rank along ``axes``
+    and send block j to rank j; returns the blocks received, in rank
+    order, in ``t``'s shape: ONE ``all_to_all_single``, through
+    ``torch.distributed.nn`` so that autograd carries gradients back by
+    the reverse exchange (torch 2.13 names it deprecated; it is the
+    autograd-aware call both 2.11 and 2.13 have). The tally counts the
+    forward exchanges; the backward's run inside autograd."""
+    from torch.distributed.nn.functional import all_to_all_single
+    t = t.contiguous()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        out = all_to_all_single(torch.empty_like(t), t,
+                                group=axis_group(mesh, axes))
+    for c in _TALLIES:
+        c.alltoall += 1
+    return out

@@ -402,6 +402,12 @@ def predict_assign(x: torch.Tensor, w: torch.Tensor, aux: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+#: why a gradient through the flash kernel is refused, on either device
+FLASH_NO_GRAD = ("flash_attention has no gradient: the reference's flash "
+                 "kernel is forward only (one pallas_call, no backward), so "
+                 "training runs attn_impl=\"chunked\"")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, softcap: float | None = None,
                     precision: str = "f32") -> torch.Tensor:
@@ -417,7 +423,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     either dtype are read in place through their strides (dh contiguous,
     16-byte strides), and the output is a [B, H, Sq, dh] view of [B, Sq, H,
     dh] memory, so a caller holding [B, S, H, dh] activations transposes
-    nothing either way."""
+    nothing either way.
+
+    Forward only, on both devices: with grad mode on and q, k or v
+    requiring grad it raises (``FLASH_NO_GRAD``), since the kernel's output
+    has no autograd history and the reference cannot differentiate its
+    kernel either."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(FLASH_NO_GRAD)
     p = resolve_precision(precision)
     if p.tile == "bf16":
         q, k, v = p.cast_tiles(q), p.cast_tiles(k), p.cast_tiles(v)

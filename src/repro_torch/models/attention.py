@@ -1,5 +1,5 @@
-"""GQA attention: the prefill path (the flash kernel or chunked attention)
-and the decode path over a per-slot KV cache (the port of
+"""GQA attention: the training / prefill path (the flash kernel or chunked
+attention) and the decode path over a per-slot KV cache (the port of
 ``repro/models/attention.py``).
 
 The reference's decode KV-cache sharding policy belongs to the mesh slice;
@@ -46,11 +46,13 @@ def _project_qkv(p, x, cfg: ModelConfig, positions, prefix=""):
 def attention_block(p, x, cfg: ModelConfig, *, window: int | None,
                     causal: bool = True, positions=None, prefix: str = "",
                     q_chunk: int = 512):
-    """Full-sequence attention (prefill). Returns (out, (k, v)).
+    """Full-sequence attention (training / prefill). Returns (out, (k, v)).
 
     ``attn_impl="flash"`` on a layer without a window goes through
     ``ops.flash_attention`` — the CUDA kernel for a tensor on the card, its
-    plain version on the CPU; every other layer takes chunked attention."""
+    plain version on the CPU; it is forward only and raises when a
+    gradient would flow through it. Every other layer takes chunked
+    attention."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]

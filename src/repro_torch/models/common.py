@@ -1,5 +1,6 @@
-"""Shared model substrate: norms, RoPE, chunked attention and parameter
-initialization (the port of ``repro/models/common.py``).
+"""Shared model substrate: norms, RoPE, chunked attention, the chunked
+cross-entropy and parameter initialization (the port of
+``repro/models/common.py``).
 
 Conventions
 -----------
@@ -8,16 +9,31 @@ Conventions
   per-layer dicts and loops over it.
 * Weights keep the reference's [in, out] orientation and names, so a JAX
   parameter tree converts by unstacking alone (``repro_torch.convert``).
-* The sharding annotations (``Axes``, ``shard``, partition specs, the ambient
-  mesh) belong to the mesh slice; the port has none of them yet, and
-  ``init_*`` return parameters only. The chunked cross-entropy waits for the
-  training slice.
+* The sharding annotations (``Axes``, ``shard``, partition specs) have no
+  counterpart: the port's models run on one card, and ``init_*`` return
+  parameters only. The ambient mesh does: ``set_ambient_mesh`` hands the
+  expert-parallel MoE a ``DeviceMesh`` (``distributed/mesh.py``) with a
+  ``data`` axis, and ``moe_block_ep`` then exchanges tokens over it.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30   # masked scores: finite, so a fully masked row stays finite
+
+# the ambient mesh for model code that dispatches over ranks (launchers and
+# tests set it; None: one process)
+_AMBIENT_MESH = None
+
+
+def set_ambient_mesh(mesh) -> None:
+    global _AMBIENT_MESH
+    _AMBIENT_MESH = mesh
+
+
+def ambient_mesh():
+    return _AMBIENT_MESH
 
 
 # ---------------------------------------------------------------------------
@@ -38,12 +54,13 @@ class ParamBuilder:
         self.device = device
         self.params: dict = {}
 
-    def dense(self, name: str, shape, *, scale: float | None = None):
+    def dense(self, name: str, shape, *, scale: float | None = None,
+              dtype: torch.dtype | None = None):
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         std = scale if scale is not None else fan_in ** -0.5
         w = torch.randn(shape, generator=self.generator, dtype=torch.float32,
                         device=self.device)
-        self.params[name] = w.to(self.dtype) * std
+        self.params[name] = w.to(dtype or self.dtype) * std
 
     def zeros(self, name: str, shape):
         self.params[name] = torch.zeros(shape, dtype=torch.float32,
@@ -147,3 +164,66 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = torch.einsum("bkgqs,bskd->bqkgd", probs, vf)
         outs.append(out.reshape(b, n, h, dh).to(q.dtype))
     return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# chunked cross-entropy (full logits never materialize)
+# ---------------------------------------------------------------------------
+
+
+VOCAB_ALIGN = 128
+
+
+def padded_vocab_size(v: int, multiple: int = VOCAB_ALIGN) -> int:
+    """An odd vocabulary (seamless: 256206) padded up to an aligned
+    multiple; loss and sampling mask the padded rows, so results are
+    exact."""
+    return -(-v // multiple) * multiple
+
+
+def mask_vocab_pad(logits: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """-1e30 on the padded tail of a [..., V_pad] logit block."""
+    vp = logits.shape[-1]
+    if n_valid >= vp:
+        return logits
+    mask = torch.arange(vp, device=logits.device) < n_valid
+    return torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+
+
+def _chunk_loss(hc, emb, lc, logit_softcap, n_valid_vocab):
+    """(sum of -log p(label) over the chunk's labels >= 0, their count).
+    The logits are f32 products of operands in the hidden dtype (the
+    reference's ``preferred_element_type=f32``: a bf16 product is exact in
+    f32, so upcasting first gives the same sums)."""
+    logits = hc.to(torch.float32) @ emb.to(hc.dtype).to(torch.float32).T
+    if logit_softcap is not None:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    if n_valid_vocab is not None:
+        logits = mask_vocab_pad(logits, n_valid_vocab)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, 1, lc.clamp(min=0)[:, None])[:, 0]
+    valid = lc >= 0
+    return (torch.where(valid, lse - gold, torch.zeros_like(lse)).sum(),
+            valid.sum(dtype=torch.float32))
+
+
+def chunked_cross_entropy(hidden: torch.Tensor, emb: torch.Tensor,
+                          labels: torch.Tensor, *, chunk: int = 2048,
+                          logit_softcap: float | None = None,
+                          n_valid_vocab: int | None = None) -> torch.Tensor:
+    """Mean CE over the labels >= 0 (-1 is padding), looping over chunks
+    of ``chunk`` rows.
+
+    hidden: [T, D] (already flattened), emb: [V, D], labels: [T]. Each
+    chunk's [chunk, V] f32 logits exist only while it runs: the chunk is
+    recomputed in the backward pass (``torch.utils.checkpoint``, as the
+    reference's ``@jax.checkpoint``). ``n_valid_vocab`` masks padded
+    embedding rows out of the partition function."""
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, hidden.shape[0], chunk):
+        s, n = checkpoint(_chunk_loss, hidden[c0:c0 + chunk], emb,
+                          labels[c0:c0 + chunk], logit_softcap,
+                          n_valid_vocab, use_reentrant=False)
+        total, count = total + s, count + n
+    return total / torch.clamp(count, min=1.0)

@@ -1,22 +1,27 @@
-"""Decoder-only LM, the dense family: qwen3 / internlm2 / gemma2 / olmo /
-chameleon (the port of ``repro/models/transformer.py``).
+"""Decoder-only LM family: qwen3 / internlm2 / gemma2 / olmo / qwen3-moe /
+grok-1 / chameleon (the port of ``repro/models/transformer.py``).
 
 The reference stacks layers [n_groups, period, ...] and scans over groups
 (period 2 for gemma2's local/global alternation, else 1). The port keeps
 ``params["layers"]`` as a list of per-layer dicts, layer i being slot
 i % period of group i // period, and loops over it. The KV cache keeps the
 reference's layout: ``{"k{j}", "v{j}"}`` for each slot j of the period,
-each [n_groups, B, S, KH, dh]. ``lm_loss`` waits for the training slice.
+each [n_groups, B, S, KH, dh]. A config with ``n_experts`` takes the MoE
+(``mlp.moe_block``) in place of the dense FFN. Remat (``forward(remat=
+True)``, ``lm_loss``) checkpoints each layer group: only the residual
+stream at group boundaries is saved, as the reference's
+``jax.checkpoint(..., nothing_saveable)`` on its scan body.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from .attention import attention_block, decode_attention, init_attention
-from .common import ParamBuilder, rms_norm
-from .mlp import init_mlp, mlp_block
+from .common import ParamBuilder, chunked_cross_entropy, rms_norm
+from .mlp import init_mlp, init_moe, mlp_block, moe_block
 
 
 # ---------------------------------------------------------------------------
@@ -36,7 +41,10 @@ def _layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
 def _init_block(generator, cfg: ModelConfig, dtype, device) -> dict:
     b = ParamBuilder(generator, dtype, device)
     init_attention(b, cfg)
-    init_mlp(b, cfg.d_model, cfg.d_ff)
+    if cfg.n_experts:
+        init_moe(b, cfg)
+    else:
+        init_mlp(b, cfg.d_model, cfg.d_ff)
     if cfg.parametric_norm:
         norm_init = b.zeros if cfg.gemma_plus_one else b.ones
         names = ["ln1", "ln2"]
@@ -52,7 +60,7 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     """Parameters drawn from ``generator`` with the reference's scales
     (``init_lm``): dense weights normal x fan_in^-1/2 in ``dtype``, the
     embedding x d_model^-1/2, norm weights f32 (ones, or zeros for the
-    (1 + w) parameterization)."""
+    (1 + w) parameterization); an MoE router f32."""
     period = max(cfg.local_global_period, 1)
     if cfg.n_layers % period:
         raise ValueError(f"{cfg.n_layers} layers do not group by {period}")
@@ -78,6 +86,10 @@ def _maybe_norm(p, name: str, x, cfg: ModelConfig):
     return rms_norm(x, w, plus_one=cfg.gemma_plus_one)
 
 
+def _ffn(pj, h, cfg: ModelConfig):
+    return moe_block(pj, h, cfg) if cfg.n_experts else mlp_block(pj, h)
+
+
 def _block_fwd(pj, x, cfg: ModelConfig, kind: str, *, positions=None,
                q_chunk=512):
     window = cfg.window if kind == "local" else None
@@ -88,7 +100,7 @@ def _block_fwd(pj, x, cfg: ModelConfig, kind: str, *, positions=None,
         a = _maybe_norm(pj, "post_ln1", a, cfg)
     x = x + a
     h = _maybe_norm(pj, "ln2", x, cfg)
-    m = mlp_block(pj, h)
+    m = _ffn(pj, h, cfg)
     if cfg.sandwich_norm:
         m = _maybe_norm(pj, "post_ln2", m, cfg)
     return x + m, kv
@@ -103,7 +115,7 @@ def _block_decode(pj, x, cache_k, cache_v, pos, cfg: ModelConfig, kind: str):
         a = _maybe_norm(pj, "post_ln1", a, cfg)
     x = x + a
     h = _maybe_norm(pj, "ln2", x, cfg)
-    m = mlp_block(pj, h)
+    m = _ffn(pj, h, cfg)
     if cfg.sandwich_norm:
         m = _maybe_norm(pj, "post_ln2", m, cfg)
     return x + m
@@ -122,22 +134,61 @@ def _embed(params, tokens, cfg: ModelConfig):
     return x
 
 
-def forward(params, tokens, cfg: ModelConfig, *, collect_cache: bool = False,
-            inputs_embeds=None, q_chunk: int | None = None):
+def _group_fwd(x, layers, cfg: ModelConfig, kinds, q_chunk):
+    """One layer group (one period): the residual stream through its
+    layers; returns it and the layers' (k, v)."""
+    kvs = []
+    for pj, kind in zip(layers, kinds):
+        x, kv = _block_fwd(pj, x, cfg, kind, q_chunk=q_chunk)
+        kvs.append(kv)
+    return x, kvs
+
+
+def forward(params, tokens, cfg: ModelConfig, *, remat: bool = False,
+            collect_cache: bool = False, inputs_embeds=None,
+            q_chunk: int | None = None):
     """Full-sequence forward. Returns (hidden [B, S, D], per-layer (k, v)
-    list when ``collect_cache``, else None)."""
+    list when ``collect_cache``, else None). ``remat`` recomputes each
+    layer group in the backward pass from the residual stream at its
+    start (``torch.utils.checkpoint``), so nothing inside a group is
+    saved; the reference defaults it on, the port off, since its serving
+    path runs without gradients."""
+    if remat and collect_cache:
+        raise ValueError("remat recomputes the layers' K and V; it does not "
+                         "collect them")
     q_chunk = q_chunk or cfg.q_chunk
     kinds = _layer_kinds(cfg)
+    period = len(kinds)
     x = inputs_embeds if inputs_embeds is not None \
         else _embed(params, tokens, cfg)
     caches = []
-    for i, pj in enumerate(params["layers"]):
-        x, kv = _block_fwd(pj, x, cfg, kinds[i % len(kinds)],
-                           q_chunk=q_chunk)
-        if collect_cache:
-            caches.append(kv)
+    layers = params["layers"]
+    for g in range(0, len(layers), period):
+        group = layers[g:g + period]
+        if remat:
+            x = checkpoint(lambda x, group=group: _group_fwd(
+                x, group, cfg, kinds, q_chunk)[0], x, use_reentrant=False)
+        else:
+            x, kvs = _group_fwd(x, group, cfg, kinds, q_chunk)
+            if collect_cache:
+                caches += kvs
     x = _maybe_norm(params, "final_norm", x, cfg)
     return x, (caches if collect_cache else None)
+
+
+def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
+            q_chunk: int | None = None) -> torch.Tensor:
+    """Mean next-token CE of ``batch`` ({"tokens", "labels"} [B, S]; labels
+    of -1 are padding) through the chunked cross-entropy; the untied
+    ``lm_head`` [D, V] is used transposed, as the reference does."""
+    hidden, _ = forward(params, batch["tokens"], cfg, remat=remat,
+                        q_chunk=q_chunk)
+    b, s, d = hidden.shape
+    emb = params.get("lm_head")
+    emb = params["embed"] if emb is None else emb.T
+    return chunked_cross_entropy(
+        hidden.reshape(b * s, d), emb, batch["labels"].reshape(b * s),
+        logit_softcap=cfg.final_softcap)
 
 
 def _logits_last(params, hidden_last, cfg: ModelConfig):

@@ -1,0 +1,75 @@
+"""train_step factory: loss and grads -> clip -> AdamW, with optional
+microbatch gradient accumulation (the port of ``repro/training/step.py``).
+
+``microbatches = n > 1`` slices the batch into n equal parts along its
+first dim, sums each part's grads in f32 and multiplies the sums (and the
+loss) by 1/n, as the reference's ``lax.scan`` does. With a ``mesh`` whose
+``data`` axis has D > 1 ranks, each rank passes its own slice of the
+global batch; the f32 grads and the loss are all_reduced over ``data`` and
+multiplied by 1/D before the clip, which is the global batch's mean loss
+and its grads when every rank's slice holds as many labels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import TrainConfig
+from repro_torch.distributed import mesh as dmesh
+
+from .optim import AdamWState, adamw_update, tree_leaves, tree_unflatten
+
+
+def make_train_step(api, tcfg: TrainConfig, mesh=None):
+    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``; metrics hold f32 scalars ``loss``, ``grad_norm`` and ``lr``.
+    The parameters are made to require grad on the first call and are
+    updated in place."""
+
+    def loss_and_grads(params, batch):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            if not p.requires_grad:
+                p.requires_grad_(True)
+        loss = api.loss(params, batch, remat=tcfg.remat)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), list(grads)
+
+    def compute_grads(params, batch):
+        n = tcfg.microbatches
+        if n <= 1:
+            return loss_and_grads(params, batch)
+        loss_sum, acc = None, None
+        for i in range(n):
+            mb = {k: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
+                  for k, x in batch.items()}
+            loss, grads = loss_and_grads(params, mb)
+            if acc is None:
+                loss_sum = loss
+                acc = [g.to(torch.float32, copy=True) for g in grads]
+            else:
+                loss_sum = loss_sum + loss
+                for a, g in zip(acc, grads):
+                    a.add_(g)
+            del grads
+        inv = 1.0 / n
+        return loss_sum * inv, [a.mul_(inv) for a in acc]
+
+    dp = 1 if mesh is None else dmesh.mesh_shape(mesh).get("data", 1)
+
+    def data_mean(loss, grads):
+        """The mean of every rank's loss and f32 grads over ``data``."""
+        inv = 1.0 / dp
+        grads = [dmesh.all_reduce(g.to(torch.float32), mesh, "data").mul_(inv)
+                 for g in grads]
+        return dmesh.all_reduce(loss, mesh, "data") * inv, grads
+
+    def train_step(params, opt_state: AdamWState, batch):
+        loss, grads = compute_grads(params, batch)
+        if dp > 1:
+            loss, grads = data_mean(loss, grads)
+        params, opt_state, metrics = adamw_update(
+            params, tree_unflatten(params, grads), opt_state, tcfg)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step

@@ -1549,3 +1549,81 @@ def test_smoke_mp_runs_its_ranks_on_the_card(cuda, tmp_path):
     import json
     header = json.loads(log.read_text().splitlines()[0])
     assert header["backend"] == "cuda" and header["n_processes"] == p
+
+
+# ---------------------------------------------------------------------------
+# LM training and the MoE family
+# ---------------------------------------------------------------------------
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Two smoke train steps (f32, microbatches 2) on the card against the
+    same steps on the CPU: losses within 1e-5, parameters normwise 1e-4
+    (f32 math in another summation order, through two AdamW updates)."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.training import adamw_init, make_train_step
+    from repro_torch.training.optim import tree_leaves, tree_map
+    cfg = get_arch("qwen3-moe-235b-a22b", smoke=True)
+    base = get_model(cfg, device="cpu").init(0, torch.float32)
+    rng = np.random.default_rng(0)
+    tok = rng.integers(1, cfg.vocab_size, size=(4, 32))
+    tcfg = TrainConfig(microbatches=2, warmup_steps=1, total_steps=4)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        api = get_model(cfg, device=dev)
+        params = tree_map(lambda t: t.to(dev, copy=True), base)
+        opt = adamw_init(params, tcfg)
+        step = make_train_step(api, tcfg)
+        losses = []
+        for _ in range(2):
+            batch = {"tokens": torch.as_tensor(tok, device=dev),
+                     "labels": torch.as_tensor(np.roll(tok, -1, 1),
+                                               device=dev)}
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+        out[dev] = (losses, [p.detach().cpu() for p in tree_leaves(params)])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b)) <= 1e-4
+
+
+def test_flash_refuses_a_gradient_on_the_card(cuda):
+    q = torch.randn(1, 4, 64, 64, device=cuda, requires_grad=True,
+                    generator=torch.Generator(device=cuda).manual_seed(0))
+    k = torch.zeros(1, 4, 64, 64, device=cuda)
+    n = ops.LAUNCHES["flash_attention"]
+    with pytest.raises(RuntimeError, match='attn_impl="chunked"'):
+        ops.flash_attention(q, k, k)
+    assert ops.LAUNCHES["flash_attention"] == n
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, k)
+    assert out.shape == q.shape and ops.LAUNCHES["flash_attention"] == n + 1
+    cfg = dataclasses.replace(get_arch("olmo-1b", smoke=True),
+                              attn_impl="flash")
+    api = get_model(cfg, device=cuda)
+    tok = torch.ones(1, 16, dtype=torch.long, device=cuda)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        api.loss(api.init(0), {"tokens": tok, "labels": tok})
+
+
+@pytest.mark.parametrize("groups,cf", [(0, 0.3), (0, 1.25), (4, 0.5)])
+def test_moe_block_on_the_card_matches_the_cpu(cuda, groups, cf):
+    """moe_block at f32 (dense dispatch with and without drops, the grouped
+    expert-parallel path): routing equal, outputs within 1e-5."""
+    from repro_torch.models import mlp
+    from repro_torch.models.common import ParamBuilder
+    cfg = dataclasses.replace(get_arch("qwen3-moe-235b-a22b", smoke=True),
+                              n_experts=16, moe_top_k=4, capacity_factor=cf,
+                              moe_ep_groups=groups)
+    b = ParamBuilder(torch.Generator().manual_seed(0), torch.float32,
+                     torch.device("cpu"))
+    mlp.init_moe(b, cfg)
+    x = _rand((4, 32, cfg.d_model), 3, "cpu")
+    want = mlp.moe_block(b.params, x, cfg)
+    p = {k: v.to(cuda) for k, v in b.params.items()}
+    got = mlp.moe_block(p, x.to(cuda), cfg)
+    _, e_cpu = mlp.route(x.reshape(-1, cfg.d_model), b.params["router"], 4)
+    _, e_gpu = mlp.route(x.to(cuda).reshape(-1, cfg.d_model), p["router"], 4)
+    assert torch.equal(e_gpu.cpu(), e_cpu)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)

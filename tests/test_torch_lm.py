@@ -310,8 +310,16 @@ def test_entry_points_without_device_raise_here():
         ServingEngine(api, None, ServeConfig())
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "grok-1-314b",
-                                  "seamless-m4t-medium", "zamba2-2.7b",
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "grok-1-314b"])
+def test_moe_family_builds_prefills_and_decodes(arch):
+    """The MoE family is ported: its forward, prefill (cache and logits)
+    and four decode steps against the JAX package's, as the dense cases."""
+    api = get_model(get_arch(arch, smoke=True), device="cpu")
+    assert api.cfg.family == "moe" and api.cfg.n_experts > 0
+    test_forward_prefill_decode_match_jax(arch, "chunked")
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "zamba2-2.7b",
                                   "rwkv6-7b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
