@@ -173,7 +173,32 @@ Phases, in order; any failure exits non-zero without the final line:
      whose last token took the same experts in every layer in both runs;
      the routing flips printed) and F-moe-f32 (one 2048-token prompt, f32
      weights and tiles, flash against chunked prefill logits within
-     1e-4);
+     1e-4); then the encoder-decoder, hybrid and RWKV6 families at their
+     published widths (phase 4h, bf16 weights drawn on the card from seed
+     0): S / S-chunked (seamless-m4t-medium, 4 requests of 512-2048 frame
+     rows and 1-8 decoder tokens through ``api.prefill`` at max_len 64 and
+     ``api.decode`` to 32 greedy tokens: exactly 4 x (12 + 12) flash
+     launches with flash, none chunked; first tokens and prefill logits
+     held as run F's over the valid vocabulary), S-f32 (one 2048-frame
+     request, f32, flash against chunked prefill logits within 1e-4),
+     S-cpu (2 + 2 layers, f32, 256 frames, 32 tokens: the loss and every
+     grad on the card against the host CPU at T-olmo-cpu's limits), Z /
+     Z-chunked (zamba2-2.7b through ``ServingEngine``, 4 slots, max_len
+     8192, seven requests of 256-2048 tokens and one of 4,500 that wraps
+     the shared block's 4096-row ring: exactly 8 x 9 flash launches; held
+     to Z-f32's prompt's own bf16 noise, the distance of its chunked logits
+     at bf16-rounded weights from the f32 ones, where that exceeds run F's
+     limits), Z-f32 (flash against chunked at f32 within 1e-4), T-zamba
+     (``launch.train`` at full width cut to one group of 6 layers, batch
+     2 x 2048, 3 steps, remat: T-olmo's checks), T-zamba-cpu (the same
+     cut, f32, 256 tokens, card against host CPU; a grad leaf that moves
+     by ``floor`` when the SSD scan runs in chunks of 64 instead of 128 on
+     the card is held to max(1e-4, 4 floor)), R (rwkv6-7b through
+     ``ServingEngine``, 8 slots, 8 requests of 256-2048 tokens: no kernel
+     launch at all), R-cpu (2 layers, f32, a 256-token prompt: prefill
+     logits, the wkv state and 8 decode steps' logits on the card within
+     1e-4 normwise of the host CPU's) and T-rwkv (``launch.train``, 2
+     layers, batch 2 x 2048, 3 steps);
   5. print the per-kernel JSON line (one entry per kernel; assign_fused,
      embed_assign, sketch_assign and flash_attention one per tile dtype,
      since both bodies run on the main path, and kernel_matrix one for its
@@ -194,6 +219,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
+import gc
 import json
 import math
 import re
@@ -218,14 +245,19 @@ TOL = {"kernel_matrix": 1e-5, "assign_fused": 1e-4, "embed_assign": 1e-4,
        "sketch_assign": 1e-4}
 NEAR_TIE = 1e-4
 FLASH_TOL = {"f32": 2e-5, "bf16": 1e-2}
-# (config, B, H, KH, S, dh, softcap): the attention of four configs the
-# repo holds (src/repro/configs): OLMo-1B's prefill, gemma2-2b's global
-# layers, qwen3-32b, qwen3-moe-235b-a22b (run F-moe's prefill); q is drawn with std 3 so the softmax is far from
-# uniform (scores of std 3)
-FLASH_MAIN = [("olmo-1b", 1, 16, 16, 2048, 128, None),
-              ("gemma2-2b", 1, 8, 4, 2048, 256, 50.0),
-              ("qwen3-32b", 1, 64, 8, 2048, 128, None),
-              ("qwen3-moe-235b-a22b", 1, 64, 4, 2048, 128, None)]
+# (config, B, H, KH, S, dh, softcap, causal): the attention of six configs
+# the repo holds (src/repro/configs): OLMo-1B's prefill, gemma2-2b's global
+# layers, qwen3-32b, qwen3-moe-235b-a22b (run F-moe's prefill), zamba2's
+# shared block (dh 80: the 128 tiling with 48 padded columns) and
+# seamless-m4t-medium's encoder (non-causal, 2048 frames); q is drawn with
+# std 3 so the softmax is far from uniform (scores of std 3)
+FLASH_MAIN = [("olmo-1b", 1, 16, 16, 2048, 128, None, True),
+              ("gemma2-2b", 1, 8, 4, 2048, 256, 50.0, True),
+              ("qwen3-32b", 1, 64, 8, 2048, 128, None, True),
+              ("qwen3-moe-235b-a22b", 1, 64, 4, 2048, 128, None, True),
+              ("zamba2-2.7b", 1, 32, 32, 2048, 80, None, True),
+              ("seamless-m4t-medium-encoder", 1, 16, 16, 2048, 64, None,
+               False)]
 # run F (OLMo-1B serving): ServeConfig and request stream
 SERVE = dict(max_batch=8, max_len=4096, eos_token=-1, max_new_tokens=32)
 N_REQUESTS, PROMPT_MIN, PROMPT_MAX = 16, 256, 2048
@@ -248,6 +280,24 @@ T_OLMO = dict(steps=6, batch=8, seq=2048)
 MB_REL = 2e-3
 T_MOE = dict(layers=1, steps=3, batch=2, seq=2048)
 F_MOE = dict(layers=4, requests=4)
+# phase 4h (the encoder-decoder, hybrid and RWKV6 families as published).
+# S: seamless-m4t-medium, one request per frame count with 1-8 decoder
+# tokens, prefilled at max_len 64 and decoded to 32 greedy tokens. Z:
+# zamba2-2.7b served to seven prompts of 256-2048 tokens and one of 4,500
+# (past the shared block's 4096-row window: the ring wraps). R: rwkv6-7b
+# served to 8 prompts of 256-2048 tokens. T-zamba / T-rwkv: launch.train
+# at full width cut to one group of 6 layers / 2 layers. The *-cpu runs:
+# the card against the host CPU at f32
+S_FRAMES, S_PROMPT_MAX, S_MAX_LEN, S_TOKENS = (512, 1024, 1536, 2048), 8, \
+    64, 32
+S_CPU = dict(layers=2, frames=256, tokens=32)
+Z_SERVE = dict(max_batch=4, max_len=8192, eos_token=-1, max_new_tokens=32)
+Z_REQUESTS, Z_LONG = 7, 4500
+R_SERVE = dict(max_batch=8, max_len=4096, eos_token=-1, max_new_tokens=32)
+R_REQUESTS, R_CPU = 8, dict(layers=2, tokens=256, steps=8)
+T_ZAMBA = dict(layers=6, steps=3, batch=2, seq=2048)
+T_RWKV = dict(layers=2, steps=3, batch=2, seq=2048)
+CPU_TOKENS = 256
 KINDS = ("rbf", "linear", "polynomial", "cosine")
 N_TRAIN, N_TEST = 60000, 10000   # paper Tab.1 (benchmarks/tab1_mnist.py)
 EMBED_DIM = 320                  # Fig.5's largest m (fig5_approx_sweep.py)
@@ -1009,13 +1059,14 @@ def check_flash(torch, mods, b, h, kh, sq, sk, dh, causal, cap, prec, *,
 
 
 def flash_checks(torch, mods):
-    """The three configs' attention shapes at bf16 and f32, timed, and the
+    """The FLASH_MAIN shapes at bf16 and f32, timed, and the
     uniform-attention guard on OLMo's; then ragged and small shapes."""
     recs = []
     for prec in ("bf16", "f32"):
-        for i, (name, b, h, kh, s, dh, cap) in enumerate(FLASH_MAIN):
+        for i, (name, b, h, kh, s, dh, cap, causal) in enumerate(
+                FLASH_MAIN):
             rec, q, v, want = check_flash(torch, mods, b, h, kh, s, s, dh,
-                                          True, cap, prec, timed=True,
+                                          causal, cap, prec, timed=True,
                                           tag=name, q_std=3.0, seed=i)
             recs.append(rec)
             if name == "olmo-1b":
@@ -2568,14 +2619,31 @@ def top2_gap(torch, logits):
     return float(top[..., 0] - top[..., 1])
 
 
-def run_serving(torch, mods, name, api, params, prompts):
-    """Serve ``prompts`` through ServingEngine as a user would (SERVE
+@contextlib.contextmanager
+def sdpa_counted(torch):
+    """While open, ``scaled_dot_product_attention`` counts its calls into
+    the yielded one-element list."""
+    F = torch.nn.functional
+    sdpa, calls = F.scaled_dot_product_attention, [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return sdpa(*a, **kw)
+
+    F.scaled_dot_product_attention = counted
+    try:
+        yield calls
+    finally:
+        F.scaled_dot_product_attention = sdpa
+
+
+def run_serving(torch, mods, name, api, params, prompts, serve=SERVE):
+    """Serve ``prompts`` through ServingEngine as a user would (``serve``
     settings, greedy); prefill is timed on the host clock around each call,
     ending in a synchronize. Counters are zeroed just before the run and
     read just after; ``scaled_dot_product_attention`` is counted too.
     Returns (record, {uid: tokens}, [first-token logits per request])."""
     ops, ref, serving = mods["ops"], mods["ref"], mods["serving"]
-    F = torch.nn.functional
     firsts, clock = [], {"prefill_s": 0.0, "prefill_tokens": 0}
 
     def prefill(params, batch, **kw):
@@ -2589,28 +2657,16 @@ def run_serving(torch, mods, name, api, params, prompts):
         return cache, logits
 
     eng = serving.ServingEngine(dataclasses.replace(api, prefill=prefill),
-                                params, serving.ServeConfig(**SERVE))
+                                params, serving.ServeConfig(**serve))
     for prompt in prompts:
         eng.submit(prompt)
-    sdpa, sdpa_calls = F.scaled_dot_product_attention, [0]
-
-    def counted_sdpa(*a, **kw):
-        sdpa_calls[0] += 1
-        return sdpa(*a, **kw)
-
-    for k in ops.LAUNCHES:
-        ops.LAUNCHES[k] = 0
-    for k in ref.CALLS:
-        ref.CALLS[k] = 0
-    F.scaled_dot_product_attention = counted_sdpa
+    zero_counters(mods)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    try:
+    with sdpa_counted(torch) as sdpa_calls:
         results = eng.run()
         torch.cuda.synchronize()
-    finally:
-        F.scaled_dot_product_attention = sdpa
     wall = time.perf_counter() - t0
     launches, calls = dict(ops.LAUNCHES), dict(ref.CALLS)
     generated = sum(len(v) for v in results.values())
@@ -2628,7 +2684,7 @@ def run_serving(torch, mods, name, api, params, prompts):
            "sdpa_calls": sdpa_calls[0]}
     print("run", json.dumps(rec))
     check(sorted(results) == list(range(1, len(prompts) + 1))
-          and all(len(v) == SERVE["max_new_tokens"] for v in results.values())
+          and all(len(v) == serve["max_new_tokens"] for v in results.values())
           and all(0 <= t < api.cfg.vocab_size
                   for v in results.values() for t in v),
           f"run {name}: missing requests, short outputs or bad token ids")
@@ -2642,18 +2698,17 @@ def run_serving(torch, mods, name, api, params, prompts):
 
 
 def flash_vs_chunked(torch, np, name, out_f, first_f, out_c, first_c,
-                     held=None):
+                     held=None, tol=SERVE_LOGIT_TOL, near_tie=SERVE_NEAR_TIE):
     """Run ``name`` (flash) against its chunked twin on the same weights
     and prompts: first tokens equal wherever the flash run's top-2 logit
-    gap is at least SERVE_NEAR_TIE, last-token prefill logits within
-    SERVE_LOGIT_TOL normwise for the requests ``held`` marks (default:
-    all)."""
+    gap is at least ``near_tie``, last-token prefill logits within ``tol``
+    normwise for the requests ``held`` marks (default: all)."""
     near, bad, diff, agree = 0, [], 0.0, []
     for i, (lf, lc) in enumerate(zip(first_f, first_c)):
         _, rel = normwise(torch, lf, lc)
         if held is None or held[i]:
             diff = max(diff, rel)
-        tied = top2_gap(torch, lf) < SERVE_NEAR_TIE
+        tied = top2_gap(torch, lf) < near_tie
         near += tied
         if out_f[i + 1][0] != out_c[i + 1][0] and not tied:
             bad.append(i + 1)
@@ -2663,16 +2718,14 @@ def flash_vs_chunked(torch, np, name, out_f, first_f, out_c, first_c,
     firsts_equal = sum(out_f[u][0] == out_c[u][0] for u in out_f)
     n_held = len(out_f) if held is None else sum(held)
     print(f"{name} vs {name}-chunked: first tokens equal {firsts_equal}/"
-          f"{len(out_f)} (near-ties, top-2 gap < {SERVE_NEAR_TIE}: {near}); "
+          f"{len(out_f)} (near-ties, top-2 gap < {near_tie}: {near}); "
           f"last-token prefill logits normwise diff {diff!r} over "
-          f"{n_held} requests (limit "
-          f"{SERVE_LOGIT_TOL}); share of tokens equal up to the first "
-          f"divergence {float(np.mean(agree))!r}")
+          f"{n_held} requests (limit {tol}); share of tokens equal up to "
+          f"the first divergence {float(np.mean(agree))!r}")
     check(not bad, f"{name} vs {name}-chunked: first tokens differ outside "
                    f"near-ties for requests {bad}")
-    check(diff <= SERVE_LOGIT_TOL, f"{name} vs {name}-chunked: prefill "
-                                   f"logits differ by {diff} > "
-                                   f"{SERVE_LOGIT_TOL}")
+    check(diff <= tol, f"{name} vs {name}-chunked: prefill logits differ by "
+                       f"{diff} > {tol}")
 
 
 def serving_runs(torch, np, mods):
@@ -2827,19 +2880,18 @@ def run_t_olmo(torch, np, mods):
     return rec
 
 
-def run_t_olmo_cpu(torch, np, mods):
-    """T-olmo-cpu: OLMo-1B at full width, 2 layers, f32: lm_loss and every
-    grad on the card against the same call on the host CPU."""
-    cfg = dataclasses.replace(mods["configs"].get_arch("olmo-1b"),
-                              n_layers=2)
-    params_cpu = mods["models"].get_model(cfg, device="cpu").init(
-        0, torch.float32)
-    rng = np.random.default_rng(3)
-    tok = rng.integers(1, cfg.vocab_size, size=(1, 256))
-    batch = {"tokens": torch.as_tensor(tok, dtype=torch.long),
-             "labels": torch.as_tensor(np.roll(tok, -1, 1), dtype=torch.long)}
-    res = {}
-    for dev in ("cuda", "cpu"):
+def loss_card_vs_cpu(torch, mods, name, cfg, batch, params_cpu,
+                     reorder=None, **extra):
+    """``api.loss`` (remat) and every grad on the card against the same
+    call on the host CPU, both from ``params_cpu`` (f32) and ``batch``
+    (host tensors): loss within 1e-5 relative, each grad leaf within 1e-4
+    normwise. ``reorder`` (a context manager factory) runs the card's call
+    a second time in another f32 summation order; a leaf whose two card
+    orders differ by ``floor`` is then held to max(1e-4, 4 floor): where
+    reordering the sums alone moves a grad near 1e-4, the card and the
+    CPU, two more orders, cannot agree closer. Prints and returns the run
+    line."""
+    def loss_and_grads(dev):
         api = mods["models"].get_model(cfg, device=dev)
         params = mods["training"].optim.tree_map(
             lambda t: t.to(dev, copy=True).requires_grad_(True), params_cpu)
@@ -2847,22 +2899,57 @@ def run_t_olmo_cpu(torch, np, mods):
         t0 = time.perf_counter()
         loss = api.loss(params, b, remat=True)
         grads = torch.autograd.grad(loss, leaves_of(mods, params))
-        res[dev] = (float(loss.detach()), [g.cpu() for g in grads],
-                    time.perf_counter() - t0)
+        return (float(loss.detach()), [g.cpu() for g in grads],
+                time.perf_counter() - t0)
+
+    res = {dev: loss_and_grads(dev) for dev in ("cuda", "cpu")}
     rel_loss = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
     rels = [leaf_rel(torch, a, b) for a, b in zip(res["cuda"][1],
                                                   res["cpu"][1])]
-    rec = {"run": "T-olmo-cpu", "layers": 2, "dtype": "float32",
-           "tokens": 256, "loss_cuda": res["cuda"][0],
-           "loss_cpu": res["cpu"][0], "loss_rel": rel_loss,
-           "grad_rel_max": max(rels), "leaves": len(rels),
-           "cuda_s": res["cuda"][2], "cpu_s": res["cpu"][2],
-           "tol": {"loss": 1e-5, "grad": 1e-4}}
+    tols = [1e-4] * len(rels)
+    rec = {"run": name, **extra, "dtype": "float32",
+           "loss_cuda": res["cuda"][0], "loss_cpu": res["cpu"][0],
+           "loss_rel": rel_loss, "grad_rel_max": max(rels),
+           "leaves": len(rels), "cuda_s": res["cuda"][2],
+           "cpu_s": res["cpu"][2], "tol": {"loss": 1e-5, "grad": 1e-4}}
+    if reorder is not None:
+        with reorder():
+            other = loss_and_grads("cuda")
+        floors = [leaf_rel(torch, a, b) for a, b in zip(other[1],
+                                                        res["cuda"][1])]
+        tols = [max(t, 4 * f) for t, f in zip(tols, floors)]
+        worst = max(range(len(rels)), key=lambda i: rels[i] / tols[i])
+        rec.update(grad_floor_max=max(floors), grad_floor_min=min(floors),
+                   worst_leaf={"rel": rels[worst], "floor": floors[worst],
+                               "tol": tols[worst]})
     print("run", json.dumps(rec))
-    check(rel_loss <= 1e-5, f"run T-olmo-cpu: loss rel {rel_loss} > 1e-5")
-    check(max(rels) <= 1e-4, f"run T-olmo-cpu: a grad differs by "
-                             f"{max(rels)} > 1e-4 (normwise)")
+    torch.cuda.empty_cache()
+    check(rel_loss <= 1e-5, f"run {name}: loss rel {rel_loss} > 1e-5")
+    check(all(r <= t for r, t in zip(rels, tols)),
+          f"run {name}: a grad differs by more than its limit (normwise): "
+          f"{max(r / t for r, t in zip(rels, tols))} x")
     return rec
+
+
+def token_batch(torch, np, vocab: int, n: int, seed: int) -> dict:
+    """One row of n tokens uniform in [1, vocab) and its next-token labels
+    (host tensors)."""
+    tok = np.random.default_rng(seed).integers(1, vocab, size=(1, n))
+    return {"tokens": torch.as_tensor(tok, dtype=torch.long),
+            "labels": torch.as_tensor(np.roll(tok, -1, 1), dtype=torch.long)}
+
+
+def run_t_olmo_cpu(torch, np, mods):
+    """T-olmo-cpu: OLMo-1B at full width, 2 layers, f32: lm_loss and every
+    grad on the card against the same call on the host CPU."""
+    cfg = dataclasses.replace(mods["configs"].get_arch("olmo-1b"),
+                              n_layers=2)
+    params_cpu = mods["models"].get_model(cfg, device="cpu").init(
+        0, torch.float32)
+    return loss_card_vs_cpu(torch, mods, "T-olmo-cpu", cfg,
+                            token_batch(torch, np, cfg.vocab_size,
+                                        CPU_TOKENS, 3),
+                            params_cpu, layers=2, tokens=CPU_TOKENS)
 
 
 def ep_check(torch, mods, cfg):
@@ -2888,17 +2975,18 @@ def ep_check(torch, mods, cfg):
     return rec
 
 
-def run_t_moe(torch, mods):
-    """T-moe: launch.train on qwen3-moe-235b-a22b at full width, 1 layer;
-    then the EP check."""
-    full = mods["configs"].get_arch("qwen3-moe-235b-a22b")
-    cfg = dataclasses.replace(full, n_layers=T_MOE["layers"])
-    print(f"T-moe: {full.name} cut to n_layers={cfg.n_layers} (of "
+def run_t_cut(torch, mods, name, arch, cut):
+    """``launch.train`` on ``arch`` at full width cut to ``cut["layers"]``
+    layers (``cut``: layers, steps, batch, seq): every loss and grad norm
+    finite, every parameter leaf moved from its seed-0 draw; prints the
+    step times and the allocator peak."""
+    full = mods["configs"].get_arch(arch)
+    cfg = dataclasses.replace(full, n_layers=cut["layers"])
+    print(f"{name}: {arch} cut to n_layers={cfg.n_layers} (of "
           f"{full.n_layers}); every width as published")
-    argv = ["--arch", full.name, "--steps", str(T_MOE["steps"]), "--batch",
-            str(T_MOE["batch"]), "--seq", str(T_MOE["seq"]), "--log-every",
-            "1"]
-    out, rec = train_run(torch, mods, "T-moe", argv, cfg=cfg)
+    argv = ["--arch", arch, "--steps", str(cut["steps"]), "--batch",
+            str(cut["batch"]), "--seq", str(cut["seq"]), "--log-every", "1"]
+    out, rec = train_run(torch, mods, name, argv, cfg=cfg)
     rec["params"] = sum(t.numel() for t in leaves_of(mods, out.params))
     rec["opt_state_dtype"] = str(out.opt.m["embed"].dtype)
     out.opt = None
@@ -2906,9 +2994,16 @@ def run_t_moe(torch, mods):
     moved, n, least = params_moved(torch, mods, api, out.params)
     rec.update(leaves_moved=moved, leaves=n, least_rel_move=least)
     print("run", json.dumps(rec))
-    check(moved == n, f"run T-moe: {n - moved} of {n} leaves did not move")
+    check(moved == n, f"run {name}: {n - moved} of {n} leaves did not move")
     del out
     torch.cuda.empty_cache()
+    return rec, cfg
+
+
+def run_t_moe(torch, mods):
+    """T-moe: launch.train on qwen3-moe-235b-a22b at full width, 1 layer;
+    then the EP check."""
+    rec, cfg = run_t_cut(torch, mods, "T-moe", "qwen3-moe-235b-a22b", T_MOE)
     ep = ep_check(torch, mods, cfg)
     torch.cuda.empty_cache()
     return rec, ep
@@ -3042,6 +3137,340 @@ def train_phase(torch, np, mods):
     launches = run_f_moe(torch, np, mods)
     print(f"F-moe: {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4h: the encoder-decoder, hybrid and RWKV6 families
+# ---------------------------------------------------------------------------
+
+
+def draw_params(torch, mods, api, dtype, name):
+    """The seed-0 parameters of ``api`` on the card; prints their count.
+    Earlier runs' garbage is collected first, so the runs' allocator peaks
+    hold only what they allocate."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = api.init(0, dtype)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves_of(mods, params))
+    print(f"{name}: {n} parameters, {dtype}, drawn on the card from seed 0 "
+          f"in {time.perf_counter() - t0:.2f} s")
+    return params
+
+
+def seamless_requests(np, cfg, frames, seed: int) -> list:
+    """[(frames [1, S, D] f32 N(0, 1), decoder prompt [1, n])] for each
+    frame count, n uniform in [1, S_PROMPT_MAX], from default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for s_enc in frames:
+        f = rng.standard_normal((1, s_enc, cfg.d_model), dtype=np.float32)
+        n = int(rng.integers(1, S_PROMPT_MAX + 1))
+        out.append((f, rng.integers(1, cfg.vocab_size, size=(1, n))))
+    return out
+
+
+def seamless_batch(torch, f, tok, dtype) -> dict:
+    return {"frames": torch.as_tensor(f, device="cuda").to(dtype),
+            "tokens": torch.as_tensor(tok, dtype=torch.long, device="cuda")}
+
+
+def run_seamless(torch, mods, name, api, params, requests):
+    """Each request through ``api.prefill`` (max_len S_MAX_LEN) and
+    ``api.decode`` to S_TOKENS greedy tokens, as a user drives the
+    encoder-decoder (the engine refuses it); prefill and decode timed on
+    the host clock, ending in a synchronize. Counters zeroed just before,
+    read just after. Returns (record, {uid: tokens}, [first-token logits
+    over the valid vocabulary])."""
+    v = api.cfg.vocab_size
+    dtype = params["embed"].dtype
+    outs, firsts = {}, []
+    clock = dict(prefill_s=0.0, decode_s=0.0, frames=0, prompt_tokens=0)
+    zero_counters(mods)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with sdpa_counted(torch) as sdpa_calls:
+        for uid, (f, tok) in enumerate(requests, start=1):
+            batch = seamless_batch(torch, f, tok, dtype)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, logits = api.prefill(params, batch, max_len=S_MAX_LEN)
+            torch.cuda.synchronize()
+            clock["prefill_s"] += time.perf_counter() - t0
+            clock["frames"] += f.shape[1]
+            clock["prompt_tokens"] += tok.shape[1]
+            firsts.append(logits[0, :v].cpu())
+            out = [int(torch.argmax(logits[0]))]
+            t0 = time.perf_counter()
+            while len(out) < S_TOKENS:
+                logits, cache = api.decode(
+                    params, cache, torch.tensor([out[-1]], device="cuda"),
+                    tok.shape[1] + len(out) - 1)
+                out.append(int(torch.argmax(logits[0])))    # waits
+            clock["decode_s"] += time.perf_counter() - t0
+            outs[uid] = out
+            del cache
+    launches, calls = dict(mods["ops"].LAUNCHES), dict(mods["ref"].CALLS)
+    decode_tokens = sum(len(o) - 1 for o in outs.values())
+    rec = {"run": name, "attn_impl": api.cfg.attn_impl, "dtype": str(dtype),
+           "requests": len(requests), **clock,
+           "prefill_frames_per_s": clock["frames"] / clock["prefill_s"],
+           "decode_tokens": decode_tokens,
+           "decode_tok_per_s": decode_tokens / clock["decode_s"],
+           "peak_alloc_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "plain_calls": calls,
+           "sdpa_calls": sdpa_calls[0]}
+    print("run", json.dumps(rec))
+    check(all(len(o) == S_TOKENS and all(0 <= t < v for t in o)
+              for o in outs.values()),
+          f"run {name}: short outputs or bad token ids (the padded "
+          f"vocabulary must stay masked)")
+    check(all(bool(torch.isfinite(f).all()) for f in firsts),
+          f"run {name}: prefill logits not finite")
+    check(all(n == 0 for n in calls.values()),
+          f"run {name}: a plain kernel version ran on the card: {calls}")
+    check(sdpa_calls[0] == 0,
+          f"run {name}: scaled_dot_product_attention was called")
+    return rec, outs, firsts
+
+
+def prefill_f32(torch, mods, name, apis, params, batch, want_launches,
+                valid: int, **kw):
+    """One prefill at f32 weights and tiles with flash and with chunked
+    attention (``apis``): flash launches and last-token logits within 1e-4
+    normwise over the valid vocabulary."""
+    zero_counters(mods)
+    logits = {}
+    for api in apis:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out = api.prefill(params, batch, **kw)
+        torch.cuda.synchronize()
+        logits[api.cfg.attn_impl] = out[..., :valid]
+        print(f"{name} {api.cfg.attn_impl} prefill: "
+              f"{time.perf_counter() - t0:.4f} s")
+    launches = mods["ops"].LAUNCHES["flash_attention"]
+    _, rel = normwise(torch, logits["flash"], logits["chunked"])
+    rec = {"run": name, "flash_launches": launches, "logits_rel_diff": rel,
+           "tol": 1e-4,
+           "first_token": [int(torch.argmax(v)) for v in logits.values()]}
+    print("run", json.dumps(rec))
+    check(launches == want_launches, f"run {name}: {launches} flash "
+                                     f"launches, expected {want_launches}")
+    check(rel <= 1e-4, f"run {name}: flash and chunked prefill logits "
+                       f"differ by {rel} > 1e-4")
+    return launches
+
+
+def flash_and_chunked(mods, cfg):
+    models = mods["models"]
+    return (models.get_model(dataclasses.replace(cfg, attn_impl="flash")),
+            models.get_model(dataclasses.replace(cfg, attn_impl="chunked")))
+
+
+def run_s(torch, np, mods):
+    """S, S-chunked, S-f32 and S-cpu (seamless-m4t-medium); returns the
+    flash launches of S (bf16) and S-f32 (f32)."""
+    full = mods["configs"].get_arch("seamless-m4t-medium")
+    api_f, api_c = flash_and_chunked(mods, full)
+    params = draw_params(torch, mods, api_f, torch.bfloat16, full.name)
+    requests = seamless_requests(np, full, S_FRAMES, seed=0)
+    rec_f, out_f, first_f = run_seamless(torch, mods, "S", api_f, params,
+                                         requests)
+    want = len(S_FRAMES) * (full.n_enc_layers + full.n_dec_layers)
+    check(rec_f["launches"]["flash_attention"] == want,
+          f"run S: {rec_f['launches']['flash_attention']} flash launches, "
+          f"expected {want} (requests x (encoder + decoder layers))")
+    rec_c, out_c, first_c = run_seamless(torch, mods, "S-chunked", api_c,
+                                         params, requests)
+    check(rec_c["launches"]["flash_attention"] == 0,
+          "run S-chunked launched the flash kernel")
+    del params
+    torch.cuda.empty_cache()
+    flash_vs_chunked(torch, np, "S", out_f, first_f, out_c, first_c)
+
+    params = api_f.init(0, torch.float32)
+    f, tok = seamless_requests(np, full, (S_FRAMES[-1],), seed=1)[0]
+    f32 = prefill_f32(torch, mods, "S-f32", (api_f, api_c), params,
+                      seamless_batch(torch, f, tok, torch.float32),
+                      full.n_enc_layers + full.n_dec_layers,
+                      full.vocab_size, max_len=S_MAX_LEN)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(full, n_layers=2 * S_CPU["layers"],
+                              n_enc_layers=S_CPU["layers"],
+                              n_dec_layers=S_CPU["layers"])
+    batch = token_batch(torch, np, cfg.vocab_size, S_CPU["tokens"], 4)
+    batch["frames"] = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (1, S_CPU["frames"], cfg.d_model), dtype=np.float32))
+    loss_card_vs_cpu(torch, mods, "S-cpu", cfg, batch,
+                     mods["models"].get_model(cfg, device="cpu").init(
+                         0, torch.float32),
+                     layers=f"{S_CPU['layers']}+{S_CPU['layers']}",
+                     frames=S_CPU["frames"], tokens=S_CPU["tokens"])
+    return rec_f["launches"]["flash_attention"], f32
+
+
+def bf16_copy(torch, tree):
+    """``tree`` with every leaf that is not f32 in the reference's init
+    (the dense weights: ``convert.LM_DENSE``) rounded to bf16."""
+    from repro_torch.convert import LM_DENSE
+
+    def cast(node, name=""):
+        if isinstance(node, dict):
+            return {k: cast(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [cast(v) for v in node]
+        return node.to(torch.bfloat16) if name in LM_DENSE else node
+    return cast(tree)
+
+
+@contextlib.contextmanager
+def ssd_chunk(mods, chunk: int):
+    """While open, zamba2's Mamba2 layers scan in chunks of ``chunk``: the
+    same function in another f32 summation order."""
+    zamba = mods["models"].zamba
+    orig = zamba.mamba2_block
+    zamba.mamba2_block = functools.partial(mods["models"].ssm.mamba2_block,
+                                           chunk=chunk)
+    try:
+        yield
+    finally:
+        zamba.mamba2_block = orig
+
+
+def run_z(torch, np, mods):
+    """Z, Z-chunked, Z-f32, T-zamba and T-zamba-cpu (zamba2-2.7b); returns
+    the flash launches of Z (bf16) and Z-f32 (f32).
+
+    Z against Z-chunked is held to the model's own bf16 noise: Z-f32's
+    prompt also runs chunked with the f32 weights rounded to bf16, and the
+    normwise distance of those logits from the f32 ones (what bf16
+    arithmetic alone moves them) replaces SERVE_LOGIT_TOL where larger,
+    and that distance in logits SERVE_NEAR_TIE. The flash kernel is held
+    to 1e-4 at f32 (Z-f32) and at the plain version's limits in phase 3."""
+    full = mods["configs"].get_arch("zamba2-2.7b")
+    groups = full.n_layers // full.attn_period
+    api_f, api_c = flash_and_chunked(mods, full)
+    params = draw_params(torch, mods, api_f, torch.bfloat16, full.name)
+    prompts = olmo_prompts(np, full.vocab_size, Z_REQUESTS, PROMPT_MIN,
+                           PROMPT_MAX, seed=0) + \
+        olmo_prompts(np, full.vocab_size, 1, Z_LONG, Z_LONG, seed=2)
+    rec_f, out_f, first_f = run_serving(torch, mods, "Z", api_f, params,
+                                        prompts, serve=Z_SERVE)
+    want = len(prompts) * groups
+    check(rec_f["launches"]["flash_attention"] == want,
+          f"run Z: {rec_f['launches']['flash_attention']} flash launches, "
+          f"expected {want} (requests x groups)")
+    rec_c, out_c, first_c = run_serving(torch, mods, "Z-chunked", api_c,
+                                        params, prompts, serve=Z_SERVE)
+    check(rec_c["launches"]["flash_attention"] == 0,
+          "run Z-chunked launched the flash kernel")
+    del params
+    torch.cuda.empty_cache()
+
+    params = api_f.init(0, torch.float32)
+    prompt = olmo_prompts(np, full.vocab_size, 1, PROMPT_MAX, PROMPT_MAX,
+                          seed=1)[0]
+    batch = {"tokens": torch.as_tensor(prompt[None], dtype=torch.long,
+                                       device="cuda")}
+    f32 = prefill_f32(torch, mods, "Z-f32", (api_f, api_c), params, batch,
+                      groups, full.vocab_size, max_len=PROMPT_MAX)
+    _, want32 = api_c.prefill(params, batch, max_len=PROMPT_MAX)
+    _, got16 = api_c.prefill(bf16_copy(torch, params), batch,
+                             max_len=PROMPT_MAX)
+    err, noise = normwise(torch, got16, want32)
+    print("Z bf16 noise", json.dumps({
+        "prompt": PROMPT_MAX, "chunked_bf16_vs_f32_normwise": noise,
+        "max_abs_logit_diff": err}))
+    del params, want32, got16
+    torch.cuda.empty_cache()
+    flash_vs_chunked(torch, np, "Z", out_f, first_f, out_c, first_c,
+                     tol=max(SERVE_LOGIT_TOL, noise),
+                     near_tie=max(SERVE_NEAR_TIE, err))
+
+    _, cfg = run_t_cut(torch, mods, "T-zamba", full.name, T_ZAMBA)
+    loss_card_vs_cpu(torch, mods, "T-zamba-cpu", cfg,
+                     token_batch(torch, np, cfg.vocab_size, CPU_TOKENS, 6),
+                     mods["models"].get_model(cfg, device="cpu").init(
+                         0, torch.float32),
+                     reorder=lambda: ssd_chunk(mods, 64),
+                     layers=cfg.n_layers, tokens=CPU_TOKENS)
+    return rec_f["launches"]["flash_attention"], f32
+
+
+def run_r(torch, np, mods):
+    """R, R-cpu and T-rwkv (rwkv6-7b): no kernel on any of them."""
+    full = mods["configs"].get_arch("rwkv6-7b")
+    api = mods["models"].get_model(full)
+    params = draw_params(torch, mods, api, torch.bfloat16, full.name)
+    prompts = olmo_prompts(np, full.vocab_size, R_REQUESTS, PROMPT_MIN,
+                           PROMPT_MAX, seed=0)
+    rec, _, _ = run_serving(torch, mods, "R", api, params, prompts,
+                            serve=R_SERVE)
+    check(not any(rec["launches"].values()),
+          f"run R launched a kernel: {rec['launches']} (RWKV6 attends "
+          f"nothing; its scans are plain PyTorch)")
+    del params
+    torch.cuda.empty_cache()
+
+    # R-cpu: the card against the host CPU, fed the CPU's greedy tokens
+    cfg = dataclasses.replace(full, n_layers=R_CPU["layers"])
+    params_cpu = mods["models"].get_model(cfg, device="cpu").init(
+        0, torch.float32)
+    tok = token_batch(torch, np, cfg.vocab_size, R_CPU["tokens"], 7)
+    res, feed = {}, []
+    for dev in ("cpu", "cuda"):
+        api = mods["models"].get_model(cfg, device=dev)
+        params = mods["training"].optim.tree_map(
+            lambda t: t.to(dev, copy=True), params_cpu)
+        t0 = time.perf_counter()
+        cache, logits = api.prefill(params, {"tokens": tok["tokens"].to(dev)})
+        # copies: on the host .cpu() aliases, and decode writes in place
+        steps = [logits.to("cpu", copy=True)]
+        wkv = cache["wkv"].to("cpu", copy=True)
+        for i in range(R_CPU["steps"]):
+            if dev == "cpu":
+                feed.append(torch.argmax(steps[-1], dim=-1))
+            logits, cache = api.decode(params, cache, feed[i].to(dev),
+                                       R_CPU["tokens"] + i)
+            steps.append(logits.to("cpu", copy=True))
+        res[dev] = (steps, wkv, time.perf_counter() - t0)
+        del params, cache
+    rels = [leaf_rel(torch, a, b) for a, b in zip(res["cuda"][0],
+                                                  res["cpu"][0])]
+    wkv_rel = leaf_rel(torch, res["cuda"][1], res["cpu"][1])
+    rec_cpu = {"run": "R-cpu", "layers": cfg.n_layers, "dtype": "float32",
+               "prompt": R_CPU["tokens"], "decode_steps": R_CPU["steps"],
+               "prefill_logits_rel": rels[0], "decode_logits_rel": rels[1:],
+               "wkv_rel": wkv_rel, "cuda_s": res["cuda"][2],
+               "cpu_s": res["cpu"][2], "tol": 1e-4}
+    print("run", json.dumps(rec_cpu))
+    check(max(rels + [wkv_rel]) <= 1e-4,
+          f"run R-cpu: the card strays from the host CPU by "
+          f"{max(rels + [wkv_rel])} > 1e-4 (normwise)")
+    del params_cpu
+    torch.cuda.empty_cache()
+
+    rec_t, _ = run_t_cut(torch, mods, "T-rwkv", full.name, T_RWKV)
+    check(not any(rec_t["launches"].values()), "run T-rwkv launched a kernel")
+
+
+def families_phase(torch, np, mods):
+    """Phase 4h: the seamless, zamba2 and rwkv6 runs; returns the flash
+    launches at bf16 (S, Z) and f32 (S-f32, Z-f32)."""
+    t0 = time.perf_counter()
+    s_bf16, s_f32 = run_s(torch, np, mods)
+    print(f"seamless runs: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    z_bf16, z_f32 = run_z(torch, np, mods)
+    print(f"zamba2 runs: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_r(torch, np, mods)
+    print(f"rwkv6 runs: {time.perf_counter() - t0:.1f} s")
+    return s_bf16 + z_bf16, s_f32 + z_f32
 
 
 def main(argv=None) -> int:
@@ -3314,9 +3743,15 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     moe_bf16, moe_f32 = train_phase(torch, np, mods)
     print(f"training and MoE runs: {time.perf_counter() - t0:.1f} s")
-    totals["flash_attention"] = flash_bf16 + flash_f32 + moe_bf16 + moe_f32
-    bodies["flash_attention", "bf16"] = flash_bf16 + moe_bf16
-    bodies["flash_attention", "f32"] = flash_f32 + moe_f32
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fam_bf16, fam_f32 = families_phase(torch, np, mods)
+    print(f"encoder-decoder, hybrid and RWKV6 runs: "
+          f"{time.perf_counter() - t0:.1f} s")
+    bodies["flash_attention", "bf16"] = flash_bf16 + moe_bf16 + fam_bf16
+    bodies["flash_attention", "f32"] = flash_f32 + moe_f32 + fam_f32
+    totals["flash_attention"] = bodies["flash_attention", "bf16"] + \
+        bodies["flash_attention", "f32"]
     check(all(v > 0 for v in totals.values()),
           f"a kernel never launched on the main path: {totals}")
 

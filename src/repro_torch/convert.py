@@ -9,14 +9,24 @@ for the embedded methods' ``EmbedState``, and ``feature_map_from_numpy``
 rebuilds a sampled feature map from its tables, so a map drawn by the JAX
 package can be used here: randomness does not cross the port.
 ``csr_from_numpy`` / ``csr_to_numpy`` carry a CSR batch (the reference's
-``CSRBatch`` fields) across. ``lm_params_from_numpy`` turns the LM zoo's
-``init_lm`` tree into the port's parameters, and ``adamw_state_from_numpy``
-/ ``adamw_state_to_numpy`` carry the optimizer's ``AdamWState`` across.
-``stack_lm`` / ``unstack_lm`` move an LM tree of tensors between the
-port's per-layer list and the reference's stacked [n_groups, period, ...]
-layout (the layout of its checkpoints).
+``CSRBatch`` fields) across. ``lm_params_from_numpy`` turns a parameter
+tree of the LM zoo (any family's ``init_*``) into the port's parameters,
+``lm_cache_from_numpy`` a prefill or decode cache, and
+``adamw_state_from_numpy`` / ``adamw_state_to_numpy`` carry the optimizer's
+``AdamWState`` across. ``stack_lm`` / ``unstack_lm`` move an LM tree of
+tensors between the port's per-layer lists and the reference's stacked
+layout (the layout of its checkpoints), ``lm_skeleton`` gives that layout
+with empty leaves.
+
+The stacked subtrees, by family (``_stacks``): dense and moe ``layers``
+[n_groups, period, ...]; hybrid ``layers`` [n_groups, attn_period, ...]
+(its ``shared`` block is one dict in both packages); ssm ``layers`` [L,
+...]; encdec ``encoder`` [n_enc_layers, ...] and ``decoder``
+[n_dec_layers, ...].
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -26,7 +36,7 @@ from repro_torch.approx import (CountSketchMap, EmbedState, NystromMap,
 from repro_torch.core.kernels import KernelSpec
 from repro_torch.core.minibatch import GlobalState
 from repro_torch.data.sparse import CSRBatch
-from repro_torch.training.optim import AdamWState
+from repro_torch.training.optim import AdamWState, tree_map
 
 
 def global_state_from_numpy(medoids, medoid_diag, cardinalities,
@@ -117,53 +127,93 @@ def embed_state_to_numpy(state: EmbedState) -> dict:
             "batches_done": np.int32(state.batches_done)}
 
 
-#: LM weights drawn in the model dtype; every other leaf (the norm weights,
-#: the MoE router) is f32 whatever the dtype, as in the reference's
-#: ``init_lm``
-_LM_DENSE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "embed",
-             "lm_head", "e_gate", "e_up", "e_down")
+#: LM weights drawn in the model dtype; every other leaf (the norm
+#: weights, the MoE router, Mamba2's A_log / D / dt_bias / conv_b, RWKV's
+#: mu_* / cmu_* / w0 / u) is f32 whatever the dtype, as in the reference
+LM_DENSE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "embed",
+             "lm_head", "e_gate", "e_up", "e_down",
+             "x_wq", "x_wk", "x_wv", "x_wo",                      # encdec
+             "in_proj", "conv_w", "out_proj",                     # mamba2
+             "wr", "wg", "w1", "w2", "ck", "cv", "cr")            # rwkv6
+
+
+def _stacks(cfg) -> dict:
+    """{subtree stacked in the reference's layout: its leading dims}."""
+    if cfg.family == "encdec":
+        return {"encoder": (cfg.n_enc_layers,),
+                "decoder": (cfg.n_dec_layers,)}
+    if cfg.family == "hybrid":
+        return {"layers": (cfg.n_layers // cfg.attn_period,
+                           cfg.attn_period)}
+    if cfg.family == "ssm":
+        return {"layers": (cfg.n_layers,)}
+    period = max(cfg.local_global_period, 1)
+    return {"layers": (cfg.n_layers // period, period)}
 
 
 def _unstack(tree: dict, cfg, leaf) -> dict:
-    """The reference's layout (``layers`` stacked [n_groups, period, ...])
-    -> the port's, ``leaf(name, array)`` making each leaf: ``layers`` a
-    list in which layer i is slot i % period of group i // period."""
-    period = max(cfg.local_global_period, 1)
-    stacked = tree["layers"]
-    layers = [{name: leaf(name, a[i // period, i % period])
-               for name, a in stacked.items()}
-              for i in range(cfg.n_layers)]
-    out = {name: leaf(name, a) for name, a in tree.items() if name != "layers"}
-    out["layers"] = layers
+    """The reference's layout -> the port's, ``leaf(name, array)`` making
+    each leaf: a stacked subtree becomes a list in which layer i is entry
+    i of the leading dims flattened (layer i of a [n_groups, period, ...]
+    stack is slot i % period of group i // period); any other dict (the
+    hybrid's ``shared``) stays a dict."""
+    out = {}
+    for key, node in tree.items():
+        lead = _stacks(cfg).get(key)
+        if lead is not None:
+            n = math.prod(lead)
+            flat = {name: a.reshape(n, *a.shape[len(lead):])
+                    for name, a in node.items()}
+            out[key] = [{name: leaf(name, a[i]) for name, a in flat.items()}
+                        for i in range(n)]
+        elif isinstance(node, dict):
+            out[key] = {name: leaf(name, a) for name, a in node.items()}
+        else:
+            out[key] = leaf(key, node)
     return out
 
 
 def lm_params_from_numpy(params: dict, cfg, device,
                          dtype: torch.dtype = torch.float32) -> dict:
-    """The JAX package's ``init_lm`` tree (leaves converted to numpy; the
-    layers stacked [n_groups, period, ...]) -> the port's parameters: the
-    same names in the same [in, out] orientation, ``layers`` unstacked to a
-    list. Dense and expert weights go to ``dtype``; norm weights and the
-    MoE router stay f32."""
+    """A parameter tree of the JAX package's LM zoo (leaves converted to
+    numpy; layers stacked, ``_stacks``) -> the port's parameters: the same
+    names in the same [in, out] orientation, the stacks unstacked to
+    lists. Dense weights go to ``dtype``; the other leaves stay f32."""
     def leaf(name, a):
         t = torch.as_tensor(np.array(a, np.float32), device=device)
-        return t.to(dtype) if name in _LM_DENSE else t
+        return t.to(dtype) if name in LM_DENSE else t
     return _unstack(params, cfg, leaf)
+
+
+def lm_cache_from_numpy(cache: dict, device) -> dict:
+    """A JAX prefill or decode cache (numpy leaves) -> the port's names,
+    f32 tensors on ``device``: the hybrid's per-slot tuples ``ssm`` and
+    ``conv`` become leaves ``ssm{j}`` and ``conv{j}``; the other families'
+    names are the reference's."""
+    out = {}
+    for name, node in cache.items():
+        items = enumerate(node) if isinstance(node, (tuple, list)) \
+            else [("", node)]
+        for j, a in items:
+            out[f"{name}{j}"] = torch.as_tensor(np.array(a, np.float32),
+                                                device=device)
+    return out
 
 
 def stack_lm(tree: dict, cfg) -> dict:
     """The port's LM tree of tensors (parameters or a moment tree) -> the
-    reference's layout on the host: ``layers`` stacked [n_groups, period,
-    ...], every leaf a CPU tensor in its dtype."""
-    period = max(cfg.local_global_period, 1)
-    layers = tree["layers"]
-    g = len(layers) // period
-    stacked = {name: torch.stack([lay[name].detach().cpu()
-                                  for lay in layers]).reshape(
-                   g, period, *layers[0][name].shape)
-               for name in layers[0]}
-    out = {k: v.detach().cpu() for k, v in tree.items() if k != "layers"}
-    out["layers"] = stacked
+    reference's layout on the host: the per-layer lists stacked
+    (``_stacks``), every leaf a CPU tensor in its dtype."""
+    out = {}
+    for key, node in tree.items():
+        lead = _stacks(cfg).get(key)
+        if lead is not None:
+            out[key] = {name: torch.stack([lay[name].detach().cpu()
+                                           for lay in node]).reshape(
+                            *lead, *node[0][name].shape)
+                        for name in node[0]}
+        else:
+            out[key] = tree_map(lambda t: t.detach().cpu(), node)
     return out
 
 
@@ -171,6 +221,15 @@ def unstack_lm(tree: dict, cfg, device) -> dict:
     """``stack_lm``'s inverse: every leaf copied to ``device``."""
     return _unstack(tree, cfg,
                     lambda name, a: a.to(device=device, copy=True))
+
+
+def lm_skeleton(tree: dict, cfg) -> dict:
+    """The reference layout of the port's ``tree`` with empty leaves (what
+    a checkpoint restore reads: the structure)."""
+    empty = torch.empty(0)
+    return {key: ({name: empty for name in node[0]}
+                  if key in _stacks(cfg) else tree_map(lambda _: empty, node))
+            for key, node in tree.items()}
 
 
 def adamw_state_from_numpy(step, m: dict, v: dict, cfg, device,
@@ -190,11 +249,7 @@ def adamw_state_to_numpy(state: AdamWState, cfg) -> dict:
     """An ``AdamWState`` -> {step (int32), m, v} in the reference's layout
     (layers stacked), f32 numpy leaves (bf16 moments are exact in f32)."""
     def arrays(tree):
-        st = stack_lm(tree, cfg)
-        out = {k: t.to(torch.float32).numpy() for k, t in st.items()
-               if k != "layers"}
-        out["layers"] = {k: t.to(torch.float32).numpy()
-                         for k, t in st["layers"].items()}
-        return out
+        return tree_map(lambda t: t.to(torch.float32).numpy(),
+                        stack_lm(tree, cfg))
     return {"step": np.int32(int(state.step)), "m": arrays(state.m),
             "v": arrays(state.v)}

@@ -85,11 +85,12 @@ def _from_numpy(arr: np.ndarray, dtype: str, like, device):
         return type(like)(arr.item())
     if isinstance(like, np.ndarray):
         return arr
+    # ascontiguousarray makes a 0-d array 1-d: keep the saved shape
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
     if dtype == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
-        t = t.view(torch.bfloat16)
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(arr)
     return t.to(device)
 
 

@@ -5,7 +5,9 @@ Two services share this entry point, as in ``repro/launch/serve.py``:
 * ``--arch <id>``: the LM continuous-batching engine
   (``repro_torch.serving.engine``) on the reference launcher's synthetic
   request stream (prompt lengths and tokens from
-  ``np.random.default_rng(0)``, parameters from seed 0);
+  ``np.random.default_rng(0)``, parameters from seed 0); every decoder
+  family (dense, moe, hybrid, ssm); the encoder-decoder family is refused,
+  as the engine refuses it;
 * ``--assign <artifact.npz | synth>``: the assignment service
   (``repro_torch.serving.assign``): load a frozen artifact (or fit and
   freeze a small synthetic RFF model), build one program per bucket (a
@@ -32,6 +34,7 @@ from repro_torch.models import get_model
 from repro_torch.serving import (AssignServeConfig, AssignService,
                                  ServeConfig, ServingEngine, artifact_nbytes,
                                  freeze, greedy, load_artifact, sample_top_p)
+from repro_torch.serving.engine import ENCDEC_NOT_SERVED
 
 from . import env
 
@@ -129,6 +132,8 @@ def main(argv=None):
         ap.error("one of --arch (LM serving) or --assign is required")
 
     cfg = get_arch(args.arch, smoke=args.smoke)
+    if cfg.family == "encdec":          # refused before drawing parameters
+        raise ValueError(f"{args.arch}: {ENCDEC_NOT_SERVED}")
     api = get_model(cfg, device=args.device)
     params = api.init(0)
 

@@ -13,9 +13,14 @@ The production loop on one card or a data-parallel world:
     ``default_rng``; labels are the tokens shifted by one);
   * microbatch gradient accumulation (``--microbatches``);
   * step-granular checkpoints through ``ft.checkpoint.CheckpointManager``
-    in the reference's layout (``{"params", "opt"}``, layers stacked
-    [n_groups, period, ...]), so either package resumes the other's;
+    in the reference's layout (``{"params", "opt"}``, layers stacked as
+    ``convert.stack_lm`` stacks each family's), so either package resumes
+    the other's;
   * the reference's step log.
+
+Every decoder family trains: dense, moe, hybrid (zamba2) and ssm (rwkv6).
+The encoder-decoder family is refused (``ENCDEC_NOT_TRAINED``): its batch
+needs frames, which the reference's ``synthetic_batches`` does not make.
 
 As in the reference, ``--resume`` restarts ``synthetic_batches`` at
 ``seed=start_step``, so a resumed run sees other batches than the
@@ -40,7 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import TrainConfig, get_arch
-from repro_torch.convert import stack_lm, unstack_lm
+from repro_torch.convert import lm_skeleton, stack_lm, unstack_lm
 from repro_torch.ft.checkpoint import CheckpointManager
 from repro_torch.models import get_model
 from repro_torch.training.optim import AdamWState, adamw_init, tree_leaves
@@ -48,6 +53,11 @@ from repro_torch.training.step import make_train_step
 
 from . import env
 
+#: why the launcher refuses the encoder-decoder family
+ENCDEC_NOT_TRAINED = ("the launcher feeds token batches (synthetic_batches, "
+                      "the reference's) and the encoder-decoder family "
+                      "needs frames too; train it through "
+                      "make_train_step with frames in the batch")
 #: where the ROADMAP queues the model axis of the launcher
 MODEL_AXIS_QUEUED = ("launch.train --mesh DxM with M > 1 (ROADMAP Queue 1 "
                      "item 13b: the model axis of launch.train and of "
@@ -71,14 +81,6 @@ class TrainRun:
     losses: list
     grad_norms: list
     seconds: list        # each step's wall seconds, ending in a sync
-
-
-def _skeleton(params: dict) -> dict:
-    """The reference layout's tree of ``params`` with empty leaves (a
-    checkpoint restore reads only the structure)."""
-    out = {k: torch.empty(0) for k in params if k != "layers"}
-    out["layers"] = {k: torch.empty(0) for k in params["layers"][0]}
-    return out
 
 
 def _data_mesh(spec: str, dev: torch.device):
@@ -157,6 +159,8 @@ def _run(args, dev, mesh, cfg) -> TrainRun:
                          f"data ranks")
 
     cfg = cfg or get_arch(args.arch, smoke=args.smoke)
+    if cfg.family == "encdec":
+        raise ValueError(f"{args.arch}: {ENCDEC_NOT_TRAINED}")
     api = get_model(cfg, device=dev)
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                        warmup_steps=max(args.steps // 10, 1),
@@ -172,9 +176,9 @@ def _run(args, dev, mesh, cfg) -> TrainRun:
     cm = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     if cm and args.resume and cm.latest_step() is not None:
         s = cm.latest_step()
-        like = {"params": _skeleton(params),
-                "opt": AdamWState(torch.empty(0), _skeleton(params),
-                                  _skeleton(params))}
+        skel = lm_skeleton(params, cfg)
+        like = {"params": skel,
+                "opt": AdamWState(torch.empty(0), skel, skel)}
         got = cm.restore(s, like, device="cpu")
         params = unstack_lm(got["params"], cfg, dev)
         o = got["opt"]

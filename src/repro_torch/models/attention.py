@@ -1,10 +1,10 @@
 """GQA attention: the training / prefill path (the flash kernel or chunked
-attention) and the decode path over a per-slot KV cache (the port of
+attention), the decode path over a per-slot KV cache, and the
+encoder-decoder's cross-attention over the encoder's K/V (the port of
 ``repro/models/attention.py``).
 
 The reference's decode KV-cache sharding policy belongs to the mesh slice;
-the port runs on one card. Cross-attention waits for the encoder-decoder
-family.
+the port runs on one card.
 """
 from __future__ import annotations
 
@@ -71,6 +71,20 @@ def attention_block(p, x, cfg: ModelConfig, *, window: int | None,
     return out @ p[prefix + "wo"], (k, v)
 
 
+def cross_attention_block(p, x, memory_kv, cfg: ModelConfig, *,
+                          prefix: str = "x_"):
+    """Decoder cross-attention against precomputed encoder (k, v) [B, Sm,
+    KH, dh]: chunked attention, not causal, no RoPE on q (the reference
+    sends it through no kernel)."""
+    b, s, _ = x.shape
+    h, dh = cfg.n_heads, cfg.d_head
+    q = (x @ p[prefix + "wq"]).reshape(b, s, h, dh)
+    k, v = memory_kv
+    out = chunked_attention(q, k, v, causal=False, window=None,
+                            attn_softcap=cfg.attn_softcap)
+    return out.reshape(b, s, h * dh) @ p[prefix + "wo"]
+
+
 def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
                      window: int | None = None, prefix: str = ""):
     """One-token decode: write the new K/V at ``pos``, attend over the cache.
@@ -111,3 +125,20 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
     out = torch.einsum("bkgs,bskd->bkgd", probs, cache_v.to(torch.float32))
     out = out.reshape(b, 1, h * dh).to(x.dtype)
     return out @ p[prefix + "wo"], cache_k, cache_v
+
+
+def decode_cross_attention(p, x, memory_kv, cfg: ModelConfig, *,
+                           prefix: str = "x_"):
+    """One decoder token against the encoder's (k, v) [B, Sm, KH, dh]:
+    scores and softmax in f32, every memory row valid. x: [B, 1, D] ->
+    [B, 1, D]."""
+    b = x.shape[0]
+    h, dh = cfg.n_heads, cfg.d_head
+    k, v = memory_kv
+    kh = k.shape[2]
+    qg = (x @ p[prefix + "wq"]).reshape(b, kh, h // kh, dh)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg.to(torch.float32),
+                          k.to(torch.float32)) * dh ** -0.5
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v.to(torch.float32))
+    return out.reshape(b, 1, h * dh).to(x.dtype) @ p[prefix + "wo"]

@@ -1,20 +1,26 @@
 """Batched serving engine: a continuous-batching request scheduler over the
 model's prefill/decode API (the port of ``repro/serving/engine.py``).
 
-  * A fixed decode batch of ``max_batch`` slots; the KV cache is allocated
+  * A fixed decode batch of ``max_batch`` slots; the cache is allocated
     ONCE at [B = max_batch, S = max_len] (batch is dim 1 of every cache
-    leaf), in bf16 whatever the parameters are (``ModelAPI.cache_specs``).
+    leaf), each leaf in its own dtype (``ModelAPI.cache_specs`` at the
+    parameters' dtype: K/V bf16, the SSM and wkv states f32, the conv and
+    token-shift rows bf16 for bf16 weights). Decode writes every leaf in
+    place, in its dtype.
   * Admission: each new request is prefilled alone (batch 1, one
     full-sequence pass) and its cache is written into its slot along dim 1
     of every leaf, rounded to the cache dtype.
   * Generation: ONE batched decode step advances every active slot per tick,
-    each at its own cursor (a per-slot position vector). Parked slots write
-    to row ``max_len - 1``, which the next admission overwrites.
+    each at its own cursor (a per-slot position vector). Parked slots
+    decode at position ``max_len - 1``, which the next admission
+    overwrites.
   * Finished slots (EOS or length cap) free at once and are refilled from
     the queue on the next tick.
 
 Logits come back to the host for sampling, once per prefill and once per
-tick. The encoder-decoder family has no port yet (``get_model`` raises).
+tick. The encoder-decoder family is refused, as the reference refuses it:
+each request needs its own encoder memory; drive it through the ModelAPI's
+prefill and decode.
 """
 from __future__ import annotations
 
@@ -30,6 +36,11 @@ from repro_torch.device import resolve_device
 from repro_torch.models.registry import ModelAPI
 
 from .sampling import greedy
+
+#: why the engine refuses the encoder-decoder family
+ENCDEC_NOT_SERVED = ("enc-dec serving needs per-request encoder memory; "
+                     "the engine serves decoder-only families: drive an "
+                     "encdec model through its ModelAPI prefill/decode")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +68,8 @@ class ServingEngine:
     def __init__(self, api: ModelAPI, params, cfg: ServeConfig, *,
                  sampler: Callable[..., torch.Tensor] = greedy,
                  generator: Optional[torch.Generator] = None, device=None):
+        if api.cfg.family == "encdec":
+            raise ValueError(ENCDEC_NOT_SERVED)
         dev = resolve_device(device)
         if dev != api.device:
             raise ValueError(f"the engine runs on {dev} but the model on "
@@ -100,8 +113,9 @@ class ServingEngine:
     def _fresh_cache(self) -> dict:
         shape = ShapeConfig(f"serve_{self.cfg.max_len}", "decode",
                             self.cfg.max_len, self.cfg.max_batch)
+        specs = self.api.cache_specs(shape, self.params["embed"].dtype)
         return {name: torch.zeros(s, dtype=dt, device=self.device)
-                for name, (s, dt) in self.api.cache_specs(shape).items()}
+                for name, (s, dt) in specs.items()}
 
     def _admit(self):
         """Prefill queued requests into free slots (batch-1 prefill, then a
@@ -116,7 +130,7 @@ class ServingEngine:
                                      device=self.device)          # [1, S]
             cache1, logits1 = self.api.prefill(
                 self.params, {"tokens": prompt}, max_len=self.cfg.max_len)
-            for name, big in self._cache.items():
+            for name, big in self._cache.items():     # f32 states stay f32
                 big[:, i] = cache1[name][:, 0].to(big.dtype)
             self.slots[i] = req
             self.slot_pos[i] = len(req.prompt)
@@ -131,8 +145,11 @@ class ServingEngine:
             return
         b = self.cfg.max_batch
         tokens = np.zeros(b, np.int64)
-        # parked slots write their K/V into the last cache row; admission
-        # rewrites the whole slot so the scratch write is harmless.
+        # parked slots decode at the last position: they write K/V into
+        # the last cache row and advance their recurrent states (SSM, conv,
+        # wkv, token shift) from whatever the slot holds, so those states
+        # are garbage until the slot is admitted again; admission rewrites
+        # every leaf of the whole slot, so the scratch writes are harmless.
         pos = np.full(b, self.cfg.max_len - 1, np.int64)
         for i in active:
             tokens[i] = self.slots[i].out_tokens[-1]

@@ -22,6 +22,7 @@ memory and the copy stream must equal their host rows after kernels ran on
 them.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -931,6 +932,10 @@ FLASH_CASES = [
     (1, 2, 2, 300, 128, 128, False, None),
     (1, 2, 1, 1, 1, 256, True, None),
     (2, 16, 2, 640, 640, 256, True, 50.0),
+    # zamba2-2.7b's shared block (dh 80: the 128 tiling, 48 columns
+    # padded) and seamless-m4t-medium's encoder (non-causal, dh 64)
+    (1, 32, 32, 600, 600, 80, True, None),
+    (1, 16, 16, 512, 512, 64, False, None),
 ]
 
 
@@ -1627,3 +1632,91 @@ def test_moe_block_on_the_card_matches_the_cpu(cuda, groups, cf):
     _, e_gpu = mlp.route(x.to(cuda).reshape(-1, cfg.d_model), p["router"], 4)
     assert torch.equal(e_gpu.cpu(), e_cpu)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder, hybrid and RWKV6 families
+# ---------------------------------------------------------------------------
+
+
+def _rel(a, b) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    den = float(torch.linalg.vector_norm(b))
+    num = float(torch.linalg.vector_norm(a - b))
+    return num / den if den else num
+
+
+@pytest.mark.parametrize("arch,launches", [("seamless-m4t-medium", 4),
+                                           ("zamba2-2.7b", 2),
+                                           ("rwkv6-7b", 0)])
+def test_new_families_on_the_card_match_the_cpu(cuda, monkeypatch, arch,
+                                                 launches):
+    """The smoke config at f32 on the card against the CPU: prefill with
+    attn_impl="flash" (the encoder non-causal and the decoder causal,
+    zamba2's shared block on a 40-token prompt past its window of 16; each
+    attending layer one launch, RWKV none), its logits and cache, four
+    decode steps fed the CPU's tokens (logits 1e-4 normwise), then the loss
+    (relative 1e-5) and every grad (normwise 1e-4) at attn_impl="chunked"
+    (f32 math in another summation order). zamba2's grads are ill
+    conditioned: scanning in chunks of 8 instead of 128 moves some by
+    ~4e-5 on the CPU, so each leaf is held to max(1e-4, 4 x) its own
+    distance between those two orders on the card."""
+    from repro_torch.models import ssm, zamba
+    from repro_torch.training.optim import (tree_leaves, tree_map,
+                                            tree_unflatten)
+    cfg = get_arch(arch, smoke=True)
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    params = get_model(cfg, device="cpu").init(0, torch.float32)
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(0)
+    tok = rng.integers(1, cfg.vocab_size, size=(2, 40))
+    batch = {"tokens": torch.as_tensor(tok)}
+    max_len = 48
+    if cfg.family == "encdec":
+        batch = {"tokens": batch["tokens"][:, :5], "frames": torch.as_tensor(
+            rng.normal(size=(2, 128, cfg.d_model)).astype(np.float32))}
+        max_len = 16
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", on_card)):
+        api = get_model(flash, device=dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        before = ops.LAUNCHES["flash_attention"]
+        cache, logits = api.prefill(p, b, max_len=max_len)
+        if dev == "cuda":
+            assert ops.LAUNCHES["flash_attention"] == before + launches
+        steps = [logits]
+        pos = b["tokens"].shape[1]
+        for i in range(4):
+            nxt = torch.argmax(out["cpu"][1][i] if dev == "cuda" else
+                               steps[-1], dim=-1)
+            logits, cache = api.decode(p, cache, nxt.to(dev), pos + i)
+            steps.append(logits)
+        out[dev] = (cache, steps)
+    for name, leaf in out["cpu"][0].items():
+        assert out["cuda"][0][name].dtype == leaf.dtype
+        assert _rel(out["cuda"][0][name], leaf) <= 1e-4, name
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        assert _rel(got, want) <= 1e-4
+
+    batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+
+    def loss_grads(dev, p):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in tree_leaves(p)]
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss = get_model(cfg, device=dev).loss(tree_unflatten(p, leaves), b,
+                                               remat=True)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    loss_c, grads_c = loss_grads("cpu", params)
+    loss_g, grads_g = loss_grads("cuda", on_card)
+    floors = [0.0] * len(grads_g)
+    if cfg.family == "hybrid":
+        monkeypatch.setattr(zamba, "mamba2_block", functools.partial(
+            ssm.mamba2_block, chunk=8))
+        floors = [_rel(a, b) for a, b in zip(loss_grads("cuda", on_card)[1],
+                                             grads_g)]
+        monkeypatch.undo()
+    assert loss_g == pytest.approx(loss_c, rel=1e-5)
+    for a, b, floor in zip(grads_g, grads_c, floors):
+        assert _rel(a, b) <= max(1e-4, 4 * floor)

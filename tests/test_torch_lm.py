@@ -34,7 +34,7 @@ from repro.models import get_model as jax_get_model
 from repro.serving import ServeConfig as JaxServeConfig
 from repro.serving import ServingEngine as JaxServingEngine
 from repro_torch import convert
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCHS, get_arch
 from repro_torch.kernels import ops
 from repro_torch.models import common, get_model
 from repro_torch.serving import (ServeConfig, ServingEngine, greedy,
@@ -319,8 +319,27 @@ def test_moe_family_builds_prefills_and_decodes(arch):
     test_forward_prefill_decode_match_jax(arch, "chunked")
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "zamba2-2.7b",
-                                  "rwkv6-7b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        get_model(get_arch(arch, smoke=True), device="cpu")
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_every_config_builds_prefills_and_decodes(arch):
+    """Each config's smoke model on the CPU: init, a prefill (seamless from
+    frames and decoder tokens) and two decode steps give finite logits
+    over the vocabulary, greedy tokens inside it."""
+    cfg = get_arch(arch, smoke=True)
+    api = get_model(cfg, device="cpu")
+    params = api.init(0)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(1, cfg.vocab_size, size=(1, 20)))}
+    if cfg.family == "encdec":
+        batch = {"tokens": batch["tokens"][:, :3],
+                 "frames": torch.as_tensor(rng.normal(
+                     size=(1, 32, cfg.d_model)).astype(np.float32)).to(
+                         torch.bfloat16)}
+    cache, logits = api.prefill(params, batch, max_len=32)
+    pos = batch["tokens"].shape[1]
+    for step in range(2):
+        assert logits.shape[-1] >= cfg.vocab_size
+        assert bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())
+        tok = torch.argmax(logits, dim=-1)
+        assert int(tok) < cfg.vocab_size
+        logits, cache = api.decode(params, cache, tok, pos + step)
