@@ -219,12 +219,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
-import functools
 import gc
 import json
 import math
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -296,8 +296,22 @@ Z_REQUESTS, Z_LONG = 7, 4500
 R_SERVE = dict(max_batch=8, max_len=4096, eos_token=-1, max_new_tokens=32)
 R_REQUESTS, R_CPU = 8, dict(layers=2, tokens=256, steps=8)
 T_ZAMBA = dict(layers=6, steps=3, batch=2, seq=2048)
+# T-zamba-cpu's grads against the host CPU's f64 run: each leaf of the
+# card's f32 grads within F64_MULT x the CPU f32 run's own distance from
+# f64 for that leaf, floored at the median leaf's distance (a leaf the CPU
+# happens to round almost exactly gets its neighbours' noise). At this
+# cut the card read at most 1.07x the CPU leaf by leaf
+F64_MULT = 4
 T_RWKV = dict(layers=2, steps=3, batch=2, seq=2048)
 CPU_TOKENS = 256
+# phase 4i (the linear baselines and the model axis). BL-lloyd: Tab.1's
+# linear column (benchmarks/tab1_mnist.py:24-36: C = 10, n_init 3, seed
+# 0); BL-sculley: Fig.8's grid (benchmarks/fig8_sculley.py:24-42); TP-1:
+# T-olmo cut to TP1_STEPS steps and run F's serving settings on a mesh
+# (1, 1); TP-cpu: these smoke configs on gloo worlds (1, 2) and (2, 2)
+BL_C, BL_INIT, BL_BS, BL_SEEDS = 10, 3, (1, 4, 16, 64), [0, 1, 2]
+TP1_STEPS = 2
+TP_CPU_ARCHS = ("olmo-1b", "qwen3-moe-235b-a22b", "zamba2-2.7b")
 KINDS = ("rbf", "linear", "polynomial", "cosine")
 N_TRAIN, N_TEST = 60000, 10000   # paper Tab.1 (benchmarks/tab1_mnist.py)
 EMBED_DIM = 320                  # Fig.5's largest m (fig5_approx_sweep.py)
@@ -2881,24 +2895,32 @@ def run_t_olmo(torch, np, mods):
 
 
 def loss_card_vs_cpu(torch, mods, name, cfg, batch, params_cpu,
-                     reorder=None, **extra):
+                     f64_oracle=False, **extra):
     """``api.loss`` (remat) and every grad on the card against the same
     call on the host CPU, both from ``params_cpu`` (f32) and ``batch``
     (host tensors): loss within 1e-5 relative, each grad leaf within 1e-4
-    normwise. ``reorder`` (a context manager factory) runs the card's call
-    a second time in another f32 summation order; a leaf whose two card
-    orders differ by ``floor`` is then held to max(1e-4, 4 floor): where
-    reordering the sums alone moves a grad near 1e-4, the card and the
-    CPU, two more orders, cannot agree closer. Prints and returns the run
-    line."""
-    def loss_and_grads(dev):
+    normwise. With ``f64_oracle`` the grads are held instead to the same
+    call on the host CPU in f64 arithmetic (``f64_math``; its loss and
+    every grad checked to be float64): each leaf of the card's f32 grads
+    within F64_MULT x the CPU f32 run's own distance from f64 for that
+    leaf (normwise, floored at the median leaf's), which is what f32
+    arithmetic alone moves this model's grads; a wrong card result moves
+    them by O(1). Prints and returns the run line."""
+    def loss_and_grads(dev, f64=False):
         api = mods["models"].get_model(cfg, device=dev)
+        cast = (lambda t: t.double()) if f64 else (lambda t: t)
         params = mods["training"].optim.tree_map(
-            lambda t: t.to(dev, copy=True).requires_grad_(True), params_cpu)
+            lambda t: cast(t.to(dev, copy=True)).requires_grad_(True),
+            params_cpu)
         b = {k: v.to(dev) for k, v in batch.items()}
         t0 = time.perf_counter()
-        loss = api.loss(params, b, remat=True)
-        grads = torch.autograd.grad(loss, leaves_of(mods, params))
+        with f64_math(torch) if f64 else contextlib.nullcontext():
+            loss = api.loss(params, b, remat=True)
+            grads = torch.autograd.grad(loss, leaves_of(mods, params))
+        if f64:
+            check(loss.dtype == torch.float64
+                  and all(g.dtype == torch.float64 for g in grads),
+                  f"run {name}: the f64 oracle ran a loss or grad below f64")
         return (float(loss.detach()), [g.cpu() for g in grads],
                 time.perf_counter() - t0)
 
@@ -2906,29 +2928,53 @@ def loss_card_vs_cpu(torch, mods, name, cfg, batch, params_cpu,
     rel_loss = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
     rels = [leaf_rel(torch, a, b) for a, b in zip(res["cuda"][1],
                                                   res["cpu"][1])]
-    tols = [1e-4] * len(rels)
+    ok = all(r <= 1e-4 for r in rels)
     rec = {"run": name, **extra, "dtype": "float32",
            "loss_cuda": res["cuda"][0], "loss_cpu": res["cpu"][0],
            "loss_rel": rel_loss, "grad_rel_max": max(rels),
            "leaves": len(rels), "cuda_s": res["cuda"][2],
            "cpu_s": res["cpu"][2], "tol": {"loss": 1e-5, "grad": 1e-4}}
-    if reorder is not None:
-        with reorder():
-            other = loss_and_grads("cuda")
-        floors = [leaf_rel(torch, a, b) for a, b in zip(other[1],
-                                                        res["cuda"][1])]
-        tols = [max(t, 4 * f) for t, f in zip(tols, floors)]
-        worst = max(range(len(rels)), key=lambda i: rels[i] / tols[i])
-        rec.update(grad_floor_max=max(floors), grad_floor_min=min(floors),
-                   worst_leaf={"rel": rels[worst], "floor": floors[worst],
-                               "tol": tols[worst]})
+    if f64_oracle:
+        loss64, grads64, secs = loss_and_grads("cpu", f64=True)
+        d_cpu = [leaf_rel(torch, a, w) for a, w in zip(res["cpu"][1],
+                                                        grads64)]
+        d_card = [leaf_rel(torch, a, w) for a, w in zip(res["cuda"][1],
+                                                         grads64)]
+        floor = statistics.median(d_cpu)
+        limits = [F64_MULT * max(d, floor) for d in d_cpu]
+        worst = max(range(len(d_card)), key=lambda i: d_card[i] / limits[i])
+        ok = all(c <= lim for c, lim in zip(d_card, limits))
+        rec.update(loss_f64=loss64, f64_s=secs, f64_mult=F64_MULT,
+                   cpu_from_f64={"min": min(d_cpu), "max": max(d_cpu)},
+                   card_from_f64={"min": min(d_card), "max": max(d_card)},
+                   card_over_cpu_leafwise_max=max(
+                       c / max(d, 1e-12) for c, d in zip(d_card, d_cpu)),
+                   worst_leaf={"card": d_card[worst], "cpu": d_cpu[worst],
+                               "limit": limits[worst]},
+                   tol={"loss": 1e-5, "grad_floor": F64_MULT * floor,
+                        "grad_rule": f"{F64_MULT} x the CPU f32 run's "
+                                     f"distance from f64 leaf by leaf, "
+                                     f"floored at the median leaf's"})
     print("run", json.dumps(rec))
     torch.cuda.empty_cache()
     check(rel_loss <= 1e-5, f"run {name}: loss rel {rel_loss} > 1e-5")
-    check(all(r <= t for r, t in zip(rels, tols)),
-          f"run {name}: a grad differs by more than its limit (normwise): "
-          f"{max(r / t for r, t in zip(rels, tols))} x")
+    check(ok, f"run {name}: a grad differs by more than its limit: "
+              f"{rec.get('worst_leaf', max(rels))}")
     return rec
+
+
+@contextlib.contextmanager
+def f64_math(torch):
+    """While open, every cast the model code makes to ``torch.float32``
+    (its f32 norms, softmaxes and scans) goes to float64 instead, so a
+    model whose parameters and inputs are f64 runs in f64 throughout: the
+    oracle of an f32 run."""
+    f32 = torch.float32
+    torch.float32 = torch.float64
+    try:
+        yield
+    finally:
+        torch.float32 = f32
 
 
 def token_batch(torch, np, vocab: int, n: int, seed: int) -> dict:
@@ -3327,20 +3373,6 @@ def bf16_copy(torch, tree):
     return cast(tree)
 
 
-@contextlib.contextmanager
-def ssd_chunk(mods, chunk: int):
-    """While open, zamba2's Mamba2 layers scan in chunks of ``chunk``: the
-    same function in another f32 summation order."""
-    zamba = mods["models"].zamba
-    orig = zamba.mamba2_block
-    zamba.mamba2_block = functools.partial(mods["models"].ssm.mamba2_block,
-                                           chunk=chunk)
-    try:
-        yield
-    finally:
-        zamba.mamba2_block = orig
-
-
 def run_z(torch, np, mods):
     """Z, Z-chunked, Z-f32, T-zamba and T-zamba-cpu (zamba2-2.7b); returns
     the flash launches of Z (bf16) and Z-f32 (f32).
@@ -3385,8 +3417,12 @@ def run_z(torch, np, mods):
     print("Z bf16 noise", json.dumps({
         "prompt": PROMPT_MAX, "chunked_bf16_vs_f32_normwise": noise,
         "max_abs_logit_diff": err}))
-    del params, want32, got16
+    del want32, got16
+    shared_launches = shared_block_groups(torch, mods, full, params, batch)
+    del params
     torch.cuda.empty_cache()
+    # a smoke run at full depth: held to the model's own bf16 noise there;
+    # Z-shared above discriminates group by group
     flash_vs_chunked(torch, np, "Z", out_f, first_f, out_c, first_c,
                      tol=max(SERVE_LOGIT_TOL, noise),
                      near_tie=max(SERVE_NEAR_TIE, err))
@@ -3396,9 +3432,59 @@ def run_z(torch, np, mods):
                      token_batch(torch, np, cfg.vocab_size, CPU_TOKENS, 6),
                      mods["models"].get_model(cfg, device="cpu").init(
                          0, torch.float32),
-                     reorder=lambda: ssd_chunk(mods, 64),
-                     layers=cfg.n_layers, tokens=CPU_TOKENS)
-    return rec_f["launches"]["flash_attention"], f32
+                     f64_oracle=True, layers=cfg.n_layers, tokens=CPU_TOKENS)
+    return rec_f["launches"]["flash_attention"] + shared_launches, f32
+
+
+def shared_block_groups(torch, mods, full, params, batch):
+    """Z-shared: zamba2's shared attention block group by group at bf16,
+    flash against chunked on the same input (the residual stream of a
+    chunked bf16 forward of ``batch``), held to SERVE_LOGIT_TOL normwise
+    at a depth whose own bf16 noise (chunked at bf16 against chunked at
+    f32 weights on the same input) must be under SERVE_LOGIT_TOL too; a
+    wrong flash call moves the block's output by O(1). Returns the flash
+    launches (one a group)."""
+    models = mods["models"]
+    zamba, common = models.zamba, mods["common"]
+    cfg_f = dataclasses.replace(full, attn_impl="flash")
+    cfg_c = dataclasses.replace(full, attn_impl="chunked")
+    p16 = bf16_copy(torch, params)
+    sh16, sh32 = p16["shared"], params["shared"]
+    period = full.attn_period
+    zero_counters(mods)
+    rows = []
+    with torch.no_grad():
+        x = p16["embed"][batch["tokens"]]
+        for g in range(full.n_layers // period):
+            for pj in p16["layers"][g * period:(g + 1) * period]:
+                x = x + zamba.mamba2_block(pj, common.rms_norm(x, pj["ln"]),
+                                           full)
+            h = common.rms_norm(x, sh16["ln1"])
+            a_f, _ = zamba.attention_block(sh16, h, cfg_f, window=None)
+            a_c, _ = zamba.attention_block(sh16, h, cfg_c, window=None)
+            a_32, _ = zamba.attention_block(sh32, h.float(), cfg_c,
+                                            window=None)
+            _, diff = normwise(torch, a_f, a_c)
+            _, noise = normwise(torch, a_c, a_32)
+            rows.append({"group": g, "flash_vs_chunked": diff,
+                         "bf16_noise": noise})
+            x = x + a_c
+            x = x + zamba.mlp_block(sh16, common.rms_norm(x, sh16["ln2"]))
+    launches = mods["ops"].LAUNCHES["flash_attention"]
+    rec = {"run": "Z-shared", "prompt": batch["tokens"].shape[1],
+           "groups": rows, "flash_launches": launches,
+           "tol": SERVE_LOGIT_TOL}
+    print("run", json.dumps(rec))
+    del p16
+    check(launches == len(rows), f"run Z-shared: {launches} flash launches, "
+                                 f"expected {len(rows)}")
+    check(all(r["bf16_noise"] < SERVE_LOGIT_TOL for r in rows),
+          f"run Z-shared: the block's own bf16 noise reaches "
+          f"{SERVE_LOGIT_TOL}: the comparison would not discriminate")
+    check(all(r["flash_vs_chunked"] <= SERVE_LOGIT_TOL for r in rows),
+          f"run Z-shared: flash and chunked differ by more than "
+          f"{SERVE_LOGIT_TOL}: {rows}")
+    return launches
 
 
 def run_r(torch, np, mods):
@@ -3473,6 +3559,374 @@ def families_phase(torch, np, mods):
     return s_bf16 + z_bf16, s_f32 + z_f32
 
 
+# ---------------------------------------------------------------------------
+# phase 4i: the linear baselines and the model axis
+# ---------------------------------------------------------------------------
+
+
+def nearest_centers(torch, x, centers):
+    """Each row of ``x`` labelled by its nearest center (squared
+    distances, the lowest index on ties), on the centers' device; also
+    the distances."""
+    xt = torch.as_tensor(x, device=centers.device)
+    d = (torch.sum(xt * xt, 1)[:, None] - 2.0 * xt @ centers.T
+         + torch.sum(centers * centers, 1)[None])
+    return torch.argmin(d, 1), d
+
+
+def run_bl_lloyd(torch, np, mods, x_tr, x_te, y_te):
+    """BL-lloyd: ``lloyd_kmeans`` at Tab.1's size and settings (C = 10,
+    n_init 3, seed 0) on the card and on the host CPU; test accuracy and
+    NMI by the nearest center."""
+    bl, core = mods["baselines"], mods["core"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        bl.lloyd.HOST_READS["lloyd"] = 0
+        zero_counters(mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = bl.lloyd_kmeans(x_tr, BL_C, n_init=BL_INIT, seed=0, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        labels = nearest_centers(torch, x_te, res.centers)[0].cpu().numpy()
+        reads = bl.lloyd.HOST_READS["lloyd"]
+        out[dev] = {"wall_s": wall, "host_reads": reads,
+                    "iterations": reads - (BL_INIT - 1),
+                    "best_n_iter": res.n_iter, "cost": float(res.cost),
+                    "acc": core.clustering_accuracy(y_te, labels),
+                    "nmi": core.nmi(y_te, labels),
+                    "launches": dict(mods["ops"].LAUNCHES)}
+    c, h = out["cuda"], out["cpu"]
+    rec = {"run": "BL-lloyd", "n": len(x_tr), "n_test": len(x_te),
+           "clusters": BL_C, "n_init": BL_INIT, "card": c, "host_cpu": h,
+           "iterations_per_restart": c["iterations"] / BL_INIT,
+           "cost_rel": abs(c["cost"] - h["cost"]) / abs(h["cost"]),
+           "device": card_line()}
+    print("run", json.dumps(rec))
+    check(abs(c["acc"] - h["acc"]) <= 0.02 and abs(c["nmi"] - h["nmi"])
+          <= 0.02, f"run BL-lloyd: card accuracy / NMI {c['acc']} / "
+                   f"{c['nmi']} against the CPU's {h['acc']} / {h['nmi']}")
+    check(rec["cost_rel"] <= 1e-4,
+          f"run BL-lloyd: cost rel {rec['cost_rel']} > 1e-4")
+    check(all(v == 0 for v in c["launches"].values()),
+          "run BL-lloyd launched a kernel (its products are plain matmuls)")
+    return rec
+
+
+def sculley_steps(torch, np, mods, x, xd, b, seed):
+    """One Fig.8 cell stepped on the card with ``sculley._sgd_step`` on the
+    numpy draws ``sgd_minibatch_kmeans`` makes, each step also run on the
+    host CPU from the card's state (teacher-forced). Returns (the largest
+    normwise distance of the CPU's new centers from the card's over the
+    steps whose batch labels agree, batch labels differing outside
+    near-ties, batch labels differing at near-ties)."""
+    sc = mods["baselines"].sculley
+    n = len(x)
+    rng = np.random.default_rng(seed)
+    init = rng.choice(n, BL_C, replace=False)
+    centers = xd[torch.as_tensor(init, device="cuda")]
+    counts = torch.zeros(BL_C, dtype=torch.float32, device="cuda")
+    worst, bad, tied = 0.0, 0, 0
+    for _ in range(max(b, 10)):
+        idx = rng.integers(0, n, size=max(n // b, 100))
+        xb = xd[torch.as_tensor(idx, device="cuda")]
+        xb_c, c_c, n_c = torch.as_tensor(x[idx]), centers.cpu(), counts.cpu()
+        d_c = sc._dists(xb_c, c_c)
+        lab_g = torch.argmin(sc._dists(xb, centers), 1).cpu()
+        lab_c = torch.argmin(d_c, 1)
+        m, _ = label_mismatches(torch, lab_g, lab_c, d_c)
+        bad, tied = bad + m, tied + int((lab_g != lab_c).sum()) - m
+        centers, counts = sc._sgd_step(centers, counts, xb)
+        if torch.equal(lab_g, lab_c):
+            worst = max(worst, leaf_rel(torch, centers.cpu(),
+                                        sc._sgd_step(c_c, n_c, xb_c)[0]))
+    return worst, bad, tied
+
+
+def run_bl_sculley(torch, np, mods):
+    """BL-sculley: Fig.8's grid at full size (MNIST-like 60,000 rows,
+    B in {1, 4, 16, 64}: batch_size max(n / B, 100), n_iters max(B, 10),
+    seeds 0-2) on the card and on the host CPU, which draw the same numpy
+    batches. Each cell is also stepped teacher-forced (``sculley_steps``):
+    every step's new centers within 1e-5 normwise of the CPU's step from
+    the card's state, and no batch label differing outside a near-tie.
+    The two whole runs part where a batch label flips at a near-tie, so
+    on the cells whose teacher-forced steps saw no flip the whole runs'
+    centers are held within 1e-4 normwise and their final labels equal
+    outside near-ties; on every cell their accuracy is held within 0.02,
+    as BL-lloyd's."""
+    bl, core = mods["baselines"], mods["core"]
+    x, y = mods["synthetic"].make_mnist_like(N_TRAIN, seed=0)
+    xd, xc = torch.as_tensor(x, device="cuda"), torch.as_tensor(x)
+    n = len(x)
+    table, drift, step_rel, bad, tied, acc_gap = [], 0.0, 0.0, 0, 0, 0.0
+    clean, clean_rel, clean_bad = 0, 0.0, 0
+    for b in BL_BS:
+        kw = dict(batch_size=max(n // b, 100), n_iters=max(b, 10))
+        accs, secs = [], []
+        for seed in BL_SEEDS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = bl.sgd_minibatch_kmeans(x, BL_C, seed=seed, **kw)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            rc = bl.sgd_minibatch_kmeans(x, BL_C, seed=seed, device="cpu",
+                                         **kw)
+            drift = max(drift, leaf_rel(torch, r.centers.cpu(), rc.centers))
+            accs.append(core.clustering_accuracy(y, r.labels.cpu().numpy()))
+            acc_gap = max(acc_gap, abs(accs[-1] - core.clustering_accuracy(
+                y, rc.labels.numpy())))
+            w, m, t = sculley_steps(torch, np, mods, x, xd, b, seed)
+            step_rel, bad, tied = max(step_rel, w), bad + m, tied + t
+            if m + t == 0:   # no batch label flipped: the runs stay together
+                clean += 1
+                clean_rel = max(clean_rel, leaf_rel(torch, r.centers.cpu(),
+                                                    rc.centers))
+                clean_bad += label_mismatches(
+                    torch, r.labels.cpu(), rc.labels,
+                    bl.sculley._dists(xc, rc.centers))[0]
+        table.append({"B": b, **kw, "acc_mean": float(np.mean(accs)),
+                      "acc_std": float(np.std(accs)),
+                      "s_per_call": float(np.mean(secs))})
+    rec = {"run": "BL-sculley", "n": n, "clusters": BL_C, "seeds": BL_SEEDS,
+           "table": table, "step_centers_rel_max": step_rel,
+           "step_label_mismatches": bad, "step_labels_flipped_at_near_ties":
+           tied, "whole_run_centers_rel_max": drift,
+           "whole_run_acc_gap_max": acc_gap, "cells": len(table) * len(
+               BL_SEEDS), "cells_without_flips": clean,
+           "unflipped_centers_rel_max": clean_rel,
+           "unflipped_label_mismatches": clean_bad,
+           "tol": {"step_centers": 1e-5, "unflipped_centers": 1e-4,
+                   "acc": 0.02},
+           "device": card_line()}
+    print("run", json.dumps(rec))
+    for row in table:
+        print(f"  Sculley B={row['B']:3d}: accuracy {row['acc_mean']:.4f} "
+              f"+- {row['acc_std']:.4f}, {row['s_per_call'] * 1e3:.1f} ms "
+              f"a call")
+    check(step_rel <= 1e-5, f"run BL-sculley: a step's centers differ from "
+                            f"the CPU's by {step_rel} > 1e-5 normwise")
+    check(bad == 0, f"run BL-sculley: {bad} batch labels differ outside "
+                    f"near-ties")
+    check(acc_gap <= 0.02, f"run BL-sculley: accuracy differs from the "
+                           f"CPU's by {acc_gap} > 0.02")
+    check(clean > 0, "run BL-sculley: a batch label flipped in every cell")
+    check(clean_rel <= 1e-4, f"run BL-sculley: where no batch label flipped "
+                             f"the whole runs' centers differ by {clean_rel} "
+                             f"> 1e-4 normwise")
+    check(clean_bad == 0, f"run BL-sculley: where no batch label flipped "
+                          f"{clean_bad} final labels differ outside "
+                          f"near-ties")
+    return rec
+
+
+def tp1_phase(torch, np, mods):
+    """TP-1: ``launch.train --arch olmo-1b --mesh 1x1`` (T-olmo's settings
+    cut to 2 steps) and ``launch.serve --arch olmo-1b --mesh 1x1`` (run
+    F's serving settings and request count, the launcher's own request
+    stream; on the card its prefill runs flash) in a world of one over
+    NCCL, each against the same call without a mesh: losses, grad norms
+    and tokens bitwise equal (a model axis of one is the identity), and
+    the mesh runs' collective bill (``distributed.mesh.tally``) empty. Returns the
+    flash launches (bf16) of the two serve runs."""
+    import datetime
+    import os
+    import tempfile
+    dist = torch.distributed
+    train_argv = ["--arch", "olmo-1b", "--steps", str(TP1_STEPS), "--batch",
+                  str(T_OLMO["batch"]), "--seq", str(T_OLMO["seq"]),
+                  "--log-every", "1"]
+    serve_argv = ["--arch", "olmo-1b", "--requests",
+                  str(N_REQUESTS), "--prompt-len", str(PROMPT_MAX),
+                  "--max-len", str(SERVE["max_len"]), "--max-new-tokens",
+                  str(SERVE["max_new_tokens"]), "--max-batch",
+                  str(SERVE["max_batch"])]
+
+    def serve(argv):
+        zero_counters(mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mods["serve"].main(argv)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, \
+            mods["ops"].LAUNCHES["flash_attention"], dict(mods["ref"].CALLS)
+
+    plain, rec0 = train_run(torch, mods, "TP-1-plain", train_argv)
+    s0 = serve(serve_argv)
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1, device_id=torch.device("cuda", 0),
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        with mods["mesh"].tally() as bill:
+            meshed, rec1 = train_run(torch, mods, "TP-1", train_argv
+                                     + ["--mesh", "1x1"])
+            s1 = serve(serve_argv + ["--mesh", "1x1"])
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    want = N_REQUESTS * mods["configs"].get_arch("olmo-1b").n_layers
+    rec = {"run": "TP-1", "backend": backend, "mesh": {"data": 1, "model": 1},
+           "train": {"losses": meshed.losses, "plain_losses": plain.losses,
+                     "grad_norms": meshed.grad_norms,
+                     "plain_grad_norms": plain.grad_norms,
+                     "median_step_s": rec1["median_step_s"],
+                     "plain_median_step_s": rec0["median_step_s"]},
+           "serve": {"requests": len(s1[0]),
+                     "tokens": sum(len(v) for v in s1[0].values()),
+                     "wall_s": s1[1], "plain_wall_s": s0[1],
+                     "flash_launches": s1[2],
+                     "plain_flash_launches": s0[2]},
+           "bill": vars(bill), "device": card_line()}
+    print("run", json.dumps(rec))
+    check(meshed.losses == plain.losses
+          and meshed.grad_norms == plain.grad_norms,
+          "run TP-1: the mesh 1x1 losses or grad norms differ from the "
+          "plain run's")
+    check(s1[0] == s0[0], "run TP-1: the mesh 1x1 tokens differ from the "
+                          "plain serve run's")
+    check(s0[2] == s1[2] == want, f"run TP-1: flash launches {s0[2]} / "
+                                  f"{s1[2]}, expected {want}")
+    check(all(v == 0 for c in (s0[3], s1[3]) for v in c.values()),
+          "run TP-1: a plain kernel version ran on the card")
+    check(all(v == 0 for v in vars(bill).values()),
+          f"run TP-1: the model axis of one launched collectives: "
+          f"{vars(bill)}")
+    return s0[2] + s1[2]
+
+
+def tp_cpu_child(rank, world, store, axes, out_dir):
+    """One rank of TP-cpu (gloo, the host CPU): for each TP_CPU_ARCHS smoke
+    config, 8 greedy tokens and one train step's loss on the (data,
+    model) mesh ``axes`` and on the whole model in this process."""
+    import datetime
+    import pickle
+    import traceback
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    got = {}
+    try:
+        from repro_torch.configs import TrainConfig, get_arch
+        from repro_torch.distributed.mesh import make_test_mesh
+        from repro_torch.models import get_model
+        from repro_torch.training import adamw_init, make_train_step
+        mesh = make_test_mesh(axes, device="cpu")
+        d, dp, tp = mesh.get_local_rank("data"), axes["data"], axes["model"]
+        tok = torch.as_tensor(np.random.default_rng(5).integers(
+            1, 256, size=(2, 8)))
+        lab = torch.roll(tok, -1, 1)
+        tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                           total_steps=10)
+        for arch in TP_CPU_ARCHS:
+            cfg = get_arch(arch, smoke=True)
+            ep = cfg.n_experts and dp > 1
+            if ep:    # expert-parallel: a data rank's row, a model rank's
+                cfg = dataclasses.replace(cfg, moe_ep_groups=dp * tp)
+            rows = slice(d, d + 1) if ep else slice(0, 2)
+            w1 = get_model(cfg, device="cpu")
+            w1_dec = get_model(dataclasses.replace(cfg, moe_ep_groups=0),
+                               device="cpu")
+            api = get_model(cfg, tp_size=tp, dp_size=dp, mesh=mesh,
+                            device="cpu")
+
+            def greedy(a, dec, p, t):
+                with torch.no_grad():
+                    cache, logits = a.prefill(p, {"tokens": t}, max_len=16)
+                    out = [torch.argmax(logits, -1)]
+                    for i in range(7):
+                        logits, cache = dec.decode(p, cache, out[-1], 8 + i)
+                        out.append(torch.argmax(logits, -1))
+                return torch.stack(out)
+
+            full = w1.init(0, torch.float32)
+            want = greedy(w1, w1_dec, full, tok)[:, rows]
+            got_t = greedy(api, api, api.init(0, torch.float32), tok[rows])
+            share = slice(d * 2 // dp, (d + 1) * 2 // dp)
+            p = api.init(0, torch.float32)
+            loss = float(make_train_step(api, tcfg, mesh=mesh)(
+                p, adamw_init(p, tcfg),
+                {"tokens": tok[share], "labels": lab[share]})[2]["loss"])
+            w_loss = float(make_train_step(w1, tcfg)(
+                full, adamw_init(full, tcfg),
+                {"tokens": tok, "labels": lab})[2]["loss"])
+            got[arch] = {"ep": bool(ep), "tokens_equal":
+                         bool(torch.equal(got_t, want)), "loss": loss,
+                         "world1_loss": w_loss,
+                         "loss_rel": abs(loss - w_loss) / abs(w_loss)}
+    except Exception:
+        got = {"error": traceback.format_exc()}
+    with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(got, f)
+    dist.destroy_process_group()
+
+
+def tp_cpu_phase(torch):
+    """TP-cpu: the model axis beyond one rank. The machine holds one card
+    and two NCCL ranks cannot share it, so worlds (1, 2) and (2, 2) run
+    over gloo on the host CPU in spawned processes at the smoke configs:
+    greedy tokens equal the world-1 run's, one train step's loss within
+    1e-5 relative."""
+    import pickle
+    import tempfile
+    import torch.multiprocessing as mp
+    print("TP-cpu: one card cannot hold two NCCL ranks, so a model axis "
+          "larger than 1 runs over gloo on the host CPU")
+    recs = []
+    for axes in ({"data": 1, "model": 2}, {"data": 2, "model": 2}):
+        world = axes["data"] * axes["model"]
+        out_dir = tempfile.mkdtemp()
+        t0 = time.perf_counter()
+        mp.start_processes(tp_cpu_child, args=(world, f"{out_dir}/store",
+                                               axes, out_dir),
+                           nprocs=world, join=True, start_method="spawn")
+        ranks = []
+        for r in range(world):
+            with open(f"{out_dir}/rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+        shutil.rmtree(out_dir, ignore_errors=True)
+        for got in ranks:
+            check("error" not in got, f"TP-cpu {axes}: {got.get('error')}")
+        rec = {"run": "TP-cpu", "mesh": axes, "backend": "gloo",
+               "wall_s": time.perf_counter() - t0, "archs": ranks[0],
+               "tol": {"loss": 1e-5}}
+        print("run", json.dumps(rec))
+        for got in ranks:
+            for arch, g in got.items():
+                check(g["tokens_equal"], f"TP-cpu {axes} {arch}: greedy "
+                                         f"tokens differ from world 1's")
+                check(g["loss_rel"] <= 1e-5, f"TP-cpu {axes} {arch}: loss "
+                                             f"rel {g['loss_rel']} > 1e-5")
+        recs.append(rec)
+    return recs
+
+
+def baselines_tp_phase(torch, np, mods, x_tr, x_te, y_te):
+    """Phase 4i: BL-lloyd, BL-sculley, TP-1 and TP-cpu; returns the flash
+    launches (bf16) of TP-1."""
+    t0 = time.perf_counter()
+    run_bl_lloyd(torch, np, mods, x_tr, x_te, y_te)
+    print(f"BL-lloyd: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_bl_sculley(torch, np, mods)
+    print(f"BL-sculley: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches = tp1_phase(torch, np, mods)
+    print(f"TP-1: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp_cpu_phase(torch)
+    print(f"TP-cpu: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -3509,7 +3963,8 @@ def main(argv=None) -> int:
                 ("cluster", "launch.cluster"), ("hlocost", "launch.hlocost"),
                 ("audit", "launch.audit"), ("train", "launch.train"),
                 ("training", "training"), ("mlp", "models.mlp"),
-                ("common", "models.common")]}
+                ("common", "models.common"), ("baselines", "baselines"),
+                ("serve", "launch.serve"), ("mesh", "distributed.mesh")]}
     core = mods["core"]
 
     # -- phase 1: the card --------------------------------------------------
@@ -3748,7 +4203,12 @@ def main(argv=None) -> int:
     fam_bf16, fam_f32 = families_phase(torch, np, mods)
     print(f"encoder-decoder, hybrid and RWKV6 runs: "
           f"{time.perf_counter() - t0:.1f} s")
-    bodies["flash_attention", "bf16"] = flash_bf16 + moe_bf16 + fam_bf16
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp_bf16 = baselines_tp_phase(torch, np, mods, x_tr, x_te, y_te)
+    print(f"baselines and model-axis runs: {time.perf_counter() - t0:.1f} s")
+    bodies["flash_attention", "bf16"] = flash_bf16 + moe_bf16 + fam_bf16 + \
+        tp_bf16
     bodies["flash_attention", "f32"] = flash_f32 + moe_f32 + fam_f32
     totals["flash_attention"] = bodies["flash_attention", "bf16"] + \
         bodies["flash_attention", "f32"]

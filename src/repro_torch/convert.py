@@ -23,6 +23,25 @@ The stacked subtrees, by family (``_stacks``): dense and moe ``layers``
 (its ``shared`` block is one dict in both packages); ssm ``layers`` [L,
 ...]; encdec ``encoder`` [n_enc_layers, ...] and ``decoder``
 [n_dec_layers, ...].
+
+``shard_lm(params, cfg, rank, size)`` cuts the port's LM tree (parameters
+or a moment tree) for rank ``rank`` of a model axis of ``size`` ranks, and
+``gather_lm(shards, cfg)`` reassembles the ranks' trees bitwise
+(``tp_layout`` names each leaf's cut). Each leaf splits into ``size``
+equal blocks along the dim the reference's spec tree marks ``"model"``,
+with these exceptions:
+
+* wk / wv stay whole under the ``seq`` K/V policy (KH % size != 0);
+* the Mamba2 in_proj, conv_w and conv_b, whose reference specs split
+  the concatenated last dim evenly, follow the head split: in_proj [D, z
+  | x | B | C | dt] becomes [D, z_r | x_r | B | C | dt_r] (rank r's
+  heads' z and x channels and dt columns, B and C whole), conv_w [k, x |
+  B | C] and conv_b [x | B | C] become [.., x_r | B | C];
+* the leaves the reference splits over ``data`` only, or not at all,
+  stay whole (norms, the router, qn / kn, dt_bias, A_log, D).
+
+``tp_square_sums`` splits a tree's f32 sum of squares into the part that
+is split over the ranks and the part every rank holds whole.
 """
 from __future__ import annotations
 
@@ -36,7 +55,8 @@ from repro_torch.approx import (CountSketchMap, EmbedState, NystromMap,
 from repro_torch.core.kernels import KernelSpec
 from repro_torch.core.minibatch import GlobalState
 from repro_torch.data.sparse import CSRBatch
-from repro_torch.training.optim import AdamWState, tree_map
+from repro_torch.training.optim import (AdamWState, tree_leaves, tree_map,
+                                        tree_unflatten)
 
 
 def global_state_from_numpy(medoids, medoid_diag, cardinalities,
@@ -253,3 +273,137 @@ def adamw_state_to_numpy(state: AdamWState, cfg) -> dict:
                         stack_lm(tree, cfg))
     return {"step": np.int32(int(state.step)), "m": arrays(state.m),
             "v": arrays(state.v)}
+
+
+# ---------------------------------------------------------------------------
+# the model axis: cutting and reassembling an LM tree
+# ---------------------------------------------------------------------------
+
+#: leaf name -> the dim it splits along over the model axis
+_TP_DIMS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "w_gate": 1, "w_up": 1,
+            "w_down": 0, "e_gate": 2, "e_up": 2, "e_down": 1, "embed": 0,
+            "lm_head": 1, "ssm_norm": 0, "out_proj": 0}
+#: Mamba2 leaves whose last dim is a concatenation of head-split and whole
+#: parts
+_TP_MAMBA = ("in_proj", "conv_w", "conv_b")
+
+
+def tp_layout(cfg, size: int) -> dict:
+    """{leaf name: its cut}: a dim, ``"mamba"`` (the in_proj / conv
+    layout) or None (whole); names absent are whole."""
+    from repro_torch.models.attention import kv_policy
+    out = dict(_TP_DIMS)
+    if kv_policy(cfg, size) == "seq":
+        out["wk"] = out["wv"] = None
+    if cfg.family == "hybrid":
+        out.update({name: "mamba" for name in _TP_MAMBA})
+    return out
+
+
+def _mamba_parts(cfg, name: str, size: int):
+    """[(width, split?)] of a Mamba2 leaf's last dim: in_proj z | x | B |
+    C | dt, conv x | B | C."""
+    from repro_torch.models.ssm import ssm_dims
+    d_inner, n_heads, _ = ssm_dims(cfg)
+    n = cfg.ssm_state
+    parts = [(d_inner, True), (d_inner, True), (n, False), (n, False),
+             (n_heads, True)]
+    parts = parts if name == "in_proj" else parts[1:4]
+    return [(w // size if cut else w, cut) for w, cut in parts]
+
+
+def _walk(trees, fn, name=None):
+    """``fn(name, leaves)`` over the same leaf of every tree in ``trees``
+    (nested dicts and lists)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _walk([t[k] for t in trees], fn, k) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [_walk([t[i] for t in trees], fn, name)
+                for i in range(len(first))]
+    return fn(name, trees)
+
+
+def _blocks(t: torch.Tensor, dim: int, size: int, name: str):
+    if t.shape[dim] % size:
+        raise ValueError(f"{name} {tuple(t.shape)} does not split over a "
+                         f"model axis of {size} along dim {dim}")
+    return t.chunk(size, dim=dim)
+
+
+def shard_lm(params: dict, cfg, rank: int, size: int) -> dict:
+    """Rank ``rank``'s cut of an LM tree for a model axis of ``size``
+    (every leaf a fresh tensor)."""
+    layout = tp_layout(cfg, size)
+
+    def cut(name, leaves):
+        t, how = leaves[0].detach(), layout.get(name)
+        if how is None or size == 1:
+            return t.clone()
+        if how == "mamba":
+            full = [(w * size if c else w, c)
+                    for w, c in _mamba_parts(cfg, name, size)]
+            pieces = torch.split(t, [w for w, _ in full], dim=-1)
+            return torch.cat([_blocks(x, -1, size, name)[rank] if c else x
+                              for x, (_, c) in zip(pieces, full)], dim=-1)
+        return _blocks(t, how, size, name)[rank].clone()
+    return _walk([params], cut)
+
+
+def gather_lm(shards: list, cfg) -> dict:
+    """``shard_lm``'s inverse: the ranks' trees (in rank order) -> the
+    whole tree."""
+    size = len(shards)
+    layout = tp_layout(cfg, size)
+
+    def join(name, leaves):
+        how = layout.get(name)
+        leaves = [t.detach() for t in leaves]
+        if how is None or size == 1:
+            return leaves[0].clone()
+        if how == "mamba":
+            parts = _mamba_parts(cfg, name, size)
+            split = [torch.split(t, [w for w, _ in parts], dim=-1)
+                     for t in leaves]
+            return torch.cat([torch.cat([s[i] for s in split], dim=-1)
+                              if c else split[0][i]
+                              for i, (_, c) in enumerate(parts)], dim=-1)
+        return torch.cat(leaves, dim=how)
+    return _walk(shards, join)
+
+
+def whole_lm(tree: dict, cfg, tp) -> dict:
+    """The whole tree from every model rank's cut of it, on every rank
+    (each rank calls: one all_gather over ``model`` a leaf); the tree
+    itself when ``tp`` has one rank."""
+    if tp.size == 1:
+        return tree
+    from repro_torch.distributed import mesh as dmesh
+    leaves = [dmesh.all_gather(t.detach()[None], tp.mesh, "model")
+              for t in tree_leaves(tree)]
+    return gather_lm([tree_unflatten(tree, [g[r] for g in leaves])
+                      for r in range(tp.size)], cfg)
+
+
+def tp_square_sums(tree: dict, cfg, size: int):
+    """(sum of f32 squares of the leaves' split parts, of their whole
+    parts) of one rank's tree: the global norm all-reduces the first over
+    the model axis and adds the second once."""
+    layout = tp_layout(cfg, size)
+    split, whole = [], []
+
+    def add(name, leaves):
+        t = leaves[0].to(torch.float32)
+        how = layout.get(name)
+        if how == "mamba":
+            parts = _mamba_parts(cfg, name, size)
+            for x, (_, c) in zip(torch.split(t, [w for w, _ in parts], -1),
+                                 parts):
+                (split if c else whole).append(torch.sum(torch.square(x)))
+        else:
+            (whole if how is None else split).append(
+                torch.sum(torch.square(t)))
+    _walk([tree], add)
+    zero = torch.zeros((), dtype=torch.float32,
+                       device=tree_leaves(tree)[0].device)
+    return sum(split, zero), sum(whole, zero)

@@ -18,6 +18,25 @@ clustering runtime. The expert-parallel MoE exchanges tokens through
 counts them from inside: while it is open, every call of the three, and
 the bytes each ``all_reduce`` sums, add to its ``CollectiveTally`` (the
 flight recorder's measured collective bill).
+
+The model axis (Megatron-style tensor parallelism of the LM families) has
+its own differentiable collectives, each over one axis (``"model"`` by
+default) and each the identity, launching nothing, on an axis of one rank:
+
+  copy_to_model      identity forward, all_reduce backward
+  reduce_from_model  all_reduce forward, identity backward
+  all_gather_dim     all_gather along a dim, reduce_scatter backward
+  reduce_scatter     reduce_scatter along a dim, all_gather backward
+  split_to_model     this rank's block of a replicated tensor forward,
+                     all_gather backward
+  gather_from_model  all_gather forward into a replicated tensor, this
+                     rank's block backward
+
+and ``all_reduce_max`` (no gradient). They count in the tally forward and
+backward alike: ``psum`` / ``psum_bytes`` for the all_reduces,
+``allgather`` / ``allgather_bytes`` for the all_gathers (the bytes
+returned), ``reducescatter`` / ``reducescatter_bytes`` for the
+reduce_scatters (the bytes sent in).
 """
 from __future__ import annotations
 
@@ -127,8 +146,9 @@ class CollectiveTally:
     ``tally()`` is open, under the reference's names: ``psum`` (the
     all_reduce calls), ``allgather``, ``psum_bytes`` (the bytes the
     all_reduce calls summed, per rank) and ``allgather_bytes`` (the bytes
-    the all_gather calls returned, per rank) and ``alltoall`` (the
-    all_to_all calls)."""
+    the all_gather calls returned, per rank), ``alltoall`` (the
+    all_to_all calls) and ``reducescatter`` / ``reducescatter_bytes`` (the
+    model axis's reduce_scatter calls and the bytes each sent in)."""
 
     def __init__(self):
         self.psum = 0
@@ -136,6 +156,8 @@ class CollectiveTally:
         self.psum_bytes = 0
         self.allgather_bytes = 0
         self.alltoall = 0
+        self.reducescatter = 0
+        self.reducescatter_bytes = 0
 
 
 _TALLIES: list[CollectiveTally] = []
@@ -172,8 +194,13 @@ def all_gather(t: torch.Tensor, mesh, axes) -> torch.Tensor:
 def all_reduce(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     """Sum ``t`` over the ranks along ``axes``: ONE ``all_reduce`` (in
     place on a contiguous copy; returns it)."""
+    return _all_reduce(t, axis_group(mesh, axes))
+
+
+def _all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     t = t.contiguous().clone()
-    dist.all_reduce(t, group=axis_group(mesh, axes))
+    dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=group)
     for c in _TALLIES:
         c.psum += 1
         c.psum_bytes += t.numel() * t.element_size()
@@ -197,3 +224,176 @@ def all_to_all(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     for c in _TALLIES:
         c.alltoall += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the model axis: differentiable collectives
+# ---------------------------------------------------------------------------
+
+
+def _gather_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """ONE all_gather of ``t`` along ``dim`` (rank order)."""
+    n = dist.get_world_size(group)
+    x = t.movedim(dim, 0).contiguous()
+    out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, x, group=group)
+    for c in _TALLIES:
+        c.allgather += 1
+        c.allgather_bytes += out.numel() * out.element_size()
+    return out.movedim(0, dim)
+
+
+def _scatter_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """ONE reduce_scatter of ``t`` along ``dim``: rank r gets block r of
+    the sum over the ranks."""
+    n = dist.get_world_size(group)
+    x = t.movedim(dim, 0).contiguous()
+    if x.shape[0] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"over {n} ranks")
+    out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, x, group=group)
+    for c in _TALLIES:
+        c.reducescatter += 1
+        c.reducescatter_bytes += x.numel() * x.element_size()
+    return out.movedim(0, dim)
+
+
+def _block(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim``."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"over {n} ranks")
+    return t.chunk(n, dim=dim)[r].contiguous()
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return _all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllGatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather_dim(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_dim(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _scatter_dim(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.group, ctx.dim), None, None
+
+
+class _SplitToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _block(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.group, ctx.dim), None, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather_dim(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.group, ctx.dim), None, None
+
+
+def _group_of(mesh, axes):
+    """The axis group, or None on a missing mesh or an axis of one rank."""
+    if mesh is None or axis_size(mesh, axes) == 1:
+        return None
+    return axis_group(mesh, axes)
+
+
+def copy_to_model(t: torch.Tensor, mesh, axes="model") -> torch.Tensor:
+    """A replicated tensor entering a model-parallel region: identity
+    forward; backward sums the ranks' partial gradients (all_reduce)."""
+    group = _group_of(mesh, axes)
+    return t if group is None else _CopyToModel.apply(t, group)
+
+
+def reduce_from_model(t: torch.Tensor, mesh, axes="model") -> torch.Tensor:
+    """The ranks' partial sums made whole: all_reduce forward; the
+    replicated gradient passes back unchanged."""
+    group = _group_of(mesh, axes)
+    return t if group is None else _ReduceFromModel.apply(t, group)
+
+
+def all_gather_dim(t: torch.Tensor, mesh, dim: int,
+                   axes="model") -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim``, inside a region whose
+    gradients are partial: backward reduce_scatters them."""
+    group = _group_of(mesh, axes)
+    return t if group is None else _AllGatherDim.apply(t, group, dim)
+
+
+def reduce_scatter(t: torch.Tensor, mesh, dim: int,
+                   axes="model") -> torch.Tensor:
+    """Block r (along ``dim``) of the sum over the ranks; backward
+    all_gathers the blocks' gradients."""
+    group = _group_of(mesh, axes)
+    return t if group is None else _ReduceScatter.apply(t, group, dim)
+
+
+def split_to_model(t: torch.Tensor, mesh, dim: int,
+                   axes="model") -> torch.Tensor:
+    """This rank's block of a replicated tensor along ``dim``; backward
+    all_gathers the blocks' gradients into the replicated one."""
+    group = _group_of(mesh, axes)
+    return t if group is None else _SplitToModel.apply(t, group, dim)
+
+
+def gather_from_model(t: torch.Tensor, mesh, dim: int,
+                      axes="model") -> torch.Tensor:
+    """Every rank's block concatenated along ``dim`` into a replicated
+    tensor; backward keeps this rank's block of the replicated
+    gradient."""
+    group = _group_of(mesh, axes)
+    return t if group is None else _GatherFromModel.apply(t, group, dim)
+
+
+def all_reduce_max(t: torch.Tensor, mesh, axes="model") -> torch.Tensor:
+    """The elementwise maximum over the ranks (no gradient)."""
+    group = _group_of(mesh, axes)
+    return t if group is None else _all_reduce(t.detach(), group, "max")

@@ -16,14 +16,26 @@ Two services share this entry point, as in ``repro/launch/serve.py``:
 
 Both report into the same ``--obs PATH`` flight-recorder JSONL
 (``repro_torch.obs``): a run header, the service's records and a
-``serve/summary`` event. ``--device`` defaults to the GPU; ``--device
-cpu`` runs the plain PyTorch path. ``main`` first stages the process
-variables (``launch.env.configure``). ``--mesh`` waits for ROADMAP Queue 1
-item 13b.
+``serve/summary`` event. ``--device`` defaults to the GPU, where LM
+prefill runs the flash kernel (``attn_impl="flash"``; a layer with a
+window runs chunked attention, as the model code rules); ``--device cpu``
+runs the plain PyTorch path at the config's attention. ``main`` first
+stages the process variables (``launch.env.configure``).
+
+``--mesh DxM`` serves the LM over the (data, model) mesh of the world
+(joined from torchrun's environment, or one a caller started; gloo with
+``--device cpu``): the model splits over the M model ranks
+(``get_model(tp_size=M)``), and every rank runs the engine on the same
+requests, its logits gathered whole, so every rank emits the same tokens
+and world rank 0 reports them. On the card the world is one rank:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+        --arch olmo-1b --smoke --device cpu --mesh 1x2
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -37,6 +49,7 @@ from repro_torch.serving import (AssignServeConfig, AssignService,
 from repro_torch.serving.engine import ENCDEC_NOT_SERVED
 
 from . import env
+from .mesh import join_torchrun, launcher_mesh
 
 
 def synth_artifact(device, *, precision: str = "f32", full: bool = False):
@@ -110,6 +123,8 @@ def main(argv=None):
                     help="the arch's small smoke config")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, raising without one)")
+    ap.add_argument("--mesh", default="1x1",
+                    help="(data)x(model) ranks of the world (LM serving)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
@@ -134,8 +149,25 @@ def main(argv=None):
     cfg = get_arch(args.arch, smoke=args.smoke)
     if cfg.family == "encdec":          # refused before drawing parameters
         raise ValueError(f"{args.arch}: {ENCDEC_NOT_SERVED}")
-    api = get_model(cfg, device=args.device)
+    dev = env.set_device(args.device)
+    if dev.type == "cuda":   # the flash kernel (windowed layers: chunked)
+        cfg = dataclasses.replace(cfg, attn_impl="flash")
+    joined = join_torchrun(dev)
+    try:
+        return lm_main(args, cfg, launcher_mesh(args.mesh, dev), dev)
+    finally:
+        if joined:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def lm_main(args, cfg, mesh, dev):
+    """The LM service on ``mesh`` (None: one process)."""
+    dp, tp_size = (1, 1) if mesh is None else (int(mesh.size(0)),
+                                               int(mesh.size(1)))
+    api = get_model(cfg, tp_size=tp_size, dp_size=dp, mesh=mesh, device=dev)
     params = api.init(0)
+    report = mesh is None or mesh.get_rank() == 0
 
     sampler = greedy if args.top_p <= 0 else \
         (lambda logits, gen: sample_top_p(logits, gen, top_p=args.top_p))
@@ -149,7 +181,9 @@ def main(argv=None):
     for n in lens:
         eng.submit(rng.integers(1, cfg.vocab_size, size=int(n)))
 
-    rec = _make_recorder(args, api.device, arch=args.arch)
+    rec = _make_recorder(args, api.device, arch=args.arch,
+                         mesh={"data": dp, "model": tp_size}) \
+        if report else None
     results = {}
     t0 = time.time()
     try:
@@ -164,9 +198,11 @@ def main(argv=None):
                       seconds=dt, ticks=eng.ticks)
             rec.close()
     n_tokens = sum(len(v) for v in results.values())
-    print(f"[serve] {args.arch}: {len(results)} requests, "
-          f"{n_tokens} tokens in {dt:.2f}s "
-          f"({n_tokens/dt:.1f} tok/s, {eng.ticks} batched ticks)")
+    if report:
+        print(f"[serve] {args.arch}: {len(results)} requests, "
+              f"{n_tokens} tokens in {dt:.2f}s "
+              f"({n_tokens/dt:.1f} tok/s, {eng.ticks} batched ticks, "
+              f"mesh={{'data': {dp}, 'model': {tp_size}}})")
     return results
 
 

@@ -3,8 +3,21 @@ attention), the decode path over a per-slot KV cache, and the
 encoder-decoder's cross-attention over the encoder's K/V (the port of
 ``repro/models/attention.py``).
 
-The reference's decode KV-cache sharding policy belongs to the mesh slice;
-the port runs on one card.
+Over a model axis (``tp``, Megatron-style) a rank holds H/M query heads
+(its columns of wq, its rows of wo, whose product is summed over the ranks)
+and its K/V follow the reference's ``_kv_policy``:
+
+* ``heads`` (KH % M == 0): wk and wv split by kv heads like wq; each rank
+  caches its KH/M kv heads, whole along the sequence;
+* ``seq`` (otherwise): wk and wv stay whole on every rank. Prefill passes
+  the attention only the contiguous kv heads its own q heads read
+  (``local_kv_heads``), so the GQA grouping is the unsplit one. The
+  decode cache is split over the sequence: rank r keeps cache rows
+  (slots) j with j % M == r, in local row j // M, every kv head; a
+  decode step gathers every rank's q heads, takes the softmax's partial
+  (max m, sum l, output o) over its own slots, and the ranks' partials
+  are combined by log-sum-exp in rank order on every rank. The cache
+  length must split over M.
 """
 from __future__ import annotations
 
@@ -12,8 +25,28 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from .common import NEG_INF, ParamBuilder, apply_rope, chunked_attention, \
-    rms_norm
+from .common import NEG_INF, TP, TP1, ParamBuilder, apply_rope, \
+    chunked_attention, rms_norm
+
+
+def kv_policy(cfg: ModelConfig, tp_size: int) -> str:
+    """The reference's ``_kv_policy``: 'heads' when the kv heads split over
+    the model axis, else 'seq'."""
+    return "heads" if cfg.n_kv_heads % tp_size == 0 else "seq"
+
+
+def local_kv_heads(cfg: ModelConfig, tp: TP) -> slice | list:
+    """The kv heads (global ids) that rank ``tp.rank``'s query heads read,
+    one per local GQA group: a slice when each kv head serves whole groups
+    of its q heads, else one kv head per q head."""
+    groups = cfg.n_heads // cfg.n_kv_heads
+    h_l = tp.local(cfg.n_heads, "query heads")
+    q0 = tp.rank * h_l
+    if h_l % groups == 0:
+        return slice(q0 // groups, (q0 + h_l) // groups)
+    if groups % h_l == 0:
+        return slice(q0 // groups, q0 // groups + 1)
+    return [(q0 + i) // groups for i in range(h_l)]
 
 
 def init_attention(b: ParamBuilder, cfg: ModelConfig, prefix: str = ""):
@@ -29,15 +62,21 @@ def init_attention(b: ParamBuilder, cfg: ModelConfig, prefix: str = ""):
         b.ones(prefix + "kn", (dh,))
 
 
-def _project_qkv(p, x, cfg: ModelConfig, positions, prefix=""):
+def _project_qkv(p, x, cfg: ModelConfig, positions, prefix="", tp=TP1):
+    """q [B, S, H/M, dh]; k, v [B, S, KH/M, dh] (``heads``) or [B, S, KH,
+    dh] (``seq``, and at one rank)."""
     b, s, _ = x.shape
-    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = (x @ p[prefix + "wq"]).reshape(b, s, h, dh)
-    k = (x @ p[prefix + "wk"]).reshape(b, s, kh, dh)
-    v = (x @ p[prefix + "wv"]).reshape(b, s, kh, dh)
+    dh = cfg.d_head
+    x = tp.copy(x)
+    wk, wv = p[prefix + "wk"], p[prefix + "wv"]
+    if tp.size > 1 and kv_policy(cfg, tp.size) == "seq":
+        wk, wv = tp.copy(wk), tp.copy(wv)      # whole on every rank
+    q = (x @ p[prefix + "wq"]).reshape(b, s, -1, dh)
+    k = (x @ wk).reshape(b, s, -1, dh)
+    v = (x @ wv).reshape(b, s, -1, dh)
     if cfg.qk_norm:
-        q = rms_norm(q, p[prefix + "qn"])
-        k = rms_norm(k, p[prefix + "kn"])
+        q = rms_norm(q, tp.copy(p[prefix + "qn"]))
+        k = rms_norm(k, tp.copy(p[prefix + "kn"]))
     q = apply_rope(q, positions, theta=cfg.rope_theta)
     k = apply_rope(k, positions, theta=cfg.rope_theta)
     return q, k, v
@@ -45,8 +84,9 @@ def _project_qkv(p, x, cfg: ModelConfig, positions, prefix=""):
 
 def attention_block(p, x, cfg: ModelConfig, *, window: int | None,
                     causal: bool = True, positions=None, prefix: str = "",
-                    q_chunk: int = 512):
-    """Full-sequence attention (training / prefill). Returns (out, (k, v)).
+                    q_chunk: int = 512, tp: TP = TP1):
+    """Full-sequence attention (training / prefill). Returns (out, (k, v)),
+    k and v as ``_project_qkv`` makes them (this rank's cache material).
 
     ``attn_impl="flash"`` on a layer without a window goes through
     ``ops.flash_attention`` — the CUDA kernel for a tensor on the card, its
@@ -56,19 +96,23 @@ def attention_block(p, x, cfg: ModelConfig, *, window: int | None,
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = _project_qkv(p, x, cfg, positions, prefix)
+    q, k, v = _project_qkv(p, x, cfg, positions, prefix, tp)
+    kq, vq = k, v
+    if tp.size > 1 and kv_policy(cfg, tp.size) == "seq":
+        idx = local_kv_heads(cfg, tp)
+        kq, vq = k[:, :, idx].contiguous(), v[:, :, idx].contiguous()
     if cfg.attn_impl == "flash" and window is None:
         # [B, S, H, dh] -> [B, H, S, dh] views and back: the kernel reads
         # and writes them in place
         out = ops.flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            q.transpose(1, 2), kq.transpose(1, 2), vq.transpose(1, 2),
             causal=causal, softcap=cfg.attn_softcap).transpose(1, 2)
     else:
-        out = chunked_attention(q, k, v, causal=causal, window=window,
+        out = chunked_attention(q, kq, vq, causal=causal, window=window,
                                 attn_softcap=cfg.attn_softcap,
                                 q_chunk=q_chunk)
-    out = out.reshape(b, s, cfg.n_heads * cfg.d_head)
-    return out @ p[prefix + "wo"], (k, v)
+    out = out.reshape(b, s, q.shape[2] * cfg.d_head)
+    return tp.reduce(out @ p[prefix + "wo"]), (k, v)
 
 
 def cross_attention_block(p, x, memory_kv, cfg: ModelConfig, *,
@@ -86,7 +130,8 @@ def cross_attention_block(p, x, memory_kv, cfg: ModelConfig, *,
 
 
 def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
-                     window: int | None = None, prefix: str = ""):
+                     window: int | None = None, prefix: str = "",
+                     tp: TP = TP1):
     """One-token decode: write the new K/V at ``pos``, attend over the cache.
 
     x: [B, 1, D]; cache_k/v: [B, S, KH, dh] (a ring buffer when ``window``).
@@ -94,13 +139,19 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
     slot sits at its own cursor). The reference returns new cache arrays;
     the port writes the new rows into ``cache_k``/``cache_v`` in place
     (rounded to the cache's dtype), so the serving engine keeps one cache
-    allocation. Returns (out [B, 1, D], cache_k, cache_v)."""
+    allocation. Over a model axis the cache holds this rank's kv heads
+    (``heads``) or its slots (``seq``, ``_decode_seq``). Returns (out [B,
+    1, D], cache_k, cache_v)."""
     b = x.shape[0]
-    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dh = cfg.d_head
     s = cache_k.shape[1]
     pos_b = torch.as_tensor(pos, dtype=torch.long,
                             device=x.device).expand(b)            # [B]
-    q, k, v = _project_qkv(p, x, cfg, pos_b[:, None], prefix)
+    q, k, v = _project_qkv(p, x, cfg, pos_b[:, None], prefix, tp)
+    if tp.size > 1 and kv_policy(cfg, tp.size) == "seq":
+        return _decode_seq(p, q, k, v, cache_k, cache_v, pos_b, cfg,
+                           window=window, prefix=prefix, tp=tp)
+    h, kh = q.shape[2], k.shape[2]
 
     slot_b = pos_b % s if window is not None else pos_b
     rows = torch.arange(b, device=x.device)
@@ -124,7 +175,50 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs, cache_v.to(torch.float32))
     out = out.reshape(b, 1, h * dh).to(x.dtype)
-    return out @ p[prefix + "wo"], cache_k, cache_v
+    return tp.reduce(out @ p[prefix + "wo"]), cache_k, cache_v
+
+
+def _decode_seq(p, q, k, v, cache_k, cache_v, pos_b, cfg: ModelConfig, *,
+                window, prefix, tp: TP):
+    """Decode under the ``seq`` policy: the cache [B, S/M, KH, dh] holds
+    slots r, r + M, ...; q [B, 1, H/M, dh], k and v [B, 1, KH, dh]."""
+    b, _, h_l, dh = q.shape
+    kh, groups = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    s_l = cache_k.shape[1]
+    s = s_l * tp.size                                   # the whole cache
+    slot_b = pos_b % s if window is not None else pos_b
+    own = (slot_b % tp.size) == tp.rank
+    row = torch.clamp(slot_b // tp.size, max=s_l - 1)
+    rows = torch.arange(b, device=q.device)
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        cur = cache[rows, row]
+        cache[rows, row] = torch.where(own[:, None, None],
+                                       new[:, 0].to(cache.dtype), cur)
+
+    q_all = tp.gather(q, 2).reshape(b, kh, groups, dh).to(torch.float32)
+    scores = torch.einsum("bkgd,bskd->bkgs", q_all,
+                          cache_k.to(torch.float32)) * dh ** -0.5
+    if cfg.attn_softcap is not None:
+        scores = cfg.attn_softcap * torch.tanh(scores / cfg.attn_softcap)
+    kpos = torch.arange(s_l, device=q.device) * tp.size + tp.rank
+    valid = kpos[None, :] <= pos_b[:, None]
+    if window is not None:
+        valid = valid | (pos_b[:, None] >= s)
+    valid = valid[:, None, None, :]
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    m = torch.max(scores, dim=-1).values                          # [B,KH,G]
+    e = torch.where(valid, torch.exp(scores - m[..., None]),
+                    torch.zeros_like(scores))
+    o = torch.einsum("bkgs,bskd->bkgd", e, cache_v.to(torch.float32))
+    part = torch.cat([o, e.sum(dim=-1)[..., None], m[..., None]], dim=-1)
+    parts = tp.gather(part[None], 0)                  # [M, B, KH, G, dh+2]
+    o_r, l_r, m_r = parts[..., :dh], parts[..., dh], parts[..., dh + 1]
+    w = torch.exp(m_r - torch.max(m_r, dim=0).values)
+    out = (w[..., None] * o_r).sum(dim=0) / (w * l_r).sum(dim=0)[..., None]
+    out = out.reshape(b, kh * groups, dh)[:, tp.rank * h_l:(tp.rank + 1)
+                                          * h_l]
+    out = out.reshape(b, 1, h_l * dh).to(q.dtype)
+    return tp.reduce(out @ p[prefix + "wo"]), cache_k, cache_v
 
 
 def decode_cross_attention(p, x, memory_kv, cfg: ModelConfig, *,

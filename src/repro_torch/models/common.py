@@ -9,31 +9,86 @@ Conventions
   per-layer dicts and loops over it.
 * Weights keep the reference's [in, out] orientation and names, so a JAX
   parameter tree converts by unstacking alone (``repro_torch.convert``).
-* The sharding annotations (``Axes``, ``shard``, partition specs) have no
-  counterpart: the port's models run on one card, and ``init_*`` return
-  parameters only. The ambient mesh does: ``set_ambient_mesh`` hands the
-  expert-parallel MoE a ``DeviceMesh`` (``distributed/mesh.py``) with a
-  ``data`` axis, and ``moe_block_ep`` then exchanges tokens over it.
+* The reference's ``Axes`` and ambient mesh (its GSPMD annotations) are
+  ``TP`` here: the model axis of a ``DeviceMesh`` (``distributed/mesh.py``)
+  that the dense, MoE and hybrid families split over, Megatron-style.
+  Every function that splits takes ``tp=`` (default ``TP1``: one rank, no
+  collective, the unsplit code). Under ``TP`` of size M a rank holds the
+  parameters ``convert.shard_lm`` cuts for it, the residual stream is
+  whole on every rank, a split region starts at ``tp.copy`` (identity,
+  all_reduce backward) and ends at ``tp.reduce`` (all_reduce, identity
+  backward). A replicated parameter used inside a region goes through
+  ``tp.copy`` too, so its gradient is the whole one on every rank.
+  ``init_*`` return parameters only. ``TP``'s mesh also hands the
+  expert-parallel MoE its ``data`` axis.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30   # masked scores: finite, so a fully masked row stays finite
 
-# the ambient mesh for model code that dispatches over ranks (launchers and
-# tests set it; None: one process)
-_AMBIENT_MESH = None
+@dataclasses.dataclass(frozen=True)
+class TP:
+    """The model axis a model splits over: ``mesh`` (a DeviceMesh with a
+    ``model`` axis, or None), its ``size`` and this rank's ``rank`` on
+    it. At size 1 every method is the identity and launches nothing."""
+    mesh: object = None
+    size: int = 1
+    rank: int = 0
+
+    @classmethod
+    def of(cls, mesh) -> "TP":
+        from repro_torch.distributed import mesh as dmesh
+        if mesh is None or "model" not in mesh.mesh_dim_names:
+            return TP1
+        return cls(mesh, dmesh.axis_size(mesh, "model"),
+                   dmesh.axis_rank(mesh, "model"))
+
+    def local(self, n: int, what: str) -> int:
+        """n / size, raising when ``what`` (n of them) does not split."""
+        if n % self.size:
+            raise ValueError(f"{n} {what} do not split over a model axis "
+                             f"of {self.size}")
+        return n // self.size
+
+    def copy(self, t):
+        if self.size == 1:
+            return t
+        from repro_torch.distributed import mesh as dmesh
+        return dmesh.copy_to_model(t, self.mesh)
+
+    def reduce(self, t):
+        if self.size == 1:
+            return t
+        from repro_torch.distributed import mesh as dmesh
+        return dmesh.reduce_from_model(t, self.mesh)
+
+    def gather(self, t, dim: int):
+        """Every rank's block along ``dim``, whole (replicated)."""
+        if self.size == 1:
+            return t
+        from repro_torch.distributed import mesh as dmesh
+        return dmesh.gather_from_model(t, self.mesh, dim)
+
+    def split(self, t, dim: int):
+        """This rank's block of a replicated tensor along ``dim``."""
+        if self.size == 1:
+            return t
+        from repro_torch.distributed import mesh as dmesh
+        return dmesh.split_to_model(t, self.mesh, dim)
+
+    def max(self, t):
+        if self.size == 1:
+            return t
+        from repro_torch.distributed import mesh as dmesh
+        return dmesh.all_reduce_max(t, self.mesh)
 
 
-def set_ambient_mesh(mesh) -> None:
-    global _AMBIENT_MESH
-    _AMBIENT_MESH = mesh
-
-
-def ambient_mesh():
-    return _AMBIENT_MESH
+TP1 = TP()
 
 
 # ---------------------------------------------------------------------------
@@ -87,6 +142,34 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor | None, *,
         w = weight.to(torch.float32)
         y = y * (1.0 + w if plus_one else w)
     return y.to(x.dtype)
+
+
+def rms_norm_split(x: torch.Tensor, weight: torch.Tensor, tp: TP, *,
+                   width: int, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in f32 over a width split over the model axis: x and
+    ``weight`` hold this rank's block of ``width`` columns; the sum of
+    squares is all-reduced (whole on every rank, its gradient summed).
+    At one rank it is ``rms_norm``."""
+    if tp.size == 1:
+        return rms_norm(x, weight, eps=eps)
+    x32 = x.to(torch.float32)
+    ss = tp.copy(tp.reduce(torch.sum(x32 * x32, dim=-1, keepdim=True)))
+    y = x32 * torch.rsqrt(ss / width + eps) * weight.to(torch.float32)
+    return y.to(x.dtype)
+
+
+def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor,
+                 tp: TP = TP1) -> torch.Tensor:
+    """Rows of the embedding for ``tokens``. Split over the model axis
+    (rank r holds rows [r V/M, (r + 1) V/M)), each rank looks up its own
+    rows, zeroes the others and the ranks' rows are summed."""
+    if tp.size == 1:
+        return emb[tokens]
+    vl = emb.shape[0]
+    local = tokens - tp.rank * vl
+    own = (local >= 0) & (local < vl)
+    x = emb[local.clamp(0, vl - 1)]
+    return tp.reduce(torch.where(own[..., None], x, torch.zeros_like(x)))
 
 
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
@@ -207,10 +290,37 @@ def _chunk_loss(hc, emb, lc, logit_softcap, n_valid_vocab):
             valid.sum(dtype=torch.float32))
 
 
+def _chunk_loss_split(hc, emb, lc, logit_softcap, n_valid_vocab, tp):
+    """``_chunk_loss`` with the vocabulary split over the model axis: emb
+    holds this rank's rows; the row maxima, the sums of exponentials and
+    the gold logits are combined over the ranks, and the padded tail is
+    masked by its global vocabulary index."""
+    vl = emb.shape[0]
+    v0 = tp.rank * vl
+    logits = hc.to(torch.float32) @ emb.to(hc.dtype).to(torch.float32).T
+    if logit_softcap is not None:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    if n_valid_vocab is not None and v0 + vl > n_valid_vocab:
+        gid = v0 + torch.arange(vl, device=logits.device)
+        logits = torch.where(gid < n_valid_vocab, logits,
+                             torch.full_like(logits, NEG_INF))
+    m = tp.max(torch.max(logits, dim=-1).values.detach())
+    se = tp.reduce(torch.sum(torch.exp(logits - m[:, None]), dim=-1))
+    lse = m + torch.log(se)
+    local = lc - v0
+    own = (local >= 0) & (local < vl)
+    gold = torch.gather(logits, 1, local.clamp(0, vl - 1)[:, None])[:, 0]
+    gold = tp.reduce(torch.where(own, gold, torch.zeros_like(gold)))
+    valid = lc >= 0
+    return (torch.where(valid, lse - gold, torch.zeros_like(lse)).sum(),
+            valid.sum(dtype=torch.float32))
+
+
 def chunked_cross_entropy(hidden: torch.Tensor, emb: torch.Tensor,
                           labels: torch.Tensor, *, chunk: int = 2048,
                           logit_softcap: float | None = None,
-                          n_valid_vocab: int | None = None) -> torch.Tensor:
+                          n_valid_vocab: int | None = None,
+                          tp: TP = TP1) -> torch.Tensor:
     """Mean CE over the labels >= 0 (-1 is padding), looping over chunks
     of ``chunk`` rows.
 
@@ -218,12 +328,17 @@ def chunked_cross_entropy(hidden: torch.Tensor, emb: torch.Tensor,
     chunk's [chunk, V] f32 logits exist only while it runs: the chunk is
     recomputed in the backward pass (``torch.utils.checkpoint``, as the
     reference's ``@jax.checkpoint``). ``n_valid_vocab`` masks padded
-    embedding rows out of the partition function."""
+    embedding rows out of the partition function. Under ``tp`` of more
+    than one rank, emb holds this rank's block of vocabulary rows
+    (``_chunk_loss_split``)."""
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    fn, extra = _chunk_loss, ()
+    if tp.size > 1:
+        fn, extra, hidden = _chunk_loss_split, (tp,), tp.copy(hidden)
     for c0 in range(0, hidden.shape[0], chunk):
-        s, n = checkpoint(_chunk_loss, hidden[c0:c0 + chunk], emb,
+        s, n = checkpoint(fn, hidden[c0:c0 + chunk], emb,
                           labels[c0:c0 + chunk], logit_softcap,
-                          n_valid_vocab, use_reentrant=False)
+                          n_valid_vocab, *extra, use_reentrant=False)
         total, count = total + s, count + n
     return total / torch.clamp(count, min=1.0)

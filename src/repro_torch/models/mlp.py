@@ -15,19 +15,20 @@ calls, as the reference computes them outside any Pallas kernel.
 (``_moe_block_ep_grouped``, the reference's ``_moe_block_ep_gspmd``:
 capacity per group of tokens) in one process, and the all_to_all path
 (``_moe_block_ep_all_to_all``, the reference's ``_moe_block_ep_shardmap``)
-when an ambient mesh with a ``data`` axis is set.
+when ``tp``'s mesh has a ``data`` axis.
+
+Over a model axis (``tp`` of M ranks): the dense SwiGLU splits w_gate and
+w_up by columns and w_down by rows, and the ranks' outputs are summed; the
+MoE splits every expert's d_ff (e_gate / e_up [E, D, F/M], e_down [E, F/M,
+D]) and keeps the router whole, so every rank routes alike and the
+combined outputs are summed.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from .common import ParamBuilder, ambient_mesh, swiglu
-
-#: where the ROADMAP queues the model axis of the expert-parallel dispatch
-MODEL_AXIS_QUEUED = ("a model axis larger than 1 in moe_block_ep (ROADMAP "
-                     "Queue 1 item 13b: the model axis of launch.train and "
-                     "of moe_block_ep)")
+from .common import TP, TP1, ParamBuilder, swiglu
 
 
 def init_mlp(b: ParamBuilder, d_model: int, d_ff: int, prefix: str = ""):
@@ -36,9 +37,11 @@ def init_mlp(b: ParamBuilder, d_model: int, d_ff: int, prefix: str = ""):
     b.dense(prefix + "w_down", (d_ff, d_model))
 
 
-def mlp_block(p, x: torch.Tensor, prefix: str = "") -> torch.Tensor:
+def mlp_block(p, x: torch.Tensor, prefix: str = "",
+              tp: TP = TP1) -> torch.Tensor:
+    x = tp.copy(x)
     h = swiglu(x @ p[prefix + "w_gate"], x @ p[prefix + "w_up"])
-    return h @ p[prefix + "w_down"]
+    return tp.reduce(h @ p[prefix + "w_down"])
 
 
 def init_moe(b: ParamBuilder, cfg: ModelConfig, prefix: str = ""):
@@ -101,12 +104,13 @@ def _combine(y_flat, slot, kept, top_w, shape):
 
 
 def moe_block(p, x: torch.Tensor, cfg: ModelConfig,
-              prefix: str = "") -> torch.Tensor:
+              prefix: str = "", tp: TP = TP1) -> torch.Tensor:
     """Top-k capacity-dropping MoE. x: [B, S, D] -> [B, S, D], with one
     global capacity max(128, ceil128(T k / E cf)). Dispatches to the
     expert-parallel path when ``cfg.moe_ep_groups`` is set."""
     if cfg.moe_ep_groups:
-        return moe_block_ep(p, x, cfg, prefix=prefix)
+        return moe_block_ep(p, x, cfg, prefix=prefix, tp=tp)
+    x = tp.copy(x)
     bsz, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     t = bsz * s
@@ -114,7 +118,7 @@ def moe_block(p, x: torch.Tensor, cfg: ModelConfig,
     cap = int(t * k / e * cfg.capacity_factor)
     cap = max(128, -(-cap // 128) * 128)           # lane-aligned
 
-    top_w, top_e = route(xt, p[prefix + "router"], k)            # [T, k]
+    top_w, top_e = route(xt, tp.copy(p[prefix + "router"]), k)   # [T, k]
     e_ids = top_e.reshape(-1)                                     # [T*k]
     pos = slot_positions(e_ids, e)
     kept = pos < cap
@@ -123,16 +127,20 @@ def moe_block(p, x: torch.Tensor, cfg: ModelConfig,
     y = _experts(buf.reshape(e, cap, d), p[prefix + "e_gate"],
                  p[prefix + "e_up"], p[prefix + "e_down"], "ecd")
     out = _combine(y.reshape(e * cap, d), slot, kept, top_w, (t, k, d))
-    return out.reshape(bsz, s, d)
+    return tp.reduce(out.reshape(bsz, s, d))
 
 
 def moe_block_ep(p, x: torch.Tensor, cfg: ModelConfig,
-                 prefix: str = "") -> torch.Tensor:
-    """Expert-parallel top-k MoE: the all_to_all dispatch when an ambient
-    mesh with a ``data`` axis is set, else the grouped path."""
-    mesh = ambient_mesh()
+                 prefix: str = "", tp: TP = TP1) -> torch.Tensor:
+    """Expert-parallel top-k MoE: the all_to_all dispatch when ``tp``'s
+    mesh has a ``data`` axis, else the grouped path."""
+    mesh = tp.mesh
     if mesh is not None and "data" in mesh.mesh_dim_names:
-        return _moe_block_ep_all_to_all(p, x, cfg, mesh, prefix=prefix)
+        return _moe_block_ep_all_to_all(p, x, cfg, mesh, prefix=prefix,
+                                        tp=tp)
+    if tp.size > 1:
+        raise ValueError("the expert-parallel MoE over a model axis needs a "
+                         "mesh with a data axis")
     return _moe_block_ep_grouped(p, x, cfg, prefix=prefix)
 
 
@@ -167,7 +175,8 @@ def _moe_block_ep_grouped(p, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _moe_block_ep_all_to_all(p, x: torch.Tensor, cfg: ModelConfig, mesh,
-                             prefix: str = "") -> torch.Tensor:
+                             prefix: str = "",
+                             tp: TP = TP1) -> torch.Tensor:
     """The reference's ``_moe_block_ep_shardmap`` across ranks: x is this
     rank's share of the batch. Its tokens route into a LOCAL [E, cap_l, D]
     buffer (cap_l = max(8, ceil8(T_l k / E cf))); ONE all_to_all over
@@ -175,23 +184,35 @@ def _moe_block_ep_all_to_all(p, x: torch.Tensor, cfg: ModelConfig, mesh,
     owns experts [r E/P, (r + 1) E/P) and uses only that slice of the
     expert weights it holds), and ONE moves the outputs back. The exchange
     is differentiable (its backward is the reverse all_to_all), so a
-    rank's expert gradients sum every rank's tokens."""
+    rank's expert gradients sum every rank's tokens.
+
+    Over a model axis of M ranks (``tp``; each rank's experts hold F/M of
+    d_ff) the reference's tokens split over ``model`` along the sequence
+    when S % M == 0, so each model rank routes its own S/M positions with
+    cap_l from its own tokens (every rank routes all S otherwise). After
+    the ``data`` exchange ONE all_gather over ``model`` assembles every
+    model rank's slots for the F-split experts and ONE reduce_scatter
+    returns each rank its own slots summed over F; the outputs of the S/M
+    positions are gathered whole over ``model`` at the end. The all_gather
+    only concatenates buffers, so it changes no drop."""
     from repro_torch.distributed import mesh as dmesh
     shape = dmesh.mesh_shape(mesh)
-    if shape.get("model", 1) > 1:
-        raise NotImplementedError(f"{MODEL_AXIS_QUEUED} is not ported")
     e, k = cfg.n_experts, cfg.moe_top_k
     dpd = shape["data"]
     if e % dpd:
         raise ValueError(f"{e} experts do not split over {dpd} data ranks")
     el = e // dpd
     r = dmesh.axis_rank(mesh, "data")
+    split = tp.size > 1 and x.shape[1] % tp.size == 0
+    router = p[prefix + "router"]
+    if split:   # this model rank's positions; the router's grads sum
+        x, router = tp.split(x, 1), tp.copy(router)
     bl, sl, d = x.shape
     tl = bl * sl
     xt = x.reshape(tl, d)
     capl = max(8, -(-int(tl * k / e * cfg.capacity_factor) // 8) * 8)
 
-    top_w, top_e = route(xt, p[prefix + "router"], k)
+    top_w, top_e = route(xt, router, k)
     e_ids = top_e.reshape(-1)
     pos = slot_positions(e_ids, e)
     kept = pos < capl
@@ -201,10 +222,16 @@ def _moe_block_ep_all_to_all(p, x: torch.Tensor, cfg: ModelConfig, mesh,
         buf = dmesh.all_to_all(buf.reshape(e, capl, d), mesh, "data")
         buf = buf.reshape(dpd, el, capl, d).transpose(0, 1)
     own = slice(r * el, (r + 1) * el)
-    y = _experts(buf.reshape(el, dpd * capl, d), p[prefix + "e_gate"][own],
+    buf = buf.reshape(el, dpd * capl, d)
+    if tp.size > 1:   # every model rank's slots: [E/P, M P cap_l, D]
+        buf = dmesh.all_gather_dim(buf, tp.mesh, 1)
+    y = _experts(buf, p[prefix + "e_gate"][own],
                  p[prefix + "e_up"][own], p[prefix + "e_down"][own], "ecd")
+    if tp.size > 1:   # this model rank's slots, summed over F
+        y = dmesh.reduce_scatter(y, tp.mesh, 1)
     if dpd > 1:   # back to the tokens' ranks: [E, cap_l, D]
         y = y.reshape(el, dpd, capl, d).transpose(0, 1)
         y = dmesh.all_to_all(y.reshape(e, capl, d), mesh, "data")
     out = _combine(y.reshape(e * capl, d), slot, kept, top_w, (tl, k, d))
-    return out.reshape(bl, sl, d)
+    out = out.reshape(bl, sl, d)
+    return tp.gather(out, 1) if split else out

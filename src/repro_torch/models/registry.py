@@ -2,8 +2,9 @@
 ``repro/models/registry.py``, every family of the LM zoo: dense, moe,
 encdec, hybrid, ssm).
 
-``get_model(cfg, device=)`` returns a ``ModelAPI`` whose members close over
-the config and the device:
+``get_model(cfg, tp_size=, dp_size=, mesh=, device=)`` returns a
+``ModelAPI`` whose members close over the config, the device and the model
+axis:
 
   init(seed=0, dtype=torch.bfloat16)        -> params, drawn on the device
   loss(params, batch, *, remat=True)        -> scalar CE (f32)
@@ -21,10 +22,18 @@ bf16 unless the weights are f32 (the reference's spec says bf16, and its
 engine holds them in the activations' dtype from its first decode tick
 on: its functional update promotes them).
 
-The reference's ``batch_partition`` and the partition specs of its cache
-and parameter trees have no counterpart: the port's models run on one
-card (``launch.train --mesh Dx1`` replicates them and splits the
-batch).
+Tensor parallelism: with ``tp_size`` M > 1 the dense, MoE and hybrid
+families split over the ``model`` axis of ``mesh`` (a DeviceMesh with
+axes (data, model)), Megatron-style
+(``models/common.py``). ``init`` draws the whole parameters from the seed
+and keeps this rank's cut (``convert.shard_lm``), so rank r holds exactly
+the world-1 run's slice; ``cache_specs`` gives this rank's leaf shapes
+under the reference's ``_kv_policy`` (``attention.kv_policy``); prefill
+and decode return the logits whole on every rank. ``dp_size`` is the
+mesh's data axis, which the launcher splits batches over (the
+data-parallel run replicates the parameters: no FSDP). The encoder-decoder and RWKV6
+families refuse M > 1 (``TP_QUEUED``). The reference's
+``batch_partition`` has no counterpart.
 """
 from __future__ import annotations
 
@@ -37,9 +46,16 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import FLASH_NO_GRAD
 from . import encdec, rwkv, transformer, zamba
+from .attention import kv_policy
+from .common import TP, TP1
 from .rwkv import rwkv_dims
 from .ssm import ssm_dims
 from .transformer import _cache_len, _layer_kinds
+
+#: why the encoder-decoder and RWKV6 families refuse a model axis
+TP_QUEUED = ("tensor parallelism (tp_size > 1) of the {family} family is not "
+             "ported: ROADMAP Queue 1 lists the model axis of the encdec and "
+             "ssm families next")
 
 CACHE_DTYPE = torch.bfloat16   # K/V, whatever the parameters are
 STATE_DTYPE = torch.float32    # the recurrent SSM and wkv states
@@ -55,6 +71,7 @@ class ModelAPI:
     decode: Callable[..., Any]
     input_specs: Callable[..., Any]
     cache_specs: Callable[..., Any]
+    tp: TP = TP1
 
 
 def _input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
@@ -79,7 +96,7 @@ def _input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
 
 
 def _cache_specs(cfg: ModelConfig, shape: ShapeConfig,
-                 dtype: torch.dtype = torch.bfloat16) -> dict:
+                 dtype: torch.dtype = torch.bfloat16, tp: TP = TP1) -> dict:
     """{leaf: (shape, dtype)} of a family's cache at B = global_batch and
     S = seq_len (the reference's ``cache_specs``) for parameters of
     ``dtype``; "conv{j}", "tm_x" and "cm_x" take promote(bf16, dtype):
@@ -89,16 +106,25 @@ def _cache_specs(cfg: ModelConfig, shape: ShapeConfig,
       hybrid:    "k", "v" [n_groups, B, min(shared_attn_window, S), KH,
                  dh], and per slot j "ssm{j}" [n_groups, B, H, N, 64] f32,
                  "conv{j}" [n_groups, B, conv_kernel - 1, C];
-      ssm:       "tm_x", "cm_x" [L, B, D], "wkv" [L, B, H, 64, 64] f32."""
+      ssm:       "tm_x", "cm_x" [L, B, D], "wkv" [L, B, H, 64, 64] f32.
+    Under ``tp`` of M ranks these are one rank's: K/V with KH/M heads
+    (``heads`` policy) or S/M rows (``seq``), the hybrid's ssm states with
+    H/M heads and its conv rows with d_inner/M + 2 N channels."""
     b, s = shape.global_batch, shape.seq_len
     kh, dh = cfg.n_kv_heads, cfg.d_head
     rows = torch.promote_types(CACHE_DTYPE, dtype)
+
+    def kv(clen):
+        if tp.size > 1 and kv_policy(cfg, tp.size) == "seq":
+            return tp.local(clen, "cache rows"), kh
+        return clen, tp.local(kh, "kv heads")
+
     if cfg.family in ("dense", "moe"):
         kinds = _layer_kinds(cfg)
         g = cfg.n_layers // len(kinds)
         specs = {}
         for j, kind in enumerate(kinds):
-            spec = ((g, b, _cache_len(cfg, kind, s), kh, dh), CACHE_DTYPE)
+            spec = ((g, b, *kv(_cache_len(cfg, kind, s)), dh), CACHE_DTYPE)
             specs[f"k{j}"] = specs[f"v{j}"] = spec
         return specs
     if cfg.family == "encdec":
@@ -106,9 +132,11 @@ def _cache_specs(cfg: ModelConfig, shape: ShapeConfig,
         return {"k": kv, "v": kv, "xk": kv, "xv": kv}
     if cfg.family == "hybrid":
         g, period = cfg.n_layers // cfg.attn_period, cfg.attn_period
-        _, n_heads, conv_dim = ssm_dims(cfg)
-        kv = ((g, b, min(cfg.shared_attn_window, s), kh, dh), CACHE_DTYPE)
-        specs = {"k": kv, "v": kv}
+        d_inner, n_heads, conv_dim = ssm_dims(cfg)
+        n_heads = tp.local(n_heads, "Mamba2 heads")
+        conv_dim -= d_inner - d_inner // tp.size
+        kvs = ((g, b, *kv(min(cfg.shared_attn_window, s)), dh), CACHE_DTYPE)
+        specs = {"k": kvs, "v": kvs}
         for j in range(period):
             specs[f"ssm{j}"] = ((g, b, n_heads, cfg.ssm_state, 64),
                                 STATE_DTYPE)
@@ -137,24 +165,52 @@ _FAMILIES = {
 }
 
 
-def get_model(cfg: ModelConfig, *, device=None) -> ModelAPI:
+def _model_axis(cfg: ModelConfig, tp_size: int, dp_size: int, mesh) -> TP:
+    """The TP context of ``mesh``, checked against ``tp_size`` and
+    ``dp_size``."""
+    if tp_size > 1 and cfg.family in ("encdec", "ssm"):
+        raise NotImplementedError(TP_QUEUED.format(family=cfg.family))
+    if mesh is None:
+        if tp_size > 1:
+            raise ValueError(f"tp_size={tp_size} needs a mesh with a model "
+                             f"axis of {tp_size} ranks")
+        return TP1
+    tp = TP.of(mesh)
+    data = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)).get("data", 1)
+    if (tp.size, data) != (tp_size, dp_size):
+        raise ValueError(f"tp_size={tp_size}, dp_size={dp_size}, but the "
+                         f"mesh's model and data axes have {tp.size} and "
+                         f"{data} ranks")
+    return tp
+
+
+def get_model(cfg: ModelConfig, *, tp_size: int = 1, dp_size: int = 1,
+              mesh=None, device=None) -> ModelAPI:
     """The model API on ``device`` (``None``: the GPU, raising without
-    one)."""
+    one), split over the ``model`` axis of ``mesh`` when ``tp_size`` > 1
+    (a mesh whose model axis has one rank runs the same code with every
+    collective the identity)."""
     fam = cfg.family
     if fam not in _FAMILIES:
         raise ValueError(fam)
     dev = resolve_device(device)
+    tp = _model_axis(cfg, tp_size, dp_size, mesh)
     init_fn, loss_fn, decode_fn = _FAMILIES[fam]
+    kw = {} if fam in ("encdec", "ssm") else {"tp": tp}
 
     def init(seed: int = 0, dtype: torch.dtype = torch.bfloat16):
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return init_fn(cfg, gen, dtype, dev)
+        params = init_fn(cfg, gen, dtype, dev)
+        if tp.size > 1:
+            from repro_torch.convert import shard_lm
+            params = shard_lm(params, cfg, tp.rank, tp.size)
+        return params
 
     def loss(params, batch, *, remat=True):
         # the flash kernel is forward only; RWKV attends nothing
         if cfg.attn_impl == "flash" and fam != "ssm":
             raise RuntimeError(f"{cfg.name}: {FLASH_NO_GRAD}")
-        return loss_fn(params, batch, cfg, remat=remat)
+        return loss_fn(params, batch, cfg, remat=remat, **kw)
 
     def prefill(params, batch, *, max_len=None):
         if fam == "encdec":
@@ -163,17 +219,17 @@ def get_model(cfg: ModelConfig, *, device=None) -> ModelAPI:
                 max_len=max_len or batch["frames"].shape[1])
         if fam == "hybrid":
             return zamba.prefill(params, batch["tokens"], cfg,
-                                 max_len=max_len)
+                                 max_len=max_len, tp=tp)
         if fam == "ssm":       # the state is whole at any length
             return rwkv.prefill(params, batch["tokens"], cfg)
         return transformer.prefill(params, batch["tokens"], cfg,
-                                   max_len=max_len)
+                                   max_len=max_len, tp=tp)
 
     def decode(params, cache, token, pos):
-        return decode_fn(params, cache, token, pos, cfg)
+        return decode_fn(params, cache, token, pos, cfg, **kw)
 
     return ModelAPI(cfg=cfg, device=dev, init=init, loss=loss,
                     prefill=prefill, decode=decode,
                     input_specs=lambda shape: _input_specs(cfg, shape),
                     cache_specs=lambda shape, dtype=torch.bfloat16:
-                    _cache_specs(cfg, shape, dtype))
+                    _cache_specs(cfg, shape, dtype, tp), tp=tp)

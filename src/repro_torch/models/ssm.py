@@ -12,6 +12,23 @@ All decay algebra is in log space; exponents are <= 0 by construction
     y_t = c_t^T h_t + D * x_t
 
 The scan is plain PyTorch, as the reference's is plain JAX (no kernel).
+
+Over a model axis of M ranks (``tp``) the heads split: a rank holds H/M
+heads, and its leaves are cut by ``convert.shard_lm`` in this layout:
+
+* in_proj [D, z_l | x_l | B | C | dt_l]: its heads' z and x channels
+  (H/M x 64 each) and dt columns, and the B and C columns whole;
+* conv_w [k, x_l | B | C] and conv_b [x_l | B | C]: its x channels and
+  the B and C channels whole;
+* ssm_norm [x_l] and out_proj's rows [x_l, D]: its channels;
+* dt_bias, A_log and D whole (the rank reads its heads' entries).
+
+The scan runs on the rank's heads only, the gated norm's sum of squares
+is all-reduced over the model axis (``common.rms_norm_split``), and the
+out_proj products are summed over the ranks. The B and C columns and the
+whole per-head leaves enter through ``tp.copy``, so their gradients sum
+every rank's heads. The decode state is [B, H/M, N, 64] and the conv
+window holds the rank's x channels and the B and C channels.
 """
 from __future__ import annotations
 
@@ -19,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from .common import ParamBuilder, rms_norm
+from .common import TP, TP1, ParamBuilder, rms_norm, rms_norm_split
 
 _P_HEAD = 64   # mamba2 head dim
 
@@ -51,11 +68,38 @@ def init_mamba2(b: ParamBuilder, cfg: ModelConfig, prefix: str = ""):
     b.dense(prefix + "out_proj", (d_inner, d))
 
 
-def _split_proj(proj, cfg: ModelConfig):
-    """in_proj's output -> (z, x, B, C, dt) along the last dim."""
+def _split_proj(proj, cfg: ModelConfig, tp: TP = TP1):
+    """in_proj's output -> (z, x, B, C, dt) along the last dim (this
+    rank's heads' z, x and dt)."""
     d_inner, n_heads, _ = ssm_dims(cfg)
     n = cfg.ssm_state
-    return torch.split(proj, [d_inner, d_inner, n, n, n_heads], dim=-1)
+    d_l, h_l = d_inner // tp.size, n_heads // tp.size
+    return torch.split(proj, [d_l, d_l, n, n, h_l], dim=-1)
+
+
+def _whole_cols(w, start: int, stop: int, tp: TP):
+    """w with its last-dim columns [start, stop) whole on every rank: they
+    enter through ``tp.copy`` so their gradient sums the ranks'."""
+    if tp.size == 1:
+        return w
+    return torch.cat([w[..., :start], tp.copy(w[..., start:stop]),
+                      w[..., stop:]], dim=-1)
+
+
+def _local_params(p, cfg: ModelConfig, prefix: str, tp: TP):
+    """(in_proj, conv_w, conv_b, dt_bias, A_log, D) as this rank reads
+    them: the B and C columns through ``tp.copy``, the per-head leaves at
+    its heads."""
+    d_inner, n_heads, _ = ssm_dims(cfg)
+    n = cfg.ssm_state
+    d_l = d_inner // tp.size
+    h_l = tp.local(n_heads, "Mamba2 heads")
+    heads = slice(tp.rank * h_l, (tp.rank + 1) * h_l)
+    return (_whole_cols(p[prefix + "in_proj"], 2 * d_l, 2 * d_l + 2 * n, tp),
+            _whole_cols(p[prefix + "conv_w"], d_l, d_l + 2 * n, tp),
+            _whole_cols(p[prefix + "conv_b"], d_l, d_l + 2 * n, tp),
+            *(tp.copy(p[prefix + name])[heads]
+              for name in ("dt_bias", "A_log", "D")))
 
 
 def _causal_conv(xbc, conv_w, conv_b, kernel: int):
@@ -94,23 +138,25 @@ def _ssd_chunk(state, xc, bc, cc, dtc, lc, tri):
 
 def mamba2_block(p, x, cfg: ModelConfig, *, chunk: int = 128,
                  prefix: str = "", initial_state=None,
-                 return_state: bool = False):
+                 return_state: bool = False, tp: TP = TP1):
     """x: [B, S, D] -> [B, S, D]. ``initial_state`` [B, H, N, P] f32 starts
     the scan; ``return_state`` also returns (ssm [B, H, N, P] f32, conv
     [B, k - 1, C]: the last k - 1 PRE-conv rows, zeros before the first
     token)."""
     bsz, s, _ = x.shape
     d_inner, n_heads, _ = ssm_dims(cfg)
+    d_inner, n_heads = d_inner // tp.size, n_heads // tp.size   # local
     n = cfg.ssm_state
     k = cfg.conv_kernel
+    in_proj, conv_w, conv_b, dt_bias, a_log, d_skip = _local_params(
+        p, cfg, prefix, tp)
 
-    z, xs, bmat, cmat, dt = _split_proj(x @ p[prefix + "in_proj"], cfg)
+    z, xs, bmat, cmat, dt = _split_proj(tp.copy(x) @ in_proj, cfg, tp)
     xbc_raw = torch.cat([xs, bmat, cmat], dim=-1)      # pre-conv (state)
-    xbc = _causal_conv(xbc_raw, p[prefix + "conv_w"], p[prefix + "conv_b"],
-                       k)
+    xbc = _causal_conv(xbc_raw, conv_w, conv_b, k)
     xs, bmat, cmat = torch.split(xbc, [d_inner, n, n], dim=-1)
-    dt = F.softplus(dt.to(torch.float32) + p[prefix + "dt_bias"])  # [B,S,H]
-    a = -torch.exp(p[prefix + "A_log"])                            # [H]
+    dt = F.softplus(dt.to(torch.float32) + dt_bias)               # [B,S,H]
+    a = -torch.exp(a_log)                                          # [H]
     ldec = dt * a[None, None, :]                       # [B, S, H] (<= 0)
 
     q = min(chunk, s)
@@ -130,12 +176,13 @@ def mamba2_block(p, x, cfg: ModelConfig, *, chunk: int = 128,
         state, y = _ssd_chunk(state, xs_h[:, sl], bf[:, sl], cf[:, sl],
                               dtp[:, sl], ldp[:, sl], tri)
         ys.append(y)
-    y = torch.cat(ys, dim=1)[:, :s] + p[prefix + "D"][None, None, :, None] \
+    y = torch.cat(ys, dim=1)[:, :s] + d_skip[None, None, :, None] \
         * xs_h[:, :s]
     y = y.reshape(bsz, s, d_inner).to(x.dtype)
     y = y * F.silu(z.to(torch.float32)).to(x.dtype)
-    y = rms_norm(y, p[prefix + "ssm_norm"])
-    out = y @ p[prefix + "out_proj"]
+    y = rms_norm_split(y, p[prefix + "ssm_norm"], tp,
+                       width=d_inner * tp.size)
+    out = tp.reduce(y @ p[prefix + "out_proj"])
     if return_state:
         # the reference slices xbc_raw[:, s - (k - 1):s], which is short
         # for a prompt of fewer than k - 1 tokens; the zero rows the conv
@@ -145,34 +192,40 @@ def mamba2_block(p, x, cfg: ModelConfig, *, chunk: int = 128,
     return out
 
 
-def mamba2_decode(p, x, state, cfg: ModelConfig, prefix: str = ""):
+def mamba2_decode(p, x, state, cfg: ModelConfig, prefix: str = "",
+                  tp: TP = TP1):
     """One-token step. x: [B, 1, D]; state = (ssm [B, H, N, P] f32, conv
     [B, k - 1, C]). The conv state holds the last k - 1 PRE-conv rows (as
     ``mamba2_block(return_state=True)``), so the prefill -> decode handoff
     is exact. Returns (out [B, 1, D], (ssm, conv)), new tensors."""
     bsz = x.shape[0]
     d_inner, n_heads, _ = ssm_dims(cfg)
+    d_inner, n_heads = d_inner // tp.size, n_heads // tp.size   # local
     n = cfg.ssm_state
     ssm_state, conv_state = state
+    in_proj, conv_w, conv_b, dt_bias, a_log, d_skip = _local_params(
+        p, cfg, prefix, tp)
 
-    z, xs, bmat, cmat, dt = _split_proj(x[:, 0] @ p[prefix + "in_proj"], cfg)
+    z, xs, bmat, cmat, dt = _split_proj(tp.copy(x[:, 0]) @ in_proj, cfg,
+                                        tp)
     xbc_new = torch.cat([xs, bmat, cmat], dim=-1)                 # [B, C]
     window = torch.cat([conv_state.to(xbc_new.dtype), xbc_new[:, None]],
                        dim=1)
     out = torch.einsum("bkc,kc->bc", window.to(torch.float32),
-                       p[prefix + "conv_w"].to(torch.float32)) \
-        + p[prefix + "conv_b"]
+                       conv_w.to(torch.float32)) + conv_b
     xbc = F.silu(out).to(x.dtype)
     xs, bmat, cmat = torch.split(xbc, [d_inner, n, n], dim=-1)
     xs = xs.reshape(bsz, n_heads, _P_HEAD).to(torch.float32)
 
-    dt = F.softplus(dt.to(torch.float32) + p[prefix + "dt_bias"])  # [B, H]
-    dec = torch.exp(dt * -torch.exp(p[prefix + "A_log"])[None, :])
+    dt = F.softplus(dt.to(torch.float32) + dt_bias)                # [B, H]
+    dec = torch.exp(dt * -torch.exp(a_log)[None, :])
     upd = torch.einsum("bh,bs,bhp->bhsp", dt, bmat.to(torch.float32), xs)
     ssm_state = ssm_state * dec[:, :, None, None] + upd
     y = torch.einsum("bs,bhsp->bhp", cmat.to(torch.float32), ssm_state)
-    y = y + p[prefix + "D"][None, :, None] * xs
+    y = y + d_skip[None, :, None] * xs
     y = y.reshape(bsz, d_inner).to(x.dtype)
     y = y * F.silu(z.to(torch.float32)).to(x.dtype)
-    y = rms_norm(y, p[prefix + "ssm_norm"])
-    return (y @ p[prefix + "out_proj"])[:, None], (ssm_state, window[:, 1:])
+    y = rms_norm_split(y, p[prefix + "ssm_norm"], tp,
+                       width=d_inner * tp.size)
+    out = tp.reduce(y @ p[prefix + "out_proj"])
+    return out[:, None], (ssm_state, window[:, 1:])

@@ -11,6 +11,14 @@ each [n_groups, B, S, KH, dh]. A config with ``n_experts`` takes the MoE
 True)``, ``lm_loss``) checkpoints each layer group: only the residual
 stream at group boundaries is saved, as the reference's
 ``jax.checkpoint(..., nothing_saveable)`` on its scan body.
+
+Over a model axis (``tp``) every block splits as ``attention`` and
+``mlp`` state; the embedding (and an untied ``lm_head``) holds this rank's
+block of vocabulary rows (columns), the cross-entropy combines the ranks'
+partial sums (``common.chunked_cross_entropy``), gemma2's final softcap
+acts on each rank's logits, and prefill's and decode's logits are
+gathered whole over the model axis. A ``seq``-policy cache holds this
+rank's slots, rows j % M == r of the unsplit cache.
 """
 from __future__ import annotations
 
@@ -19,8 +27,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from .attention import attention_block, decode_attention, init_attention
-from .common import ParamBuilder, chunked_cross_entropy, rms_norm
+from .attention import attention_block, decode_attention, init_attention, \
+    kv_policy
+from .common import TP, TP1, ParamBuilder, chunked_cross_entropy, \
+    embed_lookup, rms_norm
 from .mlp import init_mlp, init_moe, mlp_block, moe_block
 
 
@@ -86,36 +96,38 @@ def _maybe_norm(p, name: str, x, cfg: ModelConfig):
     return rms_norm(x, w, plus_one=cfg.gemma_plus_one)
 
 
-def _ffn(pj, h, cfg: ModelConfig):
-    return moe_block(pj, h, cfg) if cfg.n_experts else mlp_block(pj, h)
+def _ffn(pj, h, cfg: ModelConfig, tp: TP = TP1):
+    return moe_block(pj, h, cfg, tp=tp) if cfg.n_experts \
+        else mlp_block(pj, h, tp=tp)
 
 
 def _block_fwd(pj, x, cfg: ModelConfig, kind: str, *, positions=None,
-               q_chunk=512):
+               q_chunk=512, tp: TP = TP1):
     window = cfg.window if kind == "local" else None
     h = _maybe_norm(pj, "ln1", x, cfg)
     a, kv = attention_block(pj, h, cfg, window=window, positions=positions,
-                            q_chunk=q_chunk)
+                            q_chunk=q_chunk, tp=tp)
     if cfg.sandwich_norm:
         a = _maybe_norm(pj, "post_ln1", a, cfg)
     x = x + a
     h = _maybe_norm(pj, "ln2", x, cfg)
-    m = _ffn(pj, h, cfg)
+    m = _ffn(pj, h, cfg, tp)
     if cfg.sandwich_norm:
         m = _maybe_norm(pj, "post_ln2", m, cfg)
     return x + m, kv
 
 
-def _block_decode(pj, x, cache_k, cache_v, pos, cfg: ModelConfig, kind: str):
+def _block_decode(pj, x, cache_k, cache_v, pos, cfg: ModelConfig, kind: str,
+                  tp: TP = TP1):
     window = cfg.window if kind == "local" else None
     h = _maybe_norm(pj, "ln1", x, cfg)
     a, _, _ = decode_attention(pj, h, cache_k, cache_v, pos, cfg,
-                               window=window)
+                               window=window, tp=tp)
     if cfg.sandwich_norm:
         a = _maybe_norm(pj, "post_ln1", a, cfg)
     x = x + a
     h = _maybe_norm(pj, "ln2", x, cfg)
-    m = _ffn(pj, h, cfg)
+    m = _ffn(pj, h, cfg, tp)
     if cfg.sandwich_norm:
         m = _maybe_norm(pj, "post_ln2", m, cfg)
     return x + m
@@ -126,27 +138,27 @@ def _block_decode(pj, x, cache_k, cache_v, pos, cfg: ModelConfig, kind: str):
 # ---------------------------------------------------------------------------
 
 
-def _embed(params, tokens, cfg: ModelConfig):
-    x = params["embed"][tokens]
+def _embed(params, tokens, cfg: ModelConfig, tp: TP = TP1):
+    x = embed_lookup(params["embed"], tokens, tp)
     if cfg.gemma_plus_one:                          # gemma scales embeddings
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
     return x
 
 
-def _group_fwd(x, layers, cfg: ModelConfig, kinds, q_chunk):
+def _group_fwd(x, layers, cfg: ModelConfig, kinds, q_chunk, tp: TP = TP1):
     """One layer group (one period): the residual stream through its
     layers; returns it and the layers' (k, v)."""
     kvs = []
     for pj, kind in zip(layers, kinds):
-        x, kv = _block_fwd(pj, x, cfg, kind, q_chunk=q_chunk)
+        x, kv = _block_fwd(pj, x, cfg, kind, q_chunk=q_chunk, tp=tp)
         kvs.append(kv)
     return x, kvs
 
 
 def forward(params, tokens, cfg: ModelConfig, *, remat: bool = False,
             collect_cache: bool = False, inputs_embeds=None,
-            q_chunk: int | None = None):
+            q_chunk: int | None = None, tp: TP = TP1):
     """Full-sequence forward. Returns (hidden [B, S, D], per-layer (k, v)
     list when ``collect_cache``, else None). ``remat`` recomputes each
     layer group in the backward pass from the residual stream at its
@@ -160,16 +172,17 @@ def forward(params, tokens, cfg: ModelConfig, *, remat: bool = False,
     kinds = _layer_kinds(cfg)
     period = len(kinds)
     x = inputs_embeds if inputs_embeds is not None \
-        else _embed(params, tokens, cfg)
+        else _embed(params, tokens, cfg, tp)
     caches = []
     layers = params["layers"]
     for g in range(0, len(layers), period):
         group = layers[g:g + period]
         if remat:
             x = checkpoint(lambda x, group=group: _group_fwd(
-                x, group, cfg, kinds, q_chunk)[0], x, use_reentrant=False)
+                x, group, cfg, kinds, q_chunk, tp)[0], x,
+                use_reentrant=False)
         else:
-            x, kvs = _group_fwd(x, group, cfg, kinds, q_chunk)
+            x, kvs = _group_fwd(x, group, cfg, kinds, q_chunk, tp)
             if collect_cache:
                 caches += kvs
     x = _maybe_norm(params, "final_norm", x, cfg)
@@ -177,28 +190,28 @@ def forward(params, tokens, cfg: ModelConfig, *, remat: bool = False,
 
 
 def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
-            q_chunk: int | None = None) -> torch.Tensor:
+            q_chunk: int | None = None, tp: TP = TP1) -> torch.Tensor:
     """Mean next-token CE of ``batch`` ({"tokens", "labels"} [B, S]; labels
     of -1 are padding) through the chunked cross-entropy; the untied
     ``lm_head`` [D, V] is used transposed, as the reference does."""
     hidden, _ = forward(params, batch["tokens"], cfg, remat=remat,
-                        q_chunk=q_chunk)
+                        q_chunk=q_chunk, tp=tp)
     b, s, d = hidden.shape
     emb = params.get("lm_head")
     emb = params["embed"] if emb is None else emb.T
     return chunked_cross_entropy(
         hidden.reshape(b * s, d), emb, batch["labels"].reshape(b * s),
-        logit_softcap=cfg.final_softcap)
+        logit_softcap=cfg.final_softcap, tp=tp)
 
 
-def _logits_last(params, hidden_last, cfg: ModelConfig):
-    """hidden_last: [B, D] -> [B, V] f32."""
+def _logits_last(params, hidden_last, cfg: ModelConfig, tp: TP = TP1):
+    """hidden_last: [B, D] -> [B, V] f32 (gathered whole over ``tp``)."""
     emb = params.get("lm_head")
     w = params["embed"].T if emb is None else emb
     logits = (hidden_last @ w.to(hidden_last.dtype)).to(torch.float32)
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
-    return logits
+    return tp.gather(logits, -1)
 
 
 def _cache_len(cfg: ModelConfig, kind: str, seq_len: int) -> int:
@@ -206,7 +219,8 @@ def _cache_len(cfg: ModelConfig, kind: str, seq_len: int) -> int:
         else seq_len
 
 
-def prefill(params, tokens, cfg: ModelConfig, *, max_len: int | None = None):
+def prefill(params, tokens, cfg: ModelConfig, *, max_len: int | None = None,
+            tp: TP = TP1):
     """Run the prompt, return (cache, last-token logits [B, V] f32).
 
     Local (windowed) layers keep a ring buffer of the last ``window``
@@ -217,7 +231,7 @@ def prefill(params, tokens, cfg: ModelConfig, *, max_len: int | None = None):
     period = len(kinds)
     s = tokens.shape[1]
     max_len = max_len or s
-    hidden, caches = forward(params, tokens, cfg, collect_cache=True)
+    hidden, caches = forward(params, tokens, cfg, collect_cache=True, tp=tp)
     cache = {}
     for j, kind in enumerate(kinds):
         clen = _cache_len(cfg, kind, max_len)
@@ -229,22 +243,37 @@ def prefill(params, tokens, cfg: ModelConfig, *, max_len: int | None = None):
             elif clen > s:
                 pad = (0, 0, 0, 0, 0, clen - s)
                 k, v = F.pad(k, pad), F.pad(v, pad)
-            ks.append(k)
-            vs.append(v)
+            ks.append(seq_slots(k, 1, cfg, tp))
+            vs.append(seq_slots(v, 1, cfg, tp))
         cache[f"k{j}"], cache[f"v{j}"] = torch.stack(ks), torch.stack(vs)
-    return cache, _logits_last(params, hidden[:, -1], cfg)
+    return cache, _logits_last(params, hidden[:, -1], cfg, tp)
 
 
-def decode_step(params, cache, token, pos, cfg: ModelConfig):
+def seq_slots(kv: torch.Tensor, dim: int, cfg: ModelConfig,
+              tp: TP) -> torch.Tensor:
+    """This rank's slots (rows j % M == r along ``dim``) of a whole K/V
+    cache under the ``seq`` policy; the cache unchanged otherwise."""
+    if tp.size == 1 or kv_policy(cfg, tp.size) == "heads":
+        return kv
+    n = kv.shape[dim]
+    if n % tp.size:
+        raise ValueError(f"a cache of {n} rows does not split over a model "
+                         f"axis of {tp.size} (the seq K/V policy)")
+    return kv.unflatten(dim, (n // tp.size, tp.size)) \
+        .select(dim + 1, tp.rank).contiguous()
+
+
+def decode_step(params, cache, token, pos, cfg: ModelConfig,
+                tp: TP = TP1):
     """One token for the whole stack. token: [B]; pos: a scalar or a
     per-slot [B] vector. Writes the new K/V rows into ``cache`` in place.
     Returns (logits [B, V] f32, cache)."""
     kinds = _layer_kinds(cfg)
     period = len(kinds)
-    x = _embed(params, token[:, None], cfg)         # [B, 1, D]
+    x = _embed(params, token[:, None], cfg, tp)     # [B, 1, D]
     for i, pj in enumerate(params["layers"]):
         g, j = divmod(i, period)
         x = _block_decode(pj, x, cache[f"k{j}"][g], cache[f"v{j}"][g], pos,
-                          cfg, kinds[j])
+                          cfg, kinds[j], tp)
     x = _maybe_norm(params, "final_norm", x, cfg)
-    return _logits_last(params, x[:, 0], cfg), cache
+    return _logits_last(params, x[:, 0], cfg, tp), cache

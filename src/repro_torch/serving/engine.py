@@ -18,7 +18,11 @@ model's prefill/decode API (the port of ``repro/serving/engine.py``).
     the queue on the next tick.
 
 Logits come back to the host for sampling, once per prefill and once per
-tick. The encoder-decoder family is refused, as the reference refuses it:
+tick. Over a model axis (``get_model(tp_size=M)``) every rank runs the
+engine on the same requests: prefill and decode return the logits
+gathered whole, greedy takes their argmax (the lowest index on ties) and
+top-p draws from the CPU generator seeded alike on every rank, so every
+rank emits the same tokens. The encoder-decoder family is refused, as the reference refuses it:
 each request needs its own encoder memory; drive it through the ModelAPI's
 prefill and decode.
 """

@@ -85,8 +85,14 @@ def lr_schedule(step, tcfg: TrainConfig) -> torch.Tensor:
         step < tcfg.warmup_steps, torch.clamp(warm, max=1.0), cos)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's f32 squares."""
+def global_norm(tree, tp_sums=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's f32 squares. Over a model axis
+    ``tp_sums(tree)`` gives (the split leaves' square sum, all-reduced over
+    the axis, the whole leaves' counted once), and the norm is the
+    unsplit tree's."""
+    if tp_sums is not None:
+        split, whole = tp_sums(tree)
+        return torch.sqrt(split + whole)
     total = None
     for g in tree_leaves(tree):
         sq = torch.sum(torch.square(g.to(torch.float32)))
@@ -117,11 +123,12 @@ def _update_leaf(p, g, m, v, scale, lr, bc1, bc2, tcfg: TrainConfig):
         v.copy_(v32)
 
 
-def adamw_update(params, grads, state: AdamWState, tcfg: TrainConfig):
+def adamw_update(params, grads, state: AdamWState, tcfg: TrainConfig,
+                 tp_sums=None):
     """Returns (params, new state, metrics {"grad_norm", "lr"}); the
     parameters and the moments are updated in place, the gradients clipped
-    to a global norm of ``grad_clip``."""
-    gnorm = global_norm(grads)
+    to a global norm of ``grad_clip`` (``global_norm(grads, tp_sums)``)."""
+    gnorm = global_norm(grads, tp_sums)
     if tcfg.grad_clip:
         scale = torch.clamp(tcfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)

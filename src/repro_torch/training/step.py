@@ -8,6 +8,14 @@ loss) by 1/n, as the reference's ``lax.scan`` does. With a ``mesh`` whose
 global batch; the f32 grads and the loss are all_reduced over ``data`` and
 multiplied by 1/D before the clip, which is the global batch's mean loss
 and its grads when every rank's slice holds as many labels.
+
+Over a model axis (``api.tp`` of M > 1 ranks, the ranks of one data
+index holding the same batch) each rank's grads are those of its cut of
+the parameters, and a leaf every rank holds whole gets the same, whole
+grad on each (the model code sums it, ``models/common.py``); the grads
+are all-reduced over ``data`` only. The global norm adds the split
+leaves' square sums over ``model`` and the whole leaves' once
+(``convert.tp_square_sums``), so the clip is the world-1 run's.
 """
 from __future__ import annotations
 
@@ -63,12 +71,22 @@ def make_train_step(api, tcfg: TrainConfig, mesh=None):
                  for g in grads]
         return dmesh.all_reduce(loss, mesh, "data") * inv, grads
 
+    tp = getattr(api, "tp", None)
+    tp_sums = None
+    if tp is not None and tp.size > 1:
+        from repro_torch.convert import tp_square_sums
+
+        def tp_sums(tree):
+            split, whole = tp_square_sums(tree, api.cfg, tp.size)
+            return dmesh.all_reduce(split, tp.mesh, "model"), whole
+
     def train_step(params, opt_state: AdamWState, batch):
         loss, grads = compute_grads(params, batch)
         if dp > 1:
             loss, grads = data_mean(loss, grads)
         params, opt_state, metrics = adamw_update(
-            params, tree_unflatten(params, grads), opt_state, tcfg)
+            params, tree_unflatten(params, grads), opt_state, tcfg,
+            tp_sums=tp_sums)
         metrics["loss"] = loss
         return params, opt_state, metrics
 

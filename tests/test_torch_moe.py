@@ -177,28 +177,27 @@ def _a2a_child(rank, world, store_path, out_dir, p, x, cot, cfg):
     got = {}
     try:
         from repro_torch.distributed.mesh import make_test_mesh, tally
-        from repro_torch.models import common
-        common.set_ambient_mesh(make_test_mesh({"data": world, "model": 1},
-                                               device="cpu"))
+        from repro_torch.models.common import TP
+        tp = TP.of(make_test_mesh({"data": world, "model": 1}, device="cpu"))
         params = {k: torch.from_numpy(v).requires_grad_(True)
                   for k, v in p.items()}
         xl = torch.from_numpy(x[rank:rank + 1]).requires_grad_(True)
         with tally() as t:
-            out = mlp.moe_block(params, xl, cfg)
+            out = mlp.moe_block(params, xl, cfg, tp=tp)
             grads = torch.autograd.grad(
                 (out * torch.from_numpy(cot[rank:rank + 1])).sum(),
                 [*params.values(), xl])
         got = {"out": out.detach().numpy(), "alltoall": t.alltoall,
                "grads": {k: g.numpy() for k, g in zip(params, grads)},
                "x_grad": grads[-1].numpy()}
-        # a model axis is not ported
-        common.set_ambient_mesh(make_test_mesh({"data": 1, "model": world},
-                                               device="cpu"))
-        try:
-            mlp.moe_block(params, xl, cfg)
-        except NotImplementedError as e:
-            got["model_axis"] = str(e)
-        common.set_ambient_mesh(None)
+        # a model axis the weights are not split over (a TP of size 1 on
+        # a (1, 2) mesh): each rank routes its own row alone, with every
+        # expert
+        one_rank = TP(make_test_mesh({"data": 1, "model": world},
+                                     device="cpu"))
+        with torch.no_grad():
+            got["model_axis"] = mlp.moe_block(params, xl, cfg,
+                                              tp=one_rank).numpy()
     except Exception:
         import traceback
         got = {"error": traceback.format_exc()}
@@ -238,7 +237,14 @@ def test_all_to_all_ep_at_world_2_matches_the_grouped_path(tmp_path):
     # one exchange each way in the forward pass (the backward's two run
     # inside autograd, uncounted)
     assert all(r["alltoall"] == 2 for r in ranks)
-    assert all("ROADMAP Queue 1 item 13b" in r["model_axis"] for r in ranks)
+    one = dataclasses.replace(cfg, moe_ep_groups=1)
+    with torch.no_grad():
+        for r, got_r in enumerate(ranks):
+            want_r = mlp.moe_block({k: torch.from_numpy(v)
+                                    for k, v in p.items()},
+                                   torch.from_numpy(x[r:r + 1]), one)
+            np.testing.assert_allclose(got_r["model_axis"], want_r.numpy(),
+                                       rtol=1e-6, atol=1e-6)
     # backward through the exchange: the ranks' grads sum to the grouped
     # path's on the whole batch (each rank's expert grads hold every
     # rank's tokens routed to its experts)

@@ -1,0 +1,688 @@
+"""The port's model axis (Megatron-style tensor parallelism of the dense, MoE
+and hybrid families: ``get_model(tp_size=, mesh=)``, ``convert.shard_lm``,
+``launch.train --mesh DxM``, ``launch.serve --mesh``) against the port's
+world-1 run and the JAX package's single-device run, on the CPU.
+
+The oracle: the JAX package's f32 ``init_lm`` / ``init_zamba`` parameters
+of each smoke config (converted by ``convert.lm_params_from_numpy``), its
+prefill logits, 8 greedy decode tokens, loss and grads on a seeded batch,
+made once per module in this process. The port runs the same parameters,
+cut for each rank by ``convert.shard_lm``, in spawned gloo worlds: one
+spawn per world size (2: the (1, 2) mesh; 4: (1, 4) and (2, 2)), which
+returns every case, each case then its own parametrised test. Each rank
+also runs the port's world-1 model on the whole parameters. The configs:
+olmo-1b (KH 4: the ``heads`` K/V policy), qwen3-32b (KH 2: ``heads`` at 2,
+``seq`` at 4), gemma2-2b (softcaps, the sliding window's ring, ``seq`` at
+4), qwen3-moe-235b-a22b (dense dispatch; at (2, 2) also the expert-parallel
+dispatch with a model axis, ``qwen3-moe-ep``) and zamba2-2.7b (the Mamba2
+head split and the shared block).
+
+Tolerances, and why (f32 throughout):
+- prefill and decode logits: 1e-5 normwise. The split products are summed
+  by all_reduce in another order than one product sums them.
+- greedy tokens: equal, every rank, token for token.
+- loss: 1e-5 relative; grads gathered whole: 1e-4 normwise per leaf (the
+  backward's sums reorder too, through two layers); a leaf every rank
+  holds whole has bitwise equal grads on every model rank.
+- one AdamW step's parameters: 1e-5 normwise per leaf against the world-1
+  step (whose AdamW the train tests hold to the reference's).
+- the expert-parallel MoE at (2, 2) against the world-1 grouped path with
+  G = 4 groups (the reference's grouping: a data rank holds one row, a
+  model rank half of its positions), with drops (capacity factor 0.5).
+- ``launch.train --mesh`` runs f32 parameters (``run(dtype=)``) and is held
+  to 1e-5: a 1x2 run to the 1x1 run, a 2x2 run to a 1x1 run of 2
+  microbatches (each data rank's half batch is one microbatch), and a
+  checkpoint of either mesh resumed at the other to the resume at its own
+  mesh (the launcher's resume restarts the batch stream, so resumed runs
+  are compared with resumed runs).
+"""
+import dataclasses
+import datetime
+import os
+import pickle
+import shutil
+import time
+import traceback
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as jax_get_arch
+from repro.distributed.compat import make_mesh
+from repro.models import Axes
+from repro.models import get_model as jax_get_model
+from repro_torch import convert
+from repro_torch.configs import get_arch
+
+AXES = Axes(dp=("data",), tp="model")
+ARCHS = ["olmo-1b", "qwen3-32b", "gemma2-2b", "qwen3-moe-235b-a22b",
+         "zamba2-2.7b"]
+EP = "qwen3-moe-ep"            # qwen3-moe with the expert-parallel dispatch
+#: mesh name -> (world, axes)
+MESHES = {"1x2": (2, {"data": 1, "model": 2}),
+          "1x4": (4, {"data": 1, "model": 4}),
+          "2x2": (4, {"data": 2, "model": 2})}
+B, S, MAX_LEN, N_DECODE = 2, 8, 16, 8
+DEADLINE = 300.0
+TRAIN = ["--arch", "olmo-1b", "--smoke", "--device", "cpu", "--batch", "2",
+         "--seq", "16", "--lr", "1e-3", "--log-every", "1"]
+SERVE = ["--arch", "olmo-1b", "--smoke", "--device", "cpu", "--requests",
+         "3", "--max-new-tokens", "4"]
+
+
+def _cfg(key, jax_side=False):
+    arch = "qwen3-moe-235b-a22b" if key == EP else key
+    cfg = (jax_get_arch if jax_side else get_arch)(arch, smoke=True)
+    return dataclasses.replace(cfg, moe_ep_groups=4) if key == EP else cfg
+
+
+def _tokens():
+    rng = np.random.default_rng(5)
+    return rng.integers(1, 256, size=(B, S)).astype(np.int32)
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    den = np.linalg.norm(want)
+    return float(np.linalg.norm(got - want) / den) if den else \
+        float(np.linalg.norm(got))
+
+
+def _flat_t(tree, prefix=""):
+    """{path: leaf} of a nest of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: v for key in tree for k, v in
+                _flat_t(tree[key], f"{prefix}{key}/").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, x in enumerate(tree) for k, v in
+                _flat_t(x, f"{prefix}{i}/").items()}
+    return {prefix[:-1]: tree}
+
+
+def _flat(tree):
+    """{path: f32 numpy array} of a nest of dicts and lists."""
+    return {k: (v.detach().to(torch.float32).numpy()
+                if isinstance(v, torch.Tensor) else np.asarray(v, np.float32))
+            for k, v in _flat_t(tree).items()}
+
+
+# ---------------------------------------------------------------------------
+# the oracle: the JAX package on one device
+# ---------------------------------------------------------------------------
+
+
+def _reference(key) -> dict:
+    jcfg = _cfg(key, jax_side=True)
+    japi = jax_get_model(jcfg, tp_size=1)
+    dec_api = jax_get_model(dataclasses.replace(jcfg, moe_ep_groups=0),
+                            tp_size=1)
+    jparams, specs = japi.init(jax.random.PRNGKey(0), jnp.float32)
+    tok = jnp.asarray(_tokens())
+    batch = {"tokens": tok, "labels": jnp.roll(tok, -1, axis=1)}
+    with make_mesh((1, 1), ("data", "model")):
+        cache, logits = japi.prefill(jparams, {"tokens": tok}, AXES,
+                                     max_len=MAX_LEN)
+        out = {"logits": np.asarray(logits)}
+        t = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        toks = [np.asarray(t)]
+        for i in range(N_DECODE - 1):
+            logits, cache = dec_api.decode(jparams, cache, t,
+                                           jnp.asarray(S + i, jnp.int32),
+                                           AXES)
+            t = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+            toks.append(np.asarray(t))
+        loss, grads = jax.value_and_grad(
+            lambda p: japi.loss(p, batch, AXES, remat=False))(jparams)
+    np_params = jax.tree.map(np.asarray, jparams)
+    return {"params": np_params, "specs": specs, "tokens": np.stack(toks),
+            "loss": float(loss), **out,
+            "grads": _flat(convert.lm_params_from_numpy(
+                jax.tree.map(np.asarray, grads), _cfg(key), "cpu",
+                torch.float32))}
+
+
+@pytest.fixture(scope="module")
+def reference():
+    return {key: _reference(key) for key in ARCHS + [EP]}
+
+
+# ---------------------------------------------------------------------------
+# the spawned worlds
+# ---------------------------------------------------------------------------
+
+
+def _cases_of(mesh_name):
+    return ARCHS + ([EP] if mesh_name == "2x2" else [])
+
+
+def _model_case(key, mesh, ref):
+    """One config on one mesh: this rank's results and its world-1 run's."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.distributed import mesh as dmesh
+    from repro_torch.models import get_model
+    from repro_torch.models.common import TP
+    from repro_torch.training import adamw_init, make_train_step
+    from repro_torch.training.optim import tree_leaves, tree_unflatten
+
+    cfg = _cfg(key)
+    tp = TP.of(mesh)
+    d, dp = mesh.get_local_rank("data"), mesh.size(0)
+    full = convert.lm_params_from_numpy(ref["params"], cfg, "cpu",
+                                        torch.float32)
+    w1 = get_model(cfg, device="cpu")
+    w1_dec = get_model(dataclasses.replace(cfg, moe_ep_groups=0),
+                       device="cpu")
+    api = get_model(cfg, tp_size=tp.size, dp_size=dp, mesh=mesh,
+                    device="cpu")
+    params = convert.shard_lm(full, cfg, tp.rank, tp.size)
+    tok = torch.as_tensor(_tokens(), dtype=torch.long)
+    # the expert-parallel dispatch takes each data rank's share; the other
+    # configs serve the same requests on every rank
+    rows = slice(d, d + 1) if key == EP else slice(0, B)
+
+    def greedy(a, dec, p, rows):
+        cache, logits = a.prefill(p, {"tokens": tok[rows]}, max_len=MAX_LEN)
+        first = logits
+        t = torch.argmax(logits, dim=-1)
+        toks = [t]
+        for i in range(N_DECODE - 1):
+            logits, cache = dec.decode(p, cache, t, S + i)
+            t = torch.argmax(logits, dim=-1)
+            toks.append(t)
+        return first.numpy(), torch.stack(toks).numpy(), logits.numpy()
+
+    out = {}
+    with torch.no_grad():
+        out["logits"], out["tokens"], out["last"] = greedy(api, api, params,
+                                                           rows)
+        w1_run = greedy(w1, w1_dec, full, slice(0, B))
+    out["w1_logits"] = w1_run[0][rows]
+    out["w1_tokens"] = w1_run[1][:, rows]
+    out["w1_last"] = w1_run[2][rows]
+
+    share = slice(d * B // dp, (d + 1) * B // dp)
+    batch = {"tokens": tok[share], "labels": torch.roll(tok, -1, 1)[share]}
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = api.loss(params, batch, remat=True)
+    grads = torch.autograd.grad(loss, leaves)
+    if dp > 1:
+        grads = [dmesh.all_reduce(g, mesh, "data") / dp for g in grads]
+        loss = dmesh.all_reduce(loss.detach(), mesh, "data") / dp
+    out["loss"] = float(loss)
+    gtree = tree_unflatten(params, [g.detach() for g in grads])
+    out["grads"] = _flat(convert.whole_lm(gtree, cfg, tp))
+    out["rep_diff"] = _replicated_spread(gtree, cfg, tp)
+    wl = tree_leaves(full)
+    for p in wl:
+        p.requires_grad_(True)
+    w1_loss = w1.loss(full, {"tokens": tok, "labels": torch.roll(tok, -1, 1)},
+                      remat=False)
+    out["w1_loss"] = float(w1_loss)
+    out["w1_grads"] = _flat(tree_unflatten(
+        full, list(torch.autograd.grad(w1_loss, wl))))
+
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    p_tp = convert.shard_lm(full, cfg, tp.rank, tp.size)
+    p_tp = make_train_step(api, tcfg, mesh=mesh)(
+        p_tp, adamw_init(p_tp, tcfg), batch)[0]
+    p_w1 = convert.shard_lm(full, cfg, 0, 1)
+    p_w1 = make_train_step(w1, tcfg)(
+        p_w1, adamw_init(p_w1, tcfg),
+        {"tokens": tok, "labels": torch.roll(tok, -1, 1)})[0]
+    got, want = _flat(convert.whole_lm(p_tp, cfg, tp)), _flat(p_w1)
+    out["step_rel"] = max(_rel(got[k], want[k]) for k in want)
+    return out
+
+
+def _replicated_spread(gtree, cfg, tp) -> float:
+    """The largest difference between the model ranks' grads of the parts
+    every rank holds whole (leaves the layout keeps whole, and the B and C
+    columns of the Mamba2 leaves)."""
+    from repro_torch.distributed import mesh as dmesh
+    layout = convert.tp_layout(cfg, tp.size)
+    worst = 0.0
+    for path, g in _flat_t(gtree).items():
+        name = path.rsplit("/", 1)[-1]
+        how = layout.get(name)
+        if how is not None and how != "mamba":
+            continue
+        if how == "mamba":
+            parts = convert._mamba_parts(cfg, name, tp.size)
+            pieces = torch.split(g, [w for w, _ in parts], dim=-1)
+            g = torch.cat([x.reshape(-1) for x, (_, c) in zip(pieces, parts)
+                           if not c])
+        every = dmesh.all_gather(g[None].contiguous(), tp.mesh, "model")
+        worst = max(worst, float((every - every[:1]).abs().max()))
+    return worst
+
+
+def _bill_case(mesh):
+    """The collective bill of one dense layer's forward (olmo-1b, and at
+    (2, 2) the expert-parallel MoE layer's)."""
+    from repro_torch.distributed.mesh import tally
+    from repro_torch.models import transformer
+    from repro_torch.models.common import TP, TP1
+    from repro_torch.models.mlp import moe_block
+    tp = TP.of(mesh)
+    cfg = get_arch("olmo-1b", smoke=True)
+    full = transformer.init_lm(cfg, torch.Generator().manual_seed(0),
+                               torch.float32, "cpu")
+    layer = convert.shard_lm(full, cfg, tp.rank, tp.size)["layers"][0]
+    x = torch.randn((B, S, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    out = {}
+    for name, ctx, lay in (("tp", tp, layer), ("tp1", TP1,
+                                               full["layers"][0])):
+        with torch.no_grad(), tally() as t:
+            transformer._block_fwd(lay, x, cfg, "global", tp=ctx)
+        out[name] = vars(t).copy()
+    if mesh.size(0) == 2:
+        mcfg = dataclasses.replace(_cfg(EP), capacity_factor=0.5)
+        pm = convert.shard_lm(transformer.init_lm(
+            mcfg, torch.Generator().manual_seed(0), torch.float32, "cpu"),
+            mcfg, tp.rank, tp.size)["layers"][0]
+        d = mesh.get_local_rank("data")
+        with torch.no_grad(), tally() as t:
+            moe_block(pm, x[d:d + 1], mcfg, tp=tp)
+        out["ep"] = vars(t).copy()
+    return out
+
+
+def _ep_layer_case(mesh):
+    """The expert-parallel MoE layer at (2, 2) with drops (capacity factor
+    0.5): outputs, the data-summed grads (experts gathered over model)
+    and the input's grads, with the world-1 grouped path's (G = 4)."""
+    from repro_torch.distributed import mesh as dmesh
+    from repro_torch.models import transformer
+    from repro_torch.models.common import TP
+    from repro_torch.models.mlp import moe_block, route, slot_positions
+    tp = TP.of(mesh)
+    d = mesh.get_local_rank("data")
+    cfg = dataclasses.replace(_cfg(EP), capacity_factor=0.5)
+    full = transformer.init_lm(cfg, torch.Generator().manual_seed(0),
+                               torch.float32, "cpu")["layers"][0]
+    names = ["router", "e_gate", "e_up", "e_down"]
+    full = {k: full[k] for k in names}
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((B, 32, cfg.d_model), generator=gen)
+    cot = torch.randn((B, 32, cfg.d_model), generator=gen)
+    p = convert.shard_lm(full, cfg, tp.rank, tp.size)
+    for v in p.values():
+        v.requires_grad_(True)
+    xl = x[d:d + 1].clone().requires_grad_(True)
+    y = moe_block(p, xl, cfg, tp=tp)
+    grads = torch.autograd.grad((y * cot[d:d + 1]).sum(), [*p.values(), xl])
+    gp = {k: dmesh.all_reduce(g, mesh, "data") for k, g in zip(p, grads)}
+    whole = convert.gather_lm([{k: dmesh.all_gather(
+        v[None], mesh, "model")[r] for k, v in gp.items()}
+        for r in range(tp.size)], cfg)
+    for v in full.values():
+        v.requires_grad_(True)
+    xw = x.clone().requires_grad_(True)
+    yw = moe_block(full, xw, cfg)
+    gw = torch.autograd.grad((yw * cot).sum(), [*full.values(), xw])
+    # the grouped path's drops: slots at or past a group's capacity
+    groups, k = 4, cfg.moe_top_k
+    tg = B * x.shape[1] // groups
+    cap = max(8, -(-int(tg * k / cfg.n_experts * cfg.capacity_factor)
+                  // 8) * 8)
+    _, top_e = route(x.reshape(groups, tg, -1), full["router"].detach(), k)
+    dropped = int((slot_positions(top_e.reshape(groups, -1),
+                                  cfg.n_experts) >= cap).sum())
+    return {"out_rel": _rel(y.detach(), yw[d:d + 1].detach()),
+            "x_grad_rel": _rel(grads[-1], gw[-1][d:d + 1]),
+            "grad_rel": {k: _rel(whole[k], g) for k, g in zip(full, gw)},
+            "dropped_slots": dropped}
+
+
+def _launch_cases(world, out_dir, mesh_names):
+    """The launchers over the whole world (every rank calls)."""
+    from repro_torch.launch import serve, train
+    out = {}
+    if world == 2:
+        out["train"] = train.run(TRAIN + ["--mesh", "1x2", "--steps", "2"],
+                                 dtype=torch.float32).losses
+        ck = os.path.join(out_dir, "ck-1x2")
+        train.run(TRAIN + ["--mesh", "1x2", "--steps", "2", "--ckpt-dir", ck,
+                           "--ckpt-every", "2"], dtype=torch.float32)
+        own = os.path.join(out_dir, "ck-1x2-own")
+        if torch.distributed.get_rank() == 0:
+            shutil.copytree(ck, own)
+        torch.distributed.barrier()
+        out["resume_own"] = train.run(
+            TRAIN + ["--mesh", "1x2", "--steps", "4", "--ckpt-dir", own,
+                     "--ckpt-every", "100", "--resume"],
+            dtype=torch.float32).losses
+        out["resume_1x1"] = train.run(
+            TRAIN + ["--mesh", "1x2", "--steps", "4", "--ckpt-dir",
+                     os.path.join(out_dir, "ck-1x1"), "--ckpt-every", "100",
+                     "--resume"], dtype=torch.float32).losses
+        out["serve"] = serve.main(SERVE + ["--mesh", "1x2"])
+    if "2x2" in mesh_names:
+        out["train_2x2"] = train.run(
+            TRAIN + ["--mesh", "2x2", "--steps", "2"],
+            dtype=torch.float32).losses
+    return out
+
+
+def _child(rank, world, store_path, out_dir, mesh_names, refs):
+    import warnings
+    warnings.simplefilter("ignore")
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    from repro_torch.distributed.mesh import make_test_mesh
+    got = {}
+    try:
+        for name in mesh_names:
+            mesh = make_test_mesh(MESHES[name][1], device="cpu")
+            got[name] = {}
+            for key in _cases_of(name):
+                try:
+                    got[name][key] = _model_case(key, mesh, refs[key])
+                except Exception:
+                    got[name][key] = {"error": traceback.format_exc()}
+            for case, fn in (("bill", _bill_case), ("ep_layer",
+                                                    _ep_layer_case)):
+                if case == "ep_layer" and name != "2x2":
+                    continue
+                try:
+                    got[name][case] = fn(mesh)
+                except Exception:
+                    got[name][case] = {"error": traceback.format_exc()}
+        try:
+            got["launch"] = _launch_cases(world, out_dir, mesh_names)
+        except Exception:
+            got["launch"] = {"error": traceback.format_exc()}
+    except Exception:
+        got = {"error": traceback.format_exc()}
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(got, f)
+    dist.destroy_process_group()
+
+
+def _spawn(world, out_dir, mesh_names, refs):
+    import torch.multiprocessing as mp
+    store = os.path.join(out_dir, "store")
+    ctx = mp.start_processes(_child, args=(world, store, out_dir, mesh_names,
+                                           refs),
+                             nprocs=world, join=False, start_method="spawn")
+    t0 = time.monotonic()
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() - t0 > DEADLINE:
+                pytest.fail(f"a world of {world} ranks passed its "
+                            f"{DEADLINE} s deadline")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+        assert "error" not in ranks[-1], ranks[-1].get("error")
+    return ranks
+
+
+@pytest.fixture(scope="module")
+def worlds(reference, tmp_path_factory):
+    """{world size: every rank's results}; the 1x1 checkpoint the world of
+    2 resumes is written here first."""
+    from repro_torch.launch import train
+    refs = {k: {"params": v["params"]} for k, v in reference.items()}
+    out = {}
+    for world in (2, 4):
+        d = str(tmp_path_factory.mktemp(f"tp-world{world}"))
+        if world == 2:
+            train.run(TRAIN + ["--steps", "2", "--ckpt-dir",
+                               os.path.join(d, "ck-1x1"), "--ckpt-every",
+                               "2"], dtype=torch.float32)
+        names = [n for n, (w, _) in MESHES.items() if w == world]
+        out[world] = (d, _spawn(world, d, names, refs))
+    return out
+
+
+def _result(worlds, mesh_name, case):
+    world = MESHES[mesh_name][0]
+    ranks = worlds[world][1]
+    got = [r[mesh_name][case] for r in ranks]
+    for g in got:
+        assert "error" not in g, g["error"]
+    return got
+
+
+# ---------------------------------------------------------------------------
+# the model cases
+# ---------------------------------------------------------------------------
+
+CASES = [(m, k) for m in MESHES for k in _cases_of(m)]
+
+
+@pytest.mark.parametrize("mesh_name,key", CASES,
+                         ids=[f"{m}-{k}" for m, k in CASES])
+def test_prefill_and_greedy_decode_match(worlds, reference, mesh_name, key):
+    ranks = _result(worlds, mesh_name, key)
+    ref = reference[key]
+    d_of = (lambda r: r // 2) if mesh_name == "2x2" else (lambda r: 0)
+    for r, got in enumerate(ranks):
+        rows = slice(d_of(r), d_of(r) + 1) if key == EP else slice(0, B)
+        assert _rel(got["logits"], got["w1_logits"]) <= 1e-5
+        assert _rel(got["logits"], ref["logits"][rows]) <= 1e-5
+        assert _rel(got["last"], got["w1_last"]) <= 1e-5
+        np.testing.assert_array_equal(got["tokens"], got["w1_tokens"])
+        np.testing.assert_array_equal(got["tokens"], ref["tokens"][:, rows])
+
+
+@pytest.mark.parametrize("mesh_name,key", CASES,
+                         ids=[f"{m}-{k}" for m, k in CASES])
+def test_loss_grads_and_step_match(worlds, reference, mesh_name, key):
+    ranks = _result(worlds, mesh_name, key)
+    ref = reference[key]
+    for got in ranks:
+        assert abs(got["loss"] - got["w1_loss"]) <= 1e-5 * got["w1_loss"]
+        assert abs(got["loss"] - ref["loss"]) <= 1e-5 * ref["loss"]
+        assert sorted(got["grads"]) == sorted(ref["grads"])
+        for path, want in ref["grads"].items():
+            assert _rel(got["grads"][path], got["w1_grads"][path]) <= 1e-4, \
+                path
+            assert _rel(got["grads"][path], want) <= 1e-4, path
+        assert got["rep_diff"] == 0.0
+        assert got["step_rel"] <= 1e-5
+
+
+def test_the_model_axis_bill(worlds):
+    """One dense layer's forward: two all_reduces of [B, S, D] f32 at tp >
+    1, none at one rank; the expert-parallel MoE layer at (2, 2): its two
+    data exchanges, the model all_gather of the slots, the reduce_scatter
+    back and the all_gather of the positions' outputs."""
+    nbytes = B * S * get_arch("olmo-1b", smoke=True).d_model * 4
+    for mesh_name in MESHES:
+        for got in _result(worlds, mesh_name, "bill"):
+            assert got["tp"]["psum"] == 2
+            assert got["tp"]["psum_bytes"] == 2 * nbytes
+            assert got["tp"]["allgather"] == got["tp"]["reducescatter"] == 0
+            assert all(v == 0 for v in got["tp1"].values())
+            if mesh_name == "2x2":
+                ep = got["ep"]
+                assert (ep["alltoall"], ep["allgather"], ep["reducescatter"],
+                        ep["psum"]) == (2, 2, 1, 0)
+
+
+def test_expert_parallel_layer_with_drops_matches_grouped_path(worlds):
+    for got in _result(worlds, "2x2", "ep_layer"):
+        assert got["dropped_slots"] > 0
+        assert got["out_rel"] <= 1e-5
+        assert got["x_grad_rel"] <= 1e-5
+        for name, rel in got["grad_rel"].items():
+            assert rel <= 1e-5, (name, rel)
+
+
+# ---------------------------------------------------------------------------
+# the launchers
+# ---------------------------------------------------------------------------
+
+
+def _launch(worlds, world):
+    ranks = worlds[world][1]
+    for r in ranks:
+        assert "error" not in r["launch"], r["launch"]["error"]
+    return [r["launch"] for r in ranks]
+
+
+def test_launch_train_mesh_1x2_matches_one_process(worlds):
+    from repro_torch.launch import train
+    want = train.run(TRAIN + ["--steps", "2"], dtype=torch.float32).losses
+    for got in _launch(worlds, 2):
+        np.testing.assert_allclose(got["train"], want, rtol=1e-5)
+
+
+def test_launch_train_mesh_2x2_matches_microbatches(worlds):
+    from repro_torch.launch import train
+    want = train.run(TRAIN + ["--steps", "2", "--microbatches", "2"],
+                     dtype=torch.float32).losses
+    for got in _launch(worlds, 4):
+        np.testing.assert_allclose(got["train_2x2"], want, rtol=1e-5)
+
+
+def test_checkpoints_resume_across_meshes(worlds):
+    """A 1x2 checkpoint resumed at 1x1 equals its resume at 1x2, a 1x1
+    checkpoint resumed at 1x2 equals its resume at 1x1, and both hold the
+    reference's leaves."""
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.launch import train
+    out_dir = worlds[2][0]
+    got = _launch(worlds, 2)
+    ck12 = os.path.join(out_dir, "ck-1x2")
+    at_1x1 = train.run(TRAIN + ["--steps", "4", "--ckpt-dir", ck12,
+                                "--ckpt-every", "100", "--resume"],
+                       dtype=torch.float32).losses
+    own_1x1 = train.run(TRAIN + ["--steps", "4", "--ckpt-dir",
+                                 os.path.join(out_dir, "ck-1x1"),
+                                 "--ckpt-every", "100", "--resume"],
+                        dtype=torch.float32).losses
+    for g in got:
+        np.testing.assert_allclose(at_1x1, g["resume_own"], rtol=1e-5)
+        np.testing.assert_allclose(g["resume_1x1"], own_1x1, rtol=1e-5)
+    m12 = CheckpointManager(ck12)._manifest(2)["leaves"]
+    m11 = CheckpointManager(os.path.join(out_dir, "ck-1x1"))._manifest(2)[
+        "leaves"]
+    assert {k: v["shape"] for k, v in m12.items()} == \
+        {k: v["shape"] for k, v in m11.items()}
+
+
+def test_launch_serve_mesh_1x2_emits_the_one_process_tokens(worlds):
+    from repro_torch.launch import serve
+    want = serve.main(SERVE)
+    for got in _launch(worlds, 2):
+        assert got["serve"] == want
+
+
+# ---------------------------------------------------------------------------
+# shard_lm / gather_lm, and the refusals (this process)
+# ---------------------------------------------------------------------------
+
+
+def _spec_dim(spec):
+    dims = [i for i, a in enumerate(tuple(spec)) if a == "model"]
+    return dims[0] if dims else None
+
+
+@pytest.mark.parametrize("size", [2, 4])
+@pytest.mark.parametrize("key", ARCHS)
+def test_shard_lm_follows_the_reference_specs(reference, key, size):
+    from repro_torch.models.attention import kv_policy
+    cfg = _cfg(key)
+    ref = reference[key]
+    full = convert.lm_params_from_numpy(ref["params"], cfg, "cpu",
+                                        torch.float32)
+    shards = [convert.shard_lm(full, cfg, r, size) for r in range(size)]
+    back = convert.gather_lm(shards, cfg)
+    for path, want in _flat(full).items():
+        np.testing.assert_array_equal(_flat(back)[path], want)
+    specs = _flat_specs(ref["specs"], cfg)
+    seq = kv_policy(cfg, size) == "seq"
+    mamba = ("in_proj", "conv_w", "conv_b")
+    for path, want in _flat(full).items():
+        name = path.rsplit("/", 1)[-1]
+        got = [_flat(s)[path] for s in shards]
+        dim = _spec_dim(specs[path])
+        if name in mamba:
+            assert dim is not None
+            continue                       # the stated head layout, below
+        if dim is None or (seq and name in ("wk", "wv")):
+            for g in got:
+                np.testing.assert_array_equal(g, want)
+        else:
+            for r, g in enumerate(got):
+                np.testing.assert_array_equal(
+                    g, np.split(want, size, axis=dim)[r])
+
+
+def _flat_specs(specs, cfg):
+    """The reference's spec tree in the port's layout: a stacked layer's
+    spec carries the stack's leading dims (None), which the port's
+    per-layer leaves do not."""
+    lead = {k: len(v) for k, v in convert._stacks(cfg).items()}
+    out = {}
+    for key, node in specs.items():
+        if key in lead:
+            n = int(np.prod(convert._stacks(cfg)[key]))
+            for i in range(n):
+                for name, s in node.items():
+                    out[f"{key}/{i}/{name}"] = tuple(s)[lead[key]:]
+        elif isinstance(node, dict):
+            for name, s in node.items():
+                out[f"{key}/{name}"] = tuple(s)
+        else:
+            out[key] = tuple(node)
+    return out
+
+
+@pytest.mark.parametrize("size", [2, 4])
+def test_shard_lm_mamba_layout(size):
+    """in_proj [z | x | B | C | dt] -> [z_r | x_r | B | C | dt_r]; conv_w
+    and conv_b [x | B | C] -> [x_r | B | C]."""
+    from repro_torch.models import zamba
+    from repro_torch.models.ssm import ssm_dims
+    cfg = get_arch("zamba2-2.7b", smoke=True)
+    full = zamba.init_zamba(cfg, torch.Generator().manual_seed(0),
+                            torch.float32, "cpu")
+    d_inner, n_heads, _ = ssm_dims(cfg)
+    n = cfg.ssm_state
+    w = full["layers"][0]["in_proj"]
+    z, x, bm, cm, dt = torch.split(w, [d_inner, d_inner, n, n, n_heads], -1)
+    c = full["layers"][0]["conv_w"]
+    cx, cbc = c[:, :d_inner], c[:, d_inner:]
+    for r in range(size):
+        lay = convert.shard_lm(full, cfg, r, size)["layers"][0]
+        want = torch.cat([z.chunk(size, -1)[r], x.chunk(size, -1)[r], bm, cm,
+                          dt.chunk(size, -1)[r]], -1)
+        assert torch.equal(lay["in_proj"], want)
+        assert torch.equal(lay["conv_w"],
+                           torch.cat([cx.chunk(size, -1)[r], cbc], -1))
+        assert torch.equal(lay["ssm_norm"],
+                           full["layers"][0]["ssm_norm"].chunk(size)[r])
+        for name in ("dt_bias", "A_log", "D"):
+            assert torch.equal(lay[name], full["layers"][0][name])
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "rwkv6-7b"])
+def test_encdec_and_ssm_refuse_a_model_axis(arch):
+    from repro_torch.models import get_model
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        get_model(get_arch(arch, smoke=True), tp_size=2, device="cpu")
+
+
+def test_a_model_axis_needs_a_mesh():
+    from repro_torch.models import get_model
+    with pytest.raises(ValueError, match="needs a mesh"):
+        get_model(get_arch("olmo-1b", smoke=True), tp_size=2, device="cpu")
