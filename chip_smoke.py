@@ -198,7 +198,22 @@ Phases, in order; any failure exits non-zero without the final line:
      launch at all), R-cpu (2 layers, f32, a 256-token prompt: prefill
      logits, the wkv state and 8 decode steps' logits on the card within
      1e-4 normwise of the host CPU's) and T-rwkv (``launch.train``, 2
-     layers, batch 2 x 2048, 3 steps);
+     layers, batch 2 x 2048, 3 steps); the baselines and the model axis
+     (phase 4i: BL-lloyd, BL-sculley, TP-1, TP-cpu over the host's gloo
+     worlds (1, 2) and (2, 2) at five smoke configs); then phase 4j:
+     DRY (four ``launch.dryrun`` cells in their own processes on the
+     host, the card hidden, while the card works: every cell ok, olmo-1b's
+     single-pod / multi-pod train flops within 1.6-2.4, collective bytes
+     in every cell), TP-1-S / TP-1-R (seamless-m4t-medium's run S
+     requests through ``api.prefill`` / ``api.decode`` and 2 train steps
+     at 2 + 2 layers; rwkv6-7b's ``launch.serve`` at run R's settings and
+     ``launch.train`` at T-rwkv's cut; each on a mesh (1, 1) in a NCCL
+     world of one against no mesh: tokens, losses and grad norms bitwise,
+     no collective) and EX (the five ``examples/torch_*.py`` at their
+     defaults, the MD example also at 100,000 frames x 64 atoms, 8 GB,
+     on the fused engine: NMI >= 0.9, quickstart's XOR kernel accuracy
+     at least its linear one, a rerun of the LM training example resumes
+     from its checkpoint);
   5. print the per-kernel JSON line (one entry per kernel; assign_fused,
      embed_assign, sketch_assign and flash_attention one per tile dtype,
      since both bodies run on the main path, and kernel_matrix one for its
@@ -311,7 +326,25 @@ CPU_TOKENS = 256
 # (1, 1); TP-cpu: these smoke configs on gloo worlds (1, 2) and (2, 2)
 BL_C, BL_INIT, BL_BS, BL_SEEDS = 10, 3, (1, 4, 16, 64), [0, 1, 2]
 TP1_STEPS = 2
-TP_CPU_ARCHS = ("olmo-1b", "qwen3-moe-235b-a22b", "zamba2-2.7b")
+TP_CPU_ARCHS = ("olmo-1b", "qwen3-moe-235b-a22b", "zamba2-2.7b",
+                "seamless-m4t-medium", "rwkv6-7b")
+# phase 4j (the model axis of the encdec and ssm families, the dry run and
+# the examples). TP-1-S: run S's requests through api.prefill / api.decode
+# on a mesh (1, 1) against no mesh, and TP1_STEPS train steps at S-cpu's
+# 2 + 2 layer cut on S_TRAIN's batch; TP-1-R: launch.serve at run R's
+# settings and launch.train at T-rwkv's cut, each with and without
+# --mesh 1x1. DRY: these launch.dryrun cells on the host CPU (each in its
+# own process: a fake world of 256 / 512 ranks). EX: the five examples at
+# their defaults; the MD example also at the reference generator's
+# default size on the fused engine (assign_fused in every sweep)
+S_TRAIN = dict(batch=2, frames=512, tokens=128)
+DRY_CELLS = (("--arch", "olmo-1b", "--shape", "train_4k", "--both-meshes"),
+             ("--arch", "seamless-m4t-medium", "--shape", "prefill_32k"),
+             ("--arch", "rwkv6-7b", "--shape", "long_500k"),
+             ("--arch", "qwen3-moe-235b-a22b", "--shape", "train_4k",
+              "--variant", "ep"))
+MD_FULL = ("--frames", "100000", "--atoms", "64", "--memory-gb", "8",
+           "--engine", "fused")
 KINDS = ("rbf", "linear", "polynomial", "cosine")
 N_TRAIN, N_TEST = 60000, 10000   # paper Tab.1 (benchmarks/tab1_mnist.py)
 EMBED_DIM = 320                  # Fig.5's largest m (fig5_approx_sweep.py)
@@ -3778,7 +3811,7 @@ def tp1_phase(torch, np, mods):
                      "wall_s": s1[1], "plain_wall_s": s0[1],
                      "flash_launches": s1[2],
                      "plain_flash_launches": s0[2]},
-           "bill": vars(bill), "device": card_line()}
+           "bill": bill.summary(), "device": card_line()}
     print("run", json.dumps(rec))
     check(meshed.losses == plain.losses
           and meshed.grad_norms == plain.grad_norms,
@@ -3790,9 +3823,9 @@ def tp1_phase(torch, np, mods):
                                   f"{s1[2]}, expected {want}")
     check(all(v == 0 for c in (s0[3], s1[3]) for v in c.values()),
           "run TP-1: a plain kernel version ran on the card")
-    check(all(v == 0 for v in vars(bill).values()),
+    check(not bill.calls,
           f"run TP-1: the model axis of one launched collectives: "
-          f"{vars(bill)}")
+          f"{bill.calls}")
     return s0[2] + s1[2]
 
 
@@ -3836,9 +3869,20 @@ def tp_cpu_child(rank, world, store, axes, out_dir):
             api = get_model(cfg, tp_size=tp, dp_size=dp, mesh=mesh,
                             device="cpu")
 
+            # seamless's encoder frames [2, 8, D]
+            frames = torch.as_tensor(np.random.default_rng(6).standard_normal(
+                (2, 8, cfg.d_model), dtype=np.float32))
+
+            def inputs(batch, rows):
+                if cfg.family == "encdec":
+                    batch = dict(batch, frames=frames[rows])
+                return batch
+
             def greedy(a, dec, p, t):
                 with torch.no_grad():
-                    cache, logits = a.prefill(p, {"tokens": t}, max_len=16)
+                    cache, logits = a.prefill(
+                        p, inputs({"tokens": t}, slice(0, len(t))),
+                        max_len=16)
                     out = [torch.argmax(logits, -1)]
                     for i in range(7):
                         logits, cache = dec.decode(p, cache, out[-1], 8 + i)
@@ -3852,10 +3896,12 @@ def tp_cpu_child(rank, world, store, axes, out_dir):
             p = api.init(0, torch.float32)
             loss = float(make_train_step(api, tcfg, mesh=mesh)(
                 p, adamw_init(p, tcfg),
-                {"tokens": tok[share], "labels": lab[share]})[2]["loss"])
+                inputs({"tokens": tok[share], "labels": lab[share]},
+                       share))[2]["loss"])
             w_loss = float(make_train_step(w1, tcfg)(
                 full, adamw_init(full, tcfg),
-                {"tokens": tok, "labels": lab})[2]["loss"])
+                inputs({"tokens": tok, "labels": lab}, slice(0, 2)))[2][
+                    "loss"])
             got[arch] = {"ep": bool(ep), "tokens_equal":
                          bool(torch.equal(got_t, want)), "loss": loss,
                          "world1_loss": w_loss,
@@ -3925,6 +3971,312 @@ def baselines_tp_phase(torch, np, mods, x_tr, x_te, y_te):
     tp_cpu_phase(torch)
     print(f"TP-cpu: {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4j: the model axis of the encdec and ssm families, the dry run and
+# the examples
+# ---------------------------------------------------------------------------
+
+
+def dry_start(tmp: str) -> list:
+    """Start each DRY_CELLS cell of ``launch.dryrun`` in its own process on
+    the host CPU (the card hidden from it); they run while the card works."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    procs = []
+    for i, cell in enumerate(DRY_CELLS):
+        out = f"{tmp}/dry{i}"
+        procs.append((cell, out, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--out", out,
+             *cell], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def dry_finish(procs) -> list:
+    """DRY: wait for the cells, print each cell's terms and trace seconds;
+    every cell ok, olmo's single-pod / multi-pod train flops within
+    1.6-2.4, and collective bytes in every cell (the model axis splits
+    each of them)."""
+    import os
+    recs = []
+    for cell, out, t0, proc in procs:
+        try:
+            log, _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        wall = time.perf_counter() - t0
+        print(f"DRY {' '.join(cell)}: exit {proc.returncode}, {wall:.1f} s "
+              f"after phase 4j's start")
+        for line in log.splitlines()[-4:]:
+            print("  dryrun", line)
+        check(proc.returncode == 0, f"DRY {' '.join(cell)}: exit "
+                                    f"{proc.returncode}")
+        for name in sorted(os.listdir(out)):
+            d = json.load(open(f"{out}/{name}"))
+            rec = {"run": "DRY", "cell": name[:-5], "ok": d["ok"],
+                   **{k: d.get(k) for k in (
+                       "n_params", "n_active_params", "tokens_per_step",
+                       "model_flops_total", "flops_per_device",
+                       "bytes_per_device", "trace_seconds")},
+                   "collective_bytes": d["collectives"]["total_bytes"],
+                   "collective_counts": {k: v for k, v in d["collectives"][
+                       "counts"].items() if v},
+                   "memory": d["memory_analysis"]}
+            print("run", json.dumps(rec))
+            check(d["ok"], f"DRY {name}: not ok: {d.get('error')}")
+            check(d["collectives"]["total_bytes"] > 0,
+                  f"DRY {name}: no collective bytes, yet the model axis "
+                  f"splits the cell")
+            recs.append(rec)
+    flops = {r["cell"]: r["flops_per_device"] for r in recs}
+    ratio = flops["olmo-1b__train_4k__sp"] / flops["olmo-1b__train_4k__mp"]
+    print(f"DRY olmo-1b train_4k flops a device, single / multi-pod: "
+          f"{ratio!r}")
+    check(1.6 <= ratio <= 2.4, f"DRY: olmo-1b's sp / mp train flops ratio "
+                               f"{ratio} outside 1.6-2.4")
+    return recs
+
+
+def s_train(torch, np, mods, name, cfg, mesh):
+    """TP1_STEPS train steps of the seamless cut ``cfg`` (bf16, S_TRAIN's
+    frames and tokens from default_rng(8)) on ``mesh`` (None: no mesh);
+    returns (losses, grad norms)."""
+    rng = np.random.default_rng(8)
+    b = S_TRAIN["batch"]
+    frames = torch.as_tensor(rng.standard_normal(
+        (b, S_TRAIN["frames"], cfg.d_model), dtype=np.float32),
+        device="cuda").to(torch.bfloat16)
+    tok = torch.as_tensor(rng.integers(1, cfg.vocab_size,
+                                       size=(b, S_TRAIN["tokens"])),
+                          device="cuda")
+    batch = {"frames": frames, "tokens": tok, "labels": torch.roll(tok, -1, 1)}
+    kw = {} if mesh is None else dict(tp_size=1, dp_size=1, mesh=mesh)
+    api = mods["models"].get_model(cfg, **kw)
+    params = api.init(0, torch.bfloat16)
+    tcfg = mods["configs"].TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                                       total_steps=10)
+    step = mods["training"].make_train_step(api, tcfg, mesh=mesh)
+    opt = mods["training"].adamw_init(params, tcfg)
+    losses, norms = [], []
+    t0 = time.perf_counter()
+    for _ in range(TP1_STEPS):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    print(f"{name}: {TP1_STEPS} steps in {time.perf_counter() - t0:.2f} s, "
+          f"losses {losses}")
+    return losses, norms
+
+
+def tp1_models_phase(torch, np, mods):
+    """TP-1-S and TP-1-R: seamless-m4t-medium and rwkv6-7b at published
+    widths on a mesh (1, 1) in a NCCL world of one, each against the same
+    calls without a mesh (run first, with no world up): tokens, losses
+    and grad norms bitwise equal, an empty collective bill. Returns the
+    flash launches (bf16) of the two seamless serve runs."""
+    import datetime
+    import os
+    import tempfile
+    dist = torch.distributed
+    full_s = mods["configs"].get_arch("seamless-m4t-medium")
+    flash_s = dataclasses.replace(full_s, attn_impl="flash")
+    cut_s = dataclasses.replace(full_s, n_layers=2 * S_CPU["layers"],
+                                n_enc_layers=S_CPU["layers"],
+                                n_dec_layers=S_CPU["layers"])
+    full_r = mods["configs"].get_arch("rwkv6-7b")
+    cut_r = dataclasses.replace(full_r, n_layers=T_RWKV["layers"])
+    requests = seamless_requests(np, full_s, S_FRAMES, seed=0)
+    serve_argv = ["--arch", "rwkv6-7b", "--requests", str(R_REQUESTS),
+                  "--prompt-len", str(PROMPT_MAX), "--max-len",
+                  str(R_SERVE["max_len"]), "--max-new-tokens",
+                  str(R_SERVE["max_new_tokens"]), "--max-batch",
+                  str(R_SERVE["max_batch"])]
+    train_argv = ["--arch", "rwkv6-7b", "--steps", str(TP1_STEPS), "--batch",
+                  str(T_RWKV["batch"]), "--seq", str(T_RWKV["seq"]),
+                  "--log-every", "1"]
+
+    def serve_r(argv):
+        zero_counters(mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mods["serve"].main(argv)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(mods["ops"].LAUNCHES)
+
+    def runs(mesh, tag):
+        kw = {} if mesh is None else dict(tp_size=1, dp_size=1, mesh=mesh)
+        api = mods["models"].get_model(flash_s, **kw)
+        params = draw_params(torch, mods, api, torch.bfloat16,
+                             f"{full_s.name} ({tag})")
+        rec, out, _ = run_seamless(torch, mods, f"TP-1-S{tag}", api, params,
+                                   requests)
+        del params
+        torch.cuda.empty_cache()
+        train = s_train(torch, np, mods, f"TP-1-S{tag} train", cut_s, mesh)
+        torch.cuda.empty_cache()
+        served = serve_r(serve_argv + (["--mesh", "1x1"] if mesh else []))
+        torch.cuda.empty_cache()
+        trained, trec = train_run(torch, mods, f"TP-1-R{tag} train",
+                                  train_argv + (["--mesh", "1x1"] if mesh
+                                                else []), cfg=cut_r)
+        trained.params = trained.opt = None     # the losses are compared
+        torch.cuda.empty_cache()
+        return rec, out, train, served, trained, trec
+
+    plain = runs(None, "-plain")
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1, device_id=torch.device("cuda", 0),
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = mods["mesh"].make_test_mesh({"data": 1, "model": 1},
+                                           device="cuda")
+        with mods["mesh"].tally() as bill:
+            meshed = runs(mesh, "")
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    want = len(S_FRAMES) * (full_s.n_enc_layers + full_s.n_dec_layers)
+    flash = [r[0]["launches"]["flash_attention"] for r in (plain, meshed)]
+    rec = {"run": "TP-1-S/R", "backend": backend,
+           "mesh": {"data": 1, "model": 1},
+           "S": {"prefill_s": [r[0]["prefill_s"] for r in (plain, meshed)],
+                 "decode_s": [r[0]["decode_s"] for r in (plain, meshed)],
+                 "flash_launches": flash,
+                 "train_losses": [r[2][0] for r in (plain, meshed)]},
+           "R": {"serve_wall_s": [r[3][1] for r in (plain, meshed)],
+                 "tokens": sum(len(v) for v in meshed[3][0].values()),
+                 "launches": [r[3][2] for r in (plain, meshed)],
+                 "train_losses": [r[4].losses for r in (plain, meshed)],
+                 "median_step_s": [r[5]["median_step_s"]
+                                   for r in (plain, meshed)]},
+           "bill": bill.summary(), "device": card_line()}
+    print("run", json.dumps(rec))
+    check(plain[1] == meshed[1], "run TP-1-S: the mesh 1x1 tokens differ "
+                                 "from the plain run's")
+    check(plain[2] == meshed[2], "run TP-1-S: the mesh 1x1 train losses or "
+                                 "grad norms differ from the plain run's")
+    check(flash == [want, want], f"run TP-1-S: flash launches {flash}, "
+                                 f"expected {want} each")
+    check(plain[3][0] == meshed[3][0], "run TP-1-R: the mesh 1x1 tokens "
+                                       "differ from the plain serve run's")
+    check(not any(v for r in (plain, meshed) for v in r[3][2].values()),
+          "run TP-1-R: RWKV6's serving launched a kernel")
+    check(plain[4].losses == meshed[4].losses
+          and plain[4].grad_norms == meshed[4].grad_norms,
+          "run TP-1-R: the mesh 1x1 train losses or grad norms differ")
+    check(not bill.calls,
+          f"run TP-1-S/R: the model axis of one launched collectives: "
+          f"{bill.calls}")
+    return sum(flash)
+
+
+def example(name: str):
+    """The module of ``examples/<name>.py`` of this checkout."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(torch, mods) -> dict:
+    """EX: the five examples on the card at their defaults, the MD one also
+    at MD_FULL; prints accuracy, NMI, the plan, wall and launches of each.
+    Checks: the MD runs' NMI >= 0.9, quickstart's XOR kernel accuracy at
+    least its linear one, and a rerun of torch_train_lm.py continuing from
+    its checkpoint. Returns the launches {kernel or (kernel, body): n}."""
+    import tempfile
+    got = {}
+
+    def run(label, name, argv):
+        zero_counters(mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = example(name).main(list(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(mods["ops"].LAUNCHES)
+        calls = dict(mods["ref"].CALLS)
+        for k, v in launches.items():
+            got[k] = got.get(k, 0) + v
+        rec = {"run": f"EX {label}", "argv": list(argv), "wall_s": wall,
+               "launches": {k: v for k, v in launches.items() if v},
+               "device": card_line()}
+        if isinstance(out, dict):
+            rec.update({k: v for k, v in out.items() if k in (
+                "acc", "nmi", "b", "s", "toy_acc", "toy_nmi", "sparse_acc",
+                "sparse_nmi", "xor_linear_acc", "xor_kernel_acc",
+                "seconds")})
+        print("run", json.dumps(rec))
+        check(not any(calls.values()), f"run EX {label}: a plain kernel "
+                                       f"version ran on the card: {calls}")
+        return out, rec
+
+    q, _ = run("quickstart", "torch_quickstart", [])
+    check(q["xor_kernel_acc"] >= q["xor_linear_acc"],
+          f"run EX quickstart: kernel accuracy {q['xor_kernel_acc']} below "
+          f"linear {q['xor_linear_acc']} on the XOR set")
+    for label, argv in (("md", ()), ("md-full", MD_FULL)):
+        md, _ = run(label, "torch_cluster_md_trajectory", argv)
+        check(md["nmi"] >= 0.9, f"run EX {label}: NMI {md['nmi']} against "
+                                f"the true states < 0.9")
+    run("activations", "torch_cluster_activations", [])
+    ckpt = tempfile.mkdtemp()
+    first, _ = run("train_lm", "torch_train_lm", ["--ckpt-dir", ckpt])
+    again, _ = run("train_lm-resume", "torch_train_lm",
+                   ["--ckpt-dir", ckpt, "--steps", "150"])
+    check(len(first.losses) == 100 and len(again.losses) == 50
+          and all(math.isfinite(v) for v in again.losses),
+          f"run EX train_lm: {len(first.losses)} steps, then "
+          f"{len(again.losses)} resumed from step 100 (want 100, 50)")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    served, _ = run("serve_lm", "torch_serve_lm", [])
+    check(len(served) == 12 and all(len(v) == 12 for v in served.values()),
+          "run EX serve_lm: not 12 requests of 12 tokens")
+    check(got["assign_fused"] > 0 and got["kernel_matrix"] > 0
+          and got["flash_attention"] > 0,
+          f"run EX: a kernel of the examples never launched: {got}")
+    return got
+
+
+def models_examples_phase(torch, np, mods) -> dict:
+    """Phase 4j: DRY (started first, on the host), TP-1-S / TP-1-R and EX;
+    returns the launches {kernel or (kernel, body): n}."""
+    import tempfile
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    procs = dry_start(tmp)
+    try:
+        t0 = time.perf_counter()
+        flash_tp = tp1_models_phase(torch, np, mods)
+        print(f"TP-1-S / TP-1-R: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ex = examples_phase(torch, mods)
+        print(f"EX: {time.perf_counter() - t0:.1f} s")
+    except BaseException:
+        for _, _, _, proc in procs:
+            proc.kill()
+            proc.wait()
+        raise
+    t0 = time.perf_counter()
+    dry_finish(procs)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"DRY: waited {time.perf_counter() - t0:.1f} s more")
+    print(f"phase 4j: {time.perf_counter() - t_phase:.1f} s; card: "
+          f"{card_line()}")
+    return {"assign_fused": ex["assign_fused"],
+            "kernel_matrix": ex["kernel_matrix"],
+            ("assign_fused", "f32"): ex["assign_fused"],
+            ("kernel_matrix", "column"): ex["kernel_matrix_column"],
+            ("flash_attention", "bf16"): flash_tp + ex["flash_attention"]}
 
 
 def main(argv=None) -> int:
@@ -4207,8 +4559,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     tp_bf16 = baselines_tp_phase(torch, np, mods, x_tr, x_te, y_te)
     print(f"baselines and model-axis runs: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    j = models_examples_phase(torch, np, mods)
+    for key, n in j.items():
+        if isinstance(key, tuple):
+            if key != ("flash_attention", "bf16"):
+                bodies[key] = bodies.get(key, 0) + n
+        else:
+            totals[key] += n
     bodies["flash_attention", "bf16"] = flash_bf16 + moe_bf16 + fam_bf16 + \
-        tp_bf16
+        tp_bf16 + j["flash_attention", "bf16"]
     bodies["flash_attention", "f32"] = flash_f32 + moe_f32 + fam_f32
     totals["flash_attention"] = bodies["flash_attention", "bf16"] + \
         bodies["flash_attention", "f32"]

@@ -93,7 +93,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 #: collectives of the port's mesh (``distributed/mesh.py``), under the
 #: reference's jaxpr names
-COLLECTIVE_PRIMS = frozenset({"psum", "all_gather"})
+COLLECTIVE_PRIMS = frozenset({"psum", "all_gather", "reduce_scatter",
+                              "all_to_all"})
 
 #: aten ops that read device values to the host
 HOST_SYNC_PRIMS = frozenset({
@@ -116,7 +117,9 @@ _NO_TRAFFIC = frozenset({"empty", "empty_like", "empty_strided",
                          "_local_scalar_dense"})
 
 _MESH_KEYS = {"psum": ("psum", "psum_bytes"),
-              "all_gather": ("allgather", "allgather_bytes")}
+              "all_gather": ("allgather", "allgather_bytes"),
+              "reduce_scatter": ("reducescatter", "reducescatter_bytes"),
+              "all_to_all": ("alltoall", "alltoall_bytes")}
 
 
 class AuditError(AssertionError):

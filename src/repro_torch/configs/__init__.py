@@ -1,9 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolves here (a copy of
-``repro/configs/__init__.py``'s ``ARCHS`` and ``get_arch``)."""
+``repro/configs/__init__.py``'s ``ARCHS``, ``get_arch``,
+``LONG_CONTEXT_ARCHS`` and ``cells``)."""
 from . import (chameleon_34b, gemma2_2b, grok1_314b, internlm2_20b, olmo_1b,
                qwen3_32b, qwen3_moe_235b, rwkv6_7b, seamless_m4t_medium,
                zamba2_2p7b)
-from .base import ModelConfig, ShapeConfig, TrainConfig
+from .base import (DECODE_32K, LONG_500K, PREFILL_32K, SHAPES, TRAIN_4K,
+                   ModelConfig, ShapeConfig, TrainConfig)
 
 ARCHS = {
     "qwen3-32b": qwen3_32b,
@@ -18,6 +20,10 @@ ARCHS = {
     "rwkv6-7b": rwkv6_7b,
 }
 
+# long_500k needs sub-quadratic sequence mixing: only the ssm and hybrid
+# families run it (the pure full-attention archs are skipped)
+LONG_CONTEXT_ARCHS = {"zamba2-2.7b", "rwkv6-7b"}
+
 
 def get_arch(name: str, *, smoke: bool = False) -> ModelConfig:
     if name not in ARCHS:
@@ -26,4 +32,18 @@ def get_arch(name: str, *, smoke: bool = False) -> ModelConfig:
     return mod.SMOKE if smoke else mod.FULL
 
 
-__all__ = ["ARCHS", "ModelConfig", "ShapeConfig", "TrainConfig", "get_arch"]
+def cells(include_long: bool = True):
+    """Every (arch, shape) dry-run cell, with the documented skips."""
+    out = []
+    for arch in ARCHS:
+        for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+            if shape == "long_500k" and (arch not in LONG_CONTEXT_ARCHS
+                                         or not include_long):
+                continue
+            out.append((arch, shape))
+    return out
+
+
+__all__ = ["ARCHS", "LONG_CONTEXT_ARCHS", "SHAPES", "ModelConfig",
+           "ShapeConfig", "TrainConfig", "TRAIN_4K", "PREFILL_32K",
+           "DECODE_32K", "LONG_500K", "get_arch", "cells"]

@@ -1,7 +1,7 @@
 """Config schema: model architecture and input shapes.
 
 A copy of ``repro/configs/base.py`` as data (``ModelConfig``,
-``ShapeConfig`` and ``TrainConfig``). ``attn_impl="flash"`` selects the
+``ShapeConfig``, ``TrainConfig`` and the dry run's ``SHAPES``). ``attn_impl="flash"`` selects the
 hand-written CUDA kernel (``kernels/csrc/flash_attention.cu``) on the card
 and its plain PyTorch version on the CPU; like the reference's kernel it
 has no gradient, so training runs ``attn_impl="chunked"``.
@@ -83,3 +83,11 @@ class TrainConfig:
     opt_state_dtype: str = "float32"   # "bfloat16" for the 314B config
     remat: bool = True
     microbatches: int = 1
+
+
+TRAIN_4K = ShapeConfig("train_4k", "train", 4096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524288, 1)
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}

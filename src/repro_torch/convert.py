@@ -282,7 +282,14 @@ def adamw_state_to_numpy(state: AdamWState, cfg) -> dict:
 #: leaf name -> the dim it splits along over the model axis
 _TP_DIMS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "w_gate": 1, "w_up": 1,
             "w_down": 0, "e_gate": 2, "e_up": 2, "e_down": 1, "embed": 0,
-            "lm_head": 1, "ssm_norm": 0, "out_proj": 0}
+            "lm_head": 1, "ssm_norm": 0, "out_proj": 0,
+            # the encoder-decoder's cross-attention
+            "x_wq": 1, "x_wk": 1, "x_wv": 1, "x_wo": 0}
+#: RWKV6's leaves (its wk / wv are the time mix's, not attention's): the
+#: per-channel leaves of the time mix (u, w0, ln_x, w2's columns) are cut
+#: to the rank's heads, where the reference's specs keep them whole
+_TP_RWKV = {"wr": 1, "wk": 1, "wv": 1, "wg": 1, "wo": 0, "w2": 1, "u": 0,
+            "w0": 0, "ln_x": 0, "ck": 1, "cv": 0, "cr": 1, "embed": 0}
 #: Mamba2 leaves whose last dim is a concatenation of head-split and whole
 #: parts
 _TP_MAMBA = ("in_proj", "conv_w", "conv_b")
@@ -292,9 +299,11 @@ def tp_layout(cfg, size: int) -> dict:
     """{leaf name: its cut}: a dim, ``"mamba"`` (the in_proj / conv
     layout) or None (whole); names absent are whole."""
     from repro_torch.models.attention import kv_policy
+    if cfg.family == "ssm":
+        return dict(_TP_RWKV)
     out = dict(_TP_DIMS)
-    if kv_policy(cfg, size) == "seq":
-        out["wk"] = out["wv"] = None
+    if kv_policy(cfg, size) == "seq":      # attention's K/V: whole
+        out["wk"] = out["wv"] = out["x_wk"] = out["x_wv"] = None
     if cfg.family == "hybrid":
         out.update({name: "mamba" for name in _TP_MAMBA})
     return out

@@ -11,13 +11,14 @@ from .memory import (MachineSpec, Plan, b_min, b_min_paper,
                      predicted_accuracy, s_step_state_bytes,
                      selector_footprint_bytes, serve_footprint_bytes,
                      sketch_footprint_bytes)
-from .metrics import clustering_accuracy, nmi
+from .metrics import clustering_accuracy, elbow, mean_displacement, nmi
 from .minibatch import (FitResult, GlobalState, MiniBatchConfig, fit,
                         fit_dataset, predict)
 
 __all__ = [
     "FitResult", "GlobalState", "GramEngine", "KernelSpec", "MiniBatchConfig",
-    "assign_to_medoids", "choose_landmarks", "clustering_accuracy", "fit",
+    "assign_to_medoids", "choose_landmarks", "clustering_accuracy", "elbow",
+    "fit", "mean_displacement",
     "fit_dataset", "gamma_from_dmax", "kkmeans_fit", "kkmeans_fit_full",
     "kkmeans_fit_gram", "kmeans_pp_indices", "medoid_indices", "nmi",
     "num_landmarks", "predict", "resolve_engine", "select_landmark_indices",

@@ -1,6 +1,7 @@
 """Clustering quality measures (paper §4), numpy copies of
-``repro/core/metrics.py``: accuracy through the majority-vote mapping, and
-normalized mutual information."""
+``repro/core/metrics.py``: accuracy through the majority-vote mapping,
+normalized mutual information, the elbow criterion and the medoid
+displacement."""
 from __future__ import annotations
 
 import numpy as np
@@ -39,6 +40,17 @@ def nmi(labels_true, labels_pred) -> float:
     hy = -np.sum((pj[pj > 0] / n) * np.log(pj[pj > 0] / n))
     denom = np.sqrt(hu * hy)
     return float(mi / denom) if denom > 0 else 0.0
+
+
+def elbow(costs) -> int:
+    """The elbow criterion (paper §4.4, §4.5): the index of the largest
+    positive second difference of the cost-against-C curve (0 below three
+    points)."""
+    c = np.asarray(costs, dtype=np.float64)
+    if len(c) < 3:
+        return 0
+    d2 = c[:-2] - 2 * c[1:-1] + c[2:]
+    return int(np.argmax(d2) + 1)
 
 
 def mean_displacement(history) -> np.ndarray:

@@ -117,3 +117,41 @@ def make_rcv1_sparse(n: int = 188000, vocab: int = 20000,
     batch = CSRBatch(torch.from_numpy(data), torch.from_numpy(indices),
                      torch.from_numpy(indptr.astype(np.int32)), (n, vocab))
     return batch, y[perm]
+
+
+def make_noisy_replicas(x: np.ndarray, y: np.ndarray, *, n_replicas: int = 20,
+                        frac_features: float = 0.2, seed: int = 0):
+    """The paper's 'Noisy MNIST': each sample perturbed ``n_replicas`` times
+    with uniform noise on ``frac_features`` of the features (§4, 1.2M
+    samples)."""
+    rng = np.random.default_rng(seed)
+    n, d = x.shape
+    out_x = np.repeat(x, n_replicas, axis=0)
+    out_y = np.repeat(y, n_replicas, axis=0)
+    k = int(frac_features * d)
+    cols = rng.integers(0, d, size=(len(out_x), k))
+    rows = np.arange(len(out_x))[:, None]
+    out_x[rows, cols] = rng.random((len(out_x), k)).astype(x.dtype)
+    perm = rng.permutation(len(out_x))
+    return out_x[perm], out_y[perm]
+
+
+def make_md_trajectory(n_frames: int = 100000, n_atoms: int = 64,
+                       n_states: int = 20, *, dwell: float = 500.0,
+                       seed: int = 0):
+    """The MD-trajectory envelope (§4.5): a Markov jump process over
+    metastable conformations. Frames are 3 n_atoms coordinates fluctuating
+    around one of ``n_states`` reference structures; consecutive frames are
+    correlated (mean dwell time ``dwell`` frames), the concept-drift regime
+    where block sampling struggles and stride sampling does not (Fig.4)."""
+    rng = np.random.default_rng(seed)
+    d = 3 * n_atoms
+    refs = rng.normal(0.0, 1.0, size=(n_states, d)).astype(np.float32)
+    y = np.empty(n_frames, np.int32)
+    state = 0
+    for t in range(n_frames):
+        if rng.random() < 1.0 / dwell:
+            state = rng.integers(0, n_states)
+        y[t] = state
+    x = refs[y] + rng.normal(0.0, 0.15, size=(n_frames, d)).astype(np.float32)
+    return x, y

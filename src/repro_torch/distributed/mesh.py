@@ -80,6 +80,19 @@ def mesh_shape(mesh) -> dict[str, int]:
             for i, name in enumerate(mesh.mesh_dim_names)}
 
 
+#: the axes a batch splits over, outermost first; a mesh has those of them
+#: it names (the multi-pod production mesh both)
+DATA_AXES = ("pod", "data")
+
+
+def data_axes(mesh) -> tuple[tuple[str, ...], int]:
+    """The data axes ``mesh`` has (of ``DATA_AXES``) and the number of
+    ranks along them."""
+    shape = mesh_shape(mesh)
+    axes = tuple(a for a in DATA_AXES if a in shape)
+    return axes, math.prod(shape[a] for a in axes)
+
+
 def axis_size(mesh, names: tuple[str, ...] | str) -> int:
     if isinstance(names, str):
         names = (names,)
@@ -141,23 +154,52 @@ def axis_rank(mesh, axes: tuple[str, ...] | str) -> int:
     return dist.get_rank(axis_group(mesh, axes))
 
 
+def _counter(kind: str, nbytes: bool = False) -> property:
+    """A tally counter read from its ``calls``: the calls of ``kind``, or
+    their bytes (a reduce_scatter's are the bytes it sent in: its
+    output's times its group's size)."""
+    def read(self) -> int:
+        if not nbytes:
+            return sum(1 for k, _, _ in self.calls if k == kind)
+        return sum(b * n if kind == "reduce-scatter" else b
+                   for k, b, n in self.calls if k == kind)
+    return property(read)
+
+
 class CollectiveTally:
-    """Collectives through ``all_gather`` / ``all_reduce`` while a
-    ``tally()`` is open, under the reference's names: ``psum`` (the
-    all_reduce calls), ``allgather``, ``psum_bytes`` (the bytes the
-    all_reduce calls summed, per rank) and ``allgather_bytes`` (the bytes
-    the all_gather calls returned, per rank), ``alltoall`` (the
-    all_to_all calls) and ``reducescatter`` / ``reducescatter_bytes`` (the
-    model axis's reduce_scatter calls and the bytes each sent in)."""
+    """Collectives through this module while a ``tally()`` is open.
+    ``calls`` is the one record: every call as (the reference's HLO kind,
+    its output's bytes, its group's size), what the reference's ring
+    formulas price (``launch.dryrun.ring_bytes``). The counters under the
+    reference's names are read from it: ``psum`` / ``psum_bytes`` (the
+    all_reduce calls and the bytes they summed, per rank), ``allgather``
+    / ``allgather_bytes`` (the bytes returned), ``alltoall`` /
+    ``alltoall_bytes`` (the bytes each sent, which it also gets back) and
+    ``reducescatter`` / ``reducescatter_bytes`` (the bytes each sent
+    in)."""
+
+    psum = _counter("all-reduce")
+    psum_bytes = _counter("all-reduce", nbytes=True)
+    allgather = _counter("all-gather")
+    allgather_bytes = _counter("all-gather", nbytes=True)
+    alltoall = _counter("all-to-all")
+    alltoall_bytes = _counter("all-to-all", nbytes=True)
+    reducescatter = _counter("reduce-scatter")
+    reducescatter_bytes = _counter("reduce-scatter", nbytes=True)
 
     def __init__(self):
-        self.psum = 0
-        self.allgather = 0
-        self.psum_bytes = 0
-        self.allgather_bytes = 0
-        self.alltoall = 0
-        self.reducescatter = 0
-        self.reducescatter_bytes = 0
+        self.calls: list[tuple[str, int, int]] = []
+
+    def summary(self) -> dict:
+        """Every counter by its name."""
+        return {k: getattr(self, k) for k, v in vars(CollectiveTally).items()
+                if isinstance(v, property)}
+
+
+def _record(kind: str, nbytes: int, group_size: int) -> None:
+    """Add one call to every open tally."""
+    for c in _TALLIES:
+        c.calls.append((kind, nbytes, group_size))
 
 
 _TALLIES: list[CollectiveTally] = []
@@ -185,9 +227,8 @@ def all_gather(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
         dist.all_gather_into_tensor(out, t, group=group)
-    for c in _TALLIES:
-        c.allgather += 1
-        c.allgather_bytes += out.numel() * out.element_size()
+    _record("all-gather", out.numel() * out.element_size(),
+            dist.get_world_size(group))
     return out
 
 
@@ -201,9 +242,8 @@ def _all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     t = t.contiguous().clone()
     dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
                     else dist.ReduceOp.SUM, group=group)
-    for c in _TALLIES:
-        c.psum += 1
-        c.psum_bytes += t.numel() * t.element_size()
+    _record("all-reduce", t.numel() * t.element_size(),
+            dist.get_world_size(group))
     return t
 
 
@@ -217,12 +257,12 @@ def all_to_all(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     forward exchanges; the backward's run inside autograd."""
     from torch.distributed.nn.functional import all_to_all_single
     t = t.contiguous()
+    group = axis_group(mesh, axes)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
-        out = all_to_all_single(torch.empty_like(t), t,
-                                group=axis_group(mesh, axes))
-    for c in _TALLIES:
-        c.alltoall += 1
+        out = all_to_all_single(torch.empty_like(t), t, group=group)
+    _record("all-to-all", t.numel() * t.element_size(),
+            dist.get_world_size(group))
     return out
 
 
@@ -240,9 +280,7 @@ def _gather_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
         dist.all_gather_into_tensor(out, x, group=group)
-    for c in _TALLIES:
-        c.allgather += 1
-        c.allgather_bytes += out.numel() * out.element_size()
+    _record("all-gather", out.numel() * out.element_size(), n)
     return out.movedim(0, dim)
 
 
@@ -259,9 +297,7 @@ def _scatter_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
         dist.reduce_scatter_tensor(out, x, group=group)
-    for c in _TALLIES:
-        c.reducescatter += 1
-        c.reducescatter_bytes += x.numel() * x.element_size()
+    _record("reduce-scatter", out.numel() * out.element_size(), n)
     return out.movedim(0, dim)
 
 

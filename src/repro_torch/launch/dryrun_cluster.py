@@ -157,7 +157,8 @@ def lower_cluster(mode: str, *, multi_pod: bool = False, n_rows: int = 2**20,
                 gram = cost_of(lambda: spec(x_local, lm_cols).to(k_dtype))
     finally:
         dist.destroy_process_group()
-    sweep_coll = dict(cost.coll_counts), dict(cost.coll)
+    sweep_coll = ({k: v for k, v in cost.coll_counts.items() if v},
+                  {k: v for k, v in cost.coll.items() if v})
     allocated = cost.allocated
     memory = {"allocated_bytes": allocated}
     if gram is not None:

@@ -23,8 +23,11 @@ no second run to be priced. Per device:
   prices them: the one count of each kernel's work, which ``chip_smoke.py``
   turns into each kernel's ``bound_ms``;
 * **collectives**: the run's counts and payload bytes per rank, from
-  ``distributed.mesh.tally()`` (``all-reduce`` and ``all-gather``). The
-  reference charges ring link bytes; the port reports payload.
+  ``distributed.mesh.tally()``: ``all-reduce`` (the bytes summed),
+  ``all-gather`` (the bytes returned), ``reduce-scatter`` (the bytes sent
+  in) and ``all-to-all`` (the bytes sent). The reference charges ring
+  link bytes; the port reports payload here, and ``launch.dryrun`` prices
+  the tally's calls by the reference's ring formulas.
 
 ``analyze(hlo)``, ``xla_cost`` and ``xla_memory`` read HLO text and XLA's
 own cost and memory analyses; there is no counterpart, since nothing is
@@ -35,9 +38,10 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
-COLLECTIVES = ("all-gather", "all-reduce")
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
 #: the audit's collective names -> the reference's HLO names
-_HLO_NAMES = {"psum": "all-reduce", "all_gather": "all-gather"}
+_HLO_NAMES = {"psum": "all-reduce", "all_gather": "all-gather",
+              "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all"}
 
 
 class Work(NamedTuple):

@@ -35,7 +35,10 @@ def make_production_mesh(*, multi_pod: bool = False, device=None):
 
 
 def data_axes(multi_pod: bool = False) -> tuple[str, ...]:
-    return ("pod", "data") if multi_pod else ("data",)
+    """The data axes of the production mesh (``distributed.mesh.DATA_AXES``
+    that it has)."""
+    from repro_torch.distributed.mesh import DATA_AXES
+    return DATA_AXES if multi_pod else DATA_AXES[1:]
 
 
 def join_torchrun(dev: torch.device) -> bool:

@@ -18,6 +18,12 @@ and its K/V follow the reference's ``_kv_policy``:
   (max m, sum l, output o) over its own slots, and the ranks' partials
   are combined by log-sum-exp in rank order on every rank. The cache
   length must split over M.
+
+Cross-attention (the ``x_`` leaves) splits the same way: ``x_wq`` by
+columns, ``x_wo`` by rows, ``x_wk`` / ``x_wv`` by kv heads or whole; its
+``seq`` cache holds memory rows j % M == r, and its decode step combines
+the ranks' partials as above with every memory row valid (no causal
+position mask: the memory is the whole encoder output).
 """
 from __future__ import annotations
 
@@ -116,17 +122,22 @@ def attention_block(p, x, cfg: ModelConfig, *, window: int | None,
 
 
 def cross_attention_block(p, x, memory_kv, cfg: ModelConfig, *,
-                          prefix: str = "x_"):
+                          prefix: str = "x_", tp: TP = TP1):
     """Decoder cross-attention against precomputed encoder (k, v) [B, Sm,
-    KH, dh]: chunked attention, not causal, no RoPE on q (the reference
-    sends it through no kernel)."""
+    KH, dh] (this rank's kv heads, or every kv head under ``seq``):
+    chunked attention, not causal, no RoPE on q (the reference sends it
+    through no kernel). Over a model axis a rank attends with its H/M
+    query heads and its rows of ``x_wo`` are summed over the ranks."""
     b, s, _ = x.shape
-    h, dh = cfg.n_heads, cfg.d_head
-    q = (x @ p[prefix + "wq"]).reshape(b, s, h, dh)
+    dh = cfg.d_head
+    q = (tp.copy(x) @ p[prefix + "wq"]).reshape(b, s, -1, dh)
     k, v = memory_kv
+    if tp.size > 1 and kv_policy(cfg, tp.size) == "seq":
+        idx = local_kv_heads(cfg, tp)
+        k, v = k[:, :, idx].contiguous(), v[:, :, idx].contiguous()
     out = chunked_attention(q, k, v, causal=False, window=None,
                             attn_softcap=cfg.attn_softcap)
-    return out.reshape(b, s, h * dh) @ p[prefix + "wo"]
+    return tp.reduce(out.reshape(b, s, q.shape[2] * dh) @ p[prefix + "wo"])
 
 
 def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
@@ -182,8 +193,7 @@ def _decode_seq(p, q, k, v, cache_k, cache_v, pos_b, cfg: ModelConfig, *,
                 window, prefix, tp: TP):
     """Decode under the ``seq`` policy: the cache [B, S/M, KH, dh] holds
     slots r, r + M, ...; q [B, 1, H/M, dh], k and v [B, 1, KH, dh]."""
-    b, _, h_l, dh = q.shape
-    kh, groups = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    b = q.shape[0]
     s_l = cache_k.shape[1]
     s = s_l * tp.size                                   # the whole cache
     slot_b = pos_b % s if window is not None else pos_b
@@ -194,16 +204,30 @@ def _decode_seq(p, q, k, v, cache_k, cache_v, pos_b, cfg: ModelConfig, *,
         cur = cache[rows, row]
         cache[rows, row] = torch.where(own[:, None, None],
                                        new[:, 0].to(cache.dtype), cur)
-
-    q_all = tp.gather(q, 2).reshape(b, kh, groups, dh).to(torch.float32)
-    scores = torch.einsum("bkgd,bskd->bkgs", q_all,
-                          cache_k.to(torch.float32)) * dh ** -0.5
-    if cfg.attn_softcap is not None:
-        scores = cfg.attn_softcap * torch.tanh(scores / cfg.attn_softcap)
     kpos = torch.arange(s_l, device=q.device) * tp.size + tp.rank
     valid = kpos[None, :] <= pos_b[:, None]
     if window is not None:
         valid = valid | (pos_b[:, None] >= s)
+    out = _seq_attend(q, cache_k, cache_v, valid, cfg, tp,
+                      softcap=cfg.attn_softcap)
+    return tp.reduce(out @ p[prefix + "wo"]), cache_k, cache_v
+
+
+def _seq_attend(q, cache_k, cache_v, valid, cfg: ModelConfig, tp: TP, *,
+                softcap=None):
+    """One query token against K/V rows split over the model axis (rank r
+    holds rows r, r + M, ...; ``valid`` [B, S/M] masks its rows): every
+    rank's q heads are gathered, each rank takes the softmax's partial
+    (max m, sum l, output o) over its own rows for every head, and the
+    ranks' partials are combined by log-sum-exp in rank order on every
+    rank. q: [B, 1, H/M, dh] -> this rank's heads' output [B, 1, H/M dh]."""
+    b, _, h_l, dh = q.shape
+    kh, groups = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    q_all = tp.gather(q, 2).reshape(b, kh, groups, dh).to(torch.float32)
+    scores = torch.einsum("bkgd,bskd->bkgs", q_all,
+                          cache_k.to(torch.float32)) * dh ** -0.5
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
     valid = valid[:, None, None, :]
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     m = torch.max(scores, dim=-1).values                          # [B,KH,G]
@@ -217,22 +241,30 @@ def _decode_seq(p, q, k, v, cache_k, cache_v, pos_b, cfg: ModelConfig, *,
     out = (w[..., None] * o_r).sum(dim=0) / (w * l_r).sum(dim=0)[..., None]
     out = out.reshape(b, kh * groups, dh)[:, tp.rank * h_l:(tp.rank + 1)
                                           * h_l]
-    out = out.reshape(b, 1, h_l * dh).to(q.dtype)
-    return tp.reduce(out @ p[prefix + "wo"]), cache_k, cache_v
+    return out.reshape(b, 1, h_l * dh).to(q.dtype)
 
 
 def decode_cross_attention(p, x, memory_kv, cfg: ModelConfig, *,
-                           prefix: str = "x_"):
+                           prefix: str = "x_", tp: TP = TP1):
     """One decoder token against the encoder's (k, v) [B, Sm, KH, dh]:
     scores and softmax in f32, every memory row valid. x: [B, 1, D] ->
-    [B, 1, D]."""
+    [B, 1, D]. Over a model axis the cache holds this rank's kv heads
+    (``heads``) or its memory rows j % M == r with every kv head
+    (``seq``: ``_seq_attend`` with every row valid, no causal mask)."""
     b = x.shape[0]
-    h, dh = cfg.n_heads, cfg.d_head
+    dh = cfg.d_head
     k, v = memory_kv
-    kh = k.shape[2]
-    qg = (x @ p[prefix + "wq"]).reshape(b, kh, h // kh, dh)
+    q = (tp.copy(x) @ p[prefix + "wq"]).reshape(b, 1, -1, dh)
+    if tp.size > 1 and kv_policy(cfg, tp.size) == "seq":
+        valid = torch.ones((b, k.shape[1]), dtype=torch.bool,
+                           device=x.device)
+        out = _seq_attend(q, k, v, valid, cfg, tp)
+        return tp.reduce(out @ p[prefix + "wo"])
+    h, kh = q.shape[2], k.shape[2]
+    qg = q.reshape(b, kh, h // kh, dh)
     scores = torch.einsum("bkgd,bskd->bkgs", qg.to(torch.float32),
                           k.to(torch.float32)) * dh ** -0.5
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs, v.to(torch.float32))
-    return out.reshape(b, 1, h * dh).to(x.dtype) @ p[prefix + "wo"]
+    return tp.reduce(out.reshape(b, 1, h * dh).to(x.dtype)
+                     @ p[prefix + "wo"])

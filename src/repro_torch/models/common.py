@@ -11,7 +11,7 @@ Conventions
   parameter tree converts by unstacking alone (``repro_torch.convert``).
 * The reference's ``Axes`` and ambient mesh (its GSPMD annotations) are
   ``TP`` here: the model axis of a ``DeviceMesh`` (``distributed/mesh.py``)
-  that the dense, MoE and hybrid families split over, Megatron-style.
+  that every family of the zoo splits over, Megatron-style.
   Every function that splits takes ``tp=`` (default ``TP1``: one rank, no
   collective, the unsplit code). Under ``TP`` of size M a rank holds the
   parameters ``convert.shard_lm`` cuts for it, the residual stream is
@@ -80,6 +80,14 @@ class TP:
             return t
         from repro_torch.distributed import mesh as dmesh
         return dmesh.split_to_model(t, self.mesh, dim)
+
+    def scatter(self, t, dim: int):
+        """This rank's block along ``dim`` of the ranks' partial sums
+        (one reduce_scatter; backward all_gathers the blocks' grads)."""
+        if self.size == 1:
+            return t
+        from repro_torch.distributed import mesh as dmesh
+        return dmesh.reduce_scatter(t, self.mesh, dim)
 
     def max(self, t):
         if self.size == 1:

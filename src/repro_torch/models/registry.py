@@ -22,18 +22,21 @@ bf16 unless the weights are f32 (the reference's spec says bf16, and its
 engine holds them in the activations' dtype from its first decode tick
 on: its functional update promotes them).
 
-Tensor parallelism: with ``tp_size`` M > 1 the dense, MoE and hybrid
-families split over the ``model`` axis of ``mesh`` (a DeviceMesh with
-axes (data, model)), Megatron-style
-(``models/common.py``). ``init`` draws the whole parameters from the seed
-and keeps this rank's cut (``convert.shard_lm``), so rank r holds exactly
-the world-1 run's slice; ``cache_specs`` gives this rank's leaf shapes
+Tensor parallelism: with ``tp_size`` M > 1 every family splits over the
+``model`` axis of ``mesh`` (a DeviceMesh with axes (data, model), or
+(pod, data, model)), Megatron-style (``models/common.py``). ``init``
+draws the whole parameters from the seed and keeps this rank's cut
+(``convert.shard_lm``), so rank r holds exactly the world-1 run's slice;
+``cache_specs`` gives this rank's leaf shapes
 under the reference's ``_kv_policy`` (``attention.kv_policy``); prefill
 and decode return the logits whole on every rank. ``dp_size`` is the
-mesh's data axis, which the launcher splits batches over (the
-data-parallel run replicates the parameters: no FSDP). The encoder-decoder and RWKV6
-families refuse M > 1 (``TP_QUEUED``). The reference's
-``batch_partition`` has no counterpart.
+product of the mesh's data axes (``distributed.mesh.data_axes``), which
+the launcher splits batches over (the data-parallel run replicates the
+parameters: no FSDP). The port splits attention and RWKV6 by whole
+heads: a head count the model axis does not divide is refused by a
+``ValueError`` (``HEADS_DO_NOT_SPLIT``), where the reference's GSPMD
+would split mid-head. The reference's ``batch_partition`` has no
+counterpart.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.mesh import data_axes
 from repro_torch.kernels.ops import FLASH_NO_GRAD
 from . import encdec, rwkv, transformer, zamba
 from .attention import kv_policy
@@ -52,10 +56,10 @@ from .rwkv import rwkv_dims
 from .ssm import ssm_dims
 from .transformer import _cache_len, _layer_kinds
 
-#: why the encoder-decoder and RWKV6 families refuse a model axis
-TP_QUEUED = ("tensor parallelism (tp_size > 1) of the {family} family is not "
-             "ported: ROADMAP Queue 1 lists the model axis of the encdec and "
-             "ssm families next")
+#: why a model axis that does not divide a config's heads is refused
+HEADS_DO_NOT_SPLIT = ("{n} {what} do not split over a model axis of {m}: the "
+                      "port splits by whole heads (the reference's GSPMD "
+                      "splits mid-head)")
 
 CACHE_DTYPE = torch.bfloat16   # K/V, whatever the parameters are
 STATE_DTYPE = torch.float32    # the recurrent SSM and wkv states
@@ -108,8 +112,10 @@ def _cache_specs(cfg: ModelConfig, shape: ShapeConfig,
                  "conv{j}" [n_groups, B, conv_kernel - 1, C];
       ssm:       "tm_x", "cm_x" [L, B, D], "wkv" [L, B, H, 64, 64] f32.
     Under ``tp`` of M ranks these are one rank's: K/V with KH/M heads
-    (``heads`` policy) or S/M rows (``seq``), the hybrid's ssm states with
-    H/M heads and its conv rows with d_inner/M + 2 N channels."""
+    (``heads`` policy) or S/M rows (``seq``; the encdec's self and cross
+    caches alike), the hybrid's ssm states with H/M heads and its conv
+    rows with d_inner/M + 2 N channels, RWKV6's wkv state with H/M heads
+    and its token-shift rows whole."""
     b, s = shape.global_batch, shape.seq_len
     kh, dh = cfg.n_kv_heads, cfg.d_head
     rows = torch.promote_types(CACHE_DTYPE, dtype)
@@ -128,7 +134,7 @@ def _cache_specs(cfg: ModelConfig, shape: ShapeConfig,
             specs[f"k{j}"] = specs[f"v{j}"] = spec
         return specs
     if cfg.family == "encdec":
-        kv = ((cfg.n_dec_layers, b, s, kh, dh), CACHE_DTYPE)
+        kv = ((cfg.n_dec_layers, b, *kv(s), dh), CACHE_DTYPE)
         return {"k": kv, "v": kv, "xk": kv, "xv": kv}
     if cfg.family == "hybrid":
         g, period = cfg.n_layers // cfg.attn_period, cfg.attn_period
@@ -143,11 +149,12 @@ def _cache_specs(cfg: ModelConfig, shape: ShapeConfig,
             specs[f"conv{j}"] = ((g, b, cfg.conv_kernel - 1, conv_dim),
                                  rows)
         return specs
-    if cfg.family == "ssm":
+    if cfg.family == "ssm":     # the token-shift rows whole on every rank
         l, d = cfg.n_layers, cfg.d_model
         x = ((l, b, d), rows)
+        heads = tp.local(rwkv_dims(cfg), "RWKV6 heads")
         return {"tm_x": x, "cm_x": x,
-                "wkv": ((l, b, rwkv_dims(cfg), 64, 64), STATE_DTYPE)}
+                "wkv": ((l, b, heads, 64, 64), STATE_DTYPE)}
     raise ValueError(cfg.family)
 
 
@@ -166,21 +173,24 @@ _FAMILIES = {
 
 
 def _model_axis(cfg: ModelConfig, tp_size: int, dp_size: int, mesh) -> TP:
-    """The TP context of ``mesh``, checked against ``tp_size`` and
-    ``dp_size``."""
-    if tp_size > 1 and cfg.family in ("encdec", "ssm"):
-        raise NotImplementedError(TP_QUEUED.format(family=cfg.family))
+    """The TP context of ``mesh``, checked against ``tp_size``, ``dp_size``
+    (the product of the mesh's data axes) and the config's heads."""
     if mesh is None:
         if tp_size > 1:
             raise ValueError(f"tp_size={tp_size} needs a mesh with a model "
                              f"axis of {tp_size} ranks")
         return TP1
     tp = TP.of(mesh)
-    data = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)).get("data", 1)
+    _, data = data_axes(mesh)
     if (tp.size, data) != (tp_size, dp_size):
         raise ValueError(f"tp_size={tp_size}, dp_size={dp_size}, but the "
                          f"mesh's model and data axes have {tp.size} and "
                          f"{data} ranks")
+    heads = ((rwkv_dims(cfg), "RWKV6 heads") if cfg.family == "ssm"
+             else (cfg.n_heads, "query heads"))
+    if heads[0] % tp.size:
+        raise ValueError(HEADS_DO_NOT_SPLIT.format(n=heads[0], what=heads[1],
+                                                   m=tp.size))
     return tp
 
 
@@ -196,7 +206,6 @@ def get_model(cfg: ModelConfig, *, tp_size: int = 1, dp_size: int = 1,
     dev = resolve_device(device)
     tp = _model_axis(cfg, tp_size, dp_size, mesh)
     init_fn, loss_fn, decode_fn = _FAMILIES[fam]
-    kw = {} if fam in ("encdec", "ssm") else {"tp": tp}
 
     def init(seed: int = 0, dtype: torch.dtype = torch.bfloat16):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -210,23 +219,23 @@ def get_model(cfg: ModelConfig, *, tp_size: int = 1, dp_size: int = 1,
         # the flash kernel is forward only; RWKV attends nothing
         if cfg.attn_impl == "flash" and fam != "ssm":
             raise RuntimeError(f"{cfg.name}: {FLASH_NO_GRAD}")
-        return loss_fn(params, batch, cfg, remat=remat, **kw)
+        return loss_fn(params, batch, cfg, remat=remat, tp=tp)
 
     def prefill(params, batch, *, max_len=None):
         if fam == "encdec":
             return encdec.prefill(
                 params, batch["frames"], batch["tokens"], cfg,
-                max_len=max_len or batch["frames"].shape[1])
+                max_len=max_len or batch["frames"].shape[1], tp=tp)
         if fam == "hybrid":
             return zamba.prefill(params, batch["tokens"], cfg,
                                  max_len=max_len, tp=tp)
         if fam == "ssm":       # the state is whole at any length
-            return rwkv.prefill(params, batch["tokens"], cfg)
+            return rwkv.prefill(params, batch["tokens"], cfg, tp=tp)
         return transformer.prefill(params, batch["tokens"], cfg,
                                    max_len=max_len, tp=tp)
 
     def decode(params, cache, token, pos):
-        return decode_fn(params, cache, token, pos, cfg, **kw)
+        return decode_fn(params, cache, token, pos, cfg, tp=tp)
 
     return ModelAPI(cfg=cfg, device=dev, init=init, loss=loss,
                     prefill=prefill, decode=decode,

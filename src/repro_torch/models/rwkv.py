@@ -19,6 +19,15 @@ decay keeps the data-dependent LoRA (the Finch mechanism). Channel-mix is
 the r-gated squared ReLU. ``params["layers"]`` is a list of per-layer
 dicts (the reference stacks them [L, ...]); the cache is "tm_x" [L, B, D],
 "wkv" [L, B, H, 64, 64] (f32) and "cm_x" [L, B, D].
+
+Over a model axis (``tp``) the 64-channel heads split (``time_mix``,
+``channel_mix``), the embedding holds this rank's block of vocabulary
+rows and the logits are gathered whole. The wkv state holds this rank's
+H/M heads. The token-shift rows "tm_x" and "cm_x" stay whole on every
+rank: they are the layer's whole input row, which every rank needs before
+its column-split products (the reference's spec splits them by ``model``;
+keeping them whole costs L x B x D a leaf per rank, 2 MB at rwkv6-7b
+with 8 slots in bf16, and no gather a tick).
 """
 from __future__ import annotations
 
@@ -27,7 +36,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from .common import ParamBuilder, chunked_cross_entropy, rms_norm
+from .common import (TP, TP1, ParamBuilder, chunked_cross_entropy,
+                     embed_lookup, rms_norm)
 
 _K_HEAD = 64
 _LORA = 64
@@ -128,47 +138,66 @@ def _wkv_chunked(r, k, v, logw, u, n_heads: int, *, chunk: int = 64,
     return out[:, :s], state
 
 
-def time_mix(p, x, cfg: ModelConfig, *, state=None, chunk: int = 64):
-    """RWKV6's attention analogue. ``state`` = (x_last [B, D], wkv [B, H,
+def time_mix(p, x, cfg: ModelConfig, *, state=None, chunk: int = 64,
+             tp: TP = TP1):
+    """RWKV6's attention analogue. ``state`` = (x_last [B, D], wkv [B, H/M,
     K, V] f32) or None (from zeros). Returns (out [B, S, D], (x[:, -1],
-    the final wkv state))."""
-    n_heads = rwkv_dims(cfg)
-    bsz, s, d = x.shape
+    the final wkv state)).
+
+    Over a model axis of M ranks a rank holds H/M heads: its columns of
+    wr, wk, wv, wg and w2 (the decay LoRA's up-projection, so the decay
+    is computed for its own channels only), its rows of wo, and its
+    heads' slices of u, w0 and ln_x; the mu_* weights and w1 stay whole.
+    Every input of a column-split product enters through ``tp.copy`` and
+    the output projection's partial sums leave through ``tp.reduce``."""
+    n_heads = tp.local(rwkv_dims(cfg), "RWKV6 heads")
+    bsz, s, _ = x.shape
     x_last, wkv0 = state if state is not None else (None, None)
     prev = _token_shift(x, x_last)
 
     def lerp(mu):
         return x + (prev - x) * mu[None, None, :].to(x.dtype)
 
-    r = lerp(p["mu_r"]) @ p["wr"]
-    k = lerp(p["mu_k"]) @ p["wk"]
-    v = lerp(p["mu_v"]) @ p["wv"]
-    g = lerp(p["mu_g"]) @ p["wg"]
+    r = tp.copy(lerp(p["mu_r"])) @ p["wr"]
+    k = tp.copy(lerp(p["mu_k"])) @ p["wk"]
+    v = tp.copy(lerp(p["mu_v"])) @ p["wv"]
+    g = tp.copy(lerp(p["mu_g"])) @ p["wg"]
     # the data-dependent decay (the Finch mechanism), in f32
     xw = lerp(p["mu_w"]).to(torch.float32)
-    wx = p["w0"] + torch.tanh(xw @ p["w1"].to(torch.float32)) \
-        @ p["w2"].to(torch.float32)
-    logw = -torch.exp(wx)                                  # [B, S, D] < 0
+    lora = tp.copy(torch.tanh(xw @ p["w1"].to(torch.float32)))
+    wx = p["w0"] + lora @ p["w2"].to(torch.float32)
+    logw = -torch.exp(wx)                                # [B, S, D/M] < 0
     out, wkv = _wkv_chunked(r, k, v, logw, p["u"], n_heads, chunk=chunk,
                             initial_state=wkv0)
     # per-head group norm (RMS over each head's channels) and the ln_x gain
+    d_l = n_heads * _K_HEAD
     out = rms_norm(out.reshape(bsz, s, n_heads, _K_HEAD), None)
-    out = out.reshape(bsz, s, d) * p["ln_x"][None, None, :].to(out.dtype)
+    out = out.reshape(bsz, s, d_l) * p["ln_x"][None, None, :].to(out.dtype)
     out = out.to(x.dtype) * F.silu(g.to(torch.float32)).to(x.dtype)
-    return out @ p["wo"], (x[:, -1], wkv)
+    return tp.reduce(out @ p["wo"]), (x[:, -1], wkv)
 
 
-def channel_mix(p, x, cfg: ModelConfig, *, x_last=None):
-    """The r-gated squared-ReLU FFN. Returns (out [B, S, D], x[:, -1])."""
+def channel_mix(p, x, cfg: ModelConfig, *, x_last=None, tp: TP = TP1):
+    """The r-gated squared-ReLU FFN. Returns (out [B, S, D], x[:, -1]).
+
+    Over a model axis ck and cr split by columns and cv by rows (the
+    reference's specs). The gate r [B, S, D/M] multiplies the whole of
+    v = k @ cv, whose rank products are partial sums: the partials are
+    reduce-scattered to the rank's D/M columns, gated, and the gated
+    blocks all-gathered. That moves the bytes of one all_reduce of
+    [B, S, D] and keeps cr cut as the reference's spec has it (an
+    all_reduce of v would need cr whole, or an all_gather of r besides)."""
     prev = _token_shift(x, x_last)
 
     def lerp(mu):
         return x + (prev - x) * mu[None, None, :].to(x.dtype)
 
-    k = torch.relu((lerp(p["cmu_k"]) @ p["ck"]).to(torch.float32)) ** 2
-    v = k.to(x.dtype) @ p["cv"]
-    r = torch.sigmoid((lerp(p["cmu_r"]) @ p["cr"]).to(torch.float32))
-    return r.to(x.dtype) * v, x[:, -1]
+    k = torch.relu((tp.copy(lerp(p["cmu_k"])) @ p["ck"]).to(torch.float32)) \
+        ** 2
+    v = tp.scatter(k.to(x.dtype) @ p["cv"], -1)
+    r = torch.sigmoid((tp.copy(lerp(p["cmu_r"])) @ p["cr"]).to(
+        torch.float32))
+    return tp.gather(r.to(x.dtype) * v, -1), x[:, -1]
 
 
 # ---------------------------------------------------------------------------
@@ -197,76 +226,81 @@ def init_rwkv_lm(cfg: ModelConfig, generator: torch.Generator,
     return {**b.params, "layers": layers}
 
 
-def _layer(lp, x, cfg: ModelConfig, chunk: int):
-    h, tm_state = time_mix(lp, rms_norm(x, lp["ln1"]), cfg, chunk=chunk)
+def _layer(lp, x, cfg: ModelConfig, chunk: int, tp: TP = TP1):
+    h, tm_state = time_mix(lp, rms_norm(x, lp["ln1"]), cfg, chunk=chunk,
+                           tp=tp)
     x = x + h
-    h, cm_last = channel_mix(lp, rms_norm(x, lp["ln2"]), cfg)
+    h, cm_last = channel_mix(lp, rms_norm(x, lp["ln2"]), cfg, tp=tp)
     return x + h, (tm_state, cm_last)
 
 
 def forward(params, tokens, cfg: ModelConfig, *, remat: bool = True,
-            collect_state: bool = False, chunk: int = 64):
+            collect_state: bool = False, chunk: int = 64, tp: TP = TP1):
     """Full-sequence forward. Returns (hidden [B, S, D], per layer
     ((x_last, wkv), cm_last) when ``collect_state``, else None). ``remat``
     recomputes each layer in the backward pass from its input."""
     if remat and collect_state:
         raise ValueError("remat recomputes the layers' states; it does not "
                          "collect them")
-    x = rms_norm(params["embed"][tokens], params["ln_in"])
+    x = rms_norm(embed_lookup(params["embed"], tokens, tp), params["ln_in"])
     states = []
     for lp in params["layers"]:
         if remat:
-            x = checkpoint(lambda x, lp=lp: _layer(lp, x, cfg, chunk)[0], x,
-                           use_reentrant=False)
+            x = checkpoint(lambda x, lp=lp: _layer(lp, x, cfg, chunk, tp)[0],
+                           x, use_reentrant=False)
         else:
-            x, st = _layer(lp, x, cfg, chunk)
+            x, st = _layer(lp, x, cfg, chunk, tp)
             states.append(st)
     x = rms_norm(x, params["final_norm"])
     return x, (states if collect_state else None)
 
 
-def lm_loss(params, batch, cfg: ModelConfig, *,
-            remat: bool = True) -> torch.Tensor:
+def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
+            tp: TP = TP1) -> torch.Tensor:
     """Mean next-token CE of ``batch`` ({"tokens", "labels"} [B, S]; labels
     of -1 are padding) against the embedding (the reference's: it adds no
-    head)."""
-    hidden, _ = forward(params, batch["tokens"], cfg, remat=remat)
+    head), its vocabulary rows split over ``tp``."""
+    hidden, _ = forward(params, batch["tokens"], cfg, remat=remat, tp=tp)
     b, s, d = hidden.shape
     return chunked_cross_entropy(hidden.reshape(b * s, d), params["embed"],
-                                 batch["labels"].reshape(b * s))
+                                 batch["labels"].reshape(b * s), tp=tp)
 
 
-def _logits(params, hidden_last):
-    return (hidden_last @ params["embed"].T.to(hidden_last.dtype)).to(
-        torch.float32)
+def _logits(params, hidden_last, tp: TP = TP1):
+    return tp.gather((hidden_last @ params["embed"].T.to(
+        hidden_last.dtype)).to(torch.float32), -1)
 
 
-def prefill(params, tokens, cfg: ModelConfig, *, chunk: int = 64):
+def prefill(params, tokens, cfg: ModelConfig, *, chunk: int = 64,
+            tp: TP = TP1):
     """Run the prompt, return (cache, last-token logits [B, V] f32); the
     cache holds each layer's recurrent state, whatever the prompt's
-    length."""
+    length (over a model axis the wkv state of this rank's heads; the
+    token-shift rows whole)."""
     hidden, states = forward(params, tokens, cfg, remat=False,
-                             collect_state=True, chunk=chunk)
+                             collect_state=True, chunk=chunk, tp=tp)
     cache = {"tm_x": torch.stack([tm[0] for tm, _ in states]),
              "wkv": torch.stack([tm[1] for tm, _ in states]),
              "cm_x": torch.stack([cm for _, cm in states])}
-    return cache, _logits(params, hidden[:, -1])
+    return cache, _logits(params, hidden[:, -1], tp)
 
 
-def decode_step(params, cache, token, pos, cfg: ModelConfig):
+def decode_step(params, cache, token, pos, cfg: ModelConfig, tp: TP = TP1):
     """One token for the whole stack (``pos`` is unused: the state carries
     the position). Writes every layer's new state into ``cache`` in place,
     each in its leaf's dtype. Returns (logits [B, V] f32, cache)."""
-    x = rms_norm(params["embed"][token[:, None]], params["ln_in"])
+    x = rms_norm(embed_lookup(params["embed"], token[:, None], tp),
+                 params["ln_in"])
     for i, lp in enumerate(params["layers"]):
         tm_x, wkv, cm_x = cache["tm_x"][i], cache["wkv"][i], cache["cm_x"][i]
         h, (tm_new, wkv_new) = time_mix(lp, rms_norm(x, lp["ln1"]), cfg,
-                                        state=(tm_x, wkv))
+                                        state=(tm_x, wkv), tp=tp)
         x = x + h
-        h, cm_new = channel_mix(lp, rms_norm(x, lp["ln2"]), cfg, x_last=cm_x)
+        h, cm_new = channel_mix(lp, rms_norm(x, lp["ln2"]), cfg, x_last=cm_x,
+                                tp=tp)
         x = x + h
         tm_x.copy_(tm_new)
         wkv.copy_(wkv_new)
         cm_x.copy_(cm_new)
     x = rms_norm(x, params["final_norm"])
-    return _logits(params, x[:, 0]), cache
+    return _logits(params, x[:, 0], tp), cache

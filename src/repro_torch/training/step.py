@@ -4,9 +4,10 @@ microbatch gradient accumulation (the port of ``repro/training/step.py``).
 ``microbatches = n > 1`` slices the batch into n equal parts along its
 first dim, sums each part's grads in f32 and multiplies the sums (and the
 loss) by 1/n, as the reference's ``lax.scan`` does. With a ``mesh`` whose
-``data`` axis has D > 1 ranks, each rank passes its own slice of the
-global batch; the f32 grads and the loss are all_reduced over ``data`` and
-multiplied by 1/D before the clip, which is the global batch's mean loss
+data axes (``data``, and ``pod`` on the multi-pod mesh) have D > 1 ranks,
+each rank passes its own slice of the global batch; the f32 grads and the
+loss are all_reduced over the data axes and multiplied by 1/D before the
+clip, which is the global batch's mean loss
 and its grads when every rank's slice holds as many labels.
 
 Over a model axis (``api.tp`` of M > 1 ranks, the ranks of one data
@@ -62,14 +63,15 @@ def make_train_step(api, tcfg: TrainConfig, mesh=None):
         inv = 1.0 / n
         return loss_sum * inv, [a.mul_(inv) for a in acc]
 
-    dp = 1 if mesh is None else dmesh.mesh_shape(mesh).get("data", 1)
+    data, dp = ((), 1) if mesh is None else dmesh.data_axes(mesh)
 
     def data_mean(loss, grads):
-        """The mean of every rank's loss and f32 grads over ``data``."""
+        """The mean of every rank's loss and f32 grads over the data axes
+        (``data``, and ``pod`` on the multi-pod mesh)."""
         inv = 1.0 / dp
-        grads = [dmesh.all_reduce(g.to(torch.float32), mesh, "data").mul_(inv)
+        grads = [dmesh.all_reduce(g.to(torch.float32), mesh, data).mul_(inv)
                  for g in grads]
-        return dmesh.all_reduce(loss, mesh, "data") * inv, grads
+        return dmesh.all_reduce(loss, mesh, data) * inv, grads
 
     tp = getattr(api, "tp", None)
     tp_sums = None

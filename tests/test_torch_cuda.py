@@ -1783,4 +1783,68 @@ def test_a_model_axis_of_one_is_the_plain_path_on_the_card(card_world):
     for a, b in zip(out["plain"][0], out["meshed"][0]):
         assert torch.equal(a, b)
     assert torch.equal(out["plain"][1], out["meshed"][1])
-    assert all(v == 0 for v in vars(bill).values())
+    assert bill.calls == []
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "rwkv6-7b"])
+def test_encdec_and_ssm_on_a_model_axis_of_one_are_the_plain_path(
+        card_world, arch):
+    """The encoder-decoder and RWKV6 families on a (1, 1) mesh of a NCCL
+    world of one against the same model without a mesh, on the card:
+    prefill logits, four greedy decode steps, the loss and its grads
+    bitwise equal, and no collective launched."""
+    from repro_torch.distributed.mesh import make_test_mesh, tally
+    from repro_torch.training.optim import tree_leaves
+    cfg = get_arch(arch, smoke=True)
+    mesh = make_test_mesh({"data": 1, "model": 1})
+    plain = get_model(cfg, device="cuda")
+    meshed = get_model(cfg, tp_size=1, mesh=mesh, device="cuda")
+    rng = np.random.default_rng(0)
+    tok = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(2, 12)),
+                          device="cuda")
+    inputs = {"tokens": tok}
+    if cfg.family == "encdec":
+        inputs["frames"] = torch.as_tensor(rng.standard_normal(
+            (2, 16, cfg.d_model), dtype=np.float32), device="cuda")
+    batch = dict(inputs, labels=torch.roll(tok, -1, 1))
+    out = {}
+    with tally() as bill:
+        for name, api in (("plain", plain), ("meshed", meshed)):
+            params = api.init(0, torch.float32)
+            with torch.no_grad():
+                cache, logits = api.prefill(params, inputs, max_len=16)
+                steps = [logits]
+                for i in range(4):
+                    logits, cache = api.decode(
+                        params, cache, torch.argmax(steps[-1], -1), 12 + i)
+                    steps.append(logits)
+            leaves = tree_leaves(params)
+            for t in leaves:
+                t.requires_grad_(True)
+            loss = api.loss(params, batch, remat=False)
+            out[name] = (steps, loss, torch.autograd.grad(loss, leaves))
+    for a, b in zip(out["plain"][0], out["meshed"][0]):
+        assert torch.equal(a, b)
+    assert torch.equal(out["plain"][1], out["meshed"][1])
+    for a, b in zip(out["plain"][2], out["meshed"][2]):
+        assert torch.equal(a, b)
+    assert bill.calls == []
+
+
+def test_quickstart_example_on_the_card(cuda):
+    """examples/torch_quickstart.py on the card: the fits launch
+    kernel_matrix and no plain version runs; the kernel beats linear
+    k-means on the XOR set."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "torch_quickstart.py")
+    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    launches0, calls0 = dict(ops.LAUNCHES), dict(ref.CALLS)
+    out = mod.main([])
+    assert ops.LAUNCHES["kernel_matrix"] > launches0["kernel_matrix"]
+    assert dict(ref.CALLS) == calls0
+    assert out["xor_kernel_acc"] > out["xor_linear_acc"]
+    assert out["toy_acc"] >= 0.75

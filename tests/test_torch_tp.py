@@ -1,5 +1,5 @@
-"""The port's model axis (Megatron-style tensor parallelism of the dense, MoE
-and hybrid families: ``get_model(tp_size=, mesh=)``, ``convert.shard_lm``,
+"""The port's model axis (Megatron-style tensor parallelism of every family:
+``get_model(tp_size=, mesh=)``, ``convert.shard_lm``,
 ``launch.train --mesh DxM``, ``launch.serve --mesh``) against the port's
 world-1 run and the JAX package's single-device run, on the CPU.
 
@@ -14,8 +14,11 @@ also runs the port's world-1 model on the whole parameters. The configs:
 olmo-1b (KH 4: the ``heads`` K/V policy), qwen3-32b (KH 2: ``heads`` at 2,
 ``seq`` at 4), gemma2-2b (softcaps, the sliding window's ring, ``seq`` at
 4), qwen3-moe-235b-a22b (dense dispatch; at (2, 2) also the expert-parallel
-dispatch with a model axis, ``qwen3-moe-ep``) and zamba2-2.7b (the Mamba2
-head split and the shared block).
+dispatch with a model axis, ``qwen3-moe-ep``), zamba2-2.7b (the Mamba2
+head split and the shared block), seamless-m4t-medium (KH 4: ``heads`` on
+the self and cross caches; at (1, 4) also ``seamless-kh2``, KH 2, the
+``seq`` policy on both caches) and rwkv6-7b (2 heads: worlds (1, 2) and
+(2, 2); at (1, 4) the named refusal).
 
 Tolerances, and why (f32 throughout):
 - prefill and decode logits: 1e-5 normwise. The split products are summed
@@ -25,7 +28,9 @@ Tolerances, and why (f32 throughout):
   backward's sums reorder too, through two layers); a leaf every rank
   holds whole has bitwise equal grads on every model rank.
 - one AdamW step's parameters: 1e-5 normwise per leaf against the world-1
-  step (whose AdamW the train tests hold to the reference's).
+  step (whose AdamW the train tests hold to the reference's); RWKV6's
+  zero-initialized ``w0``, whose value after the step is the bare
+  normalized update, 1e-4 (``_step_limit``).
 - the expert-parallel MoE at (2, 2) against the world-1 grouped path with
   G = 4 groups (the reference's grouping: a data rank holds one row, a
   model rank half of its positions), with drops (capacity factor 0.5).
@@ -58,14 +63,17 @@ from repro_torch import convert
 from repro_torch.configs import get_arch
 
 AXES = Axes(dp=("data",), tp="model")
+SEAMLESS, RWKV = "seamless-m4t-medium", "rwkv6-7b"
 ARCHS = ["olmo-1b", "qwen3-32b", "gemma2-2b", "qwen3-moe-235b-a22b",
-         "zamba2-2.7b"]
+         "zamba2-2.7b", SEAMLESS, RWKV]
 EP = "qwen3-moe-ep"            # qwen3-moe with the expert-parallel dispatch
+KH2 = "seamless-kh2"           # seamless with KH 2: ``seq`` at a model of 4
 #: mesh name -> (world, axes)
 MESHES = {"1x2": (2, {"data": 1, "model": 2}),
           "1x4": (4, {"data": 1, "model": 4}),
           "2x2": (4, {"data": 2, "model": 2})}
 B, S, MAX_LEN, N_DECODE = 2, 8, 16, 8
+S_ENC = 8                      # seamless's encoder frames
 DEADLINE = 300.0
 TRAIN = ["--arch", "olmo-1b", "--smoke", "--device", "cpu", "--batch", "2",
          "--seq", "16", "--lr", "1e-3", "--log-every", "1"]
@@ -74,14 +82,34 @@ SERVE = ["--arch", "olmo-1b", "--smoke", "--device", "cpu", "--requests",
 
 
 def _cfg(key, jax_side=False):
-    arch = "qwen3-moe-235b-a22b" if key == EP else key
+    arch = {EP: "qwen3-moe-235b-a22b", KH2: SEAMLESS}.get(key, key)
     cfg = (jax_get_arch if jax_side else get_arch)(arch, smoke=True)
+    if key == KH2:
+        return dataclasses.replace(cfg, n_kv_heads=2)
     return dataclasses.replace(cfg, moe_ep_groups=4) if key == EP else cfg
 
 
 def _tokens():
     rng = np.random.default_rng(5)
     return rng.integers(1, 256, size=(B, S)).astype(np.int32)
+
+
+def _frames(key):
+    """seamless's encoder input [B, S_ENC, D] f32, or None."""
+    cfg = _cfg(key)
+    if cfg.family != "encdec":
+        return None
+    return np.random.default_rng(6).normal(
+        size=(B, S_ENC, cfg.d_model)).astype(np.float32)
+
+
+def _with_frames(batch, key, rows=slice(None), as_torch=True):
+    """``batch`` plus the encoder frames of ``rows`` for seamless."""
+    f = _frames(key)
+    if f is not None:
+        batch = dict(batch, frames=torch.from_numpy(f[rows]) if as_torch
+                     else jnp.asarray(f[rows]))
+    return batch
 
 
 def _rel(got, want) -> float:
@@ -122,9 +150,11 @@ def _reference(key) -> dict:
     jparams, specs = japi.init(jax.random.PRNGKey(0), jnp.float32)
     tok = jnp.asarray(_tokens())
     batch = {"tokens": tok, "labels": jnp.roll(tok, -1, axis=1)}
+    batch = _with_frames(batch, key, as_torch=False)
     with make_mesh((1, 1), ("data", "model")):
-        cache, logits = japi.prefill(jparams, {"tokens": tok}, AXES,
-                                     max_len=MAX_LEN)
+        cache, logits = japi.prefill(
+            jparams, _with_frames({"tokens": tok}, key, as_torch=False),
+            AXES, max_len=MAX_LEN)
         out = {"logits": np.asarray(logits)}
         t = jnp.argmax(logits, axis=-1).astype(jnp.int32)
         toks = [np.asarray(t)]
@@ -146,7 +176,7 @@ def _reference(key) -> dict:
 
 @pytest.fixture(scope="module")
 def reference():
-    return {key: _reference(key) for key in ARCHS + [EP]}
+    return {key: _reference(key) for key in ARCHS + [EP, KH2]}
 
 
 # ---------------------------------------------------------------------------
@@ -155,7 +185,12 @@ def reference():
 
 
 def _cases_of(mesh_name):
-    return ARCHS + ([EP] if mesh_name == "2x2" else [])
+    """RWKV6's 2 heads do not split over 4 (``test_rwkv_heads_that_do_not_
+    split_are_refused``); KH2 is ``seq`` only at a model axis of 4."""
+    model = MESHES[mesh_name][1]["model"]
+    return ([k for k in ARCHS if not (k == RWKV and model == 4)]
+            + ([EP] if mesh_name == "2x2" else [])
+            + ([KH2] if model == 4 else []))
 
 
 def _model_case(key, mesh, ref):
@@ -184,7 +219,8 @@ def _model_case(key, mesh, ref):
     rows = slice(d, d + 1) if key == EP else slice(0, B)
 
     def greedy(a, dec, p, rows):
-        cache, logits = a.prefill(p, {"tokens": tok[rows]}, max_len=MAX_LEN)
+        cache, logits = a.prefill(p, _with_frames({"tokens": tok[rows]}, key,
+                                                  rows), max_len=MAX_LEN)
         first = logits
         t = torch.argmax(logits, dim=-1)
         toks = [t]
@@ -204,7 +240,11 @@ def _model_case(key, mesh, ref):
     out["w1_last"] = w1_run[2][rows]
 
     share = slice(d * B // dp, (d + 1) * B // dp)
-    batch = {"tokens": tok[share], "labels": torch.roll(tok, -1, 1)[share]}
+    batch = _with_frames({"tokens": tok[share],
+                          "labels": torch.roll(tok, -1, 1)[share]}, key,
+                         share)
+    whole = _with_frames({"tokens": tok, "labels": torch.roll(tok, -1, 1)},
+                         key)
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -220,8 +260,7 @@ def _model_case(key, mesh, ref):
     wl = tree_leaves(full)
     for p in wl:
         p.requires_grad_(True)
-    w1_loss = w1.loss(full, {"tokens": tok, "labels": torch.roll(tok, -1, 1)},
-                      remat=False)
+    w1_loss = w1.loss(full, whole, remat=False)
     out["w1_loss"] = float(w1_loss)
     out["w1_grads"] = _flat(tree_unflatten(
         full, list(torch.autograd.grad(w1_loss, wl))))
@@ -231,11 +270,9 @@ def _model_case(key, mesh, ref):
     p_tp = make_train_step(api, tcfg, mesh=mesh)(
         p_tp, adamw_init(p_tp, tcfg), batch)[0]
     p_w1 = convert.shard_lm(full, cfg, 0, 1)
-    p_w1 = make_train_step(w1, tcfg)(
-        p_w1, adamw_init(p_w1, tcfg),
-        {"tokens": tok, "labels": torch.roll(tok, -1, 1)})[0]
+    p_w1 = make_train_step(w1, tcfg)(p_w1, adamw_init(p_w1, tcfg), whole)[0]
     got, want = _flat(convert.whole_lm(p_tp, cfg, tp)), _flat(p_w1)
-    out["step_rel"] = max(_rel(got[k], want[k]) for k in want)
+    out["step_rel"] = {k: _rel(got[k], want[k]) for k in want}
     return out
 
 
@@ -262,10 +299,10 @@ def _replicated_spread(gtree, cfg, tp) -> float:
 
 
 def _bill_case(mesh):
-    """The collective bill of one dense layer's forward (olmo-1b, and at
-    (2, 2) the expert-parallel MoE layer's)."""
+    """The collective bill of one dense layer's forward (olmo-1b), of one
+    RWKV6 channel mix, and at (2, 2) of the expert-parallel MoE layer."""
     from repro_torch.distributed.mesh import tally
-    from repro_torch.models import transformer
+    from repro_torch.models import rwkv, transformer
     from repro_torch.models.common import TP, TP1
     from repro_torch.models.mlp import moe_block
     tp = TP.of(mesh)
@@ -280,7 +317,16 @@ def _bill_case(mesh):
                                                full["layers"][0])):
         with torch.no_grad(), tally() as t:
             transformer._block_fwd(lay, x, cfg, "global", tp=ctx)
-        out[name] = vars(t).copy()
+        out[name] = _bill(t)
+    rcfg = get_arch(RWKV, smoke=True)
+    lay = convert.shard_lm(rwkv.init_rwkv_lm(
+        rcfg, torch.Generator().manual_seed(0), torch.float32, "cpu"), rcfg,
+        tp.rank, tp.size)["layers"][0]
+    xr = torch.randn((B, S, rcfg.d_model), generator=torch.Generator()
+                     .manual_seed(1))
+    with torch.no_grad(), tally() as t:
+        rwkv.channel_mix(lay, xr, rcfg, tp=tp)
+    out["rwkv_cm"] = _bill(t)
     if mesh.size(0) == 2:
         mcfg = dataclasses.replace(_cfg(EP), capacity_factor=0.5)
         pm = convert.shard_lm(transformer.init_lm(
@@ -289,8 +335,27 @@ def _bill_case(mesh):
         d = mesh.get_local_rank("data")
         with torch.no_grad(), tally() as t:
             moe_block(pm, x[d:d + 1], mcfg, tp=tp)
-        out["ep"] = vars(t).copy()
+        out["ep"] = _bill(t)
     return out
+
+
+def _bill(t) -> dict:
+    """A tally's counters, and its calls as (kind, bytes, group size)."""
+    out = t.summary()
+    out["calls"] = list(t.calls)
+    return out
+
+
+def _refusal_case(mesh):
+    """The message of ``get_model``'s refusal of RWKV6's 2 heads at a
+    model axis of 4."""
+    from repro_torch.models import get_model
+    try:
+        get_model(get_arch(RWKV, smoke=True), tp_size=4, dp_size=1,
+                  mesh=mesh, device="cpu")
+    except ValueError as e:
+        return {"message": str(e)}
+    return {"message": None}
 
 
 def _ep_layer_case(mesh):
@@ -390,8 +455,10 @@ def _child(rank, world, store_path, out_dir, mesh_names, refs):
                 except Exception:
                     got[name][key] = {"error": traceback.format_exc()}
             for case, fn in (("bill", _bill_case), ("ep_layer",
-                                                    _ep_layer_case)):
-                if case == "ep_layer" and name != "2x2":
+                                                    _ep_layer_case),
+                             ("refusal", _refusal_case)):
+                if (case == "ep_layer" and name != "2x2") or \
+                        (case == "refusal" and name != "1x4"):
                     continue
                 try:
                     got[name][case] = fn(mesh)
@@ -496,25 +563,57 @@ def test_loss_grads_and_step_match(worlds, reference, mesh_name, key):
                 path
             assert _rel(got["grads"][path], want) <= 1e-4, path
         assert got["rep_diff"] == 0.0
-        assert got["step_rel"] <= 1e-5
+        for path, rel in got["step_rel"].items():
+            assert rel <= _step_limit(key, path), (path, rel)
+
+
+def _step_limit(key, path) -> float:
+    """1e-5, but 1e-4 for RWKV6's ``w0``: it starts at zero, so after one
+    step it IS AdamW's normalized update g / (|g| + eps), and its clipped
+    grads reach 8e-8 beside eps = 1e-8, where the update moves with the
+    grad's own f32 noise (0.3% on such an element, the same as between
+    the world-1 run and the reference; 2.3e-5 measured at (1, 2))."""
+    return 1e-4 if key == RWKV and path.endswith("/w0") else 1e-5
 
 
 def test_the_model_axis_bill(worlds):
     """One dense layer's forward: two all_reduces of [B, S, D] f32 at tp >
-    1, none at one rank; the expert-parallel MoE layer at (2, 2): its two
-    data exchanges, the model all_gather of the slots, the reduce_scatter
-    back and the all_gather of the positions' outputs."""
+    1, none at one rank; one RWKV6 channel mix: one reduce_scatter and one
+    all_gather of [B, S, D] f32 (each rank sends in, and gets back, the
+    whole row block); the expert-parallel MoE layer at (2, 2): its two
+    data exchanges of the [E, G/D, cap, D] f32 slot buffer, the model
+    all_gather of the slots, the reduce_scatter back and the all_gather
+    of the positions' outputs."""
     nbytes = B * S * get_arch("olmo-1b", smoke=True).d_model * 4
+    rbytes = B * S * get_arch(RWKV, smoke=True).d_model * 4
     for mesh_name in MESHES:
+        m = MESHES[mesh_name][1]["model"]
         for got in _result(worlds, mesh_name, "bill"):
             assert got["tp"]["psum"] == 2
             assert got["tp"]["psum_bytes"] == 2 * nbytes
             assert got["tp"]["allgather"] == got["tp"]["reducescatter"] == 0
-            assert all(v == 0 for v in got["tp1"].values())
+            assert all(v == 0 for k, v in got["tp1"].items() if k != "calls")
+            assert got["tp1"]["calls"] == []
+            cm = got["rwkv_cm"]
+            assert (cm["psum"], cm["allgather"], cm["reducescatter"],
+                    cm["alltoall"]) == (0, 1, 1, 0)
+            assert cm["reducescatter_bytes"] == cm["allgather_bytes"] \
+                == rbytes
+            assert sorted(cm["calls"]) == [("all-gather", rbytes, m),
+                                           ("reduce-scatter", rbytes // m,
+                                            m)]
             if mesh_name == "2x2":
                 ep = got["ep"]
                 assert (ep["alltoall"], ep["allgather"], ep["reducescatter"],
                         ep["psum"]) == (2, 2, 1, 0)
+                # a data rank's row, its model rank's S/2 positions
+                mcfg = _cfg(EP)
+                cap = max(8, -(-int(S // 2 * mcfg.moe_top_k / mcfg.n_experts
+                                    * 0.5) // 8) * 8)
+                slots = mcfg.n_experts * cap * mcfg.d_model * 4
+                assert ep["alltoall_bytes"] == 2 * slots
+                assert [c for c in ep["calls"] if c[0] == "all-to-all"] \
+                    == [("all-to-all", slots, 2)] * 2
 
 
 def test_expert_parallel_layer_with_drops_matches_grouped_path(worlds):
@@ -596,6 +695,12 @@ def _spec_dim(spec):
     return dims[0] if dims else None
 
 
+#: RWKV6 leaves the port cuts to the rank's heads where the reference's
+#: specs keep them whole: the time mix's per-channel leaves, so that the
+#: decay and the group norm are computed for the rank's channels only
+_RWKV_CUT = {"u": 0, "w0": 0, "ln_x": 0, "w2": 1}
+
+
 @pytest.mark.parametrize("size", [2, 4])
 @pytest.mark.parametrize("key", ARCHS)
 def test_shard_lm_follows_the_reference_specs(reference, key, size):
@@ -609,7 +714,8 @@ def test_shard_lm_follows_the_reference_specs(reference, key, size):
     for path, want in _flat(full).items():
         np.testing.assert_array_equal(_flat(back)[path], want)
     specs = _flat_specs(ref["specs"], cfg)
-    seq = kv_policy(cfg, size) == "seq"
+    # attention's K/V under the seq policy (RWKV6's wk / wv are not)
+    seq = kv_policy(cfg, size) == "seq" and cfg.family != "ssm"
     mamba = ("in_proj", "conv_w", "conv_b")
     for path, want in _flat(full).items():
         name = path.rsplit("/", 1)[-1]
@@ -618,7 +724,10 @@ def test_shard_lm_follows_the_reference_specs(reference, key, size):
         if name in mamba:
             assert dim is not None
             continue                       # the stated head layout, below
-        if dim is None or (seq and name in ("wk", "wv")):
+        if cfg.family == "ssm" and name in _RWKV_CUT:
+            assert dim is None
+            dim = _RWKV_CUT[name]
+        if dim is None or (seq and name in ("wk", "wv", "x_wk", "x_wv")):
             for g in got:
                 np.testing.assert_array_equal(g, want)
         else:
@@ -675,11 +784,13 @@ def test_shard_lm_mamba_layout(size):
             assert torch.equal(lay[name], full["layers"][0][name])
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "rwkv6-7b"])
-def test_encdec_and_ssm_refuse_a_model_axis(arch):
-    from repro_torch.models import get_model
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        get_model(get_arch(arch, smoke=True), tp_size=2, device="cpu")
+def test_rwkv_heads_that_do_not_split_are_refused(worlds):
+    """RWKV6's smoke config has 2 heads: a model axis of 4 is refused by
+    the named ``ValueError``, as a head count the axis does not divide."""
+    from repro_torch.models.registry import HEADS_DO_NOT_SPLIT
+    want = HEADS_DO_NOT_SPLIT.format(n=2, what="RWKV6 heads", m=4)
+    for got in _result(worlds, "1x4", "refusal"):
+        assert got["message"] == want
 
 
 def test_a_model_axis_needs_a_mesh():

@@ -514,16 +514,12 @@ def test_launch_train_checkpoint_layout_is_the_references(tmp_path, capsys):
 def test_launch_train_refuses_a_model_axis():
     """A model axis needs a world of its ranks: ``--mesh 1x2`` in one
     process is refused before any step (the model axis itself trains in
-    tests/test_torch_tp.py), and so is a model axis for RWKV6, whose
-    split is not ported."""
+    tests/test_torch_tp.py)."""
     from repro_torch.launch.train import main
     with pytest.raises(RuntimeError, match="needs a torch.distributed world "
                        "of 2 ranks"):
         main(["--arch", "olmo-1b", "--smoke", "--device", "cpu", "--mesh",
               "1x2", "--steps", "1"])
-    from repro_torch.models import get_model
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        get_model(get_arch("rwkv6-7b", smoke=True), tp_size=2, device="cpu")
 
 
 def _dp_child(rank, world, store_path, out_dir):
