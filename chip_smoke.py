@@ -201,7 +201,7 @@ Phases, in order; any failure exits non-zero without the final line:
      layers, batch 2 x 2048, 3 steps); the baselines and the model axis
      (phase 4i: BL-lloyd, BL-sculley, TP-1, TP-cpu over the host's gloo
      worlds (1, 2) and (2, 2) at five smoke configs); then phase 4j:
-     DRY (four ``launch.dryrun`` cells in their own processes on the
+     DRY (ten ``launch.dryrun`` cells in their own processes on the
      host, the card hidden, while the card works: every cell ok, olmo-1b's
      single-pod / multi-pod train flops within 1.6-2.4, collective bytes
      in every cell), TP-1-S / TP-1-R (seamless-m4t-medium's run S
@@ -213,7 +213,18 @@ Phases, in order; any failure exits non-zero without the final line:
      defaults, the MD example also at 100,000 frames x 64 atoms, 8 GB,
      on the fused engine: NMI >= 0.9, quickstart's XOR kernel accuracy
      at least its linear one, a rerun of the LM training example resumes
-     from its checkpoint);
+     from its checkpoint); DRY also runs gemma2-2b decode_32k (8 heads
+     over a model axis of 16, two ranks a head) and one ``--smoke`` cell
+     of each family (every head over 4-8 ranks), and TP-cpu a world
+     (1, 4) of 2-head smoke configs, each head over two ranks; then
+     phase 4k: GM / GM-chunked (gemma2-2b as published, bf16, through
+     ``ServingEngine``, 8 slots, max_len 8192, 8 requests of 256-4096
+     tokens and one of 5,000 that wraps the local layers' 4096-row ring,
+     32 greedy tokens: exactly 9 x 13 flash launches on the global
+     layers, none chunked; held as run F's) and TP-1-GM
+     (``launch.serve --arch gemma2-2b`` at its own settings on a mesh
+     (1, 1) in a NCCL world of one and without: tokens bitwise, 16 x 13
+     flash launches each, no collective);
   5. print the per-kernel JSON line (one entry per kernel; assign_fused,
      embed_assign, sketch_assign and flash_attention one per tile dtype,
      since both bodies run on the main path, and kernel_matrix one for its
@@ -328,6 +339,15 @@ BL_C, BL_INIT, BL_BS, BL_SEEDS = 10, 3, (1, 4, 16, 64), [0, 1, 2]
 TP1_STEPS = 2
 TP_CPU_ARCHS = ("olmo-1b", "qwen3-moe-235b-a22b", "zamba2-2.7b",
                 "seamless-m4t-medium", "rwkv6-7b")
+# TP-cpu's world (1, 4): smoke configs with 2 heads, each head split over
+# two ranks (mid-head): (name, arch, config changes)
+TP_MID = (("olmo-h2", "olmo-1b", dict(n_heads=2, n_kv_heads=2)),
+          ("gemma2-h2", "gemma2-2b", dict(n_heads=2, n_kv_heads=1)),
+          ("seamless-h2", "seamless-m4t-medium",
+           dict(n_heads=2, n_kv_heads=2)),
+          ("zamba2-h2", "zamba2-2.7b",
+           dict(n_heads=2, n_kv_heads=2, ssm_expand=1)),
+          ("rwkv6-7b", "rwkv6-7b", {}))
 # phase 4j (the model axis of the encdec and ssm families, the dry run and
 # the examples). TP-1-S: run S's requests through api.prefill / api.decode
 # on a mesh (1, 1) against no mesh, and TP1_STEPS train steps at S-cpu's
@@ -342,7 +362,27 @@ DRY_CELLS = (("--arch", "olmo-1b", "--shape", "train_4k", "--both-meshes"),
              ("--arch", "seamless-m4t-medium", "--shape", "prefill_32k"),
              ("--arch", "rwkv6-7b", "--shape", "long_500k"),
              ("--arch", "qwen3-moe-235b-a22b", "--shape", "train_4k",
-              "--variant", "ep"))
+              "--variant", "ep"),
+             # gemma2-2b's 8 heads over 16 ranks, and a smoke cell of each
+             # family (2-4 heads): every head split over 2-8 ranks
+             ("--arch", "gemma2-2b", "--shape", "decode_32k"),
+             ("--arch", "gemma2-2b", "--shape", "decode_32k", "--smoke"),
+             ("--arch", "qwen3-moe-235b-a22b", "--shape", "train_4k",
+              "--smoke"),
+             ("--arch", "seamless-m4t-medium", "--shape", "train_4k",
+              "--smoke"),
+             ("--arch", "zamba2-2.7b", "--shape", "train_4k", "--smoke"),
+             ("--arch", "rwkv6-7b", "--shape", "train_4k", "--smoke"))
+# phase 4k (gemma2-2b as published: 26 layers, d 2304, vocabulary 256,000;
+# its 8 heads are what a model axis of 16 splits mid-head). GM / GM-chunked:
+# served through ServingEngine as run F is, GM_REQUESTS prompts of
+# PROMPT_MIN-4096 tokens and one of GM_LONG (past the 13 local layers'
+# 4096-row window: their ring wraps in prefill and decode), 32 greedy
+# tokens; flash on the 13 global layers (softcap 50, dh 256). TP-1-GM:
+# launch.serve --arch gemma2-2b at the launcher's own settings, on a mesh
+# (1, 1) in a NCCL world of one and without
+GM_SERVE = dict(max_batch=8, max_len=8192, eos_token=-1, max_new_tokens=32)
+GM_REQUESTS, GM_LONG = 8, 5000
 MD_FULL = ("--frames", "100000", "--atoms", "64", "--memory-gb", "8",
            "--engine", "fused")
 KINDS = ("rbf", "linear", "polynomial", "cosine")
@@ -3829,10 +3869,11 @@ def tp1_phase(torch, np, mods):
     return s0[2] + s1[2]
 
 
-def tp_cpu_child(rank, world, store, axes, out_dir):
-    """One rank of TP-cpu (gloo, the host CPU): for each TP_CPU_ARCHS smoke
-    config, 8 greedy tokens and one train step's loss on the (data,
-    model) mesh ``axes`` and on the whole model in this process."""
+def tp_cpu_child(rank, world, store, axes, out_dir, cases):
+    """One rank of TP-cpu (gloo, the host CPU): for each of ``cases``
+    ((name, arch, config changes) of a smoke config), 8 greedy tokens and
+    one train step's loss on the (data, model) mesh ``axes`` and on the
+    whole model in this process."""
     import datetime
     import pickle
     import traceback
@@ -3857,8 +3898,8 @@ def tp_cpu_child(rank, world, store, axes, out_dir):
         lab = torch.roll(tok, -1, 1)
         tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1,
                            total_steps=10)
-        for arch in TP_CPU_ARCHS:
-            cfg = get_arch(arch, smoke=True)
+        for name, arch, changes in cases:
+            cfg = dataclasses.replace(get_arch(arch, smoke=True), **changes)
             ep = cfg.n_experts and dp > 1
             if ep:    # expert-parallel: a data rank's row, a model rank's
                 cfg = dataclasses.replace(cfg, moe_ep_groups=dp * tp)
@@ -3902,7 +3943,7 @@ def tp_cpu_child(rank, world, store, axes, out_dir):
                 full, adamw_init(full, tcfg),
                 inputs({"tokens": tok, "labels": lab}, slice(0, 2)))[2][
                     "loss"])
-            got[arch] = {"ep": bool(ep), "tokens_equal":
+            got[name] = {"ep": bool(ep), "tokens_equal":
                          bool(torch.equal(got_t, want)), "loss": loss,
                          "world1_loss": w_loss,
                          "loss_rel": abs(loss - w_loss) / abs(w_loss)}
@@ -3916,22 +3957,33 @@ def tp_cpu_child(rank, world, store, axes, out_dir):
 def tp_cpu_phase(torch):
     """TP-cpu: the model axis beyond one rank. The machine holds one card
     and two NCCL ranks cannot share it, so worlds (1, 2) and (2, 2) run
-    over gloo on the host CPU in spawned processes at the smoke configs:
-    greedy tokens equal the world-1 run's, one train step's loss within
-    1e-5 relative."""
+    over gloo on the host CPU in spawned processes at the smoke configs,
+    and a world (1, 4) at TP_MID's 2-head configs, each head split over
+    two ranks; the three worlds run at once (10 one-thread ranks on the
+    host's cores): greedy tokens equal the world-1 run's, one train
+    step's loss within 1e-5 relative. A world's ``wall_s`` runs from the
+    three worlds' start to the end of its ranks."""
     import pickle
     import tempfile
     import torch.multiprocessing as mp
     print("TP-cpu: one card cannot hold two NCCL ranks, so a model axis "
           "larger than 1 runs over gloo on the host CPU")
-    recs = []
-    for axes in ({"data": 1, "model": 2}, {"data": 2, "model": 2}):
+    plain = tuple((a, a, {}) for a in TP_CPU_ARCHS)
+    t0 = time.perf_counter()
+    worlds = []
+    for axes, cases in (({"data": 1, "model": 2}, plain),
+                        ({"data": 2, "model": 2}, plain),
+                        ({"data": 1, "model": 4}, TP_MID)):
         world = axes["data"] * axes["model"]
         out_dir = tempfile.mkdtemp()
-        t0 = time.perf_counter()
-        mp.start_processes(tp_cpu_child, args=(world, f"{out_dir}/store",
-                                               axes, out_dir),
-                           nprocs=world, join=True, start_method="spawn")
+        worlds.append((axes, cases, world, out_dir, mp.start_processes(
+            tp_cpu_child, args=(world, f"{out_dir}/store", axes, out_dir,
+                                cases),
+            nprocs=world, join=False, start_method="spawn")))
+    recs = []
+    for axes, cases, world, out_dir, ctx in worlds:
+        while not ctx.join():
+            pass
         ranks = []
         for r in range(world):
             with open(f"{out_dir}/rank{r}.pkl", "rb") as f:
@@ -3940,6 +3992,7 @@ def tp_cpu_phase(torch):
         for got in ranks:
             check("error" not in got, f"TP-cpu {axes}: {got.get('error')}")
         rec = {"run": "TP-cpu", "mesh": axes, "backend": "gloo",
+               "mid_head": cases is TP_MID,
                "wall_s": time.perf_counter() - t0, "archs": ranks[0],
                "tol": {"loss": 1e-5}}
         print("run", json.dumps(rec))
@@ -4019,6 +4072,7 @@ def dry_finish(procs) -> list:
         for name in sorted(os.listdir(out)):
             d = json.load(open(f"{out}/{name}"))
             rec = {"run": "DRY", "cell": name[:-5], "ok": d["ok"],
+                   "smoke": "--smoke" in cell,
                    **{k: d.get(k) for k in (
                        "n_params", "n_active_params", "tokens_per_step",
                        "model_flops_total", "flops_per_device",
@@ -4033,7 +4087,8 @@ def dry_finish(procs) -> list:
                   f"DRY {name}: no collective bytes, yet the model axis "
                   f"splits the cell")
             recs.append(rec)
-    flops = {r["cell"]: r["flops_per_device"] for r in recs}
+    flops = {r["cell"]: r["flops_per_device"] for r in recs
+             if not r["smoke"]}
     ratio = flops["olmo-1b__train_4k__sp"] / flops["olmo-1b__train_4k__mp"]
     print(f"DRY olmo-1b train_4k flops a device, single / multi-pod: "
           f"{ratio!r}")
@@ -4277,6 +4332,117 @@ def models_examples_phase(torch, np, mods) -> dict:
             ("assign_fused", "f32"): ex["assign_fused"],
             ("kernel_matrix", "column"): ex["kernel_matrix_column"],
             ("flash_attention", "bf16"): flash_tp + ex["flash_attention"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 4k: gemma2-2b as published
+# ---------------------------------------------------------------------------
+
+
+def run_gm(torch, np, mods) -> int:
+    """GM / GM-chunked: gemma2-2b as published (bf16 weights drawn on the
+    card from seed 0) served through ServingEngine at GM_SERVE to
+    GM_REQUESTS prompts of PROMPT_MIN-4096 tokens and one of GM_LONG,
+    with flash (13 launches a request: one a global layer; the windowed
+    layers chunked) and with chunked attention on the same weights and
+    prompts, held as run F's (``flash_vs_chunked``, SERVE_LOGIT_TOL).
+    Returns GM's flash launches."""
+    configs, models = mods["configs"], mods["models"]
+    base = configs.get_arch("gemma2-2b")
+    api_f = models.get_model(dataclasses.replace(base, attn_impl="flash"))
+    api_c = models.get_model(dataclasses.replace(base, attn_impl="chunked"))
+    t0 = time.perf_counter()
+    params = api_f.init(0, torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves_of(mods, params))
+    print(f"gemma2-2b: {n_params} parameters, bf16, drawn on the card from "
+          f"seed 0 in {time.perf_counter() - t0:.2f} s")
+    prompts = olmo_prompts(np, base.vocab_size, GM_REQUESTS, PROMPT_MIN,
+                           base.window, seed=0) + \
+        olmo_prompts(np, base.vocab_size, 1, GM_LONG, GM_LONG, seed=1)
+    global_layers = base.n_layers // base.local_global_period
+    rec_f, out_f, first_f = run_serving(torch, mods, "GM", api_f, params,
+                                        prompts, serve=GM_SERVE)
+    want = len(prompts) * global_layers
+    check(rec_f["launches"]["flash_attention"] == want,
+          f"run GM: {rec_f['launches']['flash_attention']} flash launches, "
+          f"expected {want} ({len(prompts)} requests x {global_layers} "
+          f"global layers)")
+    rec_c, out_c, first_c = run_serving(torch, mods, "GM-chunked", api_c,
+                                        params, prompts, serve=GM_SERVE)
+    check(rec_c["launches"]["flash_attention"] == 0,
+          "run GM-chunked launched the flash kernel")
+    del params
+    flash_vs_chunked(torch, np, "GM", out_f, first_f, out_c, first_c)
+    return rec_f["launches"]["flash_attention"]
+
+
+def tp1_gm(torch, mods) -> int:
+    """TP-1-GM: ``launch.serve --arch gemma2-2b`` at the launcher's own
+    settings (16 requests, flash on the card by rule) without a mesh, then
+    with ``--mesh 1x1`` in a NCCL world of one: tokens bitwise equal, 16 x
+    13 flash launches each, an empty collective bill. Returns the flash
+    launches of both."""
+    import datetime
+    import os
+    import tempfile
+    dist = torch.distributed
+    argv = ["--arch", "gemma2-2b"]
+
+    def serve(a):
+        zero_counters(mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mods["serve"].main(a)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, \
+            mods["ops"].LAUNCHES["flash_attention"], dict(mods["ref"].CALLS)
+
+    s0 = serve(argv)
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1, device_id=torch.device("cuda", 0),
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        with mods["mesh"].tally() as bill:
+            s1 = serve(argv + ["--mesh", "1x1"])
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    cfg = mods["configs"].get_arch("gemma2-2b")
+    want = len(s0[0]) * (cfg.n_layers // cfg.local_global_period)
+    rec = {"run": "TP-1-GM", "backend": backend,
+           "mesh": {"data": 1, "model": 1}, "requests": len(s1[0]),
+           "tokens": sum(len(v) for v in s1[0].values()),
+           "wall_s": s1[1], "plain_wall_s": s0[1],
+           "flash_launches": s1[2], "plain_flash_launches": s0[2],
+           "bill": bill.summary(), "device": card_line()}
+    print("run", json.dumps(rec))
+    check(len(s0[0]) == 16 and s1[0] == s0[0],
+          "run TP-1-GM: the mesh 1x1 tokens differ from the plain serve "
+          "run's")
+    check(s0[2] == s1[2] == want, f"run TP-1-GM: flash launches {s0[2]} / "
+                                  f"{s1[2]}, expected {want}")
+    check(all(v == 0 for c in (s0[3], s1[3]) for v in c.values()),
+          "run TP-1-GM: a plain kernel version ran on the card")
+    check(not bill.calls,
+          f"run TP-1-GM: the model axis of one launched collectives: "
+          f"{bill.calls}")
+    return s0[2] + s1[2]
+
+
+def gemma_phase(torch, np, mods) -> int:
+    """Phase 4k: GM, GM-chunked and TP-1-GM; returns the flash launches
+    (bf16)."""
+    t0 = time.perf_counter()
+    launches = run_gm(torch, np, mods)
+    torch.cuda.empty_cache()
+    launches += tp1_gm(torch, mods)
+    torch.cuda.empty_cache()
+    print(f"phase 4k: {time.perf_counter() - t0:.1f} s; card: "
+          f"{card_line()}")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -4561,6 +4727,8 @@ def main(argv=None) -> int:
     print(f"baselines and model-axis runs: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     j = models_examples_phase(torch, np, mods)
+    torch.cuda.empty_cache()
+    gm_bf16 = gemma_phase(torch, np, mods)
     for key, n in j.items():
         if isinstance(key, tuple):
             if key != ("flash_attention", "bf16"):
@@ -4568,7 +4736,7 @@ def main(argv=None) -> int:
         else:
             totals[key] += n
     bodies["flash_attention", "bf16"] = flash_bf16 + moe_bf16 + fam_bf16 + \
-        tp_bf16 + j["flash_attention", "bf16"]
+        tp_bf16 + j["flash_attention", "bf16"] + gm_bf16
     bodies["flash_attention", "f32"] = flash_f32 + moe_f32 + fam_f32
     totals["flash_attention"] = bodies["flash_attention", "bf16"] + \
         bodies["flash_attention", "f32"]

@@ -311,12 +311,13 @@ def tp_layout(cfg, size: int) -> dict:
 
 def _mamba_parts(cfg, name: str, size: int):
     """[(width, split?)] of a Mamba2 leaf's last dim: in_proj z | x | B |
-    C | dt, conv x | B | C."""
+    C | dt, conv x | B | C. dt's columns split by whole heads, and stay
+    whole when the model axis splits each head (more ranks than heads)."""
     from repro_torch.models.ssm import ssm_dims
     d_inner, n_heads, _ = ssm_dims(cfg)
     n = cfg.ssm_state
     parts = [(d_inner, True), (d_inner, True), (n, False), (n, False),
-             (n_heads, True)]
+             (n_heads, n_heads % size == 0)]
     parts = parts if name == "in_proj" else parts[1:4]
     return [(w // size if cut else w, cut) for w, cut in parts]
 

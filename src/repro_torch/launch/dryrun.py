@@ -39,14 +39,16 @@ The reference counts one layer's HLO once per loop trip through its
 trip counts; the port runs its loops eagerly, so every layer's ops and
 collectives are counted as they run.
 
-Refusals, each a cell with ``ok: false`` and its named reason:
+A model axis of 16 wider than a config's heads splits each head over
+16 / H ranks (``models.registry.check_heads``): gemma2-2b's 8 query heads
+two ranks a head, the ``--smoke`` configs' 2-4 heads 4-8 ranks a head,
+so every cell of ``--all`` and of ``--smoke --all`` runs. Refusals, each
+a cell with ``ok: false`` and its named reason:
 
-* the port splits attention by whole heads (``models.registry.
-  HEADS_DO_NOT_SPLIT``): gemma2-2b's 8 query heads do not split over a
-  model axis of 16 (the reference's GSPMD splits mid-head), and neither
-  do the ``--smoke`` configs, whose heads are 2 to 8;
 * ``--variant flash`` on a ``train`` cell (``kernels.ops.FLASH_NO_GRAD``:
-  the kernel has no gradient, as the reference's has none).
+  the kernel has no gradient, as the reference's has none);
+* a config whose heads neither rule covers
+  (``models.registry.HEADS_DO_NOT_SPLIT``; none of the repo's).
 
 The fake process group comes from ``torch.testing._internal.distributed.
 fake_pg`` (internal; imported at run time only). The run needs a process

@@ -19,6 +19,23 @@ and its K/V follow the reference's ``_kv_policy``:
   are combined by log-sum-exp in rank order on every rank. The cache
   length must split over M.
 
+A model axis wider than the query heads (M % H == 0, d_head % (M / H)
+== 0) splits each head mid-head: r = M / H consecutive ranks form a
+head's group, and rank q holds the reference's 1/M column block of wq
+(d_head / r columns of head q // r) and the matching rows of wo. K/V are
+always ``seq`` then (KH <= H < M). The rank's q columns are all_gathered
+over the model axis (``tp.all_gather``: its backward reduce_scatters the
+ranks' partial gradients, since every rank of a group consumes the whole
+head) and the group's head is sliced out before qk-norm and RoPE; every
+rank of the group attends that one head against its kv head, keeps its
+d_head / r output columns and multiplies them by its rows of wo, which
+``tp.reduce`` sums. So a device's attention work is one head's, as the
+reference's GSPMD program runs on each device. Decode under ``seq``
+attends every head: the gathered q is whole, and each rank keeps its
+flattened output columns. The gather over the whole axis bills an
+all_gather of [B, S, H dh] a layer forward (``mesh.tally()``), r times
+the group's own head.
+
 Cross-attention (the ``x_`` leaves) splits the same way: ``x_wq`` by
 columns, ``x_wo`` by rows, ``x_wk`` / ``x_wv`` by kv heads or whole; its
 ``seq`` cache holds memory rows j % M == r, and its decode step combines
@@ -44,8 +61,13 @@ def kv_policy(cfg: ModelConfig, tp_size: int) -> str:
 def local_kv_heads(cfg: ModelConfig, tp: TP) -> slice | list:
     """The kv heads (global ids) that rank ``tp.rank``'s query heads read,
     one per local GQA group: a slice when each kv head serves whole groups
-    of its q heads, else one kv head per q head."""
+    of its q heads, else one kv head per q head (under a mid-head split
+    the kv head of its group's head)."""
     groups = cfg.n_heads // cfg.n_kv_heads
+    r = tp.group(cfg.n_heads)
+    if r > 1:                      # mid-head: the group's one head
+        kv = tp.rank // r // groups
+        return slice(kv, kv + 1)
     h_l = tp.local(cfg.n_heads, "query heads")
     q0 = tp.rank * h_l
     if h_l % groups == 0:
@@ -68,16 +90,44 @@ def init_attention(b: ParamBuilder, cfg: ModelConfig, prefix: str = ""):
         b.ones(prefix + "kn", (dh,))
 
 
-def _project_qkv(p, x, cfg: ModelConfig, positions, prefix="", tp=TP1):
-    """q [B, S, H/M, dh]; k, v [B, S, KH/M, dh] (``heads``) or [B, S, KH,
-    dh] (``seq``, and at one rank)."""
+def _q_heads(q, cfg: ModelConfig, tp: TP, all_heads: bool = False):
+    """The rank's query columns [B, S, H dh / M] as heads [B, S, h, dh]:
+    its H/M heads, or under a mid-head split its group's whole head
+    (every head with ``all_heads``), all_gathered over the model axis."""
+    b, s, _ = q.shape
+    r, dh = tp.group(cfg.n_heads), cfg.d_head
+    if r > 1:
+        q = tp.all_gather(q, -1)
+        if not all_heads:
+            h = tp.rank // r
+            q = q[..., h * dh:(h + 1) * dh]
+    return q.reshape(b, s, -1, dh)
+
+
+def _own_cols(out, cfg: ModelConfig, tp: TP):
+    """[..., h dh] attention output -> the columns this rank's rows of wo
+    take: all of them, or under a mid-head split its d_head / r columns
+    of its group's head."""
+    r = tp.group(cfg.n_heads)
+    if r == 1:
+        return out
+    w = cfg.d_head // r
+    c = tp.rank % r * w
+    return out[..., c:c + w]
+
+
+def _project_qkv(p, x, cfg: ModelConfig, positions, prefix="", tp=TP1,
+                 all_heads: bool = False):
+    """q [B, S, H/M, dh] (mid-head: [B, S, 1, dh], the group's head, or
+    every head with ``all_heads``); k, v [B, S, KH/M, dh] (``heads``) or
+    [B, S, KH, dh] (``seq``, and at one rank)."""
     b, s, _ = x.shape
     dh = cfg.d_head
     x = tp.copy(x)
     wk, wv = p[prefix + "wk"], p[prefix + "wv"]
     if tp.size > 1 and kv_policy(cfg, tp.size) == "seq":
         wk, wv = tp.copy(wk), tp.copy(wv)      # whole on every rank
-    q = (x @ p[prefix + "wq"]).reshape(b, s, -1, dh)
+    q = _q_heads(x @ p[prefix + "wq"], cfg, tp, all_heads)
     k = (x @ wk).reshape(b, s, -1, dh)
     v = (x @ wv).reshape(b, s, -1, dh)
     if cfg.qk_norm:
@@ -117,7 +167,7 @@ def attention_block(p, x, cfg: ModelConfig, *, window: int | None,
         out = chunked_attention(q, kq, vq, causal=causal, window=window,
                                 attn_softcap=cfg.attn_softcap,
                                 q_chunk=q_chunk)
-    out = out.reshape(b, s, q.shape[2] * cfg.d_head)
+    out = _own_cols(out.reshape(b, s, q.shape[2] * cfg.d_head), cfg, tp)
     return tp.reduce(out @ p[prefix + "wo"]), (k, v)
 
 
@@ -127,17 +177,19 @@ def cross_attention_block(p, x, memory_kv, cfg: ModelConfig, *,
     KH, dh] (this rank's kv heads, or every kv head under ``seq``):
     chunked attention, not causal, no RoPE on q (the reference sends it
     through no kernel). Over a model axis a rank attends with its H/M
-    query heads and its rows of ``x_wo`` are summed over the ranks."""
+    query heads (mid-head: its group's head) and its rows of ``x_wo`` are
+    summed over the ranks."""
     b, s, _ = x.shape
     dh = cfg.d_head
-    q = (tp.copy(x) @ p[prefix + "wq"]).reshape(b, s, -1, dh)
+    q = _q_heads(tp.copy(x) @ p[prefix + "wq"], cfg, tp)
     k, v = memory_kv
     if tp.size > 1 and kv_policy(cfg, tp.size) == "seq":
         idx = local_kv_heads(cfg, tp)
         k, v = k[:, :, idx].contiguous(), v[:, :, idx].contiguous()
     out = chunked_attention(q, k, v, causal=False, window=None,
                             attn_softcap=cfg.attn_softcap)
-    return tp.reduce(out.reshape(b, s, q.shape[2] * dh) @ p[prefix + "wo"])
+    out = _own_cols(out.reshape(b, s, q.shape[2] * dh), cfg, tp)
+    return tp.reduce(out @ p[prefix + "wo"])
 
 
 def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
@@ -158,7 +210,9 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
     s = cache_k.shape[1]
     pos_b = torch.as_tensor(pos, dtype=torch.long,
                             device=x.device).expand(b)            # [B]
-    q, k, v = _project_qkv(p, x, cfg, pos_b[:, None], prefix, tp)
+    # a mid-head split gathers every head: the seq policy attends them all
+    q, k, v = _project_qkv(p, x, cfg, pos_b[:, None], prefix, tp,
+                           all_heads=True)
     if tp.size > 1 and kv_policy(cfg, tp.size) == "seq":
         return _decode_seq(p, q, k, v, cache_k, cache_v, pos_b, cfg,
                            window=window, prefix=prefix, tp=tp)
@@ -191,11 +245,17 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
 
 def _decode_seq(p, q, k, v, cache_k, cache_v, pos_b, cfg: ModelConfig, *,
                 window, prefix, tp: TP):
-    """Decode under the ``seq`` policy: the cache [B, S/M, KH, dh] holds
-    slots r, r + M, ...; q [B, 1, H/M, dh], k and v [B, 1, KH, dh]."""
+    """Decode under the ``seq`` policy: the cache [B, ceil(n / M), KH, dh]
+    holds slots r, r + M, ... of n, the slots past n (a pad when M does
+    not divide n) never valid; q [B, 1, H/M, dh] (mid-head: every head),
+    k and v [B, 1, KH, dh]. A ring wraps at n: the window, or the cache
+    length when that is shorter (its positions never reach the window,
+    so any ring of at least the cache length reads alike)."""
     b = q.shape[0]
     s_l = cache_k.shape[1]
-    s = s_l * tp.size                                   # the whole cache
+    s = s_l * tp.size                          # the slots, the pad included
+    if window is not None:
+        s = min(window, s)
     slot_b = pos_b % s if window is not None else pos_b
     own = (slot_b % tp.size) == tp.rank
     row = torch.clamp(slot_b // tp.size, max=s_l - 1)
@@ -208,6 +268,7 @@ def _decode_seq(p, q, k, v, cache_k, cache_v, pos_b, cfg: ModelConfig, *,
     valid = kpos[None, :] <= pos_b[:, None]
     if window is not None:
         valid = valid | (pos_b[:, None] >= s)
+    valid = valid & (kpos < s)[None, :]
     out = _seq_attend(q, cache_k, cache_v, valid, cfg, tp,
                       softcap=cfg.attn_softcap)
     return tp.reduce(out @ p[prefix + "wo"]), cache_k, cache_v
@@ -217,13 +278,15 @@ def _seq_attend(q, cache_k, cache_v, valid, cfg: ModelConfig, tp: TP, *,
                 softcap=None):
     """One query token against K/V rows split over the model axis (rank r
     holds rows r, r + M, ...; ``valid`` [B, S/M] masks its rows): every
-    rank's q heads are gathered, each rank takes the softmax's partial
-    (max m, sum l, output o) over its own rows for every head, and the
-    ranks' partials are combined by log-sum-exp in rank order on every
-    rank. q: [B, 1, H/M, dh] -> this rank's heads' output [B, 1, H/M dh]."""
-    b, _, h_l, dh = q.shape
+    rank's q heads are gathered (a mid-head split passes them whole),
+    each rank takes the softmax's partial (max m, sum l, output o) over
+    its own rows for every head, and the ranks' partials are combined by
+    log-sum-exp in rank order on every rank. q: [B, 1, H/M, dh] -> this
+    rank's block of the flattened output columns [B, 1, H dh / M]."""
+    b, _, h_q, dh = q.shape
     kh, groups = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    q_all = tp.gather(q, 2).reshape(b, kh, groups, dh).to(torch.float32)
+    q_all = q if h_q == cfg.n_heads else tp.gather(q, 2)
+    q_all = q_all.reshape(b, kh, groups, dh).to(torch.float32)
     scores = torch.einsum("bkgd,bskd->bkgs", q_all,
                           cache_k.to(torch.float32)) * dh ** -0.5
     if softcap is not None:
@@ -239,9 +302,10 @@ def _seq_attend(q, cache_k, cache_v, valid, cfg: ModelConfig, tp: TP, *,
     o_r, l_r, m_r = parts[..., :dh], parts[..., dh], parts[..., dh + 1]
     w = torch.exp(m_r - torch.max(m_r, dim=0).values)
     out = (w[..., None] * o_r).sum(dim=0) / (w * l_r).sum(dim=0)[..., None]
-    out = out.reshape(b, kh * groups, dh)[:, tp.rank * h_l:(tp.rank + 1)
-                                          * h_l]
-    return out.reshape(b, 1, h_l * dh).to(q.dtype)
+    cols = kh * groups * dh // tp.size
+    out = out.reshape(b, kh * groups * dh)[:, tp.rank * cols:(tp.rank + 1)
+                                           * cols]
+    return out.reshape(b, 1, cols).to(q.dtype)
 
 
 def decode_cross_attention(p, x, memory_kv, cfg: ModelConfig, *,
@@ -254,7 +318,7 @@ def decode_cross_attention(p, x, memory_kv, cfg: ModelConfig, *,
     b = x.shape[0]
     dh = cfg.d_head
     k, v = memory_kv
-    q = (tp.copy(x) @ p[prefix + "wq"]).reshape(b, 1, -1, dh)
+    q = _q_heads(tp.copy(x) @ p[prefix + "wq"], cfg, tp, all_heads=True)
     if tp.size > 1 and kv_policy(cfg, tp.size) == "seq":
         valid = torch.ones((b, k.shape[1]), dtype=torch.bool,
                            device=x.device)

@@ -18,9 +18,12 @@ Conventions
   whole on every rank, a split region starts at ``tp.copy`` (identity,
   all_reduce backward) and ends at ``tp.reduce`` (all_reduce, identity
   backward). A replicated parameter used inside a region goes through
-  ``tp.copy`` too, so its gradient is the whole one on every rank.
-  ``init_*`` return parameters only. ``TP``'s mesh also hands the
-  expert-parallel MoE its ``data`` axis.
+  ``tp.copy`` too, so its gradient is the whole one on every rank. A
+  model axis wider than a family's heads splits each head over
+  ``tp.group(heads)`` ranks (mid-head); the rank gathers its group's
+  head whole with ``tp.all_gather``, whose backward sums the ranks'
+  partial gradients. ``init_*`` return parameters only. ``TP``'s mesh
+  also hands the expert-parallel MoE its ``data`` axis.
 """
 from __future__ import annotations
 
@@ -55,6 +58,13 @@ class TP:
                              f"of {self.size}")
         return n // self.size
 
+    def group(self, n_heads: int) -> int:
+        """r, the ranks that share each of ``n_heads`` heads: 1 when the
+        axis splits whole heads (M divides the heads), M / n_heads when it
+        splits each head mid-head over r consecutive ranks (the heads
+        divide M; ``registry.check_heads`` refuses every other pair)."""
+        return self.size // n_heads if self.size > n_heads else 1
+
     def copy(self, t):
         if self.size == 1:
             return t
@@ -73,6 +83,16 @@ class TP:
             return t
         from repro_torch.distributed import mesh as dmesh
         return dmesh.gather_from_model(t, self.mesh, dim)
+
+    def all_gather(self, t, dim: int):
+        """Every rank's block along ``dim``, inside a split region whose
+        gradients are partial sums (one all_gather; backward
+        reduce_scatters the ranks' partial gradients): how a mid-head
+        split makes a group's head whole on every rank of the group."""
+        if self.size == 1:
+            return t
+        from repro_torch.distributed import mesh as dmesh
+        return dmesh.all_gather_dim(t, self.mesh, dim)
 
     def split(self, t, dim: int):
         """This rank's block of a replicated tensor along ``dim``."""

@@ -174,7 +174,7 @@ def prefill(params, frames, tokens, cfg: ModelConfig, *, max_len: int,
 
     def stack(i, j):
         return torch.stack([seq_slots(F.pad(c[i][j], pad) if i == 0
-                                      else c[i][j], 1, cfg, tp)
+                                      else c[i][j], 1, cfg, tp, pad=i == 0)
                             for c in caches])
     cache = {"k": stack(0, 0), "v": stack(0, 1), "xk": stack(1, 0),
              "xv": stack(1, 1)}

@@ -32,11 +32,13 @@ under the reference's ``_kv_policy`` (``attention.kv_policy``); prefill
 and decode return the logits whole on every rank. ``dp_size`` is the
 product of the mesh's data axes (``distributed.mesh.data_axes``), which
 the launcher splits batches over (the data-parallel run replicates the
-parameters: no FSDP). The port splits attention and RWKV6 by whole
-heads: a head count the model axis does not divide is refused by a
-``ValueError`` (``HEADS_DO_NOT_SPLIT``), where the reference's GSPMD
-would split mid-head. The reference's ``batch_partition`` has no
-counterpart.
+parameters: no FSDP). The port splits attention's query heads, Mamba2's
+heads and RWKV6's heads by whole heads when M divides them, and each
+head over M / H ranks (mid-head, as the reference's GSPMD splits the
+same column blocks) when they divide M and M / H divides the head's
+channels (``check_heads``); any other pair is refused by a
+``ValueError`` (``HEADS_DO_NOT_SPLIT``). The reference's
+``batch_partition`` has no counterpart.
 """
 from __future__ import annotations
 
@@ -56,10 +58,12 @@ from .rwkv import rwkv_dims
 from .ssm import ssm_dims
 from .transformer import _cache_len, _layer_kinds
 
-#: why a model axis that does not divide a config's heads is refused
-HEADS_DO_NOT_SPLIT = ("{n} {what} do not split over a model axis of {m}: the "
-                      "port splits by whole heads (the reference's GSPMD "
-                      "splits mid-head)")
+#: why a model axis that neither rule of ``check_heads`` covers is refused
+HEADS_DO_NOT_SPLIT = ("{n} {what} of {width} channels do not split over a "
+                      "model axis of {m}: the port splits whole heads (M "
+                      "divides the heads) or each head over M / heads ranks "
+                      "(the heads divide M, and M / heads divides a head's "
+                      "channels)")
 
 CACHE_DTYPE = torch.bfloat16   # K/V, whatever the parameters are
 STATE_DTYPE = torch.float32    # the recurrent SSM and wkv states
@@ -112,17 +116,19 @@ def _cache_specs(cfg: ModelConfig, shape: ShapeConfig,
                  "conv{j}" [n_groups, B, conv_kernel - 1, C];
       ssm:       "tm_x", "cm_x" [L, B, D], "wkv" [L, B, H, 64, 64] f32.
     Under ``tp`` of M ranks these are one rank's: K/V with KH/M heads
-    (``heads`` policy) or S/M rows (``seq``; the encdec's self and cross
-    caches alike), the hybrid's ssm states with H/M heads and its conv
-    rows with d_inner/M + 2 N channels, RWKV6's wkv state with H/M heads
-    and its token-shift rows whole."""
+    (``heads`` policy) or ceil(S/M) rows (``seq``; the encdec's cross
+    cache S/M exactly), the hybrid's ssm states with H/M heads and its
+    conv rows with d_inner/M + 2 N channels, RWKV6's wkv state with H/M
+    heads and its token-shift rows whole; under a mid-head split the ssm
+    and wkv states hold one head's 64 / r channels."""
     b, s = shape.global_batch, shape.seq_len
     kh, dh = cfg.n_kv_heads, cfg.d_head
     rows = torch.promote_types(CACHE_DTYPE, dtype)
 
-    def kv(clen):
+    def kv(clen, pad=True):    # a padded self cache, an exact cross one
         if tp.size > 1 and kv_policy(cfg, tp.size) == "seq":
-            return tp.local(clen, "cache rows"), kh
+            return (-(-clen // tp.size) if pad
+                    else tp.local(clen, "cache rows")), kh
         return clen, tp.local(kh, "kv heads")
 
     if cfg.family in ("dense", "moe"):
@@ -134,17 +140,19 @@ def _cache_specs(cfg: ModelConfig, shape: ShapeConfig,
             specs[f"k{j}"] = specs[f"v{j}"] = spec
         return specs
     if cfg.family == "encdec":
-        kv = ((cfg.n_dec_layers, b, *kv(s), dh), CACHE_DTYPE)
-        return {"k": kv, "v": kv, "xk": kv, "xv": kv}
+        self_kv = ((cfg.n_dec_layers, b, *kv(s), dh), CACHE_DTYPE)
+        cross = ((cfg.n_dec_layers, b, *kv(s, pad=False), dh), CACHE_DTYPE)
+        return {"k": self_kv, "v": self_kv, "xk": cross, "xv": cross}
     if cfg.family == "hybrid":
         g, period = cfg.n_layers // cfg.attn_period, cfg.attn_period
         d_inner, n_heads, conv_dim = ssm_dims(cfg)
-        n_heads = tp.local(n_heads, "Mamba2 heads")
+        r = tp.group(n_heads)        # mid-head: one head's 64 / r channels
+        n_heads = tp.local(n_heads, "Mamba2 heads") if r == 1 else 1
         conv_dim -= d_inner - d_inner // tp.size
         kvs = ((g, b, *kv(min(cfg.shared_attn_window, s)), dh), CACHE_DTYPE)
         specs = {"k": kvs, "v": kvs}
         for j in range(period):
-            specs[f"ssm{j}"] = ((g, b, n_heads, cfg.ssm_state, 64),
+            specs[f"ssm{j}"] = ((g, b, n_heads, cfg.ssm_state, 64 // r),
                                 STATE_DTYPE)
             specs[f"conv{j}"] = ((g, b, cfg.conv_kernel - 1, conv_dim),
                                  rows)
@@ -152,9 +160,10 @@ def _cache_specs(cfg: ModelConfig, shape: ShapeConfig,
     if cfg.family == "ssm":     # the token-shift rows whole on every rank
         l, d = cfg.n_layers, cfg.d_model
         x = ((l, b, d), rows)
-        heads = tp.local(rwkv_dims(cfg), "RWKV6 heads")
+        r = tp.group(rwkv_dims(cfg))     # mid-head: one head's 64 / r values
+        heads = tp.local(rwkv_dims(cfg), "RWKV6 heads") if r == 1 else 1
         return {"tm_x": x, "cm_x": x,
-                "wkv": ((l, b, heads, 64, 64), STATE_DTYPE)}
+                "wkv": ((l, b, heads, 64, 64 // r), STATE_DTYPE)}
     raise ValueError(cfg.family)
 
 
@@ -186,12 +195,23 @@ def _model_axis(cfg: ModelConfig, tp_size: int, dp_size: int, mesh) -> TP:
         raise ValueError(f"tp_size={tp_size}, dp_size={dp_size}, but the "
                          f"mesh's model and data axes have {tp.size} and "
                          f"{data} ranks")
-    heads = ((rwkv_dims(cfg), "RWKV6 heads") if cfg.family == "ssm"
-             else (cfg.n_heads, "query heads"))
-    if heads[0] % tp.size:
-        raise ValueError(HEADS_DO_NOT_SPLIT.format(n=heads[0], what=heads[1],
-                                                   m=tp.size))
+    check_heads(cfg, tp.size)
     return tp
+
+
+def check_heads(cfg: ModelConfig, m: int) -> None:
+    """Raise ``HEADS_DO_NOT_SPLIT`` unless a model axis of ``m`` splits
+    every head count of ``cfg`` (RWKV6's, or the query heads and the
+    hybrid's Mamba2 heads) by whole heads (m divides it) or mid-head (it
+    divides m, and m / heads divides a head's channels)."""
+    heads = [(rwkv_dims(cfg), 64, "RWKV6 heads")] if cfg.family == "ssm" \
+        else [(cfg.n_heads, cfg.d_head, "query heads")]
+    if cfg.family == "hybrid":
+        heads.append((ssm_dims(cfg)[1], 64, "Mamba2 heads"))
+    for n, width, what in heads:
+        if n % m and (m % n or width % (m // n)):
+            raise ValueError(HEADS_DO_NOT_SPLIT.format(
+                n=n, what=what, width=width, m=m))
 
 
 def get_model(cfg: ModelConfig, *, tp_size: int = 1, dp_size: int = 1,

@@ -28,6 +28,16 @@ rank: they are the layer's whole input row, which every rank needs before
 its column-split products (the reference's spec splits them by ``model``;
 keeping them whole costs L x B x D a leaf per rank, 2 MB at rwkv6-7b
 with 8 slots in bf16, and no gather a tick).
+
+A model axis wider than the heads (M % H == 0, 64 % (M / H) == 0) splits
+each head over r = M / H ranks, the leaves cut as above (the rank's 1/M
+blocks: 64 / r channels of head q // r). The wkv contraction runs over
+the key channels, so r, k, the decay and u are made whole for the
+group's head on every rank of the group (one all_gather of r | k | decay
+and one of u a layer, ``tp.all_gather``); v and g stay split by value
+channels, and the state [B, 1, 64, 64 / r] splits the head's along them.
+The per-head norm sums the group's partial sums of squares (one
+all_gather of [B, S, 1] a layer).
 """
 from __future__ import annotations
 
@@ -111,30 +121,32 @@ def _wkv_chunk(state, rr, kk, vv, ww, uh, tri_strict):
 
 def _wkv_chunked(r, k, v, logw, u, n_heads: int, *, chunk: int = 64,
                  initial_state=None):
-    """r/k/v/logw: [B, S, D]; u: [D]. Returns (out [B, S, D] f32, final
+    """r/k/logw: [B, S, H K]; v: [B, S, H V] (V = K, or a mid-head
+    split's value channels); u: [H K]. Returns (out [B, S, H V] f32, final
     state [B, H, K, V] f32)."""
-    bsz, s, d = r.shape
+    bsz, s, _ = r.shape
+    dv = v.shape[-1] // n_heads
     q = min(chunk, s)
     pad = -(-s // q) * q - s
 
-    def heads(t):   # [B, S, D] -> [B, H, S_pad, K] f32
+    def heads(t):   # [B, S, H C] -> [B, H, S_pad, C] f32
         t = F.pad(t, (0, 0, 0, pad)).to(torch.float32)
-        return t.reshape(bsz, s + pad, n_heads, _K_HEAD).transpose(1, 2)
+        return t.reshape(bsz, s + pad, n_heads, -1).transpose(1, 2)
 
     rh, kh, vh, wh = heads(r), heads(k), heads(v), heads(logw)
     uh = u.to(torch.float32).reshape(n_heads, _K_HEAD)
     tri_strict = torch.tril(torch.ones((q, q), dtype=torch.bool,
                                        device=r.device), diagonal=-1)
     state = initial_state if initial_state is not None else torch.zeros(
-        (bsz, n_heads, _K_HEAD, _K_HEAD), dtype=torch.float32,
-        device=r.device)
+        (bsz, n_heads, _K_HEAD, dv), dtype=torch.float32, device=r.device)
     outs = []
     for c0 in range(0, s + pad, q):
         sl = slice(c0, c0 + q)
         state, out = _wkv_chunk(state, rh[:, :, sl], kh[:, :, sl],
                                 vh[:, :, sl], wh[:, :, sl], uh, tri_strict)
         outs.append(out)
-    out = torch.cat(outs, dim=2).transpose(1, 2).reshape(bsz, s + pad, d)
+    out = torch.cat(outs, dim=2).transpose(1, 2).reshape(
+        bsz, s + pad, n_heads * dv)
     return out[:, :s], state
 
 
@@ -149,8 +161,11 @@ def time_mix(p, x, cfg: ModelConfig, *, state=None, chunk: int = 64,
     is computed for its own channels only), its rows of wo, and its
     heads' slices of u, w0 and ln_x; the mu_* weights and w1 stay whole.
     Every input of a column-split product enters through ``tp.copy`` and
-    the output projection's partial sums leave through ``tp.reduce``."""
-    n_heads = tp.local(rwkv_dims(cfg), "RWKV6 heads")
+    the output projection's partial sums leave through ``tp.reduce``.
+    Mid-head (the module docstring) a rank holds one head's value
+    channels, the wkv state [B, 1, K, V / r]."""
+    rg = tp.group(rwkv_dims(cfg))
+    n_heads = tp.local(rwkv_dims(cfg), "RWKV6 heads") if rg == 1 else 1
     bsz, s, _ = x.shape
     x_last, wkv0 = state if state is not None else (None, None)
     prev = _token_shift(x, x_last)
@@ -167,11 +182,25 @@ def time_mix(p, x, cfg: ModelConfig, *, state=None, chunk: int = 64,
     lora = tp.copy(torch.tanh(xw @ p["w1"].to(torch.float32)))
     wx = p["w0"] + lora @ p["w2"].to(torch.float32)
     logw = -torch.exp(wx)                                # [B, S, D/M] < 0
-    out, wkv = _wkv_chunked(r, k, v, logw, p["u"], n_heads, chunk=chunk,
+    u = p["u"]
+    if rg > 1:        # the group's head whole: r, k, the decay and u
+        h = tp.rank // rg
+        rkw = tp.all_gather(torch.cat([r.to(torch.float32),
+                                       k.to(torch.float32), logw], -1), -1)
+        r, k, logw = rkw.unflatten(-1, (tp.size, 3, -1))[
+            ..., h * rg:(h + 1) * rg, :, :].transpose(-3, -2).flatten(
+            -2).unbind(-2)
+        u = tp.all_gather(u, 0)[h * _K_HEAD:(h + 1) * _K_HEAD]
+    out, wkv = _wkv_chunked(r, k, v, logw, u, n_heads, chunk=chunk,
                             initial_state=wkv0)
     # per-head group norm (RMS over each head's channels) and the ln_x gain
-    d_l = n_heads * _K_HEAD
-    out = rms_norm(out.reshape(bsz, s, n_heads, _K_HEAD), None)
+    d_l = out.shape[-1]
+    if rg > 1:        # the group's partial sums of squares
+        ss = tp.all_gather(torch.sum(out * out, dim=-1, keepdim=True), -1)
+        ss = ss[..., h * rg:(h + 1) * rg].sum(dim=-1, keepdim=True)
+        out = out * torch.rsqrt(ss / _K_HEAD + 1e-6)
+    else:
+        out = rms_norm(out.reshape(bsz, s, n_heads, _K_HEAD), None)
     out = out.reshape(bsz, s, d_l) * p["ln_x"][None, None, :].to(out.dtype)
     out = out.to(x.dtype) * F.silu(g.to(torch.float32)).to(x.dtype)
     return tp.reduce(out @ p["wo"]), (x[:, -1], wkv)

@@ -29,6 +29,16 @@ out_proj products are summed over the ranks. The B and C columns and the
 whole per-head leaves enter through ``tp.copy``, so their gradients sum
 every rank's heads. The decode state is [B, H/M, N, 64] and the conv
 window holds the rank's x channels and the B and C channels.
+
+A model axis wider than the heads (M % H == 0, 64 % (M / H) == 0) splits
+each head mid-head over r = M / H ranks: the rank holds 64 / r of its
+head's x and z channels (the same contiguous 1/M column blocks), and its
+state [B, 1, N, 64 / r] splits the head's state along its channels, on
+which the recurrence acts channel by channel (its contraction runs over
+N, whose B and C are whole): no collective beyond the whole-head split's.
+The dt columns of in_proj are whole on every rank then, like B and C
+(``convert._mamba_parts``), and the rank reads its head's dt, dt_bias,
+A_log and D through ``tp.copy``.
 """
 from __future__ import annotations
 
@@ -68,13 +78,28 @@ def init_mamba2(b: ParamBuilder, cfg: ModelConfig, prefix: str = ""):
     b.dense(prefix + "out_proj", (d_inner, d))
 
 
+def _local_dims(cfg: ModelConfig, tp: TP):
+    """(x channels, heads, channels a head) of this rank: (d_inner / M,
+    H / M, 64) over whole heads, (64 / r, 1, 64 / r) when r = M / H ranks
+    split each head."""
+    d_inner, n_heads, _ = ssm_dims(cfg)
+    r = tp.group(n_heads)
+    return d_inner // tp.size, max(n_heads // tp.size, 1), _P_HEAD // r
+
+
 def _split_proj(proj, cfg: ModelConfig, tp: TP = TP1):
     """in_proj's output -> (z, x, B, C, dt) along the last dim (this
-    rank's heads' z, x and dt)."""
-    d_inner, n_heads, _ = ssm_dims(cfg)
-    n = cfg.ssm_state
-    d_l, h_l = d_inner // tp.size, n_heads // tp.size
-    return torch.split(proj, [d_l, d_l, n, n, h_l], dim=-1)
+    rank's heads' z, x and dt; mid-head, its head's dt out of every
+    head's)."""
+    n_heads, n = ssm_dims(cfg)[1], cfg.ssm_state
+    d_l, h_l, _ = _local_dims(cfg, tp)
+    r = tp.group(n_heads)
+    if r == 1:
+        return torch.split(proj, [d_l, d_l, n, n, h_l], dim=-1)
+    z, x, bmat, cmat, dt = torch.split(proj, [d_l, d_l, n, n, n_heads],
+                                       dim=-1)
+    h = tp.rank // r
+    return z, x, bmat, cmat, dt[..., h:h + 1]
 
 
 def _whole_cols(w, start: int, stop: int, tp: TP):
@@ -88,14 +113,20 @@ def _whole_cols(w, start: int, stop: int, tp: TP):
 
 def _local_params(p, cfg: ModelConfig, prefix: str, tp: TP):
     """(in_proj, conv_w, conv_b, dt_bias, A_log, D) as this rank reads
-    them: the B and C columns through ``tp.copy``, the per-head leaves at
-    its heads."""
+    them: the B and C columns (mid-head: and the dt columns) through
+    ``tp.copy``, the per-head leaves at its heads."""
     d_inner, n_heads, _ = ssm_dims(cfg)
     n = cfg.ssm_state
     d_l = d_inner // tp.size
-    h_l = tp.local(n_heads, "Mamba2 heads")
-    heads = slice(tp.rank * h_l, (tp.rank + 1) * h_l)
-    return (_whole_cols(p[prefix + "in_proj"], 2 * d_l, 2 * d_l + 2 * n, tp),
+    r = tp.group(n_heads)
+    if r == 1:
+        h_l = tp.local(n_heads, "Mamba2 heads")
+        heads = slice(tp.rank * h_l, (tp.rank + 1) * h_l)
+        whole = 2 * d_l + 2 * n
+    else:
+        heads = slice(tp.rank // r, tp.rank // r + 1)
+        whole = 2 * d_l + 2 * n + n_heads
+    return (_whole_cols(p[prefix + "in_proj"], 2 * d_l, whole, tp),
             _whole_cols(p[prefix + "conv_w"], d_l, d_l + 2 * n, tp),
             _whole_cols(p[prefix + "conv_b"], d_l, d_l + 2 * n, tp),
             *(tp.copy(p[prefix + name])[heads]
@@ -144,8 +175,8 @@ def mamba2_block(p, x, cfg: ModelConfig, *, chunk: int = 128,
     [B, k - 1, C]: the last k - 1 PRE-conv rows, zeros before the first
     token)."""
     bsz, s, _ = x.shape
-    d_inner, n_heads, _ = ssm_dims(cfg)
-    d_inner, n_heads = d_inner // tp.size, n_heads // tp.size   # local
+    d_inner = ssm_dims(cfg)[0]
+    d_l, n_heads, p_head = _local_dims(cfg, tp)
     n = cfg.ssm_state
     k = cfg.conv_kernel
     in_proj, conv_w, conv_b, dt_bias, a_log, d_skip = _local_params(
@@ -154,7 +185,7 @@ def mamba2_block(p, x, cfg: ModelConfig, *, chunk: int = 128,
     z, xs, bmat, cmat, dt = _split_proj(tp.copy(x) @ in_proj, cfg, tp)
     xbc_raw = torch.cat([xs, bmat, cmat], dim=-1)      # pre-conv (state)
     xbc = _causal_conv(xbc_raw, conv_w, conv_b, k)
-    xs, bmat, cmat = torch.split(xbc, [d_inner, n, n], dim=-1)
+    xs, bmat, cmat = torch.split(xbc, [d_l, n, n], dim=-1)
     dt = F.softplus(dt.to(torch.float32) + dt_bias)               # [B,S,H]
     a = -torch.exp(a_log)                                          # [H]
     ldec = dt * a[None, None, :]                       # [B, S, H] (<= 0)
@@ -162,14 +193,14 @@ def mamba2_block(p, x, cfg: ModelConfig, *, chunk: int = 128,
     q = min(chunk, s)
     pad = -(-s // q) * q - s
     seq_pad = (0, 0, 0, pad)
-    xs_h = F.pad(xs, seq_pad).reshape(bsz, -1, n_heads, _P_HEAD).to(
+    xs_h = F.pad(xs, seq_pad).reshape(bsz, -1, n_heads, p_head).to(
         torch.float32)
     bf = F.pad(bmat, seq_pad).to(torch.float32)
     cf = F.pad(cmat, seq_pad).to(torch.float32)
     dtp, ldp = F.pad(dt, seq_pad), F.pad(ldec, seq_pad)
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
     state = initial_state if initial_state is not None else torch.zeros(
-        (bsz, n_heads, n, _P_HEAD), dtype=torch.float32, device=x.device)
+        (bsz, n_heads, n, p_head), dtype=torch.float32, device=x.device)
     ys = []
     for c0 in range(0, s + pad, q):
         sl = slice(c0, c0 + q)
@@ -178,10 +209,9 @@ def mamba2_block(p, x, cfg: ModelConfig, *, chunk: int = 128,
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :s] + d_skip[None, None, :, None] \
         * xs_h[:, :s]
-    y = y.reshape(bsz, s, d_inner).to(x.dtype)
+    y = y.reshape(bsz, s, d_l).to(x.dtype)
     y = y * F.silu(z.to(torch.float32)).to(x.dtype)
-    y = rms_norm_split(y, p[prefix + "ssm_norm"], tp,
-                       width=d_inner * tp.size)
+    y = rms_norm_split(y, p[prefix + "ssm_norm"], tp, width=d_inner)
     out = tp.reduce(y @ p[prefix + "out_proj"])
     if return_state:
         # the reference slices xbc_raw[:, s - (k - 1):s], which is short
@@ -199,8 +229,8 @@ def mamba2_decode(p, x, state, cfg: ModelConfig, prefix: str = "",
     ``mamba2_block(return_state=True)``), so the prefill -> decode handoff
     is exact. Returns (out [B, 1, D], (ssm, conv)), new tensors."""
     bsz = x.shape[0]
-    d_inner, n_heads, _ = ssm_dims(cfg)
-    d_inner, n_heads = d_inner // tp.size, n_heads // tp.size   # local
+    d_inner = ssm_dims(cfg)[0]
+    d_l, n_heads, p_head = _local_dims(cfg, tp)
     n = cfg.ssm_state
     ssm_state, conv_state = state
     in_proj, conv_w, conv_b, dt_bias, a_log, d_skip = _local_params(
@@ -214,8 +244,8 @@ def mamba2_decode(p, x, state, cfg: ModelConfig, prefix: str = "",
     out = torch.einsum("bkc,kc->bc", window.to(torch.float32),
                        conv_w.to(torch.float32)) + conv_b
     xbc = F.silu(out).to(x.dtype)
-    xs, bmat, cmat = torch.split(xbc, [d_inner, n, n], dim=-1)
-    xs = xs.reshape(bsz, n_heads, _P_HEAD).to(torch.float32)
+    xs, bmat, cmat = torch.split(xbc, [d_l, n, n], dim=-1)
+    xs = xs.reshape(bsz, n_heads, p_head).to(torch.float32)
 
     dt = F.softplus(dt.to(torch.float32) + dt_bias)                # [B, H]
     dec = torch.exp(dt * -torch.exp(a_log)[None, :])
@@ -223,9 +253,8 @@ def mamba2_decode(p, x, state, cfg: ModelConfig, prefix: str = "",
     ssm_state = ssm_state * dec[:, :, None, None] + upd
     y = torch.einsum("bs,bhsp->bhp", cmat.to(torch.float32), ssm_state)
     y = y + d_skip[None, :, None] * xs
-    y = y.reshape(bsz, d_inner).to(x.dtype)
+    y = y.reshape(bsz, d_l).to(x.dtype)
     y = y * F.silu(z.to(torch.float32)).to(x.dtype)
-    y = rms_norm_split(y, p[prefix + "ssm_norm"], tp,
-                       width=d_inner * tp.size)
+    y = rms_norm_split(y, p[prefix + "ssm_norm"], tp, width=d_inner)
     out = tp.reduce(y @ p[prefix + "out_proj"])
     return out[:, None], (ssm_state, window[:, 1:])

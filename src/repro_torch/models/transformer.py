@@ -18,7 +18,8 @@ block of vocabulary rows (columns), the cross-entropy combines the ranks'
 partial sums (``common.chunked_cross_entropy``), gemma2's final softcap
 acts on each rank's logits, and prefill's and decode's logits are
 gathered whole over the model axis. A ``seq``-policy cache holds this
-rank's slots, rows j % M == r of the unsplit cache.
+rank's slots, rows j % M == r of the unsplit cache (padded to a multiple
+of M: gemma2's 8-row smoke window holds one row a rank at M = 16).
 """
 from __future__ import annotations
 
@@ -249,18 +250,24 @@ def prefill(params, tokens, cfg: ModelConfig, *, max_len: int | None = None,
     return cache, _logits_last(params, hidden[:, -1], cfg, tp)
 
 
-def seq_slots(kv: torch.Tensor, dim: int, cfg: ModelConfig,
-              tp: TP) -> torch.Tensor:
+def seq_slots(kv: torch.Tensor, dim: int, cfg: ModelConfig, tp: TP, *,
+              pad: bool = True) -> torch.Tensor:
     """This rank's slots (rows j % M == r along ``dim``) of a whole K/V
-    cache under the ``seq`` policy; the cache unchanged otherwise."""
+    cache under the ``seq`` policy; the cache unchanged otherwise. A cache
+    of n rows that M does not divide is zero-padded to ceil(n / M) rows a
+    rank, slots the decode step never reads as valid; ``pad=False``
+    refuses it instead (the cross cache, whose every row is valid)."""
     if tp.size == 1 or kv_policy(cfg, tp.size) == "heads":
         return kv
     n = kv.shape[dim]
-    if n % tp.size:
-        raise ValueError(f"a cache of {n} rows does not split over a model "
-                         f"axis of {tp.size} (the seq K/V policy)")
-    return kv.unflatten(dim, (n // tp.size, tp.size)) \
-        .select(dim + 1, tp.rank).contiguous()
+    extra = -n % tp.size
+    if extra:
+        if not pad:
+            raise ValueError(f"a cache of {n} rows does not split over a "
+                             f"model axis of {tp.size} (the seq K/V policy)")
+        kv = F.pad(kv, (0, 0) * (kv.dim() - 1 - dim) + (0, extra))
+    return kv.unflatten(dim, (-1, tp.size)).select(dim + 1, tp.rank) \
+        .contiguous()
 
 
 def decode_step(params, cache, token, pos, cfg: ModelConfig,

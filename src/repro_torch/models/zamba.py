@@ -163,16 +163,18 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig,
     per-slot [B] vector. Writes the new K/V rows and every Mamba2 state
     into ``cache`` in place, each in its leaf's dtype. The shared
     attention reads its cache as a ring only when it holds
-    ``shared_attn_window`` rows (the reference's test). Returns (logits
-    [B, V] f32, cache)."""
+    ``shared_attn_window`` rows (the reference's test; a ``seq`` cache
+    padded to a multiple of the model axis may hold more, and a cache
+    shorter than the window never wraps, so either reads alike). Returns
+    (logits [B, V] f32, cache)."""
     period = cfg.attn_period
     x = embed_lookup(params["embed"], token[:, None], tp)   # [B, 1, D]
     shared, layers = params["shared"], params["layers"]
     rows = cache["k"].shape[2]       # this rank's slots under ``seq``
     if tp.size > 1 and kv_policy(cfg, tp.size) == "seq":
-        rows *= tp.size
+        rows *= tp.size              # the whole cache, a pad included
     window = cfg.shared_attn_window \
-        if rows == cfg.shared_attn_window else None
+        if rows >= cfg.shared_attn_window else None
     for i, pj in enumerate(layers):
         g, j = divmod(i, period)
         ssm, conv = cache[f"ssm{j}"][g], cache[f"conv{j}"][g]

@@ -1069,6 +1069,49 @@ def test_serving_engine_on_the_card_matches_the_cpu(cuda, arch):
     assert got == want
 
 
+def test_gemma2_served_with_flash_matches_chunked_on_the_card(cuda):
+    """gemma2 smoke at f32 (4 layers: 2 global with softcap 50, 2 with the
+    8-row window) served through the engine on the card with
+    attn_impl="flash" and with "chunked" on the same parameters, prompts
+    of 3-21 tokens (past the window: the local layers' ring wraps in
+    prefill and in decode): one flash launch per global layer per request
+    and none in the chunked run, the first-token logits within 1e-4
+    normwise (the f32 kernel against the plain chunked softmax) and the
+    greedy tokens equal."""
+    base = dataclasses.replace(get_arch("gemma2-2b", smoke=True),
+                               n_layers=4)
+    params = _params_to(get_model(base, device="cpu").init(0, torch.float32),
+                        cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, base.vocab_size, size=n)
+               for n in (3, 9, 14, 21, 6)]
+    runs = {}
+    for impl in ("flash", "chunked"):
+        api = get_model(dataclasses.replace(base, attn_impl=impl))
+        firsts = []
+
+        def prefill(p, batch, api=api, firsts=firsts, **kw):
+            cache, logits = api.prefill(p, batch, **kw)
+            firsts.append(logits[0])
+            return cache, logits
+
+        eng = ServingEngine(dataclasses.replace(api, prefill=prefill),
+                            params, ServeConfig(max_batch=2, max_len=40,
+                                                max_new_tokens=12,
+                                                eos_token=-1))
+        for prompt in prompts:
+            eng.submit(prompt)
+        before = ops.LAUNCHES["flash_attention"]
+        runs[impl] = (eng.run(), firsts,
+                      ops.LAUNCHES["flash_attention"] - before)
+    global_layers = base.n_layers // base.local_global_period
+    assert runs["flash"][2] == len(prompts) * global_layers
+    assert runs["chunked"][2] == 0
+    for f, c in zip(runs["flash"][1], runs["chunked"][1]):
+        assert _rel(f, c) <= 1e-4
+    assert runs["flash"][0] == runs["chunked"][0]
+
+
 # ---------------------------------------------------------------------------
 # assignment serving: bucket shapes, CUDA graphs, keyed draws, RLS
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@ against the reference's (``repro/launch/dryrun.py``), on the CPU.
 
 What is compared with the reference, and how:
 - ``configs.cells()`` equals the reference's list;
-- the model terms of every cell of olmo-1b, qwen3-moe-235b-a22b,
-  seamless-m4t-medium, zamba2-2.7b and rwkv6-7b at full width
+- the model terms of every cell of olmo-1b, gemma2-2b,
+  qwen3-moe-235b-a22b, seamless-m4t-medium, zamba2-2.7b and rwkv6-7b at
+  full width
   (``n_params``, ``n_active_params``, ``tokens_per_step``,
   ``model_flops_total``) equal the reference's formulas over
   ``jax.eval_shape`` of its ``init`` (no 512-device lowering here).
@@ -12,8 +13,11 @@ What is compared with the reference, and how:
 The cells themselves run as the CLI runs them, in subprocesses (each
 starts its own fake world of 256 or 512 ranks): olmo-1b train_4k on both
 meshes (the per-device terms, the collectives, the memory terms), rwkv6-7b
-long_500k (a batch of 1, whole on every rank), gemma2-2b (refused: 8
-heads do not split over 16) and grok-1-314b decode_32k, whose 628 GB of
+long_500k (a batch of 1, whole on every rank), gemma2-2b decode_32k (8
+heads over a model axis of 16: two ranks a head), one ``--smoke`` cell of
+each family (2-4 heads, 4-8 ranks a head: gemma2's decode with its
+8-row window padded to one slot a rank, the MoE's, seamless's, zamba2's
+and RWKV6's train steps) and grok-1-314b decode_32k, whose 628 GB of
 bf16 parameters are drawn as fake tensors: the process's peak RSS grows
 by less than 2 GB over the cell.
 
@@ -32,9 +36,15 @@ import numpy as np
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ["olmo-1b", "qwen3-moe-235b-a22b", "seamless-m4t-medium",
-         "zamba2-2.7b", "rwkv6-7b"]
+ARCHS = ["olmo-1b", "gemma2-2b", "qwen3-moe-235b-a22b",
+         "seamless-m4t-medium", "zamba2-2.7b", "rwkv6-7b"]
 BAND = (1.4, 1.75)
+#: family -> the --smoke cell (arch, shape) the CLI runs
+SMOKE_CELLS = {"dense": ("gemma2-2b", "decode_32k"),
+               "moe": ("qwen3-moe-235b-a22b", "train_4k"),
+               "encdec": ("seamless-m4t-medium", "train_4k"),
+               "hybrid": ("zamba2-2.7b", "train_4k"),
+               "ssm": ("rwkv6-7b", "train_4k")}
 
 
 def _env():
@@ -64,14 +74,18 @@ def _dryrun(out, *args):
 
 @pytest.fixture(scope="module")
 def cells_run(tmp_path_factory):
-    """The three CLI runs, side by side (each its own fake world)."""
+    """The CLI runs, side by side (each its own fake world); the smoke
+    cells write to their own directory."""
     out = tmp_path_factory.mktemp("dryrun")
+    smoke = tmp_path_factory.mktemp("dryrun-smoke")
     procs = {
         "olmo": _start(out, "--arch", "olmo-1b", "--shape", "train_4k",
                        "--both-meshes"),
         "rwkv": _start(out, "--arch", "rwkv6-7b", "--shape", "long_500k"),
         "gemma": _start(out, "--arch", "gemma2-2b", "--shape",
                         "decode_32k"),
+        **{fam: _start(smoke, "--arch", arch, "--shape", shape, "--smoke")
+           for fam, (arch, shape) in SMOKE_CELLS.items()},
     }
     try:
         for p in procs.values():
@@ -82,6 +96,8 @@ def cells_run(tmp_path_factory):
                 p.kill()
                 p.wait()
     cells = {f[:-5]: json.load(open(out / f)) for f in os.listdir(out)}
+    cells.update({"smoke/" + f[:-5]: json.load(open(smoke / f))
+                  for f in os.listdir(smoke)})
     return out, procs, cells
 
 
@@ -176,13 +192,34 @@ def test_rwkv_long_500k_keeps_its_batch_of_one_whole(cells_run):
 
 
 def test_gemma2_cells_fail_by_the_named_reason(cells_run):
-    from repro_torch.models.registry import HEADS_DO_NOT_SPLIT
+    """Named for what it held before the model axis split heads mid-head:
+    gemma2-2b decode_32k, once refused (8 heads over 16), now runs ok,
+    two ranks a head, with the reference's schema and collective bytes
+    (the q gathers and the output's all_reduces)."""
     _, procs, cells = cells_run
-    assert procs["gemma"].returncode == 1
+    assert procs["gemma"].returncode == 0, procs["gemma"].stderr_text[-3000:]
     d = cells["gemma2-2b__decode_32k__sp"]
-    assert not d["ok"]
-    assert d["error"] == "ValueError: " + HEADS_DO_NOT_SPLIT.format(
-        n=8, what="query heads", m=16)
+    assert d["ok"] and d["problem"]["model_axis"] == 16
+    assert d["tokens_per_step"] == 128 and d["flops_per_device"] > 0
+    assert d["collectives"]["total_bytes"] > 0
+    assert d["collectives"]["counts"]["all-gather"] > 0
+    assert d["collectives"]["counts"]["all-reduce"] > 0
+    mem = d["memory_analysis"]
+    assert mem["peak_bytes"] >= mem["argument_bytes"] > 0
+
+
+@pytest.mark.parametrize("family", list(SMOKE_CELLS))
+def test_a_smoke_cell_of_each_family_runs(cells_run, family):
+    """``--smoke`` configs have 2-4 heads: at a model axis of 16 every
+    head splits over 4-8 ranks, and the cell runs ok with collective
+    bytes."""
+    _, procs, cells = cells_run
+    p = procs[family]
+    assert p.returncode == 0, p.stderr_text[-3000:]
+    arch, shape = SMOKE_CELLS[family]
+    d = cells[f"smoke/{arch}__{shape}__sp"]
+    assert d["ok"] and d["flops_per_device"] > 0
+    assert d["collectives"]["total_bytes"] > 0
 
 
 def test_a_cached_cell_is_skipped(cells_run):

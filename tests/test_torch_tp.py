@@ -18,7 +18,13 @@ dispatch with a model axis, ``qwen3-moe-ep``), zamba2-2.7b (the Mamba2
 head split and the shared block), seamless-m4t-medium (KH 4: ``heads`` on
 the self and cross caches; at (1, 4) also ``seamless-kh2``, KH 2, the
 ``seq`` policy on both caches) and rwkv6-7b (2 heads: worlds (1, 2) and
-(2, 2); at (1, 4) the named refusal).
+(2, 2), and at (1, 4) split mid-head, two ranks a head). At (1, 4) five
+more variants split each head over two ranks (``MID``): olmo-1b with H =
+KH = 2, gemma2-2b with H 2, KH 1 (softcaps, the window of 8) and with a
+window of 6 (the ``seq`` cache padded to 8 slots, its ring wrapping in
+prefill and decode), seamless with H = KH = 2 (self- and
+cross-attention), and zamba2 with ``ssm_expand`` 1 (2 Mamba2 heads of 64
+channels) and an H = KH = 2 shared block.
 
 Tolerances, and why (f32 throughout):
 - prefill and decode logits: 1e-5 normwise. The split products are summed
@@ -68,6 +74,15 @@ ARCHS = ["olmo-1b", "qwen3-32b", "gemma2-2b", "qwen3-moe-235b-a22b",
          "zamba2-2.7b", SEAMLESS, RWKV]
 EP = "qwen3-moe-ep"            # qwen3-moe with the expert-parallel dispatch
 KH2 = "seamless-kh2"           # seamless with KH 2: ``seq`` at a model of 4
+#: variants whose heads split mid-head at a model axis of 4: key -> (arch,
+#: config changes)
+MID = {"olmo-h2": ("olmo-1b", dict(n_heads=2, n_kv_heads=2)),
+       "gemma2-h2": ("gemma2-2b", dict(n_heads=2, n_kv_heads=1)),
+       "gemma2-h2-w6": ("gemma2-2b", dict(n_heads=2, n_kv_heads=1,
+                                          window=6)),
+       "seamless-h2": (SEAMLESS, dict(n_heads=2, n_kv_heads=2)),
+       "zamba2-h2": ("zamba2-2.7b", dict(n_heads=2, n_kv_heads=2,
+                                         ssm_expand=1))}
 #: mesh name -> (world, axes)
 MESHES = {"1x2": (2, {"data": 1, "model": 2}),
           "1x4": (4, {"data": 1, "model": 4}),
@@ -82,10 +97,13 @@ SERVE = ["--arch", "olmo-1b", "--smoke", "--device", "cpu", "--requests",
 
 
 def _cfg(key, jax_side=False):
-    arch = {EP: "qwen3-moe-235b-a22b", KH2: SEAMLESS}.get(key, key)
+    arch = {EP: "qwen3-moe-235b-a22b", KH2: SEAMLESS,
+            **{k: a for k, (a, _) in MID.items()}}.get(key, key)
     cfg = (jax_get_arch if jax_side else get_arch)(arch, smoke=True)
     if key == KH2:
         return dataclasses.replace(cfg, n_kv_heads=2)
+    if key in MID:
+        return dataclasses.replace(cfg, **MID[key][1])
     return dataclasses.replace(cfg, moe_ep_groups=4) if key == EP else cfg
 
 
@@ -176,7 +194,7 @@ def _reference(key) -> dict:
 
 @pytest.fixture(scope="module")
 def reference():
-    return {key: _reference(key) for key in ARCHS + [EP, KH2]}
+    return {key: _reference(key) for key in ARCHS + [EP, KH2, *MID]}
 
 
 # ---------------------------------------------------------------------------
@@ -185,12 +203,11 @@ def reference():
 
 
 def _cases_of(mesh_name):
-    """RWKV6's 2 heads do not split over 4 (``test_rwkv_heads_that_do_not_
-    split_are_refused``); KH2 is ``seq`` only at a model axis of 4."""
+    """KH2 is ``seq`` only at a model axis of 4, and the MID variants split
+    mid-head only there (as RWKV6's 2 heads do)."""
     model = MESHES[mesh_name][1]["model"]
-    return ([k for k in ARCHS if not (k == RWKV and model == 4)]
-            + ([EP] if mesh_name == "2x2" else [])
-            + ([KH2] if model == 4 else []))
+    return (ARCHS + ([EP] if mesh_name == "2x2" else [])
+            + ([KH2, *MID] if model == 4 else []))
 
 
 def _model_case(key, mesh, ref):
@@ -327,6 +344,20 @@ def _bill_case(mesh):
     with torch.no_grad(), tally() as t:
         rwkv.channel_mix(lay, xr, rcfg, tp=tp)
     out["rwkv_cm"] = _bill(t)
+    if tp.size == 4:          # mid-head: two ranks a head
+        with torch.no_grad(), tally() as t:
+            rwkv.time_mix(lay, xr, rcfg, tp=tp)
+        out["rwkv_tm"] = _bill(t)
+        hcfg = _cfg("olmo-h2")
+        hl = convert.shard_lm(transformer.init_lm(
+            hcfg, torch.Generator().manual_seed(0), torch.float32, "cpu"),
+            hcfg, tp.rank, tp.size)["layers"][0]
+        xh = x.clone().requires_grad_(True)
+        hl["wq"].requires_grad_(True)
+        with tally() as t:
+            y, _ = transformer._block_fwd(hl, xh, hcfg, "global", tp=tp)
+            torch.autograd.grad(y.sum(), [hl["wq"], xh])
+        out["mid"] = _bill(t)
     if mesh.size(0) == 2:
         mcfg = dataclasses.replace(_cfg(EP), capacity_factor=0.5)
         pm = convert.shard_lm(transformer.init_lm(
@@ -344,18 +375,6 @@ def _bill(t) -> dict:
     out = t.summary()
     out["calls"] = list(t.calls)
     return out
-
-
-def _refusal_case(mesh):
-    """The message of ``get_model``'s refusal of RWKV6's 2 heads at a
-    model axis of 4."""
-    from repro_torch.models import get_model
-    try:
-        get_model(get_arch(RWKV, smoke=True), tp_size=4, dp_size=1,
-                  mesh=mesh, device="cpu")
-    except ValueError as e:
-        return {"message": str(e)}
-    return {"message": None}
 
 
 def _ep_layer_case(mesh):
@@ -455,10 +474,8 @@ def _child(rank, world, store_path, out_dir, mesh_names, refs):
                 except Exception:
                     got[name][key] = {"error": traceback.format_exc()}
             for case, fn in (("bill", _bill_case), ("ep_layer",
-                                                    _ep_layer_case),
-                             ("refusal", _refusal_case)):
-                if (case == "ep_layer" and name != "2x2") or \
-                        (case == "refusal" and name != "1x4"):
+                                                    _ep_layer_case)):
+                if case == "ep_layer" and name != "2x2":
                     continue
                 try:
                     got[name][case] = fn(mesh)
@@ -616,6 +633,32 @@ def test_the_model_axis_bill(worlds):
                     == [("all-to-all", slots, 2)] * 2
 
 
+def test_the_mid_head_bill(worlds):
+    """At (1, 4), two ranks a head. One olmo-h2 layer forward and its
+    backward to wq and the input: the forward's two all_reduces of [B, S,
+    D] f32 and one all_gather of q over the whole model axis ([B, S, H dh]
+    f32, r = 2 times the group's head); the backward's reduce_scatter of
+    that gather's gradient, and the two all_reduces of tp.copy's input
+    gradients (attention's and the MLP's). One RWKV6 time mix: one
+    all_gather of r | k | decay ([B, S, 3 D] f32), one of u ([D] f32) and
+    one of the partial sums of squares ([B, S, M] f32), and the output's
+    all_reduce of [B, S, D]."""
+    hcfg, rcfg = _cfg("olmo-h2"), get_arch(RWKV, smoke=True)
+    d = hcfg.d_model
+    q = B * S * hcfg.n_heads * hcfg.d_head * 4
+    for got in _result(worlds, "1x4", "bill"):
+        mid = got["mid"]
+        assert sorted(mid["calls"]) == sorted(
+            [("all-reduce", B * S * d * 4, 4)] * 4
+            + [("all-gather", q, 4), ("reduce-scatter", q // 4, 4)])
+        tm = got["rwkv_tm"]
+        rd = rcfg.d_model
+        assert sorted(tm["calls"]) == sorted(
+            [("all-gather", B * S * 3 * rd * 4, 4), ("all-gather", rd * 4, 4),
+             ("all-gather", B * S * 4 * 4, 4),
+             ("all-reduce", B * S * rd * 4, 4)])
+
+
 def test_expert_parallel_layer_with_drops_matches_grouped_path(worlds):
     for got in _result(worlds, "2x2", "ep_layer"):
         assert got["dropped_slots"] > 0
@@ -704,6 +747,17 @@ _RWKV_CUT = {"u": 0, "w0": 0, "ln_x": 0, "w2": 1}
 @pytest.mark.parametrize("size", [2, 4])
 @pytest.mark.parametrize("key", ARCHS)
 def test_shard_lm_follows_the_reference_specs(reference, key, size):
+    _check_shards(reference, key, size)
+
+
+@pytest.mark.parametrize("key", list(MID))
+def test_shard_lm_mid_head_follows_the_reference_specs(reference, key):
+    """At 4 ranks, two a head: the same cut (the reference's 1/M column
+    blocks, which now part a head)."""
+    _check_shards(reference, key, 4)
+
+
+def _check_shards(reference, key, size):
     from repro_torch.models.attention import kv_policy
     cfg = _cfg(key)
     ref = reference[key]
@@ -784,13 +838,87 @@ def test_shard_lm_mamba_layout(size):
             assert torch.equal(lay[name], full["layers"][0][name])
 
 
-def test_rwkv_heads_that_do_not_split_are_refused(worlds):
-    """RWKV6's smoke config has 2 heads: a model axis of 4 is refused by
-    the named ``ValueError``, as a head count the axis does not divide."""
-    from repro_torch.models.registry import HEADS_DO_NOT_SPLIT
-    want = HEADS_DO_NOT_SPLIT.format(n=2, what="RWKV6 heads", m=4)
-    for got in _result(worlds, "1x4", "refusal"):
-        assert got["message"] == want
+def test_shard_lm_mamba_mid_head_layout():
+    """zamba2 smoke with ssm_expand 1 (2 heads) at 4 ranks: x, z, the conv's
+    x channels and ssm_norm cut in quarters (half a head a rank), the dt
+    columns whole with B and C."""
+    from repro_torch.models import zamba
+    from repro_torch.models.ssm import ssm_dims
+    cfg = _cfg("zamba2-h2")
+    full = zamba.init_zamba(cfg, torch.Generator().manual_seed(0),
+                            torch.float32, "cpu")
+    d_inner, n_heads, _ = ssm_dims(cfg)
+    assert n_heads == 2
+    n = cfg.ssm_state
+    w = full["layers"][0]["in_proj"]
+    z, x, rest = torch.split(w, [d_inner, d_inner, 2 * n + n_heads], -1)
+    shards = [convert.shard_lm(full, cfg, r, 4) for r in range(4)]
+    for r, sh in enumerate(shards):
+        assert torch.equal(sh["layers"][0]["in_proj"], torch.cat(
+            [z.chunk(4, -1)[r], x.chunk(4, -1)[r], rest], -1))
+    back = convert.gather_lm(shards, cfg)
+    assert torch.equal(back["layers"][0]["in_proj"], w)
+    assert [w for w, c in convert._mamba_parts(cfg, "in_proj", 4)
+            if not c] == [n, n, n_heads]
+
+
+def test_rwkv_heads_that_do_not_split_are_refused():
+    """RWKV6's smoke config has 2 heads of 64 channels: a model axis of 3
+    neither divides them nor is divided by them, and at 6 the 3 ranks a
+    head would split 64 channels unevenly; both are refused by the named
+    ``ValueError`` (the check ``get_model`` runs on its mesh's model
+    axis). At 4 and 16 each head splits over 2 and 8 ranks."""
+    from repro_torch.models.registry import HEADS_DO_NOT_SPLIT, check_heads
+    cfg = get_arch(RWKV, smoke=True)
+    for m in (3, 6):
+        want = HEADS_DO_NOT_SPLIT.format(n=2, what="RWKV6 heads", width=64,
+                                         m=m)
+        with pytest.raises(ValueError) as e:
+            check_heads(cfg, m)
+        assert str(e.value) == want
+    for m in (1, 2, 4, 16, 128):
+        check_heads(cfg, m)
+
+
+#: (arch, smoke?, config changes, model axis, the head count refused,
+#: what, its channels): pairs neither rule covers
+REFUSED = [("internlm2-20b", False, {}, 32, 48, "query heads", 128),
+           ("gemma2-2b", False, {}, 12, 8, "query heads", 256),
+           ("zamba2-2.7b", False, {}, 96, 32, "query heads", 80),
+           ("zamba2-2.7b", True, {"ssm_expand": 3}, 4, 6, "Mamba2 heads",
+            64)]
+
+
+@pytest.mark.parametrize("arch,smoke,changes,m,n,what,width", REFUSED,
+                         ids=[f"{a}-{m}" for a, _, _, m, *_ in REFUSED])
+def test_heads_no_rule_covers_are_refused(arch, smoke, changes, m, n, what,
+                                          width):
+    """internlm2-20b's 48 heads at 32 and gemma2-2b's 8 at 12 (neither
+    count divides the other); zamba2-2.7b's 32 heads of 80 channels at 96
+    (3 ranks a head, 80 % 3 != 0); zamba2 smoke with ssm_expand 3, whose
+    attention splits at 4 but whose 6 Mamba2 heads do not."""
+    from repro_torch.models.registry import HEADS_DO_NOT_SPLIT, check_heads
+    cfg = dataclasses.replace(get_arch(arch, smoke=smoke), **changes)
+    with pytest.raises(ValueError) as e:
+        check_heads(cfg, m)
+    assert str(e.value) == HEADS_DO_NOT_SPLIT.format(n=n, what=what,
+                                                     width=width, m=m)
+
+
+#: (arch, model axis): pairs a rule covers, whole heads or mid-head
+ACCEPTED = [("gemma2-2b", False, 16), ("gemma2-2b", False, 8),
+            ("zamba2-2.7b", True, 16), ("seamless-m4t-medium", True, 16),
+            ("olmo-1b", True, 64)]
+
+
+@pytest.mark.parametrize("arch,smoke,m", ACCEPTED,
+                         ids=[f"{a}-{m}" for a, _, m in ACCEPTED])
+def test_heads_a_rule_covers_are_accepted(arch, smoke, m):
+    """gemma2-2b at 16 (2 ranks a head) and 8 (whole heads); zamba2 smoke
+    at 16 (4 ranks to each attention and Mamba2 head); seamless smoke at
+    16; olmo smoke at 64 (16 ranks to a head of 16 channels: one each)."""
+    from repro_torch.models.registry import check_heads
+    check_heads(get_arch(arch, smoke=smoke), m)
 
 
 def test_a_model_axis_needs_a_mesh():
