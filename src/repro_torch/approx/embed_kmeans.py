@@ -13,7 +13,9 @@ centroid, as on the exact path.
 Each batch is embedded once and stays resident for the inner loop, whose
 sweeps are plain PyTorch products. A CSR batch is embedded by the sketch
 maps' O(nnz) path (``approx/sketch.py``). The reference's ``lax.while_loop`` is a
-Python loop here, as in ``core/kkmeans.py``: one host sync per iteration.
+Python loop here, as in ``core/kkmeans.py``: one host sync per iteration,
+each iteration an ``obs:sweep`` span and its read an
+``obs:host_read[changed]`` span.
 Prediction of dense rows goes through the fused ``embed_assign`` /
 ``sketch_assign`` kernels (``kernels/ops.embed_assign``), where Z never
 reaches device memory; CSR rows are embedded by the map's O(nnz) path and
@@ -46,6 +48,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import BIG
 from repro_torch.kernels.precision import resolve_precision
+from repro_torch.obs.trace import batch_spans, span
 
 from .sketch import check_dense
 
@@ -100,11 +103,14 @@ def lloyd_fit(z: torch.Tensor, labels0: torch.Tensor, *, n_clusters: int,
     cost = torch.tensor(float("inf"), device=z.device)
     with loop("lloyd"):
         while changed and t < max_iters:
-            iteration()
-            cents, counts = _means(z, labels, n_clusters)
-            new_labels, mind = assign_embedded(z, cents, counts)
-            changed = bool(torch.any(new_labels != labels))   # host sync
-            labels, t, cost = new_labels, t + 1, torch.sum(mind)
+            with span("obs:sweep"):
+                iteration()
+                cents, counts = _means(z, labels, n_clusters)
+                new_labels, mind = assign_embedded(z, cents, counts)
+                moved = torch.any(new_labels != labels)
+                with span("obs:host_read[changed]"):
+                    changed = bool(moved)                       # host sync
+                labels, t, cost = new_labels, t + 1, torch.sum(mind)
     cents, counts = _means(z, labels, n_clusters)
     return EmbedInnerResult(labels, cents, counts, t, cost)
 
@@ -121,7 +127,8 @@ def draw_first(z: torch.Tensor, gen: torch.Generator, *,
 def _first_batch_step(z: torch.Tensor, seeds: torch.Tensor, *,
                       n_clusters: int, max_iters: int):
     """Batch 0: labels from the seeds, Lloyd, the first state."""
-    labels0, _ = assign_embedded(z, z[seeds])
+    with span("obs:eq8"):
+        labels0, _ = assign_embedded(z, z[seeds])
     res = lloyd_fit(z, labels0, n_clusters=n_clusters, max_iters=max_iters)
     return EmbedState(res.centroids, res.counts, 1), res
 
@@ -129,17 +136,20 @@ def _first_batch_step(z: torch.Tensor, seeds: torch.Tensor, *,
 def _next_batch_step(z: torch.Tensor, state: EmbedState, *, n_clusters: int,
                      max_iters: int):
     """Batch i > 0: warm start from the global centroids, Lloyd, merge."""
-    labels0, _ = assign_embedded(z, state.centroids, state.cardinalities)
+    with span("obs:eq8"):
+        labels0, _ = assign_embedded(z, state.centroids, state.cardinalities)
     res = lloyd_fit(z, labels0, n_clusters=n_clusters, max_iters=max_iters)
-    alpha = res.counts / torch.clamp(res.counts + state.cardinalities, min=1.0)
-    merged = ((1.0 - alpha)[:, None] * state.centroids
-              + alpha[:, None] * res.centroids)
-    keep = (res.counts == 0)[:, None]
-    new_centroids = torch.where(keep, state.centroids, merged)
-    disp = torch.sum((new_centroids - state.centroids) ** 2, dim=1)
-    new_state = EmbedState(new_centroids,
-                           state.cardinalities + res.counts,
-                           state.batches_done + 1)
+    with span("obs:merge"):
+        alpha = res.counts / torch.clamp(res.counts + state.cardinalities,
+                                         min=1.0)
+        merged = ((1.0 - alpha)[:, None] * state.centroids
+                  + alpha[:, None] * res.centroids)
+        keep = (res.counts == 0)[:, None]
+        new_centroids = torch.where(keep, state.centroids, merged)
+        disp = torch.sum((new_centroids - state.centroids) ** 2, dim=1)
+        new_state = EmbedState(new_centroids,
+                               state.cardinalities + res.counts,
+                               state.batches_done + 1)
     return new_state, res, disp
 
 
@@ -165,7 +175,7 @@ def fit_embedded(batches: Iterable, fmap, *, n_clusters: int,
 
 def _fit_embedded_loop(batches, fmap, *, n_clusters, max_iters, seed, state,
                        checkpoint_cb, recorder, precision, device):
-    from repro_torch.core.minibatch import BatchStats, batch_generator
+    from repro_torch.core.minibatch import batch_generator, batch_stats
     from repro_torch.obs import memory as obs_memory
     from repro_torch.obs import resolve as resolve_recorder
 
@@ -177,27 +187,27 @@ def _fit_embedded_loop(batches, fmap, *, n_clusters, max_iters, seed, state,
                            state.cardinalities.to(dev), state.batches_done)
     history: list = []
     start = state.batches_done if state is not None else 0
-    for i, xb in enumerate(batches, start=start):
+    for i, xb in batch_spans(batches, start):
         t_batch = time.perf_counter()
         check_dense(fmap.kind, xb)
-        xb = to_device(xb, dev)
+        with span("obs:stage"):
+            xb = to_device(xb, dev)
         sparse = is_sparse(xb)
-        z = prec.cast_tiles(fmap(xb))
+        with span("obs:embed_phi"):
+            z = prec.cast_tiles(fmap(xb))
         if state is None:
             seeds = draw_first(z, batch_generator(seed, i),
                                n_clusters=n_clusters)
             state, res = _first_batch_step(z, seeds, n_clusters=n_clusters,
                                            max_iters=max_iters)
-            disp = torch.zeros(n_clusters)
+            disp = None
         else:
             state, res, disp = _next_batch_step(z, state,
                                                 n_clusters=n_clusters,
                                                 max_iters=max_iters)
         rec.series("inner/cost", res.cost, batch=i)     # drained later
         rec.series("inner/iters", res.n_iter, batch=i)
-        history.append(BatchStats(
-            inner_iters=res.n_iter, cost=float(res.cost),
-            displacement=disp.cpu().numpy(), counts=res.counts.cpu().numpy()))
+        history.append(batch_stats(res, disp))
         if checkpoint_cb is not None:
             checkpoint_cb(state, i)
         if rec.enabled:

@@ -136,19 +136,13 @@ class GramEngine:
                                    degree=spec.degree,
                                    precision=self.precision)
         if self.mode == "tiled":
-            return torch.cat([_tiled_panel(spec, xt, op.y) @ h
+            return torch.cat([spec(xt, op.y).to(torch.float32) @ h
                               for xt in torch.split(op.x, self.tile_rows)])
         return spec(op.x, op.y).to(torch.float32) @ h
 
     def wants_fused_assign(self, spec, op: GramOp) -> bool:
         """True when the one-pass f + argmin kernel applies."""
         return self.mode == "fused" and op.k is None and self._has_kernel(spec)
-
-
-def _tiled_panel(spec, xt: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """One [tile_rows, |L|] panel of the tiled mode, f32."""
-    with span("obs:gram_tiled_panel"):
-        return spec(xt, y).to(torch.float32)
 
 
 def resolve_engine(engine, precision: Optional[str] = None) -> GramEngine:

@@ -10,7 +10,9 @@ reads one ``changed`` flag from the device per iteration: one host sync per
 iteration, which stalls the launch queue while the flag is copied back.
 The loop runs in ``analysis.dispatch.loop()`` and ticks
 ``iteration()`` at the top of each pass, so a program audit can tell its
-iterations from the stats pass after it (a no-op outside an audit).
+iterations from the stats pass after it (a no-op outside an audit). Each
+iteration is an ``obs:sweep`` span and its flag read an
+``obs:host_read[changed]`` span (``obs/trace.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.analysis.dispatch import iteration, loop
+from repro_torch.obs.trace import span
 
 from .engine import BIG, GramEngine, engine_step, resolve_engine
 
@@ -50,12 +53,16 @@ def _run_inner(engine: GramEngine, spec, op_xl, op_ll, l_idx, diag_k,
                        torch.tensor(float("inf"), device=diag_k.device))
     with loop("kkmeans"):
         while state.changed and state.t < max_iters:
-            iteration()
-            _, _, _, labels, mind = engine_step(
-                engine, spec, op_xl, op_ll, state.labels[l_idx], n_clusters)
-            changed = bool(torch.any(labels != state.labels))   # host sync
-            state = InnerState(labels, changed, state.t + 1,
-                               _cost(diag_k, mind))
+            with span("obs:sweep"):
+                iteration()
+                _, _, _, labels, mind = engine_step(
+                    engine, spec, op_xl, op_ll, state.labels[l_idx],
+                    n_clusters)
+                moved = torch.any(labels != state.labels)
+                with span("obs:host_read[changed]"):
+                    changed = bool(moved)                       # host sync
+                state = InnerState(labels, changed, state.t + 1,
+                                   _cost(diag_k, mind))
     # one more stats pass at the fixpoint so f/g match the final labels
     f, g, counts, _, _ = engine_step(
         engine, spec, op_xl, op_ll, state.labels[l_idx], n_clusters)

@@ -59,6 +59,7 @@ import torch
 from repro_torch.data.loader import BatchSource, closing_source, to_device
 from repro_torch.data.sparse import is_sparse
 from repro_torch.device import resolve_device
+from repro_torch.obs import batch_spans, span
 from repro_torch.obs import memory as obs_memory
 from repro_torch.obs import resolve as resolve_recorder
 
@@ -157,7 +158,8 @@ class FitResult(NamedTuple):
                 "KernelSpec the model was fit with")
         from repro_torch.serving.artifact import freeze
         from repro_torch.serving.assign import predict as predict_frozen
-        return predict_frozen(freeze(self), x)
+        with span("obs:predict"):
+            return predict_frozen(freeze(self), x)
 
 
 def _generator(seq: np.random.SeedSequence) -> torch.Generator:
@@ -179,8 +181,9 @@ def map_generator(seed: int) -> torch.Generator:
 def draw_first(x: torch.Tensor, gen: torch.Generator, *,
                cfg: MiniBatchConfig, n_landmarks: int):
     """Batch 0's draws: (landmark indices, k-means++ seed indices)."""
-    l_idx = select_landmark_indices(gen, x, n_landmarks, cfg.kernel,
-                                    cfg.selector)
+    with span("obs:landmarks"):
+        l_idx = select_landmark_indices(gen, x, n_landmarks, cfg.kernel,
+                                        cfg.selector)
     seeds = kmeans_pp_indices(x, cfg.kernel.diag(x), gen,
                               n_clusters=cfg.n_clusters, spec=cfg.kernel)
     return l_idx, seeds
@@ -189,8 +192,9 @@ def draw_first(x: torch.Tensor, gen: torch.Generator, *,
 def draw_next(x: torch.Tensor, gen: torch.Generator, *,
               cfg: MiniBatchConfig, n_landmarks: int) -> torch.Tensor:
     """Batch i > 0's draw: landmark indices."""
-    return select_landmark_indices(gen, x, n_landmarks, cfg.kernel,
-                                   cfg.selector)
+    with span("obs:landmarks"):
+        return select_landmark_indices(gen, x, n_landmarks, cfg.kernel,
+                                       cfg.selector)
 
 
 def _inner(x, l_idx, diag_k, labels0, cfg: MiniBatchConfig) -> InnerResult:
@@ -209,11 +213,13 @@ def _first_batch_step(x: torch.Tensor, l_idx: torch.Tensor,
     labels0, _ = assign_to_medoids(x, diag_k, seed_x, spec.diag(seed_x),
                                    spec=spec)
     res = _inner(x, l_idx, diag_k, labels0, cfg)
-    m_idx = medoid_indices(diag_k, res.f, res.labels, res.counts,
-                           restrict_to_members=cfg.restrict_medoids_to_members)
-    medoids = x[m_idx]
-    state = GlobalState(medoids=medoids, medoid_diag=spec.diag(medoids),
-                        cardinalities=res.counts, batches_done=1)
+    with span("obs:merge"):
+        m_idx = medoid_indices(
+            diag_k, res.f, res.labels, res.counts,
+            restrict_to_members=cfg.restrict_medoids_to_members)
+        medoids = x[m_idx]
+        state = GlobalState(medoids=medoids, medoid_diag=spec.diag(medoids),
+                            cardinalities=res.counts, batches_done=1)
     return state, res
 
 
@@ -225,32 +231,54 @@ def _next_batch_step(x: torch.Tensor, l_idx: torch.Tensor,
     labels0, k_tilde = assign_to_medoids(x, diag_k, state.medoids,
                                          state.medoid_diag, spec=spec)
     res = _inner(x, l_idx, diag_k, labels0, cfg)
+    with span("obs:merge"):
+        m_idx = medoid_indices(
+            diag_k, res.f, res.labels, res.counts,
+            restrict_to_members=cfg.restrict_medoids_to_members)
+        k_xm = spec(x, x[m_idx]).to(torch.float32)                 # [n, C]
 
-    m_idx = medoid_indices(diag_k, res.f, res.labels, res.counts,
-                           restrict_to_members=cfg.restrict_medoids_to_members)
-    k_xm = spec(x, x[m_idx]).to(torch.float32)                     # [n, C]
+        # merge (Eq.11-13): minimize over the batch
+        #   K_ll - 2(1-a) K(x_l, m_j) - 2a K(x_l, m_j^i) + const(j)
+        alpha = res.counts / torch.clamp(res.counts + state.cardinalities,
+                                         min=1.0)
+        score = (diag_k.to(torch.float32)[:, None]
+                 - 2.0 * (1.0 - alpha)[None, :] * k_tilde
+                 - 2.0 * alpha[None, :] * k_xm)
+        merged = x[torch.argmin(score, dim=0)]
 
-    # merge (Eq.11-13): minimize over the batch
-    #   K_ll - 2(1-a) K(x_l, m_j) - 2a K(x_l, m_j^i) + const(j)
-    alpha = res.counts / torch.clamp(res.counts + state.cardinalities, min=1.0)
-    score = (diag_k.to(torch.float32)[:, None]
-             - 2.0 * (1.0 - alpha)[None, :] * k_tilde
-             - 2.0 * alpha[None, :] * k_xm)
-    merged = x[torch.argmin(score, dim=0)]
+        # empty batch cluster -> alpha = 0 -> keep the old global medoid
+        keep = res.counts == 0
+        new_medoids = torch.where(keep[:, None], state.medoids, merged)
+        new_diag = torch.where(keep, state.medoid_diag, spec.diag(merged))
 
-    # empty batch cluster -> alpha = 0 -> keep the old global medoid
-    keep = res.counts == 0
-    new_medoids = torch.where(keep[:, None], state.medoids, merged)
-    new_diag = torch.where(keep, state.medoid_diag, spec.diag(merged))
+        # displacement diagnostic (Fig.4b): ||phi(m_new) - phi(m_old)||^2
+        cross = spec.paired(new_medoids, state.medoids)
+        disp = torch.clamp(new_diag + state.medoid_diag - 2.0 * cross,
+                           min=0.0)
 
-    # displacement diagnostic (Fig.4b): ||phi(m_new) - phi(m_old)||^2
-    cross = spec.paired(new_medoids, state.medoids)
-    disp = torch.clamp(new_diag + state.medoid_diag - 2.0 * cross, min=0.0)
-
-    new_state = GlobalState(medoids=new_medoids, medoid_diag=new_diag,
-                            cardinalities=state.cardinalities + res.counts,
-                            batches_done=state.batches_done + 1)
+        new_state = GlobalState(
+            medoids=new_medoids, medoid_diag=new_diag,
+            cardinalities=state.cardinalities + res.counts,
+            batches_done=state.batches_done + 1)
     return new_state, res, disp
+
+
+def batch_stats(res, disp: Optional[torch.Tensor]) -> BatchStats:
+    """A batch's ``BatchStats`` read to the host from its inner result
+    (``n_iter``, ``cost``, ``counts``) and its displacement (``None`` for
+    batch 0: zeros, never on the device). Each read of a device value sits
+    in its own ``obs:host_read[batch_stats]`` span."""
+    with span("obs:host_read[batch_stats]"):
+        cost = float(res.cost)
+    if disp is None:
+        disp = np.zeros(res.counts.shape[0], dtype=np.float32)
+    else:
+        with span("obs:host_read[batch_stats]"):
+            disp = disp.cpu().numpy()
+    with span("obs:host_read[batch_stats]"):
+        counts = res.counts.cpu().numpy()
+    return BatchStats(inner_iters=res.n_iter, cost=cost, displacement=disp,
+                      counts=counts)
 
 
 def predict(x, medoids: torch.Tensor, medoid_diag: torch.Tensor, *,
@@ -275,7 +303,14 @@ def fit(batches: Iterable, cfg: MiniBatchConfig, *,
     ``checkpoint_cb(state, i)`` is called after every merged batch. An
     embedded fit (``cfg.method != "exact"``) resumes only with its original
     ``fmap``. ``recorder`` is a ``repro_torch.obs`` flight recorder (see
-    the module docstring)."""
+    the module docstring). The fit runs in one ``obs:fit`` span."""
+    with span("obs:fit"):
+        return _fit(batches, cfg, state=state, checkpoint_cb=checkpoint_cb,
+                    fmap=fmap, device=device, recorder=recorder)
+
+
+def _fit(batches, cfg: MiniBatchConfig, *, state=None, checkpoint_cb=None,
+         fmap=None, device=None, recorder=None) -> FitResult:
     rec = resolve_recorder(recorder)
     with closing_source(batches):
         if cfg.method != "exact":
@@ -295,7 +330,7 @@ def _fit_exact(batches, cfg: MiniBatchConfig, *, state, checkpoint_cb,
                             state.cardinalities.to(dev), state.batches_done)
     history: list[BatchStats] = []
     start = state.batches_done if state is not None else 0
-    for i, xb in enumerate(batches, start=start):
+    for i, xb in batch_spans(batches, start):
         t_batch = time.perf_counter()
         if is_sparse(xb):
             raise ValueError(
@@ -303,23 +338,22 @@ def _fit_exact(batches, cfg: MiniBatchConfig, *, state, checkpoint_cb,
                 "cannot take CSRBatch mini-batches; use a sketch method "
                 "(method='sketch'|'tensorsketch') to stay O(nnz), or "
                 "densify explicitly with repro_torch.data.sparse.to_dense")
-        xb = to_device(xb, dev)
+        with span("obs:stage"):
+            xb = to_device(xb, dev)
         n_l = num_landmarks(xb.shape[0], cfg.s, n_clusters=cfg.n_clusters,
                             multiple_of=cfg.landmark_multiple_of)
         gen = batch_generator(cfg.seed, i)
         if state is None:
             l_idx, seeds = draw_first(xb, gen, cfg=cfg, n_landmarks=n_l)
             state, res = _first_batch_step(xb, l_idx, seeds, cfg=cfg)
-            disp = torch.zeros(cfg.n_clusters)
+            disp = None
         else:
             l_idx = draw_next(xb, gen, cfg=cfg, n_landmarks=n_l)
             state, res, disp = _next_batch_step(xb, l_idx, state, cfg=cfg)
         # the cost tensor waits for the boundary's one read
         rec.series("inner/cost", res.cost, batch=i)
         rec.series("inner/iters", res.n_iter, batch=i)
-        history.append(BatchStats(
-            inner_iters=res.n_iter, cost=float(res.cost),
-            displacement=disp.cpu().numpy(), counts=res.counts.cpu().numpy()))
+        history.append(batch_stats(res, disp))
         if checkpoint_cb is not None:
             checkpoint_cb(state, i)
         if rec.enabled:
@@ -353,16 +387,17 @@ def _fit_embedded(batches, cfg: MiniBatchConfig, *, state, checkpoint_cb,
             raise ValueError(
                 "resuming an embedded fit requires the original fmap "
                 "(the sampled feature map is part of the model)")
-        try:
-            first = next(it)
-        except StopIteration:
-            raise ValueError("empty batch iterable") from None
-        first = to_device(first, resolve_device(device))
+        with span("obs:stage"):
+            try:
+                first = next(it)
+            except StopIteration:
+                raise ValueError("empty batch iterable") from None
+            first = to_device(first, resolve_device(device))
         m = cfg.embed_dim or approx.default_embed_dim(cfg.n_clusters)
-        fmap = approx.make_feature_map(cfg.method, map_generator(cfg.seed),
-                                       first, m, cfg.kernel,
-                                       orthogonal=cfg.rff_orthogonal,
-                                       selector=cfg.selector)
+        with span("obs:embed_phi"):
+            fmap = approx.make_feature_map(
+                cfg.method, map_generator(cfg.seed), first, m, cfg.kernel,
+                orthogonal=cfg.rff_orthogonal, selector=cfg.selector)
         it = itertools.chain([first], it)
     est, history = approx.fit_embedded(
         it, fmap, n_clusters=cfg.n_clusters, max_iters=cfg.max_inner_iters,
@@ -373,8 +408,11 @@ def _fit_embedded(batches, cfg: MiniBatchConfig, *, state, checkpoint_cb,
 
 def fit_dataset(x, cfg: MiniBatchConfig, *, device=None, **kw) -> FitResult:
     """Stride/block-split a resident dataset (dense [n, d] or a CSR batch)
-    into a ``BatchSource`` of B batches, then ``fit``."""
+    into a ``BatchSource`` of B batches, then ``fit``; the split lies in
+    the fit's ``obs:fit`` span."""
     dev = resolve_device(device)
-    return fit(BatchSource.from_dataset(x, cfg.n_batches,
-                                        strategy=cfg.sampling, device=dev),
-               cfg, device=dev, **kw)
+    with span("obs:fit"):
+        return _fit(BatchSource.from_dataset(x, cfg.n_batches,
+                                             strategy=cfg.sampling,
+                                             device=dev),
+                    cfg, device=dev, **kw)

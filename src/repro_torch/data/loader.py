@@ -52,7 +52,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.obs import resolve as resolve_recorder
-from repro_torch.obs.trace import annotate
+from repro_torch.obs.trace import span
 
 from .sparse import CSRBatch, as_csr, is_sparse
 
@@ -183,7 +183,7 @@ class PrefetchLoader:
                 if self._stop.is_set():
                     return
                 t0 = time.perf_counter()
-                with annotate("obs:stage"):
+                with span("obs:stage"):
                     staged = self._stage(batch)
                 if rec.enabled:
                     rec.series("prefetch/stage_seconds",

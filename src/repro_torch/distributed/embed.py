@@ -57,7 +57,7 @@ from repro_torch.data.sparse import (CSRBatch, as_csr, concat_csr, is_sparse,
 from repro_torch.kernels.precision import resolve_precision
 from repro_torch.obs import memory as obs_memory
 from repro_torch.obs import resolve as resolve_recorder
-from repro_torch.obs.trace import annotate, span
+from repro_torch.obs.trace import span
 
 from .mesh import (all_gather, all_reduce, axis_rank, axis_size,
                    ghost_row_ids, mesh_device, row_axes_of, tally)
@@ -194,7 +194,7 @@ class DistributedEmbedKMeans:
         in ``fit``."""
         if isinstance(xb, StagedBatch):
             return xb
-        with self.rec.timer("stage/seconds"), annotate("obs:stage"):
+        with self.rec.timer("stage/seconds"), span("obs:stage"):
             if is_sparse(xb):
                 return self._stage_csr(as_csr(xb).to("cpu"))
             return self._stage_dense(torch.as_tensor(xb, dtype=torch.float32)
@@ -245,7 +245,7 @@ class DistributedEmbedKMeans:
         """z = phi_m(rows) of this rank's block, CSR shards by the O(nnz)
         sketch, rounded once to the tile dtype."""
         prec = resolve_precision(self.cfg.precision)
-        with annotate("obs:embed_phi"):
+        with span("obs:embed_phi"):
             z = self.fmap(st.csr if st.sparse else st.x)
         return prec.cast_tiles(z.to(torch.float32))
 

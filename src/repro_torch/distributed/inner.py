@@ -44,7 +44,9 @@ assigned from; one sync stale where ``max_iters`` cuts the loop).
 
 The reference's ``lax.while_loop`` is a host loop here. It reads the
 changed count from the device once per sync (1/s of the Lloyd
-iterations), never more. The stats are the single-host loop's
+iterations), never more. Each pass of the loop is an ``obs:sweep`` span
+and its read an ``obs:host_read[changed]`` span; the prologue sync is
+not a sweep. The stats are the single-host loop's
 (``core/engine.py``: ``engine_stats_raw``, ``finalize_stats``,
 ``assign_from_stats``), so in ``fused`` mode on the card the shard's f and
 g are ``gram_matvec`` launches of the ``assign_fused`` kernel and the
@@ -225,27 +227,31 @@ def _inner_local(mesh, x_local: torch.Tensor, landmarks: torch.Tensor,
     t, cost, changed = 0, torch.tensor(float("inf"), device=dev), True
     with loop("distributed_inner"):
         while changed and t < cfg.max_iters:
-            iteration()
-            f, g, counts = finalize_stats(*totals)
-            u_new, mind = assign_from_stats(f, g, counts)
-            for _ in range(s - 1):
-                # a local refinement: scatter the fresh labels into the
-                # carried global estimate, stats = frozen remote + fresh
-                # local partials
-                u_full = u_full.clone()
-                u_full[row_off:row_off + rows] = u_new
-                est = tuple(a + b for a, b in zip(rem, local_stats(u_full)))
-                u_new, mind = assign_from_stats(*finalize_stats(*est))
-            changed_loc = torch.sum((u_new != u).to(torch.int32))
-            # ghost rows (weight 0) follow their source row but add no cost
-            cost_loc = torch.sum(wgt_local * (diag_local.to(torch.float32)
-                                              + mind))
-            u, u_full, totals, locs, cost, changed_t = sync(
-                u_new, cost_loc, changed_loc)
-            if s > 1:
-                rem = remote(totals, locs)
-            t += 1
-            changed = int(changed_t) > 0        # the one host read a sync
+            with span("obs:sweep"):
+                iteration()
+                f, g, counts = finalize_stats(*totals)
+                u_new, mind = assign_from_stats(f, g, counts)
+                for _ in range(s - 1):
+                    # a local refinement: scatter the fresh labels into the
+                    # carried global estimate, stats = frozen remote + fresh
+                    # local partials
+                    u_full = u_full.clone()
+                    u_full[row_off:row_off + rows] = u_new
+                    est = tuple(a + b for a, b in
+                                zip(rem, local_stats(u_full)))
+                    u_new, mind = assign_from_stats(*finalize_stats(*est))
+                changed_loc = torch.sum((u_new != u).to(torch.int32))
+                # ghost rows (weight 0) follow their source row but add no
+                # cost
+                cost_loc = torch.sum(
+                    wgt_local * (diag_local.to(torch.float32) + mind))
+                u, u_full, totals, locs, cost, changed_t = sync(
+                    u_new, cost_loc, changed_loc)
+                if s > 1:
+                    rem = remote(totals, locs)
+                t += 1
+                with span("obs:host_read[changed]"):
+                    changed = int(changed_t) > 0    # the one host read a sync
     f, g, counts = finalize_stats(*totals)
     return DistInnerResult(u_full, f, g, counts, t, cost)
 

@@ -56,10 +56,12 @@ from repro_torch.core.init import assign_to_medoids, kmeans_pp_indices
 from repro_torch.core.landmarks import (choose_landmarks, num_landmarks,
                                         select_landmark_indices)
 from repro_torch.core.minibatch import (BatchStats, FitResult, GlobalState,
-                                        MiniBatchConfig, batch_generator)
+                                        MiniBatchConfig, batch_generator,
+                                        batch_stats)
 from repro_torch.data.loader import closing_source
 from repro_torch.data.sparse import is_sparse
 from repro_torch.kernels.ops import BIG
+from repro_torch.obs import batch_spans, span
 from repro_torch.obs import memory as obs_memory
 from repro_torch.obs import resolve as resolve_recorder
 
@@ -157,12 +159,14 @@ class DistributedMiniBatchKMeans:
         ghost = (1.0 - wgt)[:, None] * BIG
         score7 = diag.to(torch.float32)[:, None] - 2.0 * res.f + ghost
         m_idx = _dist_argmin_rows(self.mesh, self.row_axes, score7)
-        batch_medoids = xb[m_idx.cpu()].to(dev)
+        with span("obs:host_read[merge_rows]"):
+            m_idx = m_idx.cpu()
+        batch_medoids = xb[m_idx].to(dev)
         if first:
             medoids = batch_medoids
             mdiag = spec.diag(batch_medoids)
             cards = res.counts
-            disp = torch.zeros(self.cfg.n_clusters)
+            disp = None
         else:
             alpha = res.counts / torch.clamp(
                 res.counts + state.cardinalities, min=1.0)
@@ -171,7 +175,9 @@ class DistributedMiniBatchKMeans:
                        - 2.0 * (1.0 - alpha)[None, :] * k_tilde
                        - 2.0 * alpha[None, :] * kxm) + ghost
             merge_idx = _dist_argmin_rows(self.mesh, self.row_axes, score12)
-            merged = xb[merge_idx.cpu()].to(dev)
+            with span("obs:host_read[merge_rows]"):
+                merge_idx = merge_idx.cpu()
+            merged = xb[merge_idx].to(dev)
             keep = res.counts == 0
             medoids = torch.where(keep[:, None], state.medoids, merged)
             mdiag = torch.where(keep, state.medoid_diag, spec.diag(merged))
@@ -191,8 +197,9 @@ class DistributedMiniBatchKMeans:
         """Run the outer loop over whole host mini-batches (numpy arrays or
         tensors; every rank the same) or a ``BatchSource`` (closed on
         exit). ``state`` resumes: the iterable then yields the remaining
-        batches. ``checkpoint_cb(state, i)`` runs after every merge."""
-        with closing_source(batches):
+        batches. ``checkpoint_cb(state, i)`` runs after every merge. The
+        fit runs in one ``obs:fit`` span."""
+        with span("obs:fit"), closing_source(batches):
             return self._fit(batches, state=state,
                              checkpoint_cb=checkpoint_cb)
 
@@ -211,29 +218,32 @@ class DistributedMiniBatchKMeans:
             monitor = StragglerMonitor(rec)
         history: list[BatchStats] = []
         start = state.batches_done if state is not None else 0
-        for i, xb in enumerate(batches, start=start):
+        for i, xb in batch_spans(batches, start):
             t_batch = time.perf_counter()
             if is_sparse(xb):
                 raise ValueError(
                     "method='exact' evaluates kernel blocks on dense rows "
                     "and cannot take CSRBatch mini-batches; use "
                     "DistributedEmbedKMeans with a sketch method")
-            xb = torch.as_tensor(xb, dtype=torch.float32).cpu()
+            with span("obs:stage"):
+                xb = torch.as_tensor(xb, dtype=torch.float32).cpu()
             n = len(xb)
             idx = ghost_row_ids(n, self.d_size)
             # batch i's draws depend on (seed, i) alone, so a resumed fit
             # replays the uninterrupted run's landmarks
             gen = batch_generator(cfg.seed, i)
-            l_idx, _ = self._choose_landmarks(gen, xb, len(idx))
-            if len(idx):
-                xb = torch.cat([xb, xb[torch.from_numpy(idx)]])
-            wgt_all = torch.ones(len(xb))
-            wgt_all[n:] = 0.0
-            blk = split_rows(self.mesh, self.row_axes, len(xb))
-            x = xb[blk].to(dev)
-            wgt = wgt_all[blk].to(dev)
+            with span("obs:landmarks"):
+                l_idx, _ = self._choose_landmarks(gen, xb, len(idx))
+            with span("obs:stage"):
+                if len(idx):
+                    xb = torch.cat([xb, xb[torch.from_numpy(idx)]])
+                wgt_all = torch.ones(len(xb))
+                wgt_all[n:] = 0.0
+                blk = split_rows(self.mesh, self.row_axes, len(xb))
+                x = xb[blk].to(dev)
+                wgt = wgt_all[blk].to(dev)
+                landmarks = xb[l_idx].to(dev)             # [L, d] replicated
             diag = spec.diag(x)
-            landmarks = xb[l_idx].to(dev)                 # [L, d] replicated
 
             first = state is None
             if first:
@@ -255,12 +265,10 @@ class DistributedMiniBatchKMeans:
             with tally() as bill:
                 res = _inner_local(self.mesh, x, landmarks, l_idx.to(dev),
                                    diag, u0, wgt, cfg=self.inner_cfg)
-            state, disp = self._medoid_merge(xb, x, diag, res, k_tilde,
-                                             state_in, first, wgt)
-            history.append(BatchStats(
-                inner_iters=res.n_iter, cost=float(res.cost),
-                displacement=disp.cpu().numpy(),
-                counts=res.counts.cpu().numpy()))
+            with span("obs:merge"):
+                state, disp = self._medoid_merge(xb, x, diag, res, k_tilde,
+                                                 state_in, first, wgt)
+            history.append(batch_stats(res, disp))
             if checkpoint_cb is not None:
                 checkpoint_cb(state, i)
             if rec.enabled:

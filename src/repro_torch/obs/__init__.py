@@ -21,9 +21,10 @@ this package records where the runtime spends time and bytes.
 from . import export, memory
 from .recorder import (NULL, JsonlRecorder, MetricsRecorder, NullRecorder,
                        resolve)
-from .trace import annotate, span, start_profile, stop_profile
+from .trace import batch_spans, span, start_profile, stop_profile
 
 __all__ = [
     "JsonlRecorder", "MetricsRecorder", "NullRecorder", "NULL", "resolve",
-    "annotate", "span", "start_profile", "stop_profile", "export", "memory",
+    "batch_spans", "span", "start_profile", "stop_profile", "export",
+    "memory",
 ]

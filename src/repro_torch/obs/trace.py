@@ -1,20 +1,44 @@
-"""Profiler spans over the named hot paths and on-demand traces, the port of
-``repro/obs/trace.py``.
+"""Profiler spans over the program's layers and on-demand traces, the
+port of ``repro/obs/trace.py``.
 
-  ``span(name)``      -> ``torch.profiler.record_function`` while a
-                         profiler runs: names the host region and the
-                         kernels launched inside it in the trace (the Gram
-                         panel build, the engine stats, the mesh's
-                         collectives). With no profiler running it is a
-                         shared null context: a ``record_function`` costs
-                         about 9 us of host time a call even then
-                         (``chip_smoke.py`` phase 4e, H100 host), where the
-                         reference's ``jax.named_scope`` cost nothing at
-                         run time; the check costs a fraction of a
-                         microsecond.
-  ``annotate(name)``  -> the same, for host activity (loader staging, the
-                         embedding of a mesh shard). Keyword arguments are
-                         accepted and ignored.
+  ``span(name)``  -> ``torch.profiler.record_function`` while a profiler
+                     runs: names the host region and the kernels launched
+                     inside it in the trace. With no profiler running it is
+                     a shared null context: a ``record_function`` costs
+                     about 9 us of host time a call even then
+                     (``chip_smoke.py`` phase 4e, H100 host), where the
+                     reference's ``jax.named_scope`` cost nothing at run
+                     time; the check costs a fraction of a microsecond. A
+                     span adds no launch, no host read and no allocation,
+                     so a fit traced or not gives the same result.
+  ``batch_spans`` -> the outer loops' batches, each in its ``obs:batch``.
+
+The spans of a fit, each inside its parent on the calling thread:
+
+  ``obs:fit``                  one fit (``core.minibatch.fit`` /
+                               ``fit_dataset``, ``distributed.outer``)
+    ``obs:batch``              one pass of the outer loop
+      ``obs:stage``            fetching the batch and putting it on the
+                               device
+      ``obs:embed_phi``        an embedded fit's map of the batch (the
+                               map's draw: under ``obs:fit``)
+      ``obs:landmarks``        the landmark draw
+      ``obs:kmeanspp``         the k-means++ seeds (first batch)
+      ``obs:eq8``              the initial labels (Eq.8, or the embedded
+                               warm start)
+      ``obs:gram_panel_build`` a materialized Gram block
+      ``obs:sweep``            one inner-loop iteration
+        ``obs:engine_stats[<mode>]``, ``obs:allgather_u``,
+        ``obs:psum_fused``     its stats and the mesh's collectives
+      ``obs:merge``            the Eq.7 medoids and the Eq.12 merge (the
+                               embedded centroid merge)
+  ``obs:predict``              ``FitResult.predict``
+
+and ``obs:host_read[<site>]`` around each read of a device value by the
+host, one read a span, named by its site: ``changed`` (a sweep's flag),
+``batch_stats`` (a batch's ``BatchStats``), ``merge_rows`` (the mesh's
+medoid row indices), ``kmeanspp`` (a seeding step's pick). Their count in a
+window is the count of host reads.
 
 ``start_profile(logdir)`` / ``stop_profile()`` run a
 ``torch.profiler.profile`` over CPU activity and, where a card is visible,
@@ -25,7 +49,9 @@ The launchers expose this as ``--profile DIR``.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+from typing import Iterable, Iterator
 
 import torch
 
@@ -33,15 +59,35 @@ _OFF = contextlib.nullcontext()
 
 
 def span(name: str):
-    """Named region for device work (see the module docstring)."""
+    """A named region of the program (see the module docstring)."""
     if not torch._C._autograd._profiler_enabled():
         return _OFF
     return torch.profiler.record_function(name)
 
 
-def annotate(name: str, **kwargs):
-    """Named region for host activity; ``kwargs`` are ignored."""
-    return span(name)
+_END = object()
+
+
+def batch_spans(batches: Iterable, start: int = 0) -> Iterator:
+    """``(i, batch)`` for each batch of ``batches``, numbered from
+    ``start``, with its ``obs:batch`` span open while the caller works on
+    it. Batch i + 1 is fetched, under ``obs:stage``, at the end of batch
+    i's span (batch 0 at the start of its own), so every fetch lies in a
+    batch and the span count is the batch count; the order of the work is
+    a plain ``for`` loop's."""
+    it = iter(batches)
+    for i in itertools.count(start):
+        with span("obs:batch"):
+            if i == start:
+                with span("obs:stage"):
+                    xb = next(it, _END)
+                if xb is _END:
+                    return
+            yield i, xb
+            with span("obs:stage"):
+                xb = next(it, _END)
+        if xb is _END:
+            return
 
 
 _active: tuple | None = None        # (logdir, profiler) of the capture

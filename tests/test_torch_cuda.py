@@ -1456,27 +1456,52 @@ def test_graphs_and_replays_unchanged_with_the_recorder(cuda, tmp_path):
 
 
 def test_profiler_trace_names_spans_and_kernels(cuda, tmp_path):
-    """torch.profiler over the card: the trace holds the obs spans and the
-    hand kernels launched inside them."""
+    """torch.profiler over the card: the trace holds the obs spans, the
+    hand kernels launched inside them, and every copy from the card to the
+    host that the fits' thread launched lies in an ``obs:host_read``
+    span, one copy a span."""
     import json
     from repro_torch.obs import start_profile, stop_profile
     start_profile(str(tmp_path))
     try:
         _obs_fit("exact", cuda)
+        _obs_fit("rff", cuda).predict(np.zeros((100, 32), np.float32))
         from repro_torch.data.synthetic import make_blobs
         x, _ = make_blobs(1000, 32, 5, seed=1)
         fit_dataset(x, MiniBatchConfig(
-            n_clusters=5, n_batches=1, s=0.5, seed=0, engine="materialize",
-            kernel=KernelSpec("rbf", gamma=1 / 32)), device=cuda)
+            n_clusters=5, n_batches=2, s=0.5, seed=0, engine="materialize",
+            kernel=KernelSpec("rbf", gamma=1 / 32)), device=cuda).predict(x)
         torch.cuda.synchronize()
     finally:
         stop_profile()
     with open(tmp_path / "trace.json") as f:
-        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    names = {e.get("name", "") for e in events}
     assert "obs:gram_panel_build" in names
     assert "obs:engine_stats[materialize]" in names
+    assert {"obs:fit", "obs:batch", "obs:stage", "obs:landmarks",
+            "obs:kmeanspp", "obs:eq8", "obs:sweep", "obs:merge",
+            "obs:embed_phi", "obs:predict", "obs:host_read[changed]",
+            "obs:host_read[batch_stats]",
+            "obs:host_read[kmeanspp]"} <= names
+    assert "obs:gram_tiled_panel" not in names
     assert any("assign_f32_kernel" in n for n in names)
     assert any("kernel_matrix_col_kernel" in n for n in names)
+    tid = next(e["tid"] for e in events if e["name"] == "obs:fit")
+    reads = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events if e["tid"] == tid
+                   and e["name"].startswith("obs:host_read["))
+    launch = {e["args"]["correlation"]: float(e["ts"]) for e in events
+              if e.get("cat") == "cuda_runtime" and e["tid"] == tid
+              and "correlation" in (e.get("args") or {})}
+    dtoh = [launch[e["args"]["correlation"]] for e in events
+            if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]
+            and e["args"].get("correlation") in launch]
+    assert dtoh
+    held = [next((k for k, (a, b) in enumerate(reads) if a <= t <= b), None)
+            for t in dtoh]
+    assert None not in held and len(set(held)) == len(held)
 
 
 # ---------------------------------------------------------------------------

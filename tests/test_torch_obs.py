@@ -269,13 +269,13 @@ def test_run_header_names_the_device():
 
 
 def test_profile_is_idempotent_and_names_spans(tmp_path):
-    from repro_torch.obs import annotate, span, start_profile, stop_profile
+    from repro_torch.obs import span, start_profile, stop_profile
     assert stop_profile() is None
     start_profile(str(tmp_path / "p"))
     start_profile(str(tmp_path / "q"))          # keeps the first window
     with span("obs:unit_span"):
         torch.ones(4).sum()
-    with annotate("obs:unit_host", detail=1):
+    with span("obs:unit_host"):                 # host work alone
         pass
     assert stop_profile() == str(tmp_path / "p")
     with open(tmp_path / "p" / "trace.json") as f:
