@@ -12,11 +12,11 @@ label one-hot H and an argmin:
 ================  ==========================  ===========================
 mode              residency                   per-iteration cost
 ================  ==========================  ===========================
-``materialize``   K blocks in device memory,  one product with K;
+``materialize``   K_xl in device memory,      one product with K_xl;
                   built once per batch        peak memory O(rows*|L|)
-``fused``         K tiles in shared memory    Gram rebuilt every
+``fused``         K tiles in shared memory    K_xl and K_ll rebuilt every
                   only (``assign_fused``)     iteration; peak O(rows*C)
-``tiled``         one [tile_rows, |L|] panel  Gram rebuilt every
+``tiled``         one [tile_rows, |L|] panel  K_xl rebuilt every
                   at a time                   iteration; peak
                                               O(tile_rows*|L| + rows*C)
 ================  ==========================  ===========================
@@ -31,6 +31,18 @@ stats. Dispatch between kernel and plain version is by the tensors' device
 (``kernels/ops.py``); the reference's ``pallas``/``interpret`` switches have
 no counterpart. Kinds without an in-tile epilogue (laplacian) recompute the
 block with ``KernelSpec`` and contract it, in fused as in tiled mode.
+
+The landmarks are rows of the batch, so K_ll is rows ``l_idx`` of K_xl and
+K_ll @ H is rows ``l_idx`` of f_raw = K_xl @ H. Where the caller holds
+those rows, it passes ``op_ll`` as a ``GramRows`` view of ``op_xl``, and
+``engine_stats_raw`` takes g from the f_raw it has just computed (an
+``obs:g_from_rows`` span): no landmark block is built, copied or
+contracted. The single-host fit does so wherever fused mode's one-pass
+kernel does not run, and the 1-D mesh always. Two callers keep a block:
+that one-pass sweep (``engine_step``) needs g before its kernel computes
+f, so it contracts ``gram_matvec`` over the landmarks; and the 2-D mesh
+keeps its replicated K_ll [|L|, |L|/M], whose landmark rows of f lie on
+other row ranks.
 
 Every mode runs the same stats code and the same argmin, lowest cluster
 index on ties, but the modes sum in different orders (fused contracts
@@ -64,6 +76,21 @@ class GramOp(NamedTuple):
     x: Optional[torch.Tensor]
     y: Optional[torch.Tensor]
     k: Optional[torch.Tensor]
+
+
+class GramRows(NamedTuple):
+    """The landmark side as rows of another operator: row i is row
+    ``pos[i]`` of ``of``. ``mask`` (0/1 f32 [|L|], or None for all) zeroes
+    the rows this process does not own, so that a sum over processes counts
+    each landmark once (the 1-D mesh)."""
+    of: GramOp
+    pos: torch.Tensor
+    mask: Optional[torch.Tensor] = None
+
+    def take(self, prod: torch.Tensor) -> torch.Tensor:
+        """These rows of ``of``'s product ``prod`` [rows, C]."""
+        t = prod[self.pos]
+        return t if self.mask is None else t * self.mask[:, None]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,8 +152,11 @@ class GramEngine:
     def _has_kernel(spec) -> bool:
         return spec is not None and spec.name in KERNEL_KINDS
 
-    def matvec(self, spec, op: GramOp, h: torch.Tensor) -> torch.Tensor:
-        """(K @ h) -> [rows, C] f32 under this mode's residency."""
+    def matvec(self, spec, op, h: torch.Tensor) -> torch.Tensor:
+        """(K @ h) -> [rows, C] f32 under this mode's residency; a
+        ``GramRows`` view takes its rows of its operator's product."""
+        if isinstance(op, GramRows):
+            return op.take(self.matvec(spec, op.of, h))
         h = h.to(torch.float32)
         if op.k is not None:
             return op.k.to(torch.float32) @ h
@@ -163,17 +193,23 @@ def _one_hot(labels: torch.Tensor, n_clusters: int) -> torch.Tensor:
     return F.one_hot(labels.long(), n_clusters).to(torch.float32)
 
 
-def engine_stats_raw(engine: GramEngine, spec, op_xl: GramOp, op_ll: GramOp,
+def engine_stats_raw(engine: GramEngine, spec, op_xl: GramOp, op_ll,
                      labels_l_cols: torch.Tensor, labels_l_rows: torch.Tensor,
                      n_clusters: int):
     """Raw (un-normalized) partials: (counts [C], f_raw = K_xl @ H [rows, C],
-    g_raw = diag(H^T K_ll H) [C])."""
+    g_raw = diag(H^T K_ll H) [C]). K_ll @ H is ``op_ll``'s rows of f_raw
+    where ``op_ll`` is a ``GramRows`` view of ``op_xl``, else a contraction
+    of the block ``op_ll``."""
     with span(f"obs:engine_stats[{engine.mode}]"):
         h_cols = _one_hot(labels_l_cols, n_clusters)
         counts = torch.sum(h_cols, dim=0)
         f_raw = engine.matvec(spec, op_xl, h_cols)
         h_rows = _one_hot(labels_l_rows, n_clusters)
-        t = engine.matvec(spec, op_ll, h_cols)
+        if isinstance(op_ll, GramRows) and op_ll.of is op_xl:
+            with span("obs:g_from_rows"):
+                t = op_ll.take(f_raw)
+        else:
+            t = engine.matvec(spec, op_ll, h_cols)
         g_raw = torch.sum(h_rows * t, dim=0)
         return counts, f_raw, g_raw
 

@@ -13,6 +13,12 @@ The loop runs in ``analysis.dispatch.loop()`` and ticks
 iterations from the stats pass after it (a no-op outside an audit). Each
 iteration is an ``obs:sweep`` span and its flag read an
 ``obs:host_read[changed]`` span (``obs/trace.py``).
+
+The landmarks are rows ``l_idx`` of the batch, so the landmark side of
+every fit here is a ``GramRows`` view of the batch block and g comes from
+f's landmark rows (``core/engine.py``): one Gram block a batch, one
+product a sweep. Only fused mode's one-pass kernel, which needs g before
+it computes f, contracts the landmarks' own block.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import torch
 from repro_torch.analysis.dispatch import iteration, loop
 from repro_torch.obs.trace import span
 
-from .engine import BIG, GramEngine, engine_step, resolve_engine
+from .engine import BIG, GramEngine, GramRows, engine_step, resolve_engine
 
 
 class InnerState(NamedTuple):
@@ -82,11 +88,12 @@ def kkmeans_fit(x: torch.Tensor, l_idx: torch.Tensor, diag_k: torch.Tensor,
     engine = resolve_engine(engine)
     landmarks = x[l_idx]
     op_xl = engine.prepare(spec, x, landmarks)
-    if op_xl.k is not None:
-        # materialize: the landmark block is a row gather of the batch block
-        op_ll = GramEngine.from_matrix(op_xl.k[l_idx])
-    else:
+    if engine.wants_fused_assign(spec, op_xl):
+        # the one-pass kernel needs g before f: contract the landmarks
         op_ll = engine.prepare(spec, landmarks, landmarks)
+    else:
+        # the landmark block is rows l_idx of the batch block
+        op_ll = GramRows(op_xl, l_idx)
     return _run_inner(engine, spec, op_xl, op_ll, l_idx, diag_k, labels0,
                       n_clusters=n_clusters, max_iters=max_iters)
 
@@ -96,10 +103,9 @@ def kkmeans_fit_gram(k_xl: torch.Tensor, l_idx: torch.Tensor,
                      n_clusters: int, max_iters: int = 100) -> InnerResult:
     """The inner loop on a caller-precomputed [n, L] block."""
     op_xl = GramEngine.from_matrix(k_xl)
-    op_ll = GramEngine.from_matrix(k_xl[l_idx])
-    return _run_inner(GramEngine("materialize"), None, op_xl, op_ll, l_idx,
-                      diag_k, labels0, n_clusters=n_clusters,
-                      max_iters=max_iters)
+    return _run_inner(GramEngine("materialize"), None, op_xl,
+                      GramRows(op_xl, l_idx), l_idx, diag_k, labels0,
+                      n_clusters=n_clusters, max_iters=max_iters)
 
 
 def kkmeans_fit_full(k: torch.Tensor, diag_k: torch.Tensor,

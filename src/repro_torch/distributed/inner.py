@@ -13,11 +13,16 @@ exactly ONE all_gather + ONE all_reduce per global sync:
                 f are local totals once U is gathered)
 
 The kernel block never crosses the network: it is built and consumed on
-the rank, so a sync moves Q*(N/(B*P) + 2C) bytes.
+the rank, so a sync moves Q*(N/(B*P) + 2C) bytes. It is the rank's ONE
+block a batch: the landmarks are rows of the batch, so the rank takes
+K_ll @ H for the landmarks in its own row block from the rows of its
+f_raw = K_xl @ H (a ``GramRows`` view, masked to the landmarks it holds;
+``core/engine.py``), and the all_reduce of g adds each landmark once.
 
 2-D (a ``model`` axis): the landmark columns are split over ``model`` as
-well; the landmark-row block K_ll is replicated over the row axes ([|L|,
-|L|/M] on a rank), which makes g local over the rows after the label
+well; the landmark-row block K_ll is built beside K_xl and replicated over
+the row axes ([|L|, |L|/M] on a rank: the landmark rows of f lie on other
+row ranks), which makes g local over the rows after the label
 gather, so counts / f / g share ONE flat [rows_p + 2, C] all_reduce over
 the model axis, and the cost and changed scalars ride the label all_gather
 bit-packed into its int32 buffer (``Tensor.view``). Still exactly 1
@@ -71,9 +76,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.analysis.dispatch import iteration, loop
-from repro_torch.core.engine import (ReducePlan, assign_from_stats,
-                                     engine_stats_raw, finalize_stats,
-                                     resolve_engine)
+from repro_torch.core.engine import (GramRows, ReducePlan,
+                                     assign_from_stats, engine_stats_raw,
+                                     finalize_stats, resolve_engine)
 from repro_torch.core.kernels import KernelSpec
 from repro_torch.obs.trace import span
 
@@ -151,24 +156,25 @@ def _inner_local(mesh, x_local: torch.Tensor, landmarks: torch.Tensor,
     row_off = r * rows
     l_idx = l_idx.to(x_local.device).long()
 
-    # the per-batch Gram operators: 1-D keeps this rank's row slice of the
-    # landmarks for K_ll (the paper's layout), 2-D all of them over its
-    # column slice
+    # the per-batch Gram operators (module docstring): 2-D builds K_xl over
+    # this rank's column slice and K_ll beside it; 1-D builds K_xl alone
+    # and masks its landmark rows to those in this rank's row block
     if two_d:
         mr = axis_rank(mesh, col_axis)
         cols = slice(mr * n_l // m_size, (mr + 1) * n_l // m_size)
-        lm_cols, idx_cols = landmarks[cols], l_idx[cols]
-        lm_rows, idx_rows = landmarks, l_idx
+        idx_cols = l_idx[cols]
+        op_xl = engine.prepare(spec, x_local, landmarks[cols])  # rows_p x L/M
+        op_ll = engine.prepare(spec, landmarks, landmarks[cols])  # L x L/M
     else:
-        lm_cols, idx_cols = landmarks, l_idx
-        part = slice(r * n_l // d_size, (r + 1) * n_l // d_size)
-        lm_rows, idx_rows = landmarks[part], l_idx[part]
-    op_xl = engine.prepare(spec, x_local, lm_cols)      # rows_p x L/M
-    op_ll = engine.prepare(spec, lm_rows, lm_cols)      # (L/D | L) x L/M
+        idx_cols = l_idx
+        op_xl = engine.prepare(spec, x_local, landmarks)        # rows_p x L
+        local = l_idx - row_off
+        op_ll = GramRows(op_xl, local.clamp(0, rows - 1),
+                         ((local >= 0) & (local < rows)).to(torch.float32))
 
     def local_stats(u_full):
         return engine_stats_raw(engine, spec, op_xl, op_ll, u_full[idx_cols],
-                                u_full[idx_rows], c)
+                                u_full[l_idx], c)
 
     if two_d:
         def _fused_reduce(counts_p, f_p, g_p):

@@ -30,6 +30,8 @@ The spans of a fit, each inside its parent on the calling thread:
       ``obs:sweep``            one inner-loop iteration
         ``obs:engine_stats[<mode>]``, ``obs:allgather_u``,
         ``obs:psum_fused``     its stats and the mesh's collectives
+          ``obs:g_from_rows``  g's K_ll @ H taken from f's landmark
+                               rows (``core/engine.py``)
       ``obs:merge``            the Eq.7 medoids and the Eq.12 merge (the
                                embedded centroid merge)
   ``obs:predict``              ``FitResult.predict``

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core import GramEngine as JEngine
 from repro.core import KernelSpec as JSpec
@@ -23,7 +24,8 @@ from repro.core.kkmeans import medoid_indices as j_medoid_indices
 from repro_torch.core import GramEngine, KernelSpec, gamma_from_dmax
 from repro_torch.core import engine as engine_mod
 from repro_torch.core import kkmeans_fit, kkmeans_fit_full, kkmeans_fit_gram
-from repro_torch.core.engine import assign_from_stats, resolve_engine
+from repro_torch.core.engine import (GramRows, assign_from_stats,
+                                     resolve_engine)
 from repro_torch.core.kkmeans import medoid_indices
 from repro_torch.kernels import ops
 
@@ -183,6 +185,122 @@ def test_tiled_never_builds_the_full_block(monkeypatch):
                       torch.from_numpy(u0), spec=spec, n_clusters=c,
                       engine=GramEngine("tiled", tile_rows=tile))
     assert res.n_iter > 1
+
+
+# ---------------------------------------------------------------------------
+# the landmark side as rows of the batch block (GramRows)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s", [1.0, 0.4])
+@pytest.mark.parametrize("mode", ["materialize", "tiled"])
+def test_g_from_rows_equals_the_contracted_block(mode, s):
+    """g taken from f's landmark rows equals g contracted from a K_ll block
+    to f32 rounding, at s = 1 and at sorted random landmarks; f and the
+    counts are the same computation."""
+    x, l_idx, u0, c = _problem(s=s, seed=4)
+    spec = KernelSpec("rbf", gamma=0.3)
+    eng = GramEngine(mode, tile_rows=64)
+    xt, lt, ut = (torch.from_numpy(x), torch.from_numpy(l_idx).long(),
+                  torch.from_numpy(u0))
+    op_xl = eng.prepare(spec, xt, xt[lt])
+    block = eng.prepare(spec, xt[lt], xt[lt])
+    got = engine_mod.engine_stats_raw(eng, spec, op_xl, GramRows(op_xl, lt),
+                                      ut[lt], ut[lt], c)
+    want = engine_mod.engine_stats_raw(eng, spec, op_xl, block, ut[lt],
+                                       ut[lt], c)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    np.testing.assert_allclose(got[2].numpy(), want[2].numpy(), rtol=1e-5)
+
+
+def test_kkmeans_fits_at_s1_match_jax():
+    """Every row a landmark: the row views of kkmeans_fit (materialize,
+    tiled) and kkmeans_fit_gram / kkmeans_fit_full keep the reference's
+    labels and iteration counts."""
+    x, l_idx, u0, c = _problem(n=150, s=1.0, seed=5)
+    assert np.array_equal(l_idx, np.arange(150))
+    for mode in ("materialize", "tiled"):
+        got, want = _fit_both(x, l_idx, u0, c, "rbf", mode, "f32")
+        _assert_same(got, want)
+    spec = JSpec("rbf", gamma=0.3)
+    xj = jnp.asarray(x)
+    k = np.array(spec(xj, xj))
+    diag = np.ones(len(x), np.float32)
+    got = kkmeans_fit_gram(torch.from_numpy(k), torch.from_numpy(l_idx).long(),
+                           torch.from_numpy(diag), torch.from_numpy(u0),
+                           n_clusters=c)
+    want = j_kkmeans_fit_full(jnp.asarray(k), jnp.asarray(diag),
+                              jnp.asarray(u0), n_clusters=c)
+    _assert_same(got, want)
+    _assert_same(kkmeans_fit_full(torch.from_numpy(k), torch.from_numpy(diag),
+                                  torch.from_numpy(u0), n_clusters=c), want)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+def test_matvec_on_a_row_view_is_the_gathered_product(mode, masked):
+    """``GramEngine.matvec`` on a GramRows view is its rows of the
+    operator's product (masked rows 0), so a caller that contracts the
+    landmark side itself still gets K_ll @ H."""
+    x, l_idx, u0, c = _problem(s=0.4, seed=6)
+    spec = KernelSpec("rbf", gamma=0.3)
+    eng = GramEngine(mode, tile_rows=64)
+    xt, lt = torch.from_numpy(x), torch.from_numpy(l_idx).long()
+    h = torch.nn.functional.one_hot(torch.from_numpy(u0[l_idx]).long(),
+                                    c).float()
+    op_xl = eng.prepare(spec, xt, xt[lt])
+    mask = (lt % 3 != 0).float() if masked else None
+    got = eng.matvec(spec, GramRows(op_xl, lt, mask), h)
+    want = eng.matvec(spec, op_xl, h)[lt]
+    if masked:
+        want = want * mask[:, None]
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(
+        got.numpy(), (spec(xt[lt], xt[lt]) @ h
+                      * (1.0 if mask is None else mask[:, None])).numpy(),
+        rtol=1e-5, atol=1e-5)
+
+
+class _Shapes(TorchDispatchMode):
+    """The shapes of every tensor an op returns while it is open."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in torch.utils._pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self.seen.add(tuple(t.shape))
+        return out
+
+
+@pytest.mark.parametrize("fit", ["materialize", "tiled", "gram"])
+def test_no_landmark_block_is_built_or_copied(fit):
+    """No [|L|, |L|] tensor comes into being in a fit whose landmark side
+    is a row view: the materialized fit indexes no landmark block out of
+    its batch block, the tiled fit rebuilds none a sweep; and one
+    ``obs:g_from_rows`` span runs in every stats pass."""
+    x, l_idx, u0, c = _problem(n=200, s=0.4)
+    n_l = len(l_idx)
+    spec = KernelSpec("rbf", gamma=0.3)
+    xt, lt, ut = (torch.from_numpy(x), torch.from_numpy(l_idx).long(),
+                  torch.from_numpy(u0))
+    k_xl = spec(xt, xt[lt])
+    shapes = _Shapes()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]) as prof, shapes:
+        if fit == "gram":
+            res = kkmeans_fit_gram(k_xl, lt, spec.diag(xt), ut, n_clusters=c)
+        else:
+            res = kkmeans_fit(xt, lt, spec.diag(xt), ut, spec=spec,
+                              n_clusters=c, engine=GramEngine(fit, tile_rows=64))
+    assert (200, c) in shapes.seen and (n_l, n_l) not in shapes.seen
+    names = [e.name for e in prof.events()]
+    mode = "tiled" if fit == "tiled" else "materialize"
+    assert (names.count("obs:g_from_rows")
+            == names.count(f"obs:engine_stats[{mode}]") == res.n_iter + 1)
 
 
 @pytest.mark.parametrize("mode", MODES)

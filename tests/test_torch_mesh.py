@@ -864,6 +864,174 @@ def test_streaming_sharded_csr_end_to_end(mesh_runs, config):
         assert r["batches"] == 4 and r["cards"] == 512.0
 
 
+# ---------------------------------------------------------------------------
+# the inner loop on a world of threads: where K_ll @ H comes from
+# ---------------------------------------------------------------------------
+
+
+class _ThreadWorld:
+    """A fake mesh whose ranks are threads of this process: stands in for
+    ``distributed/inner.py``'s ``axis_rank``, ``axis_size``,
+    ``all_gather`` and ``all_reduce`` (sums in rank order)."""
+
+    def __init__(self, shape: dict):
+        import threading
+        self.shape, self.names = shape, tuple(shape)
+        self.local = threading.local()
+        self.lock = threading.Lock()
+        self.groups = {}
+
+    def _axes(self, axes):
+        return (axes,) if isinstance(axes, str) else tuple(axes)
+
+    def size(self, mesh, axes):
+        return math.prod(self.shape[a] for a in self._axes(axes))
+
+    def rank(self, mesh, axes):
+        r = 0
+        for a in self._axes(axes):
+            r = r * self.shape[a] + self.local.coords[a]
+        return r
+
+    def _exchange(self, t, axes):
+        import threading
+        axes = self._axes(axes)
+        key = (axes, tuple(self.local.coords[a] for a in self.names
+                           if a not in axes))
+        n = self.size(None, axes)
+        with self.lock:
+            bar, slots = self.groups.setdefault(
+                key, (threading.Barrier(n, timeout=60), [None] * n))
+        slots[self.rank(None, axes)] = t
+        bar.wait()
+        got = list(slots)
+        bar.wait()
+        return got
+
+    def all_gather(self, t, mesh, axes):
+        return torch.cat(self._exchange(t, axes))
+
+    def all_reduce(self, t, mesh, axes):
+        parts = self._exchange(t, axes)
+        out = parts[0].clone()
+        for p in parts[1:]:
+            out = out + p
+        return out
+
+    def run(self, fn):
+        """``fn()`` on every rank, each in a thread -> results in rank
+        order."""
+        import itertools
+        import threading
+        coords = [dict(zip(self.names, c)) for c in itertools.product(
+            *(range(v) for v in self.shape.values()))]
+        out, errors = [None] * len(coords), []
+
+        def body(i):
+            self.local.coords = coords[i]
+            try:
+                out[i] = fn()
+            except Exception:
+                errors.append(traceback.format_exc())
+        threads = [threading.Thread(target=body, args=(i,))
+                   for i in range(len(coords))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=DEADLINE)
+        assert not any(t.is_alive() for t in threads), "a rank hung"
+        assert not errors, errors[0]
+        return out
+
+
+#: world -> (mesh shape, the inner loop's layout)
+THREAD_WORLDS = {"1d-2": ({"data": 2}, "1d"), "1d-3": ({"data": 3}, "1d"),
+                 "2d-2x2": ({"data": 2, "model": 2}, "2d")}
+
+
+@pytest.mark.parametrize("landmarks", ["all", "some"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("world", list(THREAD_WORLDS))
+def test_inner_loop_on_thread_worlds(monkeypatch, world, mode, landmarks):
+    """On 1-D worlds of 2 and 3 ranks a rank builds ONE Gram block a batch
+    and takes K_ll @ H from its own landmark rows of K_xl @ H; on the 2-D
+    layout it still builds its K_ll block beside it. The batch is padded
+    with ghost rows to the mesh, the landmarks are every padded row or a
+    sorted random subset that straddles the row blocks. With the loop cut
+    to its prologue, the synced g is the single host's g contracted from a
+    K_ll block (f32 rounding); run to its fixpoint, the labels are the
+    single-host inner loop's on the padded batch."""
+    import repro_torch.distributed.inner as dinner
+    from repro_torch.core import KernelSpec
+    from repro_torch.core.engine import (GramEngine, engine_stats,
+                                         resolve_engine)
+    from repro_torch.core.kkmeans import kkmeans_fit
+    from repro_torch.distributed import ghost_row_ids
+    shape, layout = THREAD_WORLDS[world]
+    fake = _ThreadWorld(shape)
+    for name in ("rank", "size"):
+        monkeypatch.setattr(dinner, f"axis_{name}", getattr(fake, name))
+    for name in ("all_gather", "all_reduce"):
+        monkeypatch.setattr(dinner, name, getattr(fake, name))
+    builds = []
+    real_prepare = GramEngine.prepare
+
+    def prepare(self, spec, x, y):
+        if hasattr(fake.local, "coords"):       # on a rank
+            builds.append((fake.rank(None, fake.names), x.shape[0]))
+        return real_prepare(self, spec, x, y)
+    monkeypatch.setattr(GramEngine, "prepare", prepare)
+
+    rng = np.random.default_rng(2)
+    n, c, d_size = 205, 4, shape["data"]
+    x = rng.normal(size=(n, 6)).astype(np.float32)
+    pad = np.concatenate([np.arange(n), ghost_row_ids(n, d_size)])
+    n_pad = len(pad)
+    l_idx = (np.arange(n_pad) if landmarks == "all" else
+             np.sort(rng.choice(n, 60, replace=False)))
+    x, u0 = torch.from_numpy(x[pad]), torch.from_numpy(
+        rng.integers(0, c, n).astype(np.int32)[pad])
+    wgt = torch.ones(n_pad)
+    wgt[n:] = 0.0
+    l_idx = torch.from_numpy(l_idx).long()
+    spec = KernelSpec("rbf", gamma=0.2)
+    diag = spec.diag(x)
+    rows = n_pad // d_size
+
+    def fit(max_iters):
+        cfg = _inner_cfg(layout, n_clusters=c, kernel=spec, engine=mode,
+                         max_iters=max_iters)
+
+        def rank():
+            blk = slice(fake.rank(None, "data") * rows,
+                        (fake.rank(None, "data") + 1) * rows)
+            return dinner._inner_local(None, x[blk], x[l_idx], l_idx,
+                                       diag[blk], u0[blk], wgt[blk],
+                                       cfg=cfg)
+        return fake.run(rank)
+
+    first = fit(0)
+    eng = resolve_engine(mode)
+    op_xl = real_prepare(eng, spec, x, x[l_idx])
+    block = real_prepare(eng, spec, x[l_idx], x[l_idx])
+    _, g, counts = engine_stats(eng, spec, op_xl, block, u0[l_idx],
+                                u0[l_idx], c)
+    for r in first:
+        assert torch.equal(r.counts, counts)
+        np.testing.assert_allclose(r.g.numpy(), g.numpy(), rtol=1e-5)
+    # one batch: K_xl on every rank, and K_ll [|L|, |L|/M] on 2-D only
+    want = [(r, rows) for r in range(len(first))]
+    if layout == "2d":
+        want += [(r, len(l_idx)) for r in range(len(first))]
+    assert sorted(builds) == sorted(want)
+
+    host = kkmeans_fit(x, l_idx, diag, u0, spec=spec, n_clusters=c,
+                       engine=mode)
+    for r in fit(100):
+        assert torch.equal(r.labels, host.labels)
+        np.testing.assert_allclose(r.g.numpy(), host.g.numpy(), atol=1e-4)
+
+
 def test_make_test_mesh_names_the_sizes(tmp_path):
     """The default split of a world of one, and the error naming the sizes
     when the axes do not multiply to the world."""

@@ -35,6 +35,7 @@ PARENTS = {
     "obs:gram_panel_build": {"obs:batch"},
     "obs:sweep": {"obs:batch"},
     "obs:engine_stats[materialize]": {"obs:sweep", "obs:batch"},
+    "obs:g_from_rows": {"obs:engine_stats[materialize]"},
     "obs:allgather_u": {"obs:sweep", "obs:batch"},
     "obs:psum_fused": {"obs:sweep", "obs:batch"},
     "obs:merge": {"obs:batch"},
@@ -138,6 +139,9 @@ def test_fit_spans_count_and_nest(entry, tmp_path):
     assert n["obs:fit"] == 1 and n["obs:predict"] == 1
     assert n["obs:batch"] == b and in_fit["obs:eq8"] == b
     assert n["obs:sweep"] == n["obs:host_read[changed]"] == iters
+    # g from f's landmark rows in every stats pass of the exact fits
+    assert (n["obs:g_from_rows"] == n["obs:engine_stats[materialize]"]
+            == (0 if entry == "rff" else iters + b))
     assert n["obs:kmeanspp"] == 1 and n["obs:host_read[kmeanspp]"] == C - 1
     assert n["obs:host_read[batch_stats]"] == 3 * b - 1
     if entry == "rff":
