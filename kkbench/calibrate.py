@@ -3,7 +3,8 @@ process: for each seed, one step of the program (the window's own step at
 the cell's size, on data drawn from that seed and a fit seed drawn from
 it, so the readings range wider than the cell's fixed data) judged by the
 reference, and after it each control or fault asked for, judged the same
-way. The benchmark's own runs never run this.
+way (the reference control on the program's own step, judged beside it).
+The benchmark's own runs never run this.
 
     python3 -m kkbench.calibrate --workload <cell> --seeds 11,12,13 \\
         [--control program,reference] [--fault swapped] [--out FILE]
@@ -21,6 +22,10 @@ of the program's step (``check.judge(control=True)``). A fault
 cell's own data and each fit of its cycle, every batch judged (a run
 judges a sample of three).
 
+A cell of a world above one runs in a world of its own (``world.py``),
+every seed's runs posted to all of its ranks, which share out the
+reference's units.
+
 Each reading is a JSON line on standard output (and in ``--out``)."""
 from __future__ import annotations
 
@@ -30,12 +35,12 @@ import sys
 import time
 
 import numpy as np
-import pytest
 import torch
 
-from . import check, faults
+from . import check
 from . import run as run_mod
 from .cell import benchmark, load
+from .world import start
 
 
 def main(argv=None) -> int:
@@ -53,11 +58,13 @@ def main(argv=None) -> int:
         print("kkbench.calibrate: no CUDA device", file=sys.stderr)
         return 2
     bench, cell = benchmark(), load(args.workload)
+    if cell.get("world", 1) > 1:
+        run_mod.pin_threads(cell["world"], "kkbench.calibrate",
+                            sys.argv[1:] if argv is None else list(argv))
     controls = [k for k in args.control.split(",") if k]
     planted = [k for k in args.fault.split(",") if k]
-    which = "rff" if cell["method"] == "rff" else \
-        ("mesh" if cell["entry"] == "mesh" else "exact")
     out = open(args.out, "a") if args.out else None
+    world = None
 
     def emit(seed, kind, correct, got, t, keep, r=None):
         line = json.dumps({
@@ -74,16 +81,26 @@ def main(argv=None) -> int:
             out.write(line + "\n")
             out.flush()
 
+    def one_run(c, seed, keep, **kw):
+        spec = {"cell": c, "seed": seed, "seconds": 0.0, "trace": False,
+                "device": "cuda", **kw}
+        return run_mod.launch(spec, bench, world=world, keep=keep)
+
     try:
+        if cell.get("world", 1) > 1:
+            world = start(cell["world"], "cuda")
         if args.cycle:
             for fs in cell["fit_seeds"]:
                 t, keep = time.time(), {}
-                run_mod.run(dict(cell, fit_seeds=[fs]), bench, seed=fs,
-                            seconds=0.0, trace=False, keep=keep)
-                for i in range(len(keep["outs"][0].history)):
-                    got = check.judge(cell, keep["data"], keep["gamma"],
-                                      keep["outs"], fs, batch=i)
-                    emit(fs, f"cycle_batch_{i}",
+                one_run(dict(cell, fit_seeds=[fs]), fs, keep,
+                        every_batch=True)
+                pred = check.merge(d for u, d in keep["units"]
+                                   if u[0] == "predict")
+                for u, d in keep["units"]:
+                    if u[0] != "batch":
+                        continue
+                    got = check.merge([d, pred])
+                    emit(fs, f"cycle_batch_{u[2]}",
                          check.verdict(got, cell["limits"]), got, t, keep)
                 keep.clear()
         for seed in (int(s) for s in args.seeds.split(",") if s):
@@ -95,20 +112,18 @@ def main(argv=None) -> int:
             runs += [(f"fault_{f}", None, f) for f in planted]
             for kind, control, fault in runs:
                 t, keep = time.time(), {}
-                with pytest.MonkeyPatch.context() as mp:
-                    if fault:
-                        faults.FAULTS[fault](mp, which)
-                    r = run_mod.run(one, bench, seed=seed, seconds=0.0,
-                                    trace=False, control=control, keep=keep)
+                both = kind == "program" and "reference" in controls
+                r = one_run(one, seed, keep, control=control, fault=fault,
+                            with_control=both)
                 emit(seed, kind, r["correct"], keep["got"], t, keep, r)
-                if kind == "program" and "reference" in controls:
-                    t = time.time()
-                    got = check.judge(one, keep["data"], keep["gamma"],
-                                      keep["outs"], seed, control=True)
+                if both:
+                    got = keep["got_control"]
                     emit(seed, "control_reference",
                          check.verdict(got, one["limits"]), got, t, keep)
                 keep.clear()
     finally:
+        if world is not None:
+            world.close()
         if out:
             out.close()
     return 0

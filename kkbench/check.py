@@ -18,6 +18,7 @@ the held-out rows by the same final medoids; the readings of the
 control, never part of a run."""
 from __future__ import annotations
 
+import math
 import types
 
 import numpy as np
@@ -36,13 +37,38 @@ def sample(seed: int, n_steps: int, n_batches: int):
     return step, sorted(batches)
 
 
+def units(outs: list, seed: int, *, every: bool = False) -> list:
+    """What a run judges, one unit at a time: ``("batch", k, i)``, batch i
+    of step k (the seed's sample; ``every``: every batch of every step),
+    then ``("predict", k)`` for each step k."""
+    b = len(outs[0].history)
+    if every:
+        fits = [("batch", k, i) for k in range(len(outs)) for i in range(b)]
+    else:
+        k, batches = sample(seed, len(outs), b)
+        fits = [("batch", k, i) for i in batches]
+    return fits + [("predict", k) for k in range(len(outs))]
+
+
 def judge(cell: dict, data, gamma: float, outs: list, seed: int, *,
-          control: bool = False, batch: int | None = None) -> dict:
-    """The compared numbers of a run's steps ``outs``; ``batch`` judges
-    that batch of the first step in place of the seed's sample (the
-    calibration's sweep over a cell's own cycle)."""
+          control: bool = False, every: bool = False, world=None,
+          judged: list | None = None) -> dict:
+    """The compared numbers of a run's steps ``outs``. An exact cell's
+    ``units`` are shared out over ``world``'s ranks (``kkbench/world.py``;
+    rank r of P judges every P-th from the r-th on its own device) and
+    merged on every rank; ``judged``, where given, receives every (unit,
+    its numbers)."""
     if cell["method"] == "exact":
-        return _exact(cell, data, gamma, outs, seed, control, batch)
+        rank, size = (world.rank, world.size) if world else (0, 1)
+        mine = [[list(u), judge_unit(cell, data, gamma, outs, u,
+                                     control=control)]
+                for u in units(outs, seed, every=every)[rank::size]]
+        shares = world.exchange("control" if control else "judged",
+                                mine) if world else [mine]
+        got = [(tuple(u), d) for share in shares for u, d in share]
+        if judged is not None:
+            judged.extend(got)
+        return merge(d for _, d in got)
     if control:
         raise ValueError("the reference control is for the exact cells")
     if cell["method"] == "rff":
@@ -50,10 +76,26 @@ def judge(cell: dict, data, gamma: float, outs: list, seed: int, *,
     raise ValueError(f"no reference for method {cell['method']!r}")
 
 
-def _tf32_batch(xb, gamma, c, iters, seed, i, prev):
+#: the exact cells' numbers, compared or not
+EXACT = ("cost", "count", "medoid", "medoid_gap", "moved", "predict")
+
+
+def merge(gots) -> dict:
+    """The key-wise maximum of readings (each number is a maximum over
+    what was judged; every exact number is 0 where nothing was read of it,
+    and one that is not a number stays so)."""
+    out = dict.fromkeys(EXACT, 0.0)
+    for got in gots:
+        for k, v in got.items():
+            out[k] = math.nan if math.isnan(v) or math.isnan(out[k]) \
+                else max(out[k], v)
+    return out
+
+
+def _tf32_batch(xb, gamma, c, iters, seed, i, prev, mult):
     """The control's outputs for one batch: (cost, counts, state)."""
     st = kkmeans.batch_step(
-        xb, gamma, c, iters, seed=seed, i=i, tf32=True,
+        xb, gamma, c, iters, seed=seed, i=i, tf32=True, multiple_of=mult,
         medoids_in=None if prev is None else prev.medoids.to(xb.device),
         card_in=None if prev is None else prev.cardinalities.to(xb.device))
     return (st.inner.cost, st.inner.st.counts.cpu(),
@@ -61,34 +103,39 @@ def _tf32_batch(xb, gamma, c, iters, seed, i, prev):
                                   cardinalities=st.cardinalities.float()))
 
 
-def _exact(cell, data, gamma, outs, seed, control=False, batch=None):
+def landmark_multiple(cell: dict) -> int:
+    """What the program rounds a batch's landmark count to: the mesh's row
+    count on the mesh entry (a 1-D ``data`` mesh over the world), else 1."""
+    return cell.get("world", 1) if cell["entry"] == "mesh" else 1
+
+
+def judge_unit(cell, data, gamma, outs, unit, *, control=False) -> dict:
+    """The numbers of one unit (``units``): a batch's from the program's
+    state entering it (the first batch's from the draws alone), or one
+    step's ``predict``."""
     c, iters = cell["n_clusters"], cell["max_inner_iters"]
-    b = len(outs[0].history)
-    k, batches = sample(seed, len(outs), b) if batch is None else (0, [batch])
-    out = outs[k]
-    got = {"cost": 0.0, "count": 0.0, "medoid": 0.0, "medoid_gap": 0.0,
-           "moved": 0.0}
-    for i in batches:
-        xb = data.x[i::b].contiguous()
-        prev = out.states[i - 1] if i else None
-        h = out.history[i]
-        cost, counts, state = h.cost, h.counts, out.states[i]
-        if control:
-            cost, counts, state = _tf32_batch(xb, gamma, c, iters, out.seed,
-                                              i, prev)
-        r = kkmeans.judge_batch(
-            xb, gamma, c, iters, seed=out.seed, i=i, cost=cost,
-            counts=counts, state_out=state, state_in=prev)
-        del xb
-        if data.x.is_cuda:
-            torch.cuda.empty_cache()
-        got = {key: max(got[key], r[key]) for key in got}
-    got["predict"] = max(kkmeans.predict_gap(
-        data.x_test, o.states[-1].medoids,
-        kkmeans.predict(data.x_test, o.states[-1].medoids.to(data.x.device),
-                        gamma, tf32=True) if control else o.labels,
-        gamma) for o in outs)
-    return got
+    out = outs[unit[1]]
+    if unit[0] == "predict":
+        medoids = out.states[-1].medoids
+        labels = kkmeans.predict(data.x_test, medoids.to(data.x.device),
+                                 gamma, tf32=True) if control else out.labels
+        return {"predict": kkmeans.predict_gap(data.x_test, medoids, labels,
+                                               gamma)}
+    i, b, mult = unit[2], len(out.history), landmark_multiple(cell)
+    xb = data.x[i::b].contiguous()
+    prev = out.states[i - 1] if i else None
+    h = out.history[i]
+    cost, counts, state = h.cost, h.counts, out.states[i]
+    if control:
+        cost, counts, state = _tf32_batch(xb, gamma, c, iters, out.seed, i,
+                                          prev, mult)
+    r = kkmeans.judge_batch(
+        xb, gamma, c, iters, seed=out.seed, i=i, cost=cost, counts=counts,
+        state_out=state, state_in=prev, s=cell["s"], multiple_of=mult)
+    del xb
+    if data.x.is_cuda:
+        torch.cuda.empty_cache()
+    return r
 
 
 def _rff(cell, data, gamma, outs, seed) -> dict:

@@ -37,3 +37,11 @@ class Shape:
 
 def load(name: str):
     return importlib.import_module(f"kkbench.entries.{name}")
+
+
+def build_kernels() -> None:
+    """Compile the program's CUDA kernels into the checkout's ``build/``
+    ahead of their first launch (a world's rank 0, before the other ranks
+    launch theirs)."""
+    from repro_torch.kernels import build
+    build.build()

@@ -3,8 +3,9 @@ on a 1-D ``data`` mesh over a ``torch.distributed`` world (NCCL on the
 card, gloo on the CPU), then ``FitResult.predict``. Every rank is handed
 the whole host mini-batch, as the program's fit takes it; the harness
 stages the stride batches on the host once, in set-up. B comes from
-``core.memory.plan`` with ``n_processors`` the world size. A world this
-process starts itself (one rank) meets on a ``FileStore`` in a fresh
+``core.memory.plan`` with ``n_processors`` the world size. A world of
+several is the harness's (``kkbench/world.py``); where none is up, this
+process starts a world of one itself, on a ``FileStore`` in a fresh
 directory under ``TMPDIR``, removed on ``close``."""
 from __future__ import annotations
 

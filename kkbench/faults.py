@@ -7,6 +7,9 @@ calibration (``python3 -m kkbench.calibrate --fault NAME``) reads one at
 a cell's own size. A benchmark run never imports this."""
 from __future__ import annotations
 
+import contextlib
+
+import pytest
 import torch
 
 import repro_torch.approx.embed_kmeans as ek
@@ -15,6 +18,7 @@ import repro_torch.core.minibatch as mb
 import repro_torch.distributed.inner as dinner
 import repro_torch.distributed.outer as douter
 import repro_torch.serving.assign as sassign
+from repro_torch.distributed.mesh import axis_size
 
 
 def unchanged(monkeypatch, which):
@@ -140,12 +144,44 @@ def _clusters(art) -> int:
     return 10
 
 
+def exchange(monkeypatch, which):
+    """The exchange between chips left out of the mesh's inner loop: each
+    rank takes its own labels for every rank's (the all_gather) and its
+    own partial g, cost and changed count for the sums (the all_reduce)."""
+    monkeypatch.setattr(dinner, "all_gather", lambda t, mesh, axes: t.repeat(
+        (axis_size(mesh, axes),) + (1,) * (t.dim() - 1)))
+    monkeypatch.setattr(dinner, "all_reduce", lambda t, mesh, axes: t)
+
+
+def which(cell: dict) -> str:
+    """The entry a cell's timed path runs, as the faults name it."""
+    if cell["method"] == "rff":
+        return "rff"
+    return "mesh" if cell["entry"] == "mesh" else "exact"
+
+
 FAULTS = {"unchanged": unchanged, "half": half, "argmax": argmax,
-          "swapped": swapped, "altered": altered}
+          "swapped": swapped, "altered": altered, "exchange": exchange}
 # the faults each entry can have and the comparison fails (an embedded
 # fit has no medoids; a swapped merge mostly picks the same row, or one
 # tied with it, so no number can fail it without failing sound runs:
-# PERF.md gives its readings)
+# PERF.md gives its readings); a mesh of one rank has no exchange
 APPLIES = {"exact": ["altered", "argmax", "half", "unchanged"],
            "mesh": ["altered", "argmax", "half", "unchanged"],
            "rff": ["altered", "half", "unchanged"]}
+
+
+def applies(cell: dict) -> list:
+    """The faults a cell's timed path can have (``APPLIES``, and the
+    exchange on a world above one)."""
+    return APPLIES[which(cell)] + (["exchange"] if cell.get("world", 1) > 1
+                                   else [])
+
+
+@contextlib.contextmanager
+def planted(name: str, cell: dict):
+    """``FAULTS[name]`` planted in ``cell``'s timed path while the block
+    runs."""
+    with pytest.MonkeyPatch.context() as mp:
+        FAULTS[name](mp, which(cell))
+        yield

@@ -14,9 +14,14 @@ each step in E:
     Eq.8 init:    argmin_j E(x_i, m_j)
     Eq.12 merge:  argmin_l (1 - a_j) E(x_l, m_j) + a_j E(x_l, m_j^i)
 
-so no sum cancels. A batch's E is held as float32 (its relative precision
-carries the signal) and contracted in float64 row blocks. At s = 1 every
-batch row is a landmark. ``tf32=True`` rounds every product's operands to
+so no sum cancels. E is the batch's rows against its landmarks L (the
+sums over members run over the cluster's landmarks; at s = 1 on one
+process every batch row is a landmark, on a mesh |L| is rounded to a
+multiple of its row count: ``draws.n_landmarks``). It is held as float32
+(its relative precision carries the signal) and contracted in float64 row
+blocks, as many kept as fit in the device's free memory with room to
+spare (all where [n, |L|] float32 fits), the others worked out again by
+every contraction. ``tf32=True`` rounds every product's operands to
 TF32 (a 10-bit mantissa, as the tensor cores read float32 with TF32 on):
 the control, the reference computed in the nearest precision below the
 configuration's float32."""
@@ -27,7 +32,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .draws import batch_generator
+from . import draws
 
 BIG = 1e30
 BLOCK = 4096
@@ -55,23 +60,49 @@ def rbf_e(a: torch.Tensor, b: torch.Tensor, gamma: float, *,
     return e
 
 
+def room(x: torch.Tensor, block: int, m: int) -> float:
+    """Bytes E may take on ``x``'s device: its free memory (the caching
+    allocator's unused blocks counted free) less what one row block's
+    build and contraction hold at once, six [block, m] float64 tensors,
+    and 2 GiB; unbounded off the card."""
+    if x.device.type != "cuda":
+        return math.inf
+    free, _ = torch.cuda.mem_get_info(x.device)
+    free += (torch.cuda.memory_reserved(x.device)
+             - torch.cuda.memory_allocated(x.device))
+    return free - 6.0 * 8.0 * block * m - 2.0 ** 31
+
+
 class Gram:
-    """E of a batch against itself [n, n], float32, built in row blocks."""
+    """E of a batch against its landmarks ``cols`` (all rows where None)
+    [n, |L|], float32, in row blocks of ``block`` rows. The first blocks
+    that fit in the ``room`` on the device are kept (all of them where E
+    fits); every ``apply`` builds the others again by the same calls, so
+    the numbers do not depend on how many are kept."""
 
     def __init__(self, x: torch.Tensor, gamma: float, *, tf32: bool = False,
-                 block: int = BLOCK):
-        n = x.shape[0]
-        self.block = block
-        self.e = torch.empty((n, n), dtype=torch.float32, device=x.device)
-        for s in range(0, n, block):
-            self.e[s:s + block] = rbf_e(x[s:s + block], x, gamma,
-                                        tf32=tf32).to(torch.float32)
+                 block: int = BLOCK, cols: Optional[torch.Tensor] = None):
+        self.block, self.cols = block, cols
+        self.x, self.gamma, self.tf32 = x, gamma, tf32
+        self.y = x if cols is None else x[cols.to(x.device)]
+        m = self.y.shape[0]
+        n_blocks = -(-x.shape[0] // block)
+        fit = room(x, block, m) / (4.0 * block * m)
+        keep = n_blocks if fit >= n_blocks else max(int(fit), 0)
+        self.kept = [self._rows(j * block) for j in range(keep)]
+
+    def _rows(self, s: int) -> torch.Tensor:
+        return rbf_e(self.x[s:s + self.block], self.y, self.gamma,
+                     tf32=self.tf32).to(torch.float32)
 
     def apply(self, h: torch.Tensor) -> torch.Tensor:
         """E @ h [n, C] float64."""
         h = h.to(torch.float64)
-        return torch.cat([blk.to(torch.float64) @ h
-                          for blk in torch.split(self.e, self.block)])
+        out = []
+        for j, s in enumerate(range(0, self.x.shape[0], self.block)):
+            blk = self.kept[j] if j < len(self.kept) else self._rows(s)
+            out.append(blk.to(torch.float64) @ h)
+        return torch.cat(out)
 
 
 class Stats(NamedTuple):
@@ -81,11 +112,15 @@ class Stats(NamedTuple):
 
 
 def stats(gram: Gram, labels: torch.Tensor, c: int) -> Stats:
-    h = torch.nn.functional.one_hot(labels.long(), c).to(torch.float64)
+    """Eq.5-6 in E at ``labels`` [n]: the sums over a cluster's landmarks
+    (``gram.cols``), counts of its landmarks."""
+    lab = labels if gram.cols is None else labels[gram.cols.to(labels.device)]
+    h = torch.nn.functional.one_hot(lab.long(), c).to(torch.float64)
     counts = h.sum(0)
     safe = counts.clamp(min=1.0)
     fe = gram.apply(h) / safe[None, :]
-    ge = (h * fe).sum(0) / safe
+    fl = fe if gram.cols is None else fe[gram.cols.to(fe.device)]
+    ge = (h * fl).sum(0) / safe
     return Stats(fe, ge, counts)
 
 
@@ -105,18 +140,22 @@ class Inner(NamedTuple):
 
 def inner(gram: Gram, labels0: torch.Tensor, c: int,
           max_iters: int) -> Inner:
-    """Eq.4 to its label fixpoint (or ``max_iters`` sweeps)."""
+    """Eq.4 to its label fixpoint (or ``max_iters`` sweeps). At the
+    fixpoint the last sweep's stats are those of the final labels."""
     labels = labels0.long()
-    t, changed = 0, True
+    t, changed, st = 0, True, None
     mind = torch.full((labels.shape[0],), math.inf, dtype=torch.float64,
                       device=labels.device)
     while changed and t < max_iters:
-        d = scores(stats(gram, labels, c))
+        st = stats(gram, labels, c)
+        d = scores(st)
         new = torch.argmin(d, dim=1)
         mind = d.gather(1, new[:, None])[:, 0]
         changed = bool((new != labels).any())
         labels, t = new, t + 1
-    return Inner(labels, stats(gram, labels, c), t, float(mind.sum()), mind)
+    if changed or st is None:
+        st = stats(gram, labels, c)
+    return Inner(labels, st, t, float(mind.sum()), mind)
 
 
 def kpp_seeds(x: torch.Tensor, gamma: float, c: int, gen: torch.Generator,
@@ -151,19 +190,25 @@ class Step(NamedTuple):
     batch_medoids: torch.Tensor      # [C, d] Eq.7's rows
     alpha: Optional[torch.Tensor]    # [C] Eq.12's weights (None at i = 0)
     score: torch.Tensor              # [n, C] what the medoids minimize
+    cols: Optional[torch.Tensor] = None   # the landmarks (None: all rows)
 
 
 def batch_step(x: torch.Tensor, gamma: float, c: int, max_iters: int, *,
                seed: int, i: int, medoids_in: Optional[torch.Tensor] = None,
                card_in: Optional[torch.Tensor] = None,
-               tf32: bool = False) -> Step:
-    """Batch ``i`` of a fit with seed ``seed``: k-means++ seeds (i = 0) or
-    Eq.8 from ``medoids_in``, the inner loop, Eq.7, and Eq.12 against
+               tf32: bool = False, s: float = 1.0,
+               multiple_of: int = 1) -> Step:
+    """Batch ``i`` of a fit with seed ``seed``: the landmarks (|L| at
+    ``s`` rounded to ``multiple_of``), k-means++ seeds among them (i = 0)
+    or Eq.8 from ``medoids_in``, the inner loop, Eq.7, and Eq.12 against
     ``medoids_in`` / ``card_in``."""
-    gram = Gram(x, gamma, tf32=tf32)
+    gen = draws.batch_generator(seed, i)
+    n = x.shape[0]
+    cols = draws.landmarks(gen, n, draws.n_landmarks(n, s, c, multiple_of))
+    gram = Gram(x, gamma, tf32=tf32, cols=cols)
     if medoids_in is None:
-        seeds = kpp_seeds(x, gamma, c, batch_generator(seed, i), tf32=tf32)
-        start = x[seeds]
+        xl = gram.y
+        start = xl[kpp_seeds(xl, gamma, c, gen, tf32=tf32)]
     else:
         start = medoids_in
     labels0 = torch.argmin(rbf_e(x, start, gamma, tf32=tf32), dim=1)
@@ -171,7 +216,7 @@ def batch_step(x: torch.Tensor, gamma: float, c: int, max_iters: int, *,
     del gram
     mb = torch.argmin(res.st.fe, dim=0)
     if medoids_in is None:
-        return Step(res, x[mb], res.st.counts, x[mb], None, res.st.fe)
+        return Step(res, x[mb], res.st.counts, x[mb], None, res.st.fe, cols)
     card_in = card_in.to(torch.float64)
     alpha = res.st.counts / (res.st.counts + card_in).clamp(min=1.0)
     s12 = ((1.0 - alpha)[None, :] * rbf_e(x, medoids_in, gamma, tf32=tf32)
@@ -179,18 +224,23 @@ def batch_step(x: torch.Tensor, gamma: float, c: int, max_iters: int, *,
     merged = x[torch.argmin(s12, dim=0)]
     keep = res.st.counts == 0
     medoids = torch.where(keep[:, None], medoids_in.to(x.dtype), merged)
-    return Step(res, medoids, card_in + res.st.counts, x[mb], alpha, s12)
+    return Step(res, medoids, card_in + res.st.counts, x[mb], alpha, s12,
+                cols)
 
 
 def _score_at(step: Step, m: torch.Tensor, x: torch.Tensor, gamma: float,
               medoids_in: Optional[torch.Tensor]) -> torch.Tensor:
     """The reference's own medoid score of cluster j at the point m_j
-    [C]: Eq.7's fE (the mean E to the cluster's members) at batch 0,
+    [C]: Eq.7's fE (the mean E to the cluster's landmarks) at batch 0,
     Eq.12's merge score after."""
     if medoids_in is None:
-        h = torch.nn.functional.one_hot(step.inner.labels, m.shape[0]).to(
+        labels, xl = step.inner.labels, x
+        if step.cols is not None:
+            cols = step.cols.to(x.device)
+            labels, xl = labels[cols], x[cols]
+        h = torch.nn.functional.one_hot(labels, m.shape[0]).to(
             torch.float64)
-        return ((rbf_e(m, x, gamma) * h.T).sum(1)
+        return ((rbf_e(m, xl, gamma) * h.T).sum(1)
                 / step.inner.st.counts.clamp(min=1.0))
     a = step.alpha
     return ((1.0 - a) * rbf_e(m, medoids_in, gamma).diagonal()
@@ -229,7 +279,8 @@ def _is_row(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def judge_batch(x: torch.Tensor, gamma: float, c: int, max_iters: int, *,
                 seed: int, i: int, cost: float, counts, state_out,
-                state_in=None) -> dict:
+                state_in=None, s: float = 1.0,
+                multiple_of: int = 1) -> dict:
     """The reference's batch ``i`` from the program's entering state
     ``state_in`` (medoids, cardinalities; None at batch 0), and the
     program's outputs for it (its cost and cluster counts, its state
@@ -238,8 +289,9 @@ def judge_batch(x: torch.Tensor, gamma: float, c: int, max_iters: int, *,
     cost    |program's cost - reference's| / reference's (Eq.9 at the
             inner fixpoint)
     count   the program's bookkeeping against the batch: |sum_j n_j -
-            n| / n plus sum_j |W_j - W_j^in - n_j| / n (n_j the batch
-            counts it reports, W the cardinalities entering and leaving)
+            |L|| / |L| plus sum_j |W_j - W_j^in - n_j| / |L| (n_j the
+            batch's landmark counts it reports, W the cardinalities
+            entering and leaving)
     medoid  share of clusters whose medoid after the batch is neither a
             row of the batch nor, for a cluster the batch left empty, the
             medoid it had
@@ -250,7 +302,7 @@ def judge_batch(x: torch.Tensor, gamma: float, c: int, max_iters: int, *,
 
     and, not compared, ``moved``: share of the batch's rows the program's
     cardinalities put elsewhere than the reference's, sum_j |W_j -
-    W_j^ref| / 2n. Rows whose two nearest clusters tie to float32
+    W_j^ref| / 2|L|. Rows whose two nearest clusters tie to float32
     rounding may land on either side, and on a fit whose seeding split a
     class the two fixpoints then part by thousands of rows; so the
     partition and the medoids' ranks among near-equal rows are not
@@ -260,8 +312,9 @@ def judge_batch(x: torch.Tensor, gamma: float, c: int, max_iters: int, *,
     card_in = None if state_in is None else \
         state_in.cardinalities.to(x.device).to(torch.float64)
     ref = batch_step(x, gamma, c, max_iters, seed=seed, i=i,
-                     medoids_in=medoids_in, card_in=card_in)
-    n = x.shape[0]
+                     medoids_in=medoids_in, card_in=card_in, s=s,
+                     multiple_of=multiple_of)
+    n = x.shape[0] if ref.cols is None else ref.cols.shape[0]
     cnt = torch.as_tensor(counts, dtype=torch.float64, device=x.device)
     card_out = state_out.cardinalities.to(x.device).to(torch.float64)
     w_in = card_in if card_in is not None else torch.zeros_like(card_out)

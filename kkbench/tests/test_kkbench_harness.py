@@ -7,6 +7,7 @@ from __future__ import annotations
 import ast
 import importlib.util
 import json
+import math
 import re
 import subprocess
 import sys
@@ -177,3 +178,13 @@ def test_loaded_modules_of_a_run_and_of_the_reference():
     assert not set(ref) & {"jax", "jaxlib", "flax", "repro", "repro_torch"}
     assert "repro_torch" in full
     assert not set(full) & {"jax", "jaxlib", "flax", "repro"}
+
+
+def test_merged_readings_keep_the_worst_and_what_is_not_a_number():
+    from kkbench import check
+    got = check.merge([{"cost": 0.1, "predict": 0.2}, {"cost": 0.3},
+                       {"medoid_gap": math.nan}, {"medoid_gap": 5.0}])
+    assert got["cost"] == 0.3 and got["predict"] == 0.2
+    assert got["count"] == 0.0 and math.isnan(got["medoid_gap"])
+    assert check.verdict(got, {"cost": 1.0}) is True
+    assert check.verdict(got, {"medoid_gap": 1e9}) is False

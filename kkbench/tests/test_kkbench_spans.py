@@ -136,3 +136,21 @@ def test_traced_run_counts_host_reads_by_the_site_table(name):
     for m in ("inner.idle_share", "stage.idle_share",
               "device.unspanned_idle_share", "lloyd.sweep_roofline"):
         assert m not in res["metrics"]
+
+
+def test_collective_share_reads_the_nccl_ops():
+    """The union of NCCL kernels' intervals inside the window, over the
+    window; nothing where no NCCL kernel ran."""
+    ev = [_host(WINDOW, 0, 100)]
+    ev += _op("ncclDevKernel_AllGather_RING_LL(ncclDevKernelArgsStorage)",
+              10, 20, 9, 1, 1)
+    ev += _op("void ncclKernel_AllReduce_RING_LL_Sum_float()", 25, 10, 24,
+              1, 2)                              # overlaps the first
+    ev += _op("k1", 40, 30, 39, 1, 3)            # compute: not counted
+    ev += _op("ncclDevKernel_AllGather_RING_LL(ncclDevKernelArgsStorage)",
+              95, 10, 94, 1, 4)                  # cut at the window's end
+    read = R.reader("mesh.collective_share")
+    assert read(types.SimpleNamespace(trace=Trace(ev))) == \
+        pytest.approx(30.0)
+    for t in (_trace(), None):
+        assert read(types.SimpleNamespace(trace=t)) is None

@@ -62,10 +62,13 @@ class Trace:
     def window_s(self) -> float:
         return (self.t1 - self.t0) * 1e-6
 
-    def busy_intervals(self):
-        """Union of device-op intervals inside the window, in us."""
+    def busy_intervals(self, match=None):
+        """Union of the intervals of device ops inside the window (those
+        whose name ``match`` accepts, where given), in us."""
         out = []
-        for _, ts, dur, _ in self.device:
+        for name, ts, dur, _ in self.device:
+            if match is not None and not match(name):
+                continue
             a, b = max(ts, self.t0), min(ts + dur, self.t1)
             if b <= a:
                 continue
